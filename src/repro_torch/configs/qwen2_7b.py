@@ -1,0 +1,33 @@
+"""Qwen2 7B — dense GQA kv=4 with QKV bias
+Source: arXiv:2407.10671
+"""
+from repro_torch.models.transformer import ArchConfig
+
+FULL = ArchConfig(
+    name='qwen2-7b',
+    family='dense',
+    n_layers=28,
+    d_model=3584,
+    n_heads=28,
+    n_kv_heads=4,
+    d_head=128,
+    d_ff=18944,
+    vocab=152064,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+    tie_embeddings=False,
+)
+
+SMOKE = ArchConfig(
+    name='qwen2-smoke',
+    family='dense',
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_head=16,
+    d_ff=128,
+    vocab=128,
+    qkv_bias=True,
+    tie_embeddings=False,
+)

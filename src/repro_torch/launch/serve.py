@@ -1,0 +1,295 @@
+"""Certified serving (PyTorch): prefill + decode through custom formats.
+
+The counterpart of the JAX package's ``repro.launch.serve`` for its
+certified custom-format path. A schema-v3 certificate maps each scope to a
+format (k, emax, emin); :class:`FormatQuantJOps` rounds every ``bk.matmul``
+into the scope's format through the ``quant_matmul_format`` CUDA kernel and
+every single-token decode attention through the ``flash_decode_certified``
+kernel. Prefill attention and the LM head stay unrounded true-f32 products.
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``; without a card and without an explicit ``cpu`` they
+raise. There is no silent CPU path.
+
+CLI::
+
+    python -m repro_torch.launch.serve --size full --batch 4 \\
+        --prefill-len 128 --decode-steps 16 --layer-format '{"": {...}}'
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.certify.spec import CertificateSet
+from repro_torch.core.backend import TorchOps
+from repro_torch.core.scopes import resolve_scope_value
+from repro_torch.kernels.flash_decode import certified_decode_attention
+from repro_torch.kernels.quant_matmul import quant_matmul_format_dispatch
+from repro_torch.models import transformer as T
+
+
+def configure_precision() -> None:
+    """True f32 for every unrounded product on the card: no TF32 in
+    cuBLAS or cuDNN, "highest" float32 matmul precision."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device: str) -> torch.device:
+    """The serving device; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(--device cpu) to serve on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    arch: str = "qwen2_7b"
+    batch: int = 4
+    max_seq: int = 256
+    prefill_len: int = 128
+    compute_dtype: str = "float32"
+    # Per-scope FULL-format map {scope: FpFormat descriptor} (schema v3);
+    # the "" entry is the default for unmapped scopes. None serves plain.
+    precision_layer_format: Optional[Dict[str, Dict]] = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {self.compute_dtype!r}: the port serves f32 "
+                "only")
+
+
+class _FmtTriple:
+    """Opaque (k, emax, emin) holder for scope maps — NOT a sequence, so
+    :func:`resolve_scope_value` never indexes it as an ``[L]`` per-layer
+    array when a ``layer*`` wildcard key matches."""
+
+    __slots__ = ("triple",)
+
+    def __init__(self, triple):
+        self.triple = triple
+
+
+class FormatQuantJOps(TorchOps):
+    """TorchOps whose matmuls (and single-token decode attention) run in
+    per-scope certified CUSTOM FORMATS.
+
+    ``layer_format`` maps scope names to FpFormat descriptor dicts; the
+    ``""`` entry covers matmuls outside every mapped scope. Each matmul's operands and result are rounded into the format the
+    current scope path resolves to (``layer3/attn`` against ``layer*/attn``,
+    ``layer0/mlp``, ...), exactly as the reference's unrolled baseline
+    resolves it. The subnormal/saturation flags must be uniform over the
+    map."""
+
+    def __init__(self, layer_format: Dict[str, Dict],
+                 compute_dtype=torch.float32):
+        super().__init__(compute_dtype)
+        self.layer_format = {str(s): dict(f)
+                             for s, f in layer_format.items()}
+        default = self.layer_format.get("")
+        if default is None:
+            raise ValueError("layer_format needs a '' default entry for "
+                             "unmapped scopes")
+        fmts = list(self.layer_format.values())
+        flags = {(f.get("has_subnormals", True), f.get("saturating", True))
+                 for f in fmts}
+        if len(flags) != 1:
+            raise ValueError(f"layer_format mixes subnormal/saturation "
+                             f"flags {sorted(flags)} — not representable by "
+                             "one serving map")
+        self.has_subnormals, self.saturating = next(iter(flags))
+        if any(f.get("max_finite_override") is not None for f in fmts):
+            raise NotImplementedError(
+                "encoding-clipped formats (max_finite_override) are not "
+                "servable through the (k, emax, emin) triple path")
+        self.default_triple = self._triple(default)
+        self._triples = {s: _FmtTriple(self._triple(f))
+                         for s, f in self.layer_format.items() if s}
+        self._resolved: Dict[tuple, tuple] = {}
+
+    @staticmethod
+    def _triple(f: Dict) -> tuple:
+        return (int(f["k"]), int(f["emax"]), int(f["emin"]))
+
+    def format_for(self, path) -> tuple:
+        """The (k, emax, emin) a scope path resolves to."""
+        key = tuple(path)
+        got = self._resolved.get(key)
+        if got is None:
+            got = self._resolved[key] = resolve_scope_value(
+                list(path), self._triples,
+                _FmtTriple(self.default_triple)).triple
+        return got
+
+    def matmul(self, a, b):
+        out = quant_matmul_format_dispatch(
+            a, b, self.format_for(self.scope_path),
+            has_subnormals=self.has_subnormals, saturating=self.saturating)
+        return out.to(self.compute_dtype)
+
+    def decode_attention(self, q, k, v, lengths):
+        out = certified_decode_attention(
+            q, k, v, lengths, self.format_for(self.scope_path),
+            has_subnormals=self.has_subnormals, saturating=self.saturating)
+        return out.to(self.compute_dtype)
+
+
+def _backend(sc: ServeConfig):
+    """The format backend when a map is given, else plain TorchOps."""
+    if sc.precision_layer_format:
+        return FormatQuantJOps(sc.precision_layer_format)
+    return TorchOps(torch.float32)
+
+
+def prefill_step(bk, params, cfg, cache, tokens):
+    """Prefill ``tokens`` [B, S] into an empty cache. Returns (last-position
+    logits [B, 1, V], cache)."""
+    logits, cache = T.forward(bk, params, cfg, tokens, cache=cache,
+                              q_offset=0)
+    return logits[:, -1:, :], cache
+
+
+def decode_step(bk, params, cfg, cache, tokens, pos: int):
+    """One token per sequence at absolute position ``pos``. Returns
+    (next tokens [B], logits [B, V], cache)."""
+    logits, cache = T.forward(bk, params, cfg, tokens, cache=cache,
+                              q_offset=pos)
+    last = logits[:, -1, :]
+    return torch.argmax(last, dim=-1), last, cache
+
+
+def make_responses(toks, certset: Optional[CertificateSet] = None):
+    """Per-sequence response dicts; with a certificate set, each carries
+    the certified (δ̄, ε̄, k) error bars it was served under."""
+    bars = None if certset is None else certset.error_bars()
+    responses = []
+    for row in toks.tolist():
+        r: Dict[str, Any] = {"tokens": row}
+        if bars is not None:
+            r["certificate"] = dict(bars, params_digest=certset.params_digest)
+        responses.append(r)
+    return responses
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor          # [B, 1 + decode_steps] generated ids
+    prompt: torch.Tensor          # [B, prefill_len]
+    prefill_logits: torch.Tensor  # [B, 1, V]
+    decode_logits: List[torch.Tensor]
+    responses: List[Dict]
+    timing: Dict[str, float]
+    params: Dict[str, Any]
+    cfg: Any
+    config: ServeConfig
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None) -> ServeResult:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="qwen2_7b")
+    ap.add_argument("--size", choices=("smoke", "full"), default="smoke",
+                    help="the arch's SMOKE or FULL (published) config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prefill-len", type=int, default=32)
+    ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights' generator and the prompts")
+    ap.add_argument("--layer-format", default=None, metavar="JSON",
+                    help="a precision_layer_format map {scope: {k, emax, "
+                         "emin, ...}} with a '' default entry")
+    ap.add_argument("--certificate-set", default=None, metavar="FILE",
+                    help="a CertificateSet JSON; serves its "
+                         "serving_layer_format map")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.layer_format and args.certificate_set:
+        ap.error("give --layer-format or --certificate-set, not both")
+
+    dev = resolve_device(args.device)
+    configure_precision()
+    mod = configs.get(args.arch)
+    cfg = mod.FULL if args.size == "full" else mod.SMOKE
+
+    certset, layer_format = None, None
+    if args.certificate_set:
+        with open(args.certificate_set) as fh:
+            certset = CertificateSet.from_json(fh.read())
+        layer_format = certset.serving_layer_format
+        if layer_format is None:
+            raise ValueError(f"{args.certificate_set} carries no servable "
+                             "layer_format map")
+    elif args.layer_format:
+        layer_format = json.loads(args.layer_format)
+
+    sc = ServeConfig(arch=args.arch, batch=args.batch,
+                     max_seq=args.prefill_len + args.decode_steps + 1,
+                     prefill_len=args.prefill_len,
+                     precision_layer_format=layer_format, device=str(dev))
+    bk = _backend(sc)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = T.init_params(cfg, generator=gen, device=dev)
+    cache = T.init_cache(cfg, sc.batch, sc.max_seq, device=dev)
+    rng = np.random.RandomState(args.seed)
+    prompt = torch.from_numpy(
+        rng.randint(0, cfg.vocab, (sc.batch, sc.prefill_len))).to(dev)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(bk, params, cfg, cache, prompt)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        out_toks, decode_logits, step_s = [tok], [], []
+        for i in range(args.decode_steps):
+            td = time.perf_counter()
+            tok, last, cache = decode_step(bk, params, cfg, cache,
+                                           tok[:, None],
+                                           sc.prefill_len + i)
+            _sync(dev)
+            step_s.append(time.perf_counter() - td)
+            out_toks.append(tok)
+            decode_logits.append(last)
+    toks = torch.stack(out_toks, dim=1)
+    t_decode = sum(step_s)
+    timing = {
+        "init_s": t_init,
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_ms_per_step": 1e3 * t_decode / max(args.decode_steps, 1),
+        "decode_tokens_per_s": (sc.batch * args.decode_steps / t_decode
+                                if t_decode > 0 else float("nan")),
+        "prefill_tokens_per_s": sc.batch * sc.prefill_len / t_prefill,
+    }
+    return ServeResult(tokens=toks, prompt=prompt, prefill_logits=logits,
+                       decode_logits=decode_logits,
+                       responses=make_responses(toks, certset),
+                       timing=timing, params=params, cfg=cfg, config=sc)
+
+
+if __name__ == "__main__":
+    res = main()
+    print(json.dumps({"tokens": res.tokens.tolist(), **res.timing}))

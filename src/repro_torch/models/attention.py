@@ -1,0 +1,101 @@
+"""Grouped-query attention with a KV cache (PyTorch), the counterpart of
+``gqa_attention`` in the JAX package's ``repro.models.attention``.
+
+Unlike the reference, whose arrays are immutable, the port writes new keys
+and values INTO the cache buffers in place (``index_copy_`` along the
+sequence axis): the returned cache holds the same storage, so a full-width
+cache is never copied per layer or per step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models import layers as L
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor      # [B, Smax, K, Dh]
+    v: torch.Tensor      # [B, Smax, K, Dh]
+    index: torch.Tensor  # 0-d int32: tokens already present (all lanes)
+
+
+def _cache_write(buf: torch.Tensor, upd: torch.Tensor, index: torch.Tensor):
+    """Write ``upd`` [B, S, ...] into ``buf`` [B, Smax, ...] at sequence
+    offset ``index`` (a 0-d device tensor), in place and without a host
+    sync."""
+    pos = index.to(torch.int64) + torch.arange(upd.shape[1],
+                                               device=buf.device)
+    buf.index_copy_(1, pos, upd.to(buf.dtype))
+
+
+def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
+                  cos, sin, mask, qkv_bias: bool = False,
+                  cache: Optional[KVCache] = None,
+                  fused_decode: bool = False):
+    """Grouped-query attention. x: [B,S,d]. Returns (out, new_cache).
+
+    With ``cache`` set, keys/values are written into the cache buffers in
+    place at ``cache.index``, and attention runs over the whole buffer under
+    ``mask``. ``fused_decode`` offers the S==1 step to
+    ``bk.decode_attention`` (the certificate-aware flash decode hook); a
+    backend returning None takes the composed path. The composed prefill
+    scores and probabilities are never rounded, as in the reference."""
+    B, S, _ = bk.shape_of(x)
+    G = n_heads // n_kv_heads
+
+    q = bk.matmul(x, bk.param(p["wq"]))
+    k = bk.matmul(x, bk.param(p["wk"]))
+    v = bk.matmul(x, bk.param(p["wv"]))
+    if qkv_bias:
+        q = bk.add(q, bk.param(p["bq"]))
+        k = bk.add(k, bk.param(p["bk"]))
+        v = bk.add(v, bk.param(p["bv"]))
+
+    q = bk.reshape(q, (B, S, n_heads, d_head))
+    k = bk.reshape(k, (B, S, n_kv_heads, d_head))
+    v = bk.reshape(v, (B, S, n_kv_heads, d_head))
+
+    q = L.apply_rope(bk, q, cos, sin)
+    k = L.apply_rope(bk, k, cos, sin)
+
+    new_cache = None
+    if cache is not None:
+        _cache_write(cache.k, k, cache.index)
+        _cache_write(cache.v, v, cache.index)
+        new_cache = KVCache(cache.k, cache.v, cache.index + S)
+        if fused_decode and S == 1:
+            lengths = new_cache.index.to(torch.int32).expand(B).contiguous()
+            q4 = bk.reshape(q, (B, n_kv_heads, G, d_head))
+            fused = bk.decode_attention(q4, cache.k, cache.v, lengths)
+            if fused is not None:
+                out = bk.reshape(fused, (B, S, n_heads * d_head))
+                return bk.matmul(out, bk.param(p["wo"])), new_cache
+        k = bk.input(cache.k)
+        v = bk.input(cache.v)
+
+    q = bk.reshape(q, (B, S, n_kv_heads, G, d_head))
+    scores = bk.einsum("bqkgd,bskd->bkgqs", q, k)
+    scores = bk.scale(scores, d_head ** -0.5)
+    neg = bk.const(L.NEG_BIG, scores)
+    scores = bk.where(mask[None, None, None, :, :], scores, neg)
+    probs = bk.softmax(scores, dim=-1)
+    out = bk.einsum("bkgqs,bskd->bqkgd", probs, v)
+    out = bk.reshape(out, (B, S, n_heads * d_head))
+    return bk.matmul(out, bk.param(p["wo"])), new_cache
+
+
+def gqa_shapes(d: int, n_heads: int, n_kv_heads: int, d_head: int,
+               qkv_bias: bool = False):
+    """Parameter shapes of one GQA block (the reference's ``init_gqa``)."""
+    shapes = {
+        "wq": (d, n_heads * d_head),
+        "wk": (d, n_kv_heads * d_head),
+        "wv": (d, n_kv_heads * d_head),
+        "wo": (n_heads * d_head, d),
+    }
+    if qkv_bias:
+        shapes.update(bq=(n_heads * d_head,), bk=(n_kv_heads * d_head,),
+                      bv=(n_kv_heads * d_head,))
+    return shapes

@@ -1,0 +1,70 @@
+"""Backend-generic building blocks (PyTorch), the counterpart of the JAX
+package's ``repro.models.layers`` for the dense GQA family.
+
+Every function takes the arithmetic backend ``bk`` first; parameters arrive
+as tensors and are wrapped with ``bk.param``. The op order of each block is
+the reference's, so the certified serving backends round exactly the ops
+the JAX package rounds (``bk.matmul``), and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_BIG = -1e9  # mask value: exact constant, exp(-1e9) = 0
+
+
+def rmsnorm(bk, x, gamma, eps: float = 1e-6):
+    """x * rsqrt(mean(x², -1) + eps) * γ."""
+    g = bk.param(gamma)
+    ms = bk.mean(bk.square(x), dim=-1, keepdim=True)
+    inv = bk.rsqrt(bk.shift(ms, eps))
+    return bk.mul(bk.mul(x, inv), g)
+
+
+def embed(bk, table, ids):
+    """Exact gather of stored rows."""
+    return bk.take(bk.param(table), ids)
+
+
+def logits_head(bk, x, table):
+    """Final projection through ``bk.einsum``: the certified backends do not
+    round it, so it stays a plain f32 product."""
+    return bk.einsum("bsd,vd->bsv", x, bk.param(table))
+
+
+def mlp_gated(bk, x, w_gate, w_up, w_down, act: str = "silu"):
+    """LLaMA-style gated MLP: down(act(x@Wg) * (x@Wu))."""
+    g = bk.matmul(x, bk.param(w_gate))
+    u = bk.matmul(x, bk.param(w_up))
+    a = getattr(bk, act)(g)
+    return bk.matmul(bk.mul(a, u), bk.param(w_down))
+
+
+def rope_tables(positions: torch.Tensor, d_head: int,
+                theta: float = 10000.0):
+    """cos/sin tables for the given positions: [S, d_head//2] each, f32."""
+    half = d_head // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (ar / half))
+    ang = positions.to(torch.float32)[:, None] * freqs[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(bk, x, cos, sin):
+    """x: [B, S, H, Dh]; tables [S, Dh/2]."""
+    dh = bk.shape_of(x)[-1]
+    half = dh // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = bk.param(cos[None, :, None, :])
+    s = bk.param(sin[None, :, None, :])
+    r1 = bk.sub(bk.mul(x1, c), bk.mul(x2, s))
+    r2 = bk.add(bk.mul(x2, c), bk.mul(x1, s))
+    return bk.concat([r1, r2], dim=-1)
+
+
+def causal_mask(q_len: int, kv_len: int, q_offset: int = 0, *, device=None):
+    """Boolean [q_len, kv_len]: True = attendable; queries sit at absolute
+    positions ``q_offset + arange(q_len)``."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    return k_pos <= q_pos

@@ -1,0 +1,211 @@
+"""The port's kernel modules on the CPU: each plain PyTorch version against
+the JAX package's oracle AND its Pallas kernel in interpret mode; the
+serving dispatches on CPU tensors; the wrappers' guards. (The CUDA kernels
+themselves are held against their plain versions on a card by
+tests/test_torch_kernels_cuda.py and by chip_smoke.py.)
+
+Tolerance (kernel or oracle vs plain version): equal, or apart by at most
+one ulp at k plus what two f32 sums of the same terms differ by when they
+add in different orders — PyTorch's CPU GEMM, XLA's and a kernel's tiles
+each sum in their own order. For a GEMM that is 2·√K·2⁻²⁴·(|q(x)|@|q(w)|):
+the sums' rounding errors have random signs, so their difference grows as
+√K, well inside the worst case 2·γ_K·(|q(x)|@|q(w)|); for decode attention
+a few f32 ulps of the largest |v| attended, 2·(len + 16)·2⁻²⁴·max|v|.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quantize as JQ
+from repro.kernels import flash_decode as jfd
+from repro.kernels import quant_matmul as jqm
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import quant_matmul as tqm
+
+FORMATS = [(24, 127, -126), (12, 15, -14), (8, 7, -6), (10, 15, -14)]
+
+
+def _ulp_at_k(a, k, emin):
+    _, e = np.frexp(np.abs(a))
+    return np.ldexp(1.0, np.maximum(e - 1, emin) - (k - 1))
+
+
+def assert_ulp_rule(got, want, fmt, pre_tol):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    k, _, emin = fmt
+    diff = np.abs(got - want)
+    ulp = _ulp_at_k(np.maximum(np.abs(got), np.abs(want)), k, emin)
+    bad = ~((got == want) | (diff <= ulp + pre_tol))
+    assert not bad.any(), (int(bad.sum()), float(diff.max()))
+
+
+def _gemm_inputs(M, K, N, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(M, K).astype(np.float32)
+    w = (rng.randn(K, N) / np.sqrt(K)).astype(np.float32)
+    return x, w
+
+
+def _gemm_pre_tol(x, w, fmt, K):
+    q = lambda a: np.asarray(JQ.quantize_to_format(jnp.asarray(a), *fmt),
+                             np.float64)
+    return 2 * np.sqrt(K) * 2.0 ** -24 * (np.abs(q(x)) @ np.abs(q(w)))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("shape", [(4, 64, 32), (7, 96, 40)])
+def test_quant_matmul_plain_vs_jax_oracle_and_pallas(fmt, shape):
+    M, K, N = shape
+    x, w = _gemm_inputs(M, K, N, seed=M + K + N)
+    got = tqm.quant_matmul_format_ref(torch.from_numpy(x),
+                                      torch.from_numpy(w), fmt).numpy()
+    oracle = np.asarray(jqm.quant_matmul_format_ref(jnp.asarray(x),
+                                                    jnp.asarray(w), fmt))
+    pallas = np.asarray(jqm.quant_matmul_format(
+        jnp.asarray(x), jnp.asarray(w), fmt, block_k=K, interpret=True))
+    pre = _gemm_pre_tol(x, w, fmt, K)
+    assert_ulp_rule(oracle, got, fmt, pre)
+    assert_ulp_rule(pallas, got, fmt, pre)
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, False)])
+def test_quant_matmul_flags_and_saturation(flags):
+    subn, sat = flags
+    fmt = (6, 3, -2)                       # tiny range: overflow + underflow
+    x, w = _gemm_inputs(8, 32, 16, seed=3)
+    x = x * 8.0
+    got = tqm.quant_matmul_format_ref(torch.from_numpy(x),
+                                      torch.from_numpy(w), fmt,
+                                      has_subnormals=subn,
+                                      saturating=sat).numpy()
+    oracle = np.asarray(jqm.quant_matmul_format_ref(
+        jnp.asarray(x), jnp.asarray(w), fmt, has_subnormals=subn,
+        saturating=sat))
+    finite = np.isfinite(oracle)
+    assert np.array_equal(np.isfinite(got), finite)
+    assert np.array_equal(got[~finite], oracle[~finite], equal_nan=True)
+    assert_ulp_rule(oracle[finite], got[finite], fmt,
+                    _gemm_pre_tol(x, w, fmt, 32)[finite])
+
+
+def test_quant_matmul_dispatch_on_cpu_is_plain_and_counts_nothing():
+    x, w = _gemm_inputs(6, 32, 24, seed=4)
+    x3 = torch.from_numpy(x).reshape(2, 3, 32)
+    tqm.quant_matmul_format.launches = 0
+    out = tqm.quant_matmul_format_dispatch(x3, torch.from_numpy(w),
+                                           (12, 15, -14))
+    assert out.shape == (2, 3, 24)
+    want = tqm.quant_matmul_format_ref(torch.from_numpy(x),
+                                       torch.from_numpy(w), (12, 15, -14))
+    assert torch.equal(out.reshape(6, 24), want)
+    assert tqm.quant_matmul_format.launches == 0
+
+
+def _attn_inputs(B, H, G, D, S, seed):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, G, D).astype(np.float32)
+    k = rng.randn(B, S, H, D).astype(np.float32)
+    v = rng.randn(B, S, H, D).astype(np.float32)
+    return q, k, v
+
+
+def _attn_pre_tol(v, lengths, fmt):
+    vq = np.abs(np.asarray(JQ.quantize_to_format(jnp.asarray(v), *fmt)))
+    S = v.shape[1]
+    valid = np.arange(S)[None, :] < np.asarray(lengths)[:, None]
+    vmax = np.where(valid[:, :, None, None], vq, 0).max(axis=(1, 3))
+    slack = 2.0 * (np.asarray(lengths, np.float64) + 16)[:, None] * 2.0 ** -24
+    return (slack * vmax)[:, :, None, None]
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_flash_decode_plain_vs_jax_oracle_and_pallas(fmt):
+    B, H, G, D, S = 3, 2, 3, 16, 32
+    q, k, v = _attn_inputs(B, H, G, D, S, seed=sum(fmt) % 97)
+    lengths = np.asarray([1, 17, 32], np.int32)
+    got = tfd.flash_decode_quantized_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), fmt).numpy()
+    oracle = np.asarray(jfd.flash_decode_quantized_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths), fmt))
+    pallas = np.asarray(jfd.flash_decode_certified(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        fmt, block_s=S, interpret=True))
+    pre = _attn_pre_tol(v, lengths, fmt)
+    assert got.shape == (B, H, G, D)
+    assert_ulp_rule(oracle, got, fmt, pre)
+    assert_ulp_rule(pallas, got, fmt, pre)
+
+
+def test_flash_decode_masks_past_length():
+    """Cache entries at or beyond a lane's length never reach its output."""
+    B, H, G, D, S = 2, 2, 2, 8, 16
+    q, k, v = _attn_inputs(B, H, G, D, S, seed=9)
+    lengths = torch.tensor([5, 16], dtype=torch.int32)
+    fmt = (12, 15, -14)
+    base = tfd.flash_decode_quantized_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        lengths, fmt)
+    k2, v2 = k.copy(), v.copy()
+    k2[0, 5:] = 1e3
+    v2[0, 5:] = -1e3
+    moved = tfd.flash_decode_quantized_ref(
+        torch.from_numpy(q), torch.from_numpy(k2), torch.from_numpy(v2),
+        lengths, fmt)
+    assert torch.equal(base[0], moved[0])
+
+
+def test_certified_decode_dispatch_on_cpu_is_plain_and_counts_nothing():
+    q, k, v = _attn_inputs(2, 2, 2, 8, 16, seed=2)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    lengths = torch.tensor([3, 16], dtype=torch.int32)
+    tfd.flash_decode_certified.launches = 0
+    out = tfd.certified_decode_attention(*args, lengths, (8, 7, -6))
+    want = tfd.flash_decode_quantized_ref(*args, lengths, (8, 7, -6))
+    assert torch.equal(out, want)
+    assert tfd.flash_decode_certified.launches == 0
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """On a CPU tensor the CUDA wrappers raise (the dispatches are what
+    pick the plain version); no build is attempted."""
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_format(x, torch.zeros(8, 4), (12, 15, -14))
+    with pytest.raises(ValueError):
+        tqm.quantize_format_cuda(x, (12, 15, -14))
+    q = torch.zeros(1, 1, 2, 8)
+    kv = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(ValueError):
+        tfd.flash_decode_certified(q, kv, kv, torch.ones(1, dtype=torch.int32),
+                                   (12, 15, -14))
+
+
+def test_build_recipe():
+    """Hopper target, no fast math, build dir under build/repro_torch, one
+    library per source named by a digest of sources and flags."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast-math" not in flags and "fast_math" not in flags
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+        p = _build.lib_path(name)
+        assert p.parent == _build.BUILD_DIR
+        assert p.parent.parts[-2:] == ("build", "repro_torch")
+        assert p == _build.lib_path(name)
+    assert (_build.lib_path(_build.SOURCES[0])
+            != _build.lib_path(_build.SOURCES[1]))
+
+
+def test_cuda_sources_carry_their_notes():
+    """Each kernel source names the TPU kernel it replaces and its bound."""
+    for name, tpu in [("quant_matmul_format", "_quant_matmul_format_kernel"),
+                      ("flash_decode_certified", "_flash_decode_fmt_kernel")]:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert tpu in text
+        assert "What bounds it" in text
+        assert "__expf" not in text.replace("(not __expf)", "")

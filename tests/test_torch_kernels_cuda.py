@@ -1,0 +1,101 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on a
+card. These tests need a CUDA device (the kernels have no CPU mode) and skip
+without one; they import nothing of JAX, so they run on a machine that has
+only PyTorch: ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
+
+Tolerance: equal, or apart by at most one ulp at k plus what two f32 sums
+of the same terms differ by when they add in different orders
+(2·√K·2⁻²⁴·(|q(x)|@|q(w)|) for the GEMM, whose rounding errors have random
+signs; 2·(len + 16)·2⁻²⁴·max|v| for decode attention, whose exp and division
+also differ by ulps). On operands whose partial sums are all exact in f32
+the GEMM must equal its plain version bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.quantize import quantize_to_format
+from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import quant_matmul as tqm
+
+FORMATS = [(24, 127, -126), (12, 15, -14), (8, 7, -6), (10, 15, -14)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def assert_ulp_rule(got, want, fmt, pre_tol):
+    got, want = got.double().cpu(), want.double().cpu()
+    k, _, emin = fmt
+    diff = (got - want).abs()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(got),
+                      (torch.clamp(e - 1, min=emin) - (k - 1)).double())
+    bad = ~((got == want) | (diff <= ulp + pre_tol.cpu()))
+    assert not bool(bad.any()), (int(bad.sum()), float(diff.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quant_matmul_kernel_vs_plain_on_card(cuda_device, fmt):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    M, K, N = 37, 200, 70
+    x = torch.randn(M, K, device=cuda_device, generator=gen)
+    w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
+    got = tqm.quant_matmul_format(x, w, fmt)
+    want = tqm.quant_matmul_format_ref(x, w, fmt)
+    q = lambda t: quantize_to_format(t, *fmt).abs().double()
+    pre = 2 * np.sqrt(K) * 2.0 ** -24 * (q(x) @ q(w))
+    assert_ulp_rule(got, want, fmt, pre)
+    alone = tqm.quant_matmul_format(x[:5].contiguous(), w, fmt)
+    assert torch.equal(alone.view(torch.int32), got[:5].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (37, 1000, 70)])
+def test_quant_matmul_kernel_exact_on_coarse_grid(cuda_device, fmt, M, K, N):
+    # integers in [-3, 3] times 2^-2 resp. 2^-3 lie in every format tested,
+    # and every partial sum of their products is an exact f32, so any
+    # summation order gives the same bits
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randint(-3, 4, (M, K), device=cuda_device,
+                      generator=gen).float() * 2.0 ** -2
+    w = torch.randint(-3, 4, (K, N), device=cuda_device,
+                      generator=gen).float() * 2.0 ** -3
+    got = tqm.quant_matmul_format(x, w, fmt)
+    want = tqm.quant_matmul_format_ref(x, w, fmt)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_flash_decode_kernel_vs_plain_on_card(cuda_device, fmt):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    B, H, G, D, S = 3, 4, 7, 128, 100
+    q = torch.randn(B, H, G, D, device=cuda_device, generator=gen)
+    k = torch.randn(B, S, H, D, device=cuda_device, generator=gen)
+    v = torch.randn(B, S, H, D, device=cuda_device, generator=gen)
+    lengths = torch.tensor([1, 33, 100], dtype=torch.int32,
+                           device=cuda_device)
+    got = tfd.flash_decode_certified(q, k, v, lengths, fmt)
+    want = tfd.flash_decode_quantized_ref(q, k, v, lengths, fmt)
+    valid = torch.arange(S, device=cuda_device)[None, :] < lengths[:, None]
+    vq = quantize_to_format(v, *fmt).abs()
+    vmax = torch.where(valid[:, :, None, None], vq, 0).amax(dim=(1, 3))
+    slack = 2.0 * (lengths.double() + 16)[:, None] * 2.0 ** -24
+    assert_ulp_rule(got, want, fmt, (slack * vmax.double())[:, :, None, None])
+
+
+@pytest.mark.cuda
+def test_kernels_count_their_launches(cuda_device):
+    x = torch.randn(4, 64, device=cuda_device)
+    w = torch.randn(64, 32, device=cuda_device)
+    tqm.quant_matmul_format.launches = 0
+    tqm.quant_matmul_format_dispatch(x.reshape(2, 2, 64), w, (12, 15, -14))
+    tqm.quant_matmul_format_ref(x, w, (12, 15, -14))
+    assert tqm.quant_matmul_format.launches == 1
