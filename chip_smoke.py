@@ -2,11 +2,21 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
-port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
+port's four CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
 ``build/repro_torch/``), checks each against its plain PyTorch version on
-the card at the shapes of full-width Qwen2-7B, serves full-width Qwen2-7B
-(random weights from a seed) through the certified custom-format path, and
-shows through the kernels' launch counters that serving ran through them.
+the card at the shapes of full-width Qwen2-7B, and drives the port's paths
+through the entry points a user calls, with every kernel's launch counter
+set to 0 just before each path and read just after:
+
+* ``serve`` — full-width Qwen2-7B (random weights from a seed) through the
+  certified custom-format path (kernels ``quant_matmul_format`` and
+  ``flash_decode_certified``);
+* ``serve_k`` / ``serve_mixed`` — the same model at a uniform certified
+  k = 12, and from a v2 certificate set with a per-layer k map (kernel
+  ``quant_matmul``);
+* ``profile`` — the kernel profiler (every kernel, ``flash_decode_attention``
+  among them) and the serving profile (at the reference's SMOKE defaults
+  and at full width), under the port's JSONL tracer.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -18,6 +28,7 @@ result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -47,6 +58,12 @@ SERVE_FORMAT = {
     "layer0/mlp": {"k": 16, "emax": 31, "emin": -30},
 }
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 128, 16
+SERVE_K = 12                      # the uniform certified precision served
+MIXED_K = 16                      # the v2 set's serving_k ...
+MIXED_LAYER_K = {"layer*/attn": 12, "layer*/mlp": 10, "layer0/mlp": 14}
+GEMM_KS = (8, 12, 24)
+KERNELS = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
+           "flash_decode_attention")
 
 
 def emit(phase: str, **fields) -> None:
@@ -181,10 +198,26 @@ def gemm_order_tol(torch, xq, wq):
             * torch.matmul(xq.abs().double(), wq.abs().double()))
 
 
+def gemm_agreement(torch, got, want, fmt, xq, wq, what):
+    """A GEMM kernel's output against its plain version's under the ulp
+    rule plus :func:`gemm_order_tol` of the rounded operands ``xq``/``wq``.
+    Returns the stats, with ``order_spread`` = the largest |Δ| beyond one
+    ulp in units of √K·u·Σ|x̂||ŵ|; raises on disagreement."""
+    tol = gemm_order_tol(torch, xq, wq)
+    ok, st = compare(torch, got, want, fmt, tol)
+    beyond = (got.double() - want.double()).abs() - ulp_at_k(
+        torch, torch.maximum(got.abs(), want.abs()), fmt[0], fmt[2])
+    st["order_spread"] = float((beyond.clamp(min=0) / (tol / 2)).nan_to_num(
+        0.0, posinf=0.0).max())
+    if not ok:
+        raise AssertionError(f"{what} {tuple(xq.shape)}@{tuple(wq.shape)} "
+                             f"{fmt}: {st}")
+    return st
+
+
 def check_gemm(torch, qmm, x, w, fmt, flags=(True, True)):
-    """Kernel against its plain version on the same card inputs, under
-    the ulp rule plus :func:`gemm_order_tol`. Returns (kernel out, stats);
-    raises on disagreement."""
+    """The format kernel against its plain version on the same card
+    inputs. Returns (kernel out, stats); raises on disagreement."""
     from repro_torch.core.quantize import quantize_to_format
 
     subn, sat = flags
@@ -192,17 +225,42 @@ def check_gemm(torch, qmm, x, w, fmt, flags=(True, True)):
                                   saturating=sat)
     want = qmm.quant_matmul_format_ref(x, w, fmt, has_subnormals=subn,
                                        saturating=sat)
-    tol = gemm_order_tol(torch, quantize_to_format(x, *fmt, subn, sat),
-                         quantize_to_format(w, *fmt, subn, sat))
-    ok, st = compare(torch, got, want, fmt, tol)
-    beyond = (got.double() - want.double()).abs() - ulp_at_k(
-        torch, torch.maximum(got.abs(), want.abs()), fmt[0], fmt[2])
-    st["order_spread"] = float((beyond.clamp(min=0) / (tol / 2)).nan_to_num(
-        0.0, posinf=0.0).max())
-    if not ok:
-        raise AssertionError(f"quant_matmul_format {tuple(x.shape)}@"
-                             f"{tuple(w.shape)} {fmt}: {st}")
+    st = gemm_agreement(torch, got, want, fmt,
+                        quantize_to_format(x, *fmt, subn, sat),
+                        quantize_to_format(w, *fmt, subn, sat),
+                        "quant_matmul_format")
     return got, st
+
+
+def check_gemm_k(torch, qmm, x, w, k):
+    """The k-bit kernel against its plain version on the same card inputs
+    (mantissa-only rounding: the f32 exponent range, emin = -126)."""
+    from repro_torch.core.quantize import _quantize_normal
+
+    got = qmm.quant_matmul(x, w, k=k)
+    want = qmm.quant_matmul_ref(x, w, k)
+    st = gemm_agreement(torch, got, want, (k, 127, -126),
+                        _quantize_normal(x, k), _quantize_normal(w, k),
+                        "quant_matmul")
+    return got, st
+
+
+def same_bits(torch, got, want) -> bool:
+    """Equal bit for bit, except that any NaN equals any NaN."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def coarse_operands(torch, gen, M, K, N):
+    """Integers in [-3, 3] times 2^-2 resp. 2^-3: exact in every format
+    and precision checked here, and every partial sum of their products is
+    an exact f32, so any summation order gives the same bits."""
+    x = torch.randint(-3, 4, (M, K), device="cuda",
+                      generator=gen).float() * 2.0 ** -2
+    w = torch.randint(-3, 4, (K, N), device="cuda",
+                      generator=gen).float() * 2.0 ** -3
+    return x, w
 
 
 def phase_quant_matmul(torch, qmm):
@@ -211,14 +269,8 @@ def phase_quant_matmul(torch, qmm):
     rows = []
     n_exact = 0
     for proj, (K, N) in GEMM_SHAPES.items():
-        # exactness: operands on a coarse grid (integers in [-3, 3] times
-        # 2^-2 resp. 2^-3, exact in every format here), so every partial
-        # sum is an exact f32 and any order gives the same bits
-        wi = torch.randint(-3, 4, (K, N), device="cuda", generator=gen)
-        w = wi.float() * 2.0 ** -3
         for M in (4, 512):
-            x = torch.randint(-3, 4, (M, K), device="cuda",
-                              generator=gen).float() * 2.0 ** -2
+            x, w = coarse_operands(torch, gen, M, K, N)
             for fname, fmt in FORMATS.items():
                 got = qmm.quant_matmul_format(x, w, fmt)
                 want = qmm.quant_matmul_format_ref(x, w, fmt)
@@ -230,7 +282,7 @@ def phase_quant_matmul(torch, qmm):
                         f"quant_matmul_format {proj} M={M} {fname}: {n} "
                         "elements differ on exact-sum operands")
                 n_exact += 1
-        del wi, w, x
+        del w, x
         w = torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)
         for M in (4, 512):
             x = torch.randn(M, K, device="cuda", generator=gen)
@@ -270,17 +322,107 @@ def phase_quant_matmul(torch, qmm):
     return rows, worst
 
 
-def flash_tol(torch, v, lengths, fmt):
-    """Sums over up to ``len`` positions in another order, plus expf: a few
-    f32 ulps of the largest |v̂| attended, per (b, kv-head)."""
+GEMM_K_TOLERANCE = ("equal, or |Δ| ≤ one ulp at k (emin -126) + "
+                    "2·√K·2⁻²⁴·(|q_k(x)|@|q_k(w)|); exact-sum operands and "
+                    "NaN/±inf/near-f32-max inputs bit for bit")
+
+
+def phase_quant_matmul_k(torch, qmm):
+    """Kernel 3 against its plain version at the seven Qwen2-7B
+    projections, M = 4 (decode) and 512 (prefill), k ∈ GEMM_KS."""
+    from repro_torch.core.quantize import _quantize_normal
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    big = 3.4028234663852886e38
+    rows, worst, n_exact, n_special = [], 0.0, 0, 0
+    for proj, (K, N) in GEMM_SHAPES.items():
+        for M in (4, 512):
+            x, w = coarse_operands(torch, gen, M, K, N)
+            for k in GEMM_KS:
+                if not same_bits(torch, qmm.quant_matmul(x, w, k=k),
+                                 qmm.quant_matmul_ref(x, w, k)):
+                    raise AssertionError(f"quant_matmul {proj} M={M} k={k}: "
+                                         "differs on exact-sum operands")
+                n_exact += 1
+        # NaN, ±inf, ±f32 max (which carries into ±inf at k < 24) and
+        # near-max values: they decide their rows in any summation order
+        # (their weights are ±1/8, ±1/4 or 0, so their products are exact)
+        x = x[:8].clone()
+        w[[0, 1, 2, 9]] = w[[0, 1, 2, 9]].clamp(-0.25, 0.25)
+        for r, (c, val) in enumerate([(3, float("nan")), (5, float("inf")),
+                                      (7, -float("inf")), (0, big),
+                                      (1, -big), (2, 3.3e38),
+                                      (9, -1.5e38)]):
+            x[r, c] = val
+        for k in GEMM_KS:
+            if not same_bits(torch, qmm.quant_matmul(x, w, k=k),
+                             qmm.quant_matmul_ref(x, w, k)):
+                raise AssertionError(f"quant_matmul {proj} k={k}: non-finite "
+                                     "or near-max inputs differ")
+            n_special += 1
+        del x, w
+        w = torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)
+        for M in (4, 512):
+            x = torch.randn(M, K, device="cuda", generator=gen)
+            for k in GEMM_KS:
+                got, st = check_gemm_k(torch, qmm, x, w, k)
+                worst = max(worst, st["max_abs_err"])
+                row = {"proj": proj, "M": M, "K": K, "N": N, "k": k, **st}
+                if k == SERVE_K:
+                    if M == 512:
+                        # row invariance: 7 rows alone == the same rows
+                        alone = qmm.quant_matmul(x[:7].contiguous(), w, k=k)
+                        if not torch.equal(alone.view(torch.int32),
+                                           got[:7].view(torch.int32)):
+                            raise AssertionError(
+                                f"quant_matmul {proj}: 7 rows alone differ "
+                                "from the same rows inside M=512")
+                        row["row_invariant"] = True
+                    xq, wq = _quantize_normal(x, k), _quantize_normal(w, k)
+                    iters = 20 if M == 4 else 5
+                    row["ms"] = time_ms(
+                        torch, lambda: qmm.quant_matmul(x, w, k=k), iters)
+                    row["plain_ms"] = time_ms(
+                        torch, lambda: qmm.quant_matmul_ref(x, w, k), iters)
+                    row["library_ms"] = time_ms(
+                        torch, lambda: torch.matmul(xq, wq), iters)
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        4.0 * (M * K + K * N + M * N), 2.0 * M * N * K)
+                    del xq, wq
+                rows.append(row)
+            del x
+        del w
+    emit("quant_matmul", tolerance=GEMM_K_TOLERANCE, ks=list(GEMM_KS),
+         exact_checks=n_exact, nonfinite_checks=n_special, checks=len(rows),
+         max_abs_err=worst,
+         max_order_spread=max(r["order_spread"] for r in rows), rows=rows)
+    return rows, worst
+
+
+FLASH_TOLERANCE = ("equal, or |Δ| ≤ one ulp (at k for the certified "
+                   "kernel, of f32 for the plain one) + 2·(n + 16)·2⁻²⁴·"
+                   "max|v| over the n positions a lane attends (all S for a "
+                   "lane of length 0)")
+
+
+def attended(torch, lengths, S):
+    """Positions each lane attends: its length, or all S for a lane of
+    length 0 (every score is masked alike, so every weight is exp(0))."""
+    return torch.where(lengths <= 0, S, lengths.clamp(max=S))
+
+
+def flash_tol(torch, v, lengths, fmt=None):
+    """Sums over the n attended positions in another order, plus expf: a
+    few f32 ulps of the largest |v| attended (rounded into ``fmt`` when
+    given), 2·(n + 16)·2⁻²⁴·max|v|, per (b, kv-head)."""
     from repro_torch.core.quantize import quantize_to_format
 
     S = v.shape[1]
-    valid = (torch.arange(S, device=v.device)[None, :]
-             < lengths[:, None])                              # [B, S]
-    vq = quantize_to_format(v, *fmt).abs()
-    vmax = torch.where(valid[:, :, None, None], vq, 0).amax(dim=(1, 3))
-    slack = 2.0 * (lengths.double() + 16)[:, None] * 2.0 ** -24
+    n = attended(torch, lengths, S)
+    valid = torch.arange(S, device=v.device)[None, :] < n[:, None]
+    va = (v if fmt is None else quantize_to_format(v, *fmt)).abs()
+    vmax = torch.where(valid[:, :, None, None], va, 0).amax(dim=(1, 3))
+    slack = 2.0 * (n.double() + 16)[:, None] * 2.0 ** -24
     return (slack * vmax.double())[:, :, None, None]
 
 
@@ -304,13 +446,48 @@ FLASH_CASES = {
     "serve_first": (SERVE_PROMPT + SERVE_STEPS + 1, [SERVE_PROMPT + 1] * 4),
     "serve_last": (SERVE_PROMPT + SERVE_STEPS + 1,
                    [SERVE_PROMPT + SERVE_STEPS] * 4),
+    "empty_lane": (SERVE_PROMPT + SERVE_STEPS + 1,
+                   [0, SERVE_PROMPT + SERVE_STEPS, SERVE_PROMPT + 1, 1]),
 }
+
+
+def flash_timing(torch, kernel, plain, q, k, v, lengths):
+    """ms of ``kernel`` and ``plain`` on the same inputs, the SDPA
+    yardstick and the bound (bytes: q in, out, and k/v over the attended
+    positions; operations: 4·G·D per attended position and kv head)."""
+    B, H, G, D = q.shape
+    S = k.shape[1]
+    lens = lengths.tolist()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timing = {"ms": time_ms(torch, lambda: kernel(q, k, v, lengths), 50),
+              "plain_ms": time_ms(torch, lambda: plain(q, k, v, lengths),
+                                  20)}
+    # the yardstick: SDPA with grouped heads on [B, H, S, D] (the
+    # transposition is made outside the timing); uniform lengths attend to
+    # the prefix with no mask, ragged ones through a boolean mask
+    qs = q.reshape(B, H * G, 1, D)
+    if len(set(lens)) == 1:
+        n = lens[0]
+        ks = k[:, :n].permute(0, 2, 1, 3).contiguous()
+        vs = v[:, :n].permute(0, 2, 1, 3).contiguous()
+        mask = None
+    else:
+        ks = k.permute(0, 2, 1, 3).contiguous()
+        vs = v.permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+    timing["library_ms"] = time_ms(
+        torch, lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), 50)
+    n_pos = int(attended(torch, lengths, S).sum())
+    n_bytes = 4.0 * (2 * q.numel() + 2 * n_pos * H * D) + 4 * B
+    timing["bound_ms"], timing["bound_by"] = bound_ms(
+        n_bytes, 4.0 * G * D * H * n_pos)
+    return timing
 
 
 def phase_flash_decode(torch, fd):
     B, H, G, D = SERVE_BATCH, 4, 7, 128
     gen = torch.Generator(device="cuda").manual_seed(3)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     fmt12 = FORMATS["k12_e15"]
     worst, cases = 0.0, {}
     for case, (S, lens) in FLASH_CASES.items():
@@ -323,48 +500,151 @@ def phase_flash_decode(torch, fd):
             st = check_flash(torch, fd, q, k, v, lengths, fmt)
             worst = max(worst, st["max_abs_err"])
             rows.append({"format": fname, **st})
-        timing = {
-            "ms": time_ms(torch, lambda: fd.flash_decode_certified(
-                q, k, v, lengths, fmt12), 50),
-            "plain_ms": time_ms(torch, lambda: fd.flash_decode_quantized_ref(
-                q, k, v, lengths, fmt12), 20),
-        }
-        # the yardstick: SDPA with grouped heads on [B, H, S, D] (the
-        # transposition is made outside the timing); uniform lengths attend
-        # to the prefix with no mask, ragged ones through a boolean mask
-        qs = q.reshape(B, H * G, 1, D)
-        if len(set(lens)) == 1:
-            n = lens[0]
-            ks = k[:, :n].permute(0, 2, 1, 3).contiguous()
-            vs = v[:, :n].permute(0, 2, 1, 3).contiguous()
-            mask = None
-        else:
-            ks = k.permute(0, 2, 1, 3).contiguous()
-            vs = v.permute(0, 2, 1, 3).contiguous()
-            mask = (torch.arange(S, device="cuda")[None, :]
-                    < lengths[:, None])[:, None, None, :]
-        timing["library_ms"] = time_ms(
-            torch, lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True),
-            50)
-        n_pos = int(lengths.sum())
-        n_bytes = 4.0 * (2 * q.numel() + 2 * n_pos * H * D) + 4 * B
-        timing["bound_ms"], timing["bound_by"] = bound_ms(
-            n_bytes, 4.0 * G * D * H * n_pos)
+        timing = flash_timing(
+            torch, lambda *a: fd.flash_decode_certified(*a, fmt12),
+            lambda *a: fd.flash_decode_quantized_ref(*a, fmt12),
+            q, k, v, lengths)
         cases[case] = {"Smax": S, "lengths": lens, **timing, "rows": rows}
-        del q, k, v, ks, vs
+        del q, k, v
     emit("flash_decode_certified",
-         shape={"B": B, "K": H, "G": G, "D": D}, max_abs_err=worst,
-         cases=cases)
+         shape={"B": B, "K": H, "G": G, "D": D}, tolerance=FLASH_TOLERANCE,
+         max_abs_err=worst, cases=cases)
     return cases, worst
 
 
-def phase_serve(torch, serve, qmm, fd, T):
-    L = 28
-    argv = ["--size", "full", "--batch", str(SERVE_BATCH),
+def check_flash_attention(torch, fd, q, k, v, lengths, what):
+    """Kernel 4 against its plain version on the same card inputs, under
+    FLASH_TOLERANCE at f32; raises on disagreement or a non-finite output."""
+    got = fd.flash_decode_attention(q, k, v, lengths)
+    want = fd.flash_decode_ref(q, k, v, lengths)
+    ok, st = compare(torch, got, want, (24, 127, -126),
+                     flash_tol(torch, v, lengths))
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_decode_attention {what}: {st}")
+    return st
+
+
+def phase_flash_decode_attention(torch, fd):
+    """Kernel 4 against its plain version at the serve cache's shape, a
+    ragged Smax=1024 cache and a cache with a lane of length 0."""
+    B, H, G, D = SERVE_BATCH, 4, 7, 128
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, cases = 0.0, {}
+    for case, (S, lens) in FLASH_CASES.items():
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(B, H, G, D, device="cuda", generator=gen)
+        k = torch.randn(B, S, H, D, device="cuda", generator=gen)
+        v = torch.randn(B, S, H, D, device="cuda", generator=gen)
+        st = check_flash_attention(torch, fd, q, k, v, lengths, case)
+        worst = max(worst, st["max_abs_err"])
+        timing = flash_timing(torch, fd.flash_decode_attention,
+                              fd.flash_decode_ref, q, k, v, lengths)
+        cases[case] = {"Smax": S, "lengths": lens, **st, **timing}
+        del q, k, v
+    emit("flash_decode_attention", shape={"B": B, "K": H, "G": G, "D": D},
+         tolerance=FLASH_TOLERANCE, max_abs_err=worst, cases=cases)
+    return cases, worst
+
+
+def kernel_fns(qmm, fd):
+    """The four kernel wrappers by name; each counts its launches."""
+    return {"quant_matmul_format": qmm.quant_matmul_format,
+            "flash_decode_certified": fd.flash_decode_certified,
+            "quant_matmul": qmm.quant_matmul,
+            "flash_decode_attention": fd.flash_decode_attention}
+
+
+def reset_launches(fns):
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def read_launches(fns):
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def free_device_memory(torch):
+    """Drop what an earlier full-width run left (its ~30.5 GB of weights
+    are garbage once its phase returned) before the next one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+L_FULL = 28                       # qwen2_7b.FULL's depth, not cut
+
+
+def serve_argv(*extra):
+    return ["--size", "full", "--batch", str(SERVE_BATCH),
             "--prefill-len", str(SERVE_PROMPT),
-            "--decode-steps", str(SERVE_STEPS),
-            "--layer-format", json.dumps(SERVE_FORMAT),
-            "--device", "cuda", "--seed", "0"]
+            "--decode-steps", str(SERVE_STEPS), "--device", "cuda",
+            "--seed", "0", *extra]
+
+
+def run_serve(torch, serve, fns, argv, expected):
+    """``serve.main(argv)`` with every launch counter set to 0 just before
+    and read just after; raises unless the counts are ``expected`` and the
+    run served valid tokens with finite logits at full width."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fns)
+    res = serve.main(argv)
+    launches = read_launches(fns)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    cfg = res.cfg
+    if cfg != serve.configs.get("qwen2_7b").FULL or cfg.n_layers != L_FULL:
+        raise AssertionError(f"not qwen2_7b.FULL: {cfg}")
+    toks = res.tokens
+    if toks.shape != (SERVE_BATCH, 1 + SERVE_STEPS) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"bad tokens {toks.shape}")
+    for lg in [res.prefill_logits] + res.decode_logits:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("non-finite logits")
+    return res, launches
+
+
+def serve_report(torch, res, launches, expected, ref_logits):
+    """What every serve phase prints: the run's numbers, and request 0's
+    prefill replayed through the plain versions against the served one."""
+    served = res.prefill_logits[0, -1].double()
+    ref = ref_logits[0, -1].double()
+    top2 = torch.topk(served, 2).values
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    return dict(
+        config="qwen2_7b.FULL", n_layers=res.cfg.n_layers,
+        d_model=res.cfg.d_model, params=n_params,
+        param_gb=4 * n_params / 1e9, batch=SERVE_BATCH,
+        prompt_tokens=SERVE_PROMPT, decode_steps=SERVE_STEPS,
+        launches=launches, expected_launches=expected,
+        prefill_s=res.timing["prefill_s"],
+        decode_ms_per_step=res.timing["decode_ms_per_step"],
+        decode_tokens_per_s=res.timing["decode_tokens_per_s"],
+        prefill_tokens_per_s=res.timing["prefill_tokens_per_s"],
+        init_s=res.timing["init_s"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        sample_tokens=res.tokens[0].tolist(),
+        replay_vs_plain={
+            "max_abs_dlogits": float((served - ref).abs().max()),
+            "argmax_agrees": bool(served.argmax() == ref.argmax()),
+            "top1_gap": float(top2[0] - top2[1]),
+            "max_abs_logit": float(served.abs().max())})
+
+
+def replay_prefill(torch, serve, T, res, bk):
+    """Request 0's prefill through ``bk`` on the run's own weights."""
+    cache = T.init_cache(res.cfg, 1, SERVE_PROMPT + SERVE_STEPS + 1,
+                         device=res.prompt.device)
+    with torch.no_grad():
+        logits, _ = serve.prefill_step(bk, res.params, res.cfg, cache,
+                                       res.prompt[:1])
+    return logits
+
+
+def phase_serve(torch, serve, qmm, fd, T):
+    """The certified custom-format path: kernels 1 and 2."""
+    emit("free", before="serve", allocated_gb=free_device_memory(torch))
+    fns = kernel_fns(qmm, fd)
     # keep the inputs the path gives each kernel, to hold them against the
     # plain versions after the run: each GEMM (M, K, N, format) at its first
     # launch (a copy of x; weights are not written), decode attention at its
@@ -388,32 +668,18 @@ def phase_serve(torch, serve, qmm, fd, T):
         flash_in["last"] = (*args, fmt, kw)
         return dispatch_fd(q, k, v, lengths, fmt, **kw)
 
-    torch.cuda.reset_peak_memory_stats()
-    kernel_qmm, kernel_fd = qmm.quant_matmul_format, fd.flash_decode_certified
-    kernel_qmm.launches = 0
-    kernel_fd.launches = 0
+    expected = {"quant_matmul_format": 7 * L_FULL * (1 + SERVE_STEPS),
+                "flash_decode_certified": L_FULL * SERVE_STEPS,
+                "quant_matmul": 0, "flash_decode_attention": 0}
     serve.quant_matmul_format_dispatch = spy_qmm
     serve.certified_decode_attention = spy_fd
     try:
-        res = serve.main(argv)
+        res, launches = run_serve(
+            torch, serve, fns,
+            serve_argv("--layer-format", json.dumps(SERVE_FORMAT)), expected)
     finally:
         serve.quant_matmul_format_dispatch = dispatch_qmm
         serve.certified_decode_attention = dispatch_fd
-    launches = {"quant_matmul_format": kernel_qmm.launches,
-                "flash_decode_certified": kernel_fd.launches}
-    cfg = res.cfg
-    assert (cfg.n_layers, cfg.d_model, cfg.d_ff) == (L, 3584, 18944), cfg
-    expected = {"quant_matmul_format": 7 * L * (1 + SERVE_STEPS),
-                "flash_decode_certified": L * SERVE_STEPS}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
-    toks = res.tokens
-    assert toks.shape == (SERVE_BATCH, 1 + SERVE_STEPS), toks.shape
-    assert bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of range"
-    for lg in [res.prefill_logits] + res.decode_logits:
-        assert bool(torch.isfinite(lg).all()), "non-finite logits"
-    n_params = sum(t.numel() for t in _leaves(res.params))
-    peak = torch.cuda.max_memory_allocated()
 
     # the kernels against their plain versions on the path's own inputs
     main_path = {"quant_matmul_format": [], "flash_decode_certified": []}
@@ -444,36 +710,245 @@ def phase_serve(torch, serve, qmm, fd, T):
                 has_subnormals=self.has_subnormals,
                 saturating=self.saturating)
 
-    before = qmm.quant_matmul_format.launches
-    cache = T.init_cache(cfg, 1, SERVE_PROMPT + SERVE_STEPS + 1,
-                         device="cuda")
-    with torch.no_grad():
-        ref_logits, _ = serve.prefill_step(RefFormatOps(SERVE_FORMAT),
-                                           res.params, cfg, cache,
-                                           res.prompt[:1])
-    assert qmm.quant_matmul_format.launches == before
-    served = res.prefill_logits[0, -1].double()
-    ref = ref_logits[0, -1].double()
-    top2 = torch.topk(served, 2).values
-    emit("serve", config="qwen2_7b.FULL", n_layers=L, d_model=cfg.d_model,
-         params=n_params, param_gb=4 * n_params / 1e9,
-         batch=SERVE_BATCH, prompt_tokens=SERVE_PROMPT,
-         decode_steps=SERVE_STEPS, layer_format=SERVE_FORMAT,
+    before = read_launches(fns)
+    ref_logits = replay_prefill(torch, serve, T, res,
+                                RefFormatOps(SERVE_FORMAT))
+    if read_launches(fns) != before:
+        raise AssertionError("the plain replay launched a kernel")
+    emit("serve", layer_format=SERVE_FORMAT,
+         **serve_report(torch, res, launches, expected, ref_logits),
+         main_path_inputs_vs_plain=main_path)
+    return launches, main_path, res.timing
+
+
+PROJ_ORDER = tuple(GEMM_SHAPES)   # the order a layer launches its GEMMs
+
+
+def write_v2_set(spec) -> Path:
+    """A schema-v2 CertificateSet (one class, serving_k = MIXED_K, the
+    per-layer map MIXED_LAYER_K) written with the port's certify/spec.py.
+    Its bounds are +inf ("no bound of this kind"): no analysis ran, the set
+    only drives the per-layer serving path."""
+    cert = spec.Certificate(
+        model_id="qwen2-7b/chip-smoke", params_digest="0" * 64,
+        class_key="prompt128", cfg=spec.CaaConfig(),
+        bounds_u_max=2.0 ** (1 - MIXED_K), final_abs_u=float("inf"),
+        final_rel_u=float("inf"), required_k=MIXED_K, satisfied_by=[],
+        layer_k=dict(MIXED_LAYER_K))
+    cs = spec.CertificateSet(model_id=cert.model_id,
+                             params_digest=cert.params_digest,
+                             certificates=[cert])
+    if cs.serving_k != MIXED_K or cs.serving_layer_k != MIXED_LAYER_K:
+        raise AssertionError(f"set resolves to {cs.serving_k}, "
+                             f"{cs.serving_layer_k}")
+    path = ROOT / "build" / "chip_smoke_v2_certificate_set.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(cs.to_json())
+    return path
+
+
+def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
+    """A mantissa-k serving path (uniform ``--precision-k`` or a v2
+    ``--certificate-set``): kernel 3 on every GEMM, the composed unrounded
+    decode attention. ``want_ks`` is the k each of the seven projections
+    of layers 0 and 1 must resolve to."""
+    emit("free", before=name, allocated_gb=free_device_memory(torch))
+    fns = kernel_fns(qmm, fd)
+    dispatch = serve.quant_matmul_dynamic_k
+    gemm_in, ks_seen = {}, []
+
+    def spy(x, w, k):
+        x2 = x.reshape(-1, x.shape[-1])
+        key = (*x2.shape, w.shape[1], int(k))
+        if key not in gemm_in:
+            gemm_in[key] = (x2.clone(), w.contiguous())
+        ks_seen.append(int(k))
+        return dispatch(x, w, k)
+
+    expected = {"quant_matmul_format": 0, "flash_decode_certified": 0,
+                "quant_matmul": 7 * L_FULL * (1 + SERVE_STEPS),
+                "flash_decode_attention": 0}
+    serve.quant_matmul_dynamic_k = spy
+    try:
+        res, launches = run_serve(torch, serve, fns, serve_argv(*extra),
+                                  expected)
+    finally:
+        serve.quant_matmul_dynamic_k = dispatch
+    resolved = {f"layer{i}": dict(zip(PROJ_ORDER, ks_seen[7 * i:7 * i + 7]))
+                for i in range(2)}
+    if resolved != want_ks:
+        raise AssertionError(f"{name}: projections resolved to {resolved}, "
+                             f"not {want_ks}")
+
+    main_path = []
+    for (M, K, N, k), (x, w) in sorted(gemm_in.items()):
+        _, st = check_gemm_k(torch, qmm, x, w, k)
+        main_path.append({"M": M, "K": K, "N": N, "k": k, **st})
+    del gemm_in
+
+    # replay request 0's prefill with the plain version on every GEMM
+    before = read_launches(fns)
+    serve.quant_matmul_dynamic_k = qmm.quant_matmul_ref
+    try:
+        ref_logits = replay_prefill(torch, serve, T, res,
+                                    serve._backend(res.config))
+    finally:
+        serve.quant_matmul_dynamic_k = dispatch
+    if read_launches(fns) != before:
+        raise AssertionError("the plain replay launched a kernel")
+    emit(name, precision_k=res.config.precision_k,
+         precision_layer_k=res.config.precision_layer_k,
+         backend=type(serve._backend(res.config)).__name__,
+         resolved_k_layers01=resolved,
+         **serve_report(torch, res, launches, expected, ref_logits),
+         main_path_inputs_vs_plain=main_path)
+    return launches, main_path, res.timing
+
+
+def uniform_ks(k_attn, k_mlp):
+    return {p: (k_attn if p in ("wq", "wk", "wv", "wo") else k_mlp)
+            for p in PROJ_ORDER}
+
+
+class KernelSpy:
+    """Stands in for a kernel wrapper in its module while a path runs:
+    keeps the inputs of the first call of each ``key``, then calls the
+    wrapper. A wrapper counts its launches under its own module-level name,
+    which names the spy meanwhile, so ``launches`` reads and writes the
+    wrapper's own count."""
+
+    def __init__(self, fn, key, keep):
+        self.fn, self.key, self.keep, self.seen = fn, key, keep, {}
+
+    def __call__(self, *args, **kw):
+        key = self.key(*args, **kw)
+        if key not in self.seen:
+            self.seen[key] = self.keep(*args, **kw)
+        return self.fn(*args, **kw)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
+def profile_spies(qmm, fd):
+    """(module, name, spy) for the three kernels the profile path launches;
+    x and the flash inputs are copied, weights are not written."""
+    def fmt_flags(has_subnormals=True, saturating=True):
+        return has_subnormals, saturating
+
+    return [
+        (qmm, "quant_matmul", KernelSpy(
+            qmm.quant_matmul,
+            lambda x, w, *, k: (*x.shape, w.shape[1], int(k)),
+            lambda x, w, *, k: (x.clone(), w))),
+        (qmm, "quant_matmul_format", KernelSpy(
+            qmm.quant_matmul_format,
+            lambda x, w, fmt, **kw: (*x.shape, w.shape[1], tuple(fmt),
+                                     fmt_flags(**kw)),
+            lambda x, w, fmt, **kw: (x.clone(), w))),
+        (fd, "flash_decode_attention", KernelSpy(
+            fd.flash_decode_attention,
+            lambda q, k, v, lengths: (*q.shape, k.shape[1]),
+            lambda *args: tuple(t.clone() for t in args))),
+    ]
+
+
+def phase_profile(torch, obs, qmm, fd):
+    """The kernel profiler at the serve shapes (every kernel name, the
+    opt-in quant_matmul included), the serving profile at the reference's
+    defaults (SMOKE, 2 layers) and at qwen2_7b.FULL (the serve phases'
+    batch, prompt, steps and k), under the port's JSONL tracer. Each
+    kernel is then held against its plain version on the inputs this
+    path gave it, one per shape (and k or format)."""
+    emit("free", before="profile", allocated_gb=free_device_memory(torch))
+    fns = kernel_fns(qmm, fd)
+    trace = ROOT / "build" / "chip_smoke_trace.jsonl"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    trace.unlink(missing_ok=True)
+    shapes = [(M, K, N) for (K, N) in sorted(set(GEMM_SHAPES.values()))
+              for M in (SERVE_BATCH, 512)]
+    flash_shapes = [(SERVE_BATCH, SERVE_PROMPT + SERVE_STEPS + 1, 4, 7, 128),
+                    (2, 256, 2, 2, 64)]
+    reps, warmup = 5, 2
+    spies = profile_spies(qmm, fd)
+    for mod, name, spy in spies:
+        setattr(mod, name, spy)
+    reset_launches(fns)
+    obs.configure(path=str(trace), program="chip_smoke.py")
+    try:
+        rows = obs.profile_kernels(
+            gemm_shapes=shapes, ks=(SERVE_K,), formats=(FORMATS["k12_e15"],),
+            flash_shapes=flash_shapes,
+            include=obs.profile.ALL_KERNELS + ("quant_matmul",),
+            reps=reps, warmup=warmup, device="cuda", hw=obs.H100_SXM)
+        serving = obs.profile_serving(precision_k=SERVE_K, device="cuda")
+        serving_full = obs.profile_serving(
+            size="full", max_layers=None, batch=SERVE_BATCH,
+            prefill_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
+            precision_k=SERVE_K, device="cuda")
+    finally:
+        obs.shutdown()
+        for mod, name, spy in spies:
+            setattr(mod, name, spy.fn)
+    launches = read_launches(fns)
+    calls = reps + warmup
+    n_serving = sum(7 * s["n_layers"] * (2 + s["decode_steps"])
+                    for s in (serving, serving_full))
+    expected = {"quant_matmul_format": len(shapes) * calls,
+                "flash_decode_certified": 0,
+                "quant_matmul": 2 * len(shapes) * calls + n_serving,
+                "flash_decode_attention": len(flash_shapes) * calls}
+    if serving_full["n_layers"] != L_FULL:
+        raise AssertionError(f"full-width profile ran "
+                             f"{serving_full['n_layers']} layers")
+
+    # the kernels against their plain versions on the path's own inputs
+    qm_spy, fmt_spy, fd_spy = (spy.seen for _, _, spy in spies)
+    main_path = {"quant_matmul": [], "quant_matmul_format": [],
+                 "flash_decode_attention": []}
+    for (M, K, N, k), (x, w) in sorted(qm_spy.items()):
+        _, st = check_gemm_k(torch, qmm, x, w, k)
+        main_path["quant_matmul"].append(
+            {"M": M, "K": K, "N": N, "k": k, **st})
+    for (M, K, N, fmt, flags), (x, w) in sorted(fmt_spy.items()):
+        _, st = check_gemm(torch, qmm, x, w, fmt, flags)
+        main_path["quant_matmul_format"].append(
+            {"M": M, "K": K, "N": N, "format": list(fmt), **st})
+    for (B, Kh, G, D, S), (q, k, v, lengths) in sorted(fd_spy.items()):
+        st = check_flash_attention(torch, fd, q, k, v, lengths,
+                                   f"B{B}S{S}K{Kh}G{G}D{D}")
+        main_path["flash_decode_attention"].append(
+            {"B": B, "S": S, "K": Kh, "G": G, "D": D,
+             "lengths": lengths.tolist(), **st})
+    del spies, qm_spy, fmt_spy, fd_spy
+
+    events = obs.load_events(str(trace))
+    problems = obs.validate_events(events)
+    spans = {}
+    for e in events:
+        if e["type"] == "span":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    emit("profile", hardware=obs.H100_SXM.to_dict(),
          launches=launches, expected_launches=expected,
-         prefill_s=res.timing["prefill_s"],
-         decode_ms_per_step=res.timing["decode_ms_per_step"],
-         decode_tokens_per_s=res.timing["decode_tokens_per_s"],
-         prefill_tokens_per_s=res.timing["prefill_tokens_per_s"],
-         init_s=res.timing["init_s"],
-         max_memory_allocated_gb=peak / 1e9,
-         sample_tokens=toks[0].tolist(),
-         main_path_inputs_vs_plain=main_path,
-         replay_vs_plain={
-             "max_abs_dlogits": float((served - ref).abs().max()),
-             "argmax_agrees": bool(served.argmax() == ref.argmax()),
-             "top1_gap": float(top2[0] - top2[1]),
-             "max_abs_logit": float(served.abs().max())})
-    return launches, main_path
+         rows=[{key: r.get(key) for key in (
+             "kernel", "shape", "k", "median_s", "roofline_s", "bound",
+             "roofline_frac", "achieved_flops_per_s",
+             "achieved_bytes_per_s", "route")} for r in rows],
+         serving=serving, serving_full=serving_full,
+         trace=str(trace.relative_to(ROOT)),
+         trace_events=len(events), span_counts=spans,
+         validate_events=problems, tolerance={
+             "quant_matmul": GEMM_K_TOLERANCE,
+             "flash_decode_attention": FLASH_TOLERANCE},
+         main_path_inputs_vs_plain=main_path)
+    if problems:
+        raise AssertionError(f"trace does not validate: {problems[:5]}")
+    if {r["route"] for r in rows} != {"cuda"}:
+        raise AssertionError("a profile row did not run on the card")
+    if launches != expected:
+        raise AssertionError(f"profile launch counts {launches} != "
+                             f"{expected}")
+    return launches, rows, main_path
 
 
 def _leaves(tree):
@@ -482,6 +957,31 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def kernel_row(name, source, replaces, launches_by_path, path, err,
+               timing, what, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches_by_path[path],
+            "launches_by_path": launches_by_path, "max_abs_err": err,
+            **{key: timing[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+            "what": what, **extra}
+
+
+def gemm_layer_timing(rows, M):
+    """The seven GEMMs of one layer at batch M, summed (rows that were
+    timed: k = 12 / format k12_e15)."""
+    rows = [r for r in rows if r["M"] == M and "ms" in r]
+    if len(rows) != len(GEMM_SHAPES):
+        raise AssertionError(f"{len(rows)} timed rows at M={M}")
+    out = {key: sum(r[key] for r in rows)
+           for key in ("ms", "plain_ms", "library_ms")}
+    n_bytes = sum(4.0 * (M * K + K * N + M * N) for K, N in
+                  GEMM_SHAPES.values())
+    n_ops = sum(2.0 * M * K * N for K, N in GEMM_SHAPES.values())
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
+    return out
 
 
 def main() -> int:
@@ -495,6 +995,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 3
+    from repro_torch import obs
+    from repro_torch.certify import spec
     from repro_torch.core import quantize
     from repro_torch.kernels import _build, flash_decode as fd
     from repro_torch.kernels import quant_matmul as qmm
@@ -506,54 +1008,86 @@ def main() -> int:
     phase_rounding(torch, quantize, qmm)
     qrows, qerr = phase_quant_matmul(torch, qmm)
     fcases, ferr = phase_flash_decode(torch, fd)
-    launches, main_path = phase_serve(torch, serve, qmm, fd, T)
-    qerr = max([qerr] + [r["max_abs_err"]
-                         for r in main_path["quant_matmul_format"]])
+    krows, kerr = phase_quant_matmul_k(torch, qmm)
+    acases, aerr = phase_flash_decode_attention(torch, fd)
+
+    by_path, timings = {}, {}
+    by_path["serve"], fmt_path, timings["serve"] = phase_serve(
+        torch, serve, qmm, fd, T)
+    by_path["serve_k"], k_path, timings["serve_k"] = phase_serve_k(
+        torch, serve, qmm, fd, T, "serve_k",
+        ["--precision-k", str(SERVE_K)],
+        {f"layer{i}": uniform_ks(SERVE_K, SERVE_K) for i in range(2)})
+    v2_set = write_v2_set(spec)
+    by_path["serve_mixed"], mixed_path, timings["serve_mixed"] = (
+        phase_serve_k(torch, serve, qmm, fd, T, "serve_mixed",
+                      ["--certificate-set", str(v2_set)],
+                      {"layer0": uniform_ks(12, 14),
+                       "layer1": uniform_ks(12, 10)}))
+    by_path["profile"], prows, prof_path = phase_profile(torch, obs, qmm, fd)
+    free_device_memory(torch)
+    emit("end_to_end", note="decode ms per step and prefill s of the three "
+         "full-width serve paths, side by side", **{
+             path: {key: t[key] for key in (
+                 "prefill_s", "decode_ms_per_step", "decode_tokens_per_s")}
+             for path, t in timings.items()})
+
+    qerr = max([qerr] + [r["max_abs_err"] for r in (
+        fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"])])
     ferr = max([ferr] + [r["max_abs_err"]
-                         for r in main_path["flash_decode_certified"]])
-
-    decode = [r for r in qrows if r["M"] == SERVE_BATCH and "ms" in r]
-    prefill = [r for r in qrows if r["M"] == 512 and "ms" in r]
-
-    def total(rows, key):
-        return sum(r[key] for r in rows)
-
-    q_bytes = sum(4.0 * (SERVE_BATCH * K + K * N + SERVE_BATCH * N)
-                  for K, N in GEMM_SHAPES.values())
-    q_ops = sum(2.0 * SERVE_BATCH * K * N for K, N in GEMM_SHAPES.values())
-    q_bound, q_by = bound_ms(q_bytes, q_ops)
+                         for r in fmt_path["flash_decode_certified"]])
+    kerr = max([kerr] + [r["max_abs_err"] for r in (
+        k_path + mixed_path + prof_path["quant_matmul"])])
+    aerr = max([aerr] + [r["max_abs_err"]
+                         for r in prof_path["flash_decode_attention"]])
+    launches = {name: {path: counts[name] for path, counts in by_path.items()}
+                for name in KERNELS}
+    roofline = {}
+    for r in prows:
+        roofline.setdefault(r["kernel"], []).append(r["roofline_frac"])
+    serve_last = f"Smax={FLASH_CASES['serve_last'][0]} lengths " \
+        f"{FLASH_CASES['serve_last'][1][0]}"
     kernels = [
-        {"name": "quant_matmul_format", "route": "cuda",
-         "source": "src/repro_torch/csrc/quant_matmul_format.cu",
-         "replaces": "src/repro/kernels/quant_matmul.py:123",
-         "launches": launches["quant_matmul_format"],
-         "max_abs_err": qerr,
-         "ms": total(decode, "ms"), "plain_ms": total(decode, "plain_ms"),
-         "bound_ms": q_bound, "bound_by": q_by,
-         "library_ms": total(decode, "library_ms"),
-         "what": "the 7 GEMMs of one layer at decode, M=4, format k12_e15",
-         "prefill_per_layer": {
-             "M": 512, "ms": total(prefill, "ms"),
-             "plain_ms": total(prefill, "plain_ms"),
-             "library_ms": total(prefill, "library_ms"),
-             "bound_ms": total(prefill, "bound_ms")}},
-        {"name": "flash_decode_certified", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_decode_certified.cu",
-         "replaces": "src/repro/kernels/flash_decode.py:112",
-         "launches": launches["flash_decode_certified"],
-         "max_abs_err": ferr,
-         **{key: fcases["serve_last"][key]
-            for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")},
-         "what": "the serve cache at its last step: B=4 K=4 G=7 D=128 "
-                 f"Smax={FLASH_CASES['serve_last'][0]} lengths "
-                 f"{FLASH_CASES['serve_last'][1][0]}, format k12_e15",
-         "other_cases": {
-             c: {key: fcases[c][key] for key in ("Smax", "lengths", "ms",
-                                                  "plain_ms", "bound_ms",
-                                                  "library_ms")}
-             for c in fcases if c != "serve_last"}},
+        kernel_row(
+            "quant_matmul_format",
+            "src/repro_torch/csrc/quant_matmul_format.cu",
+            "src/repro/kernels/quant_matmul.py:123",
+            launches["quant_matmul_format"], "serve", qerr,
+            gemm_layer_timing(qrows, SERVE_BATCH),
+            "the 7 GEMMs of one layer at decode, M=4, format k12_e15",
+            prefill_per_layer=gemm_layer_timing(qrows, 512)),
+        kernel_row(
+            "flash_decode_certified",
+            "src/repro_torch/csrc/flash_decode_certified.cu",
+            "src/repro/kernels/flash_decode.py:112",
+            launches["flash_decode_certified"], "serve", ferr,
+            fcases["serve_last"],
+            f"the serve cache at its last step: B=4 K=4 G=7 D=128 "
+            f"{serve_last}, format k12_e15",
+            other_cases={c: {key: fcases[c][key] for key in (
+                "Smax", "lengths", "ms", "plain_ms", "bound_ms",
+                "library_ms")} for c in fcases if c != "serve_last"}),
+        kernel_row(
+            "quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
+            "src/repro/kernels/quant_matmul.py:39",
+            launches["quant_matmul"], "serve_k", kerr,
+            gemm_layer_timing(krows, SERVE_BATCH),
+            f"the 7 GEMMs of one layer at decode, M=4, k={SERVE_K}",
+            prefill_per_layer=gemm_layer_timing(krows, 512)),
+        kernel_row(
+            "flash_decode_attention", "src/repro_torch/csrc/flash_decode.cu",
+            "src/repro/kernels/flash_decode.py:40",
+            launches["flash_decode_attention"], "profile", aerr,
+            acases["serve_last"],
+            f"the serve cache's shape: B=4 K=4 G=7 D=128 {serve_last}",
+            other_cases={c: {key: acases[c][key] for key in (
+                "Smax", "lengths", "ms", "plain_ms", "bound_ms",
+                "library_ms")} for c in acases if c != "serve_last"}),
     ]
+    for row in kernels:
+        row["profile_roofline_frac"] = roofline.get(
+            {"flash_decode_attention": "flash_decode"}.get(row["name"],
+                                                           row["name"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,19 @@
-"""Certified serving (PyTorch): prefill + decode through custom formats.
+"""Certified serving (PyTorch): prefill + decode at a certified precision.
 
 The counterpart of the JAX package's ``repro.launch.serve`` for its
-certified custom-format path. A schema-v3 certificate maps each scope to a
-format (k, emax, emin); :class:`FormatQuantJOps` rounds every ``bk.matmul``
-into the scope's format through the ``quant_matmul_format`` CUDA kernel and
-every single-token decode attention through the ``flash_decode_certified``
-kernel. Prefill attention and the LM head stay unrounded true-f32 products.
+certified paths. Three backends round every ``bk.matmul``, one per kind of
+certificate, in the reference's precedence (:func:`_backend`):
+
+* :class:`FormatQuantJOps` — a schema-v3 per-scope format map (k, emax,
+  emin): matmuls through the ``quant_matmul_format`` CUDA kernel and every
+  single-token decode attention through ``flash_decode_certified``;
+* :class:`MixedQuantJOps` — a v2 per-layer map {scope: k} with a default k;
+* :class:`QuantJOps` — a v1 uniform k.
+
+The last two round operands and result to k mantissa bits through the
+``quant_matmul`` CUDA kernel and, as in the reference, decode through the
+composed, unrounded einsum/softmax attention. Prefill attention and the LM
+head stay unrounded true-f32 products in every backend.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card and without an explicit ``cpu`` they
@@ -14,7 +22,8 @@ raise. There is no silent CPU path.
 CLI::
 
     python -m repro_torch.launch.serve --size full --batch 4 \\
-        --prefill-len 128 --decode-steps 16 --layer-format '{"": {...}}'
+        --prefill-len 128 --decode-steps 16 --precision-k 12
+    (or --layer-format '{"": {...}}', or --certificate-set SET.json)
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ from repro_torch.certify.spec import CertificateSet
 from repro_torch.core.backend import TorchOps
 from repro_torch.core.scopes import resolve_scope_value
 from repro_torch.kernels.flash_decode import certified_decode_attention
-from repro_torch.kernels.quant_matmul import quant_matmul_format_dispatch
+from repro_torch.kernels.quant_matmul import (quant_matmul_dynamic_k,
+                                              quant_matmul_format_dispatch)
 from repro_torch.models import transformer as T
 
 
@@ -62,8 +72,14 @@ class ServeConfig:
     max_seq: int = 256
     prefill_len: int = 128
     compute_dtype: str = "float32"
+    # Uniform certified mantissa precision k (v1); None serves plain.
+    precision_k: Optional[int] = None
+    # Per-layer map {scope: k} (v2): matmuls inside a mapped scope run at
+    # its k, everything else at precision_k (which it therefore needs).
+    precision_layer_k: Optional[Dict[str, int]] = None
     # Per-scope FULL-format map {scope: FpFormat descriptor} (schema v3);
-    # the "" entry is the default for unmapped scopes. None serves plain.
+    # the "" entry is the default for unmapped scopes. Takes precedence
+    # over precision_layer_k and precision_k.
     precision_layer_format: Optional[Dict[str, Dict]] = None
     device: str = "cuda"
 
@@ -72,6 +88,51 @@ class ServeConfig:
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r}: the port serves f32 "
                 "only")
+
+
+class QuantJOps(TorchOps):
+    """TorchOps whose matmuls run in the certified k-bit emulation:
+    operands and result RNE-rounded to ``k`` mantissa bits (full f32
+    exponent range), f32 accumulation — through the ``quant_matmul`` CUDA
+    kernel on the card."""
+
+    def __init__(self, k: int, compute_dtype=torch.float32):
+        super().__init__(compute_dtype)
+        self.k = int(k)
+
+    def matmul(self, a, b):
+        return quant_matmul_dynamic_k(a, b, self.k).to(self.compute_dtype)
+
+
+class MixedQuantJOps(TorchOps):
+    """TorchOps whose matmuls run at a per-scope certified precision.
+
+    ``layer_k`` maps scope names (``layer3``, ``layer*/attn``,
+    ``layer0/mlp``, ...) to mantissa precisions; matmuls outside every
+    mapped scope run at ``default_k`` — the semantics a v2 certificate
+    proved. The layer loop is unrolled, so each matmul's scope path resolves
+    a Python int k (as the reference's unrolled baseline does), cached per
+    path."""
+
+    def __init__(self, layer_k: Dict[str, int], default_k: int,
+                 compute_dtype=torch.float32):
+        super().__init__(compute_dtype)
+        self.layer_k = {str(s): int(v) for s, v in (layer_k or {}).items()}
+        self.default_k = int(default_k)
+        self._resolved: Dict[tuple, int] = {}
+
+    def k_for(self, path) -> int:
+        """The k a scope path resolves to."""
+        key = tuple(path)
+        got = self._resolved.get(key)
+        if got is None:
+            got = self._resolved[key] = int(resolve_scope_value(
+                list(path), self.layer_k, self.default_k))
+        return got
+
+    def matmul(self, a, b):
+        out = quant_matmul_dynamic_k(a, b, self.k_for(self.scope_path))
+        return out.to(self.compute_dtype)
 
 
 class _FmtTriple:
@@ -149,11 +210,47 @@ class FormatQuantJOps(TorchOps):
         return out.to(self.compute_dtype)
 
 
-def _backend(sc: ServeConfig):
-    """The format backend when a map is given, else plain TorchOps."""
+def _backend(sc: ServeConfig, monitor=None):
+    """The serving backend, in the reference's precedence: the format map,
+    then the per-layer k map (which needs ``precision_k`` as its default),
+    then the uniform k, then plain TorchOps. A violation ``monitor`` is not
+    ported yet and raises."""
+    if monitor is not None:
+        raise NotImplementedError(
+            "violation monitors are not ported to repro_torch yet")
     if sc.precision_layer_format:
         return FormatQuantJOps(sc.precision_layer_format)
+    if sc.precision_layer_k:
+        if sc.precision_k is None:
+            raise ValueError("precision_layer_k needs precision_k as the "
+                             "default for unmapped scopes")
+        return MixedQuantJOps(sc.precision_layer_k, sc.precision_k)
+    if sc.precision_k is not None:
+        return QuantJOps(sc.precision_k)
     return TorchOps(torch.float32)
+
+
+def apply_certificate_set(sc: ServeConfig,
+                          certset: CertificateSet) -> ServeConfig:
+    """The ServeConfig that serves ``certset``, resolved as the reference's
+    ``apply_certificates`` resolves a stored set: ``precision_k`` from
+    ``serving_k``, the per-layer map from ``serving_layer_k`` and the format
+    map from ``serving_layer_format`` (each None when the set has none). A
+    set with no uniform k but a complete format map (its "" entry) degrades
+    to format-only serving; with neither it raises."""
+    k = certset.serving_k
+    lf = certset.serving_layer_format
+    if k is None:
+        if lf is not None and lf.get(""):
+            return dataclasses.replace(sc, precision_k=None,
+                                       precision_layer_k=None,
+                                       precision_layer_format=lf)
+        raise RuntimeError(
+            f"certificate set for {certset.model_id} holds no certifiable "
+            "precision — serve at full precision")
+    return dataclasses.replace(sc, precision_k=k,
+                               precision_layer_k=certset.serving_layer_k,
+                               precision_layer_format=lf)
 
 
 def prefill_step(bk, params, cfg, cache, tokens):
@@ -214,37 +311,40 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights' generator and the prompts")
+    ap.add_argument("--precision-k", type=int, default=None,
+                    help="serve every matmul at this certified mantissa "
+                         "precision k (uniform, v1 semantics)")
     ap.add_argument("--layer-format", default=None, metavar="JSON",
                     help="a precision_layer_format map {scope: {k, emax, "
                          "emin, ...}} with a '' default entry")
     ap.add_argument("--certificate-set", default=None, metavar="FILE",
-                    help="a CertificateSet JSON; serves its "
-                         "serving_layer_format map")
+                    help="a CertificateSet JSON (schema v1/v2/v3); "
+                         "serves its format map, else its per-layer k map, "
+                         "else its uniform k")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.layer_format and args.certificate_set:
-        ap.error("give --layer-format or --certificate-set, not both")
+    if args.certificate_set and (args.layer_format
+                                 or args.precision_k is not None):
+        ap.error("--certificate-set sets the precision itself: give it "
+                 "without --layer-format and --precision-k")
 
     dev = resolve_device(args.device)
     configure_precision()
     mod = configs.get(args.arch)
     cfg = mod.FULL if args.size == "full" else mod.SMOKE
 
-    certset, layer_format = None, None
-    if args.certificate_set:
-        with open(args.certificate_set) as fh:
-            certset = CertificateSet.from_json(fh.read())
-        layer_format = certset.serving_layer_format
-        if layer_format is None:
-            raise ValueError(f"{args.certificate_set} carries no servable "
-                             "layer_format map")
-    elif args.layer_format:
-        layer_format = json.loads(args.layer_format)
-
     sc = ServeConfig(arch=args.arch, batch=args.batch,
                      max_seq=args.prefill_len + args.decode_steps + 1,
                      prefill_len=args.prefill_len,
-                     precision_layer_format=layer_format, device=str(dev))
+                     precision_k=args.precision_k,
+                     precision_layer_format=(json.loads(args.layer_format)
+                                             if args.layer_format else None),
+                     device=str(dev))
+    certset = None
+    if args.certificate_set:
+        with open(args.certificate_set) as fh:
+            certset = CertificateSet.from_json(fh.read())
+        sc = apply_certificate_set(sc, certset)
     bk = _backend(sc)
 
     t0 = time.perf_counter()

@@ -20,6 +20,7 @@ import torch
 from repro.core import quantize as JQ
 from repro.kernels import flash_decode as jfd
 from repro.kernels import quant_matmul as jqm
+from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import quant_matmul as tqm
@@ -113,11 +114,15 @@ def _attn_inputs(B, H, G, D, S, seed):
 
 
 def _attn_pre_tol(v, lengths, fmt):
+    """2·(n + 16)·2⁻²⁴·max|v̂| over the n positions a lane attends: its
+    length, or all S for a lane of length 0 (every score masked alike)."""
     vq = np.abs(np.asarray(JQ.quantize_to_format(jnp.asarray(v), *fmt)))
     S = v.shape[1]
-    valid = np.arange(S)[None, :] < np.asarray(lengths)[:, None]
+    n = np.asarray(lengths, np.int64)
+    n = np.where(n <= 0, S, np.minimum(n, S))
+    valid = np.arange(S)[None, :] < n[:, None]
     vmax = np.where(valid[:, :, None, None], vq, 0).max(axis=(1, 3))
-    slack = 2.0 * (np.asarray(lengths, np.float64) + 16)[:, None] * 2.0 ** -24
+    slack = 2.0 * (n.astype(np.float64) + 16)[:, None] * 2.0 ** -24
     return (slack * vmax)[:, :, None, None]
 
 
@@ -139,6 +144,61 @@ def test_flash_decode_plain_vs_jax_oracle_and_pallas(fmt):
     assert got.shape == (B, H, G, D)
     assert_ulp_rule(oracle, got, fmt, pre)
     assert_ulp_rule(pallas, got, fmt, pre)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_flash_decode_certified_plain_at_length_zero(fmt):
+    """A lane of length 0: every score is masked to -1e30, every weight is
+    exp(0) = 1, so the plain version, the JAX oracle and the interpret-mode
+    Pallas kernel all give the mean of the rounded v over all S, rounded."""
+    B, H, G, D, S = 3, 2, 3, 16, 32
+    q, k, v = _attn_inputs(B, H, G, D, S, seed=sum(fmt) % 89)
+    lengths = np.asarray([0, 9, 0], np.int32)
+    got = tfd.flash_decode_quantized_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), fmt).numpy()
+    assert np.isfinite(got).all()
+    oracle = np.asarray(jfd.flash_decode_quantized_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths), fmt))
+    pre = _attn_pre_tol(v, lengths, fmt)
+    assert_ulp_rule(oracle, got, fmt, pre)
+    for bs in (S, 8):
+        pallas = np.asarray(jfd.flash_decode_certified(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lengths), fmt, block_s=bs, interpret=True))
+        assert_ulp_rule(pallas, got, fmt, pre)
+    mean_v = np.asarray(JQ.quantize_to_format(jnp.asarray(v), *fmt)).mean(1)
+    assert_ulp_rule(got[0], np.broadcast_to(mean_v[0][:, None, :],
+                                            (H, G, D)), fmt, pre[0])
+
+
+@pytest.mark.parametrize("B,H,G,D,S,lens", [
+    (3, 2, 3, 16, 32, [1, 17, 32]),
+    (3, 2, 7, 16, 48, [0, 5, 48]),
+    (2, 1, 2, 8, 64, [64, 0]),
+])
+def test_flash_decode_attention_plain_vs_jax_oracle_and_pallas(B, H, G, D, S,
+                                                               lens):
+    """The uncertified pair over ragged lengths, length 0 included: the
+    plain version against ``ref.flash_decode_ref`` and the Pallas kernel in
+    interpret mode, one S block and several."""
+    q, k, v = _attn_inputs(B, H, G, D, S, seed=S + G)
+    lengths = np.asarray(lens, np.int32)
+    got = tfd.flash_decode_ref(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v),
+                               torch.from_numpy(lengths)).numpy()
+    assert got.shape == (B, H, G, D) and np.isfinite(got).all()
+    f32 = (24, 127, -126)            # nothing is rounded: ulps of f32
+    pre = _attn_pre_tol(v, lengths, f32)
+    oracle = np.asarray(jref.flash_decode_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths)))
+    assert_ulp_rule(oracle, got, f32, pre)
+    for bs in (S, 16):
+        pallas = np.asarray(jfd.flash_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lengths), block_s=bs, interpret=True))
+        assert_ulp_rule(pallas, got, f32, pre)
 
 
 def test_flash_decode_masks_past_length():
@@ -183,6 +243,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         tfd.flash_decode_certified(q, kv, kv, torch.ones(1, dtype=torch.int32),
                                    (12, 15, -14))
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x, torch.zeros(8, 4), k=12)
+    with pytest.raises(ValueError):
+        tfd.flash_decode_attention(q, kv, kv,
+                                   torch.ones(1, dtype=torch.int32))
 
 
 def test_build_recipe():
@@ -204,7 +269,9 @@ def test_build_recipe():
 def test_cuda_sources_carry_their_notes():
     """Each kernel source names the TPU kernel it replaces and its bound."""
     for name, tpu in [("quant_matmul_format", "_quant_matmul_format_kernel"),
-                      ("flash_decode_certified", "_flash_decode_fmt_kernel")]:
+                      ("flash_decode_certified", "_flash_decode_fmt_kernel"),
+                      ("quant_matmul", "_quant_matmul_kernel"),
+                      ("flash_decode", "_flash_decode_kernel")]:
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert tpu in text
         assert "What bounds it" in text

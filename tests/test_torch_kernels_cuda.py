@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quantize import quantize_to_format
+from repro_torch.core.quantize import _quantize_normal, quantize_to_format
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import quant_matmul as tqm
 
@@ -99,3 +99,150 @@ def test_kernels_count_their_launches(cuda_device):
     tqm.quant_matmul_format_dispatch(x.reshape(2, 2, 64), w, (12, 15, -14))
     tqm.quant_matmul_format_ref(x, w, (12, 15, -14))
     assert tqm.quant_matmul_format.launches == 1
+
+
+KS = [2, 8, 12, 23, 24]
+
+
+def _k_pre_tol(x, w, k):
+    """2·√K·2⁻²⁴·(|q_k(x)|@|q_k(w)|): the order difference of two f32 sums."""
+    K = x.shape[1]
+    xq = _quantize_normal(x, k).abs().double()
+    wq = _quantize_normal(w, k).abs().double()
+    return 2 * np.sqrt(K) * 2.0 ** -24 * (xq @ wq)
+
+
+def assert_same_bits(got, want):
+    """Equal bit for bit, except that any NaN equals any NaN."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KS)
+def test_quant_matmul_k_kernel_vs_plain_on_card(cuda_device, k):
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    M, K, N = 37, 200, 70
+    x = torch.randn(M, K, device=cuda_device, generator=gen)
+    w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
+    got = tqm.quant_matmul(x, w, k=k)
+    want = tqm.quant_matmul_ref(x, w, k)
+    assert_ulp_rule(got, want, (k, 127, -126), _k_pre_tol(x, w, k))
+    alone = tqm.quant_matmul(x[:5].contiguous(), w, k=k)
+    assert torch.equal(alone.view(torch.int32), got[:5].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (37, 1000, 70)])
+def test_quant_matmul_k_kernel_exact_on_coarse_grid(cuda_device, k, M, K, N):
+    # integers in [-3, 3] times 2^-2 resp. 2^-3 need 2 mantissa bits, and
+    # every partial sum of their products is an exact f32
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randint(-3, 4, (M, K), device=cuda_device,
+                      generator=gen).float() * 2.0 ** -2
+    w = torch.randint(-3, 4, (K, N), device=cuda_device,
+                      generator=gen).float() * 2.0 ** -3
+    assert_same_bits(tqm.quant_matmul(x, w, k=k),
+                     tqm.quant_matmul_ref(x, w, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KS)
+def test_quant_matmul_k_kernel_nonfinite_and_near_max(cuda_device, k):
+    """NaN and ±inf pass through the rounding; ±f32 max carries into ±inf
+    at k < 24; a near-max row absorbs the small terms in any order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    M, K, N = 9, 64, 40
+    x = torch.randint(-3, 4, (M, K), device=cuda_device,
+                      generator=gen).float() * 2.0 ** -2
+    w = torch.randint(-3, 4, (K, N), device=cuda_device,
+                      generator=gen).float() * 2.0 ** -3
+    big = 3.4028234663852886e38
+    x[0, 3] = float("nan")
+    x[1, 5] = float("inf")
+    x[2, 7] = -float("inf")
+    x[3, 0] = big
+    x[4, 1] = -big
+    x[5, 2] = 3.3e38
+    x[6, 9] = -1.5e38
+    # weights of ±1/8, ±1/4 or 0 against the near-max inputs keep their
+    # products exact, so no tie can be broken by the order of the sum
+    w[[0, 1, 2, 9]] = w[[0, 1, 2, 9]].clamp(-0.25, 0.25)
+    assert_same_bits(tqm.quant_matmul(x, w, k=k),
+                     tqm.quant_matmul_ref(x, w, k))
+
+
+def _flash_slack(v, lengths, rounded=None):
+    """2·(n + 16)·2⁻²⁴·max|v| over the n positions a lane attends (all S
+    for a lane of length 0)."""
+    S = v.shape[1]
+    n = torch.where(lengths <= 0, S, lengths.clamp(max=S))
+    valid = torch.arange(S, device=v.device)[None, :] < n[:, None]
+    va = (v if rounded is None else rounded).abs()
+    vmax = torch.where(valid[:, :, None, None], va, 0).amax(dim=(1, 3))
+    slack = 2.0 * (n.double() + 16)[:, None] * 2.0 ** -24
+    return (slack * vmax.double())[:, :, None, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,G,D,S,lens", [
+    (3, 4, 7, 128, 100, [0, 33, 100]),
+    (2, 2, 2, 64, 256, [256, 1]),
+    (4, 4, 7, 128, 145, [129, 144, 0, 7]),
+])
+def test_flash_decode_attention_kernel_vs_plain_on_card(cuda_device, B, H, G,
+                                                        D, S, lens):
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    q = torch.randn(B, H, G, D, device=cuda_device, generator=gen)
+    k = torch.randn(B, S, H, D, device=cuda_device, generator=gen)
+    v = torch.randn(B, S, H, D, device=cuda_device, generator=gen)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = tfd.flash_decode_attention(q, k, v, lengths)
+    want = tfd.flash_decode_ref(q, k, v, lengths)
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff <= _flash_slack(v, lengths)).all()), float(diff.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_flash_decode_certified_at_length_zero(cuda_device, fmt):
+    """A lane of length 0 gives the plain version's result: uniform weights
+    over all S positions, the mean of the rounded v, rounded."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    B, H, G, D, S = 2, 4, 7, 128, 70
+    q = torch.randn(B, H, G, D, device=cuda_device, generator=gen)
+    k = torch.randn(B, S, H, D, device=cuda_device, generator=gen)
+    v = torch.randn(B, S, H, D, device=cuda_device, generator=gen)
+    lengths = torch.tensor([0, 40], dtype=torch.int32, device=cuda_device)
+    got = tfd.flash_decode_certified(q, k, v, lengths, fmt)
+    want = tfd.flash_decode_quantized_ref(q, k, v, lengths, fmt)
+    assert bool(torch.isfinite(got).all())
+    assert_ulp_rule(got, want, fmt, _flash_slack(
+        v, lengths, quantize_to_format(v, *fmt)))
+
+
+@pytest.mark.cuda
+def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
+    x = torch.randn(4, 64, device=cuda_device)
+    w = torch.randn(64, 32, device=cuda_device)
+    tqm.quant_matmul.launches = 0
+    tqm.quant_matmul_dynamic_k(x.reshape(2, 2, 64), w, 12)
+    tqm.quant_matmul_ref(x, w, 12)
+    assert tqm.quant_matmul.launches == 1
+    q = torch.randn(1, 1, 2, 64, device=cuda_device)
+    kv = torch.randn(1, 8, 1, 64, device=cuda_device)
+    lengths = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    tfd.flash_decode_attention.launches = 0
+    tfd.flash_decode_attention(q, kv, kv, lengths)
+    tfd.flash_decode_ref(q, kv, kv, lengths)
+    assert tfd.flash_decode_attention.launches == 1
+    with pytest.raises(ValueError):
+        tfd.flash_decode_attention(torch.randn(1, 1, 9, 64,
+                                               device=cuda_device),
+                                   kv, kv, lengths)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x, w, k=0)

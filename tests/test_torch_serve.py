@@ -32,17 +32,14 @@ from repro.launch.batching import make_backend
 from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
 from repro_torch.certify import spec as tspec
-from repro_torch.convert import params_from_numpy
 from repro_torch.core.backend import TorchOps
 from repro_torch.core.scopes import resolve_scope_value as t_resolve
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
+from _torch_serve_parity import (B, JCFG, MAX_SEQ, PROMPT, TCFG, both_params,
+                                 check_steps, run_both)
 
 ROOT = Path(__file__).resolve().parents[1]
-JCFG = jconfigs.get("qwen2_7b").SMOKE
-TCFG = tconfigs.get("qwen2_7b").SMOKE
-B, PROMPT, STEPS = 2, 8, 8
-MAX_SEQ = PROMPT + STEPS + 1
 FMT_MAP = {"": {"k": 11, "emax": 15, "emin": -14},
            "layer*/attn": {"k": 8, "emax": 15, "emin": -14},
            "layer0/mlp": {"k": 9, "emax": 7, "emin": -6}}
@@ -50,67 +47,15 @@ FMT_MAP = {"": {"k": 11, "emax": 15, "emin": -14},
 
 @pytest.fixture(scope="module")
 def params():
-    jp = JT.init_params(jax.random.PRNGKey(0), JCFG)
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-    return jp, tp
-
-
-def _run_both(jbk, tbk, params):
-    """Prefill + STEPS decode steps through both packages, greedy, each on
-    its own tokens. Yields per-step (j_logits, t_logits, j_cache, t_cache)."""
-    jp, tp = params
-    toks = np.random.RandomState(0).randint(0, JCFG.vocab, (B, PROMPT))
-    # jitted as the reference's serve jits it (the position is traced)
-    jstep = jax.jit(lambda p, c, t, pos: JT.forward(jbk, p, JCFG, t,
-                                                    cache=c, q_offset=pos))
-    jc = JT.init_cache(JCFG, B, MAX_SEQ, jnp.float32)
-    tc = TT.init_cache(TCFG, B, MAX_SEQ, device="cpu")
-    jl, jc = jstep(jp, jc, jnp.asarray(toks), jnp.int32(0))
-    with torch.no_grad():
-        tl, tc = tserve.prefill_step(tbk, tp, TCFG, tc,
-                                     torch.from_numpy(toks))
-    # the port writes its cache in place: keep a copy per step
-    snap = lambda c: {k: v.clone() for k, v in c.items()}
-    out = [(np.asarray(jl[:, -1]), tl[:, -1].numpy(), jc, snap(tc))]
-    jt = jnp.argmax(jl[:, -1], -1)
-    tt = torch.argmax(tl[:, -1], -1)
-    for i in range(STEPS):
-        jl, jc = jstep(jp, jc, jt[:, None], jnp.int32(PROMPT + i))
-        with torch.no_grad():
-            tt, tlast, tc = tserve.decode_step(tbk, tp, TCFG, tc,
-                                               tt[:, None], PROMPT + i)
-        jt = jnp.argmax(jl[:, -1], -1)
-        out.append((np.asarray(jl[:, -1]), tlast.numpy(), jc, snap(tc)))
-    return out
-
-
-def _top1_gap(logits):
-    top2 = np.sort(logits, axis=-1)[:, -2:]
-    return top2[:, 1] - top2[:, 0]
-
-
-def _check(steps, logit_atol, cache_tol):
-    for i, (jl, tl, jc, tc) in enumerate(steps):
-        jtok, ttok = jl.argmax(-1), tl.argmax(-1)
-        assert np.array_equal(jtok, ttok), (
-            f"step {i}: tokens {jtok} vs {ttok}; top-1 gap "
-            f"{_top1_gap(jl)}")
-        np.testing.assert_allclose(tl, jl, rtol=0, atol=logit_atol)
-        assert np.array_equal(np.asarray(jc["idx"]), tc["idx"].numpy())
-        for name in ("k", "v"):
-            want = np.asarray(jc[name])
-            got = tc[name].numpy()
-            assert got.shape == want.shape == (
-                JCFG.n_layers, B, MAX_SEQ, JCFG.n_kv_heads, JCFG.head_dim)
-            cache_tol(got, want)
+    return both_params()
 
 
 def test_plain_serve_matches_jax_jops(params):
     def cache_tol(got, want):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
-    steps = _run_both(JOps(jnp.float32, jnp.float32), TorchOps(), params)
-    _check(steps, 2e-6, cache_tol)
+    steps = run_both(JOps(jnp.float32, jnp.float32), TorchOps(), params)
+    check_steps(steps, 2e-6, cache_tol)
 
 
 def test_format_serve_matches_jax_format_backend(params):
@@ -124,8 +69,8 @@ def test_format_serve_matches_jax_format_backend(params):
         np.testing.assert_allclose(got, want, rtol=2.0 ** (1 - k_attn),
                                    atol=1e-6)
 
-    steps = _run_both(jbk, tbk, params)
-    _check(steps, 1e-3, cache_tol)
+    steps = run_both(jbk, tbk, params)
+    check_steps(steps, 1e-3, cache_tol)
 
 
 def test_format_backend_rounds_differently_from_plain(params):
