@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
-port's four CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
+port's six CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
 ``build/repro_torch/``), checks each against its plain PyTorch version on
-the card at the shapes of full-width Qwen2-7B, and drives the port's paths
-through the entry points a user calls, with every kernel's launch counter
-set to 0 just before each path and read just after:
+the card, and drives the port's paths through the entry points a user
+calls, with every kernel's launch counter set to 0 just before each path
+and read just after:
 
 * ``serve`` — full-width Qwen2-7B (random weights from a seed) through the
   certified custom-format path (kernels ``quant_matmul_format`` and
@@ -16,7 +16,17 @@ set to 0 just before each path and read just after:
   ``quant_matmul``);
 * ``profile`` — the kernel profiler (every kernel, ``flash_decode_attention``
   among them) and the serving profile (at the reference's SMOKE defaults
-  and at full width), under the port's JSONL tracer.
+  and at full width), under the port's JSONL tracer;
+* ``interval_libm`` — the interval transcendentals on the card against the
+  CPU's f64 values at about 10⁶ points, directed rounding bitwise;
+* ``analyze`` — the paper's Table-I flow (``examples/quickstart.py``) on
+  the Digits model at its full width 784→700→256→10, trained on the card,
+  with Pendulum and ConvNet at their defaults, then again on the CPU with
+  the same weights: bounds, required k and certified decisions agree;
+* ``analysis_ops`` / ``caa_matmul`` / ``interval_matmul`` — kernels 5 and 6
+  through ``ops.caa_matmul_fused`` / ``ops.interval_matmul_rigorous`` on the
+  analysis's own dense-layer operands, then at the seven Qwen2-7B
+  projections, against their plain versions.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -63,7 +73,7 @@ MIXED_K = 16                      # the v2 set's serving_k ...
 MIXED_LAYER_K = {"layer*/attn": 12, "layer*/mlp": 10, "layer0/mlp": 14}
 GEMM_KS = (8, 12, 24)
 KERNELS = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
-           "flash_decode_attention")
+           "flash_decode_attention", "caa_matmul", "interval_matmul")
 
 
 def emit(phase: str, **fields) -> None:
@@ -547,11 +557,20 @@ def phase_flash_decode_attention(torch, fd):
 
 
 def kernel_fns(qmm, fd):
-    """The four kernel wrappers by name; each counts its launches."""
+    """The six kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels import caa_matmul as cm
+    from repro_torch.kernels import interval_matmul as im
+
     return {"quant_matmul_format": qmm.quant_matmul_format,
             "flash_decode_certified": fd.flash_decode_certified,
             "quant_matmul": qmm.quant_matmul,
-            "flash_decode_attention": fd.flash_decode_attention}
+            "flash_decode_attention": fd.flash_decode_attention,
+            "caa_matmul": cm.caa_matmul,
+            "interval_matmul": im.interval_matmul}
+
+
+# the serving and profile paths launch neither analysis kernel
+ANALYSIS_KERNELS_IDLE = {"caa_matmul": 0, "interval_matmul": 0}
 
 
 def reset_launches(fns):
@@ -670,7 +689,8 @@ def phase_serve(torch, serve, qmm, fd, T):
 
     expected = {"quant_matmul_format": 7 * L_FULL * (1 + SERVE_STEPS),
                 "flash_decode_certified": L_FULL * SERVE_STEPS,
-                "quant_matmul": 0, "flash_decode_attention": 0}
+                "quant_matmul": 0, "flash_decode_attention": 0,
+                **ANALYSIS_KERNELS_IDLE}
     serve.quant_matmul_format_dispatch = spy_qmm
     serve.certified_decode_attention = spy_fd
     try:
@@ -767,7 +787,7 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
 
     expected = {"quant_matmul_format": 0, "flash_decode_certified": 0,
                 "quant_matmul": 7 * L_FULL * (1 + SERVE_STEPS),
-                "flash_decode_attention": 0}
+                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE}
     serve.quant_matmul_dynamic_k = spy
     try:
         res, launches = run_serve(torch, serve, fns, serve_argv(*extra),
@@ -897,7 +917,8 @@ def phase_profile(torch, obs, qmm, fd):
     expected = {"quant_matmul_format": len(shapes) * calls,
                 "flash_decode_certified": 0,
                 "quant_matmul": 2 * len(shapes) * calls + n_serving,
-                "flash_decode_attention": len(flash_shapes) * calls}
+                "flash_decode_attention": len(flash_shapes) * calls,
+                **ANALYSIS_KERNELS_IDLE}
     if serving_full["n_layers"] != L_FULL:
         raise AssertionError(f"full-width profile ran "
                              f"{serving_full['n_layers']} layers")
@@ -951,6 +972,671 @@ def phase_profile(torch, obs, qmm, fd):
     return launches, rows, main_path
 
 
+# ---------------------------------------------------------------------------
+# the CAA analysis slice: interval libm, the Table-I flow, kernels 5 and 6
+# ---------------------------------------------------------------------------
+
+LIBM_FUNCS = ("exp", "expm1", "log", "tanh", "sigmoid", "erf", "silu",
+              "gelu_tanh")
+TABLE1_CFG = {"u_max": 2.0 ** -7, "emulate_k": 8}   # quickstart's k = 8 run
+P_STAR = 0.6
+N_CERT = 64
+REL_TOL = 1e-9                    # card vs CPU port, bounds and margins
+
+
+def sync_seconds(torch, t0):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def libm_points(torch):
+    """About 10⁶ f64 points: the working range, dense near 0, the
+    saturation zones of tanh/sigmoid/erf (|x| in [8, 30]), the overflow
+    and underflow edges of exp and twenty decades each way."""
+    gen = torch.Generator().manual_seed(13)
+
+    def u(n, a, b):
+        return a + (b - a) * torch.rand(n, generator=gen, dtype=torch.float64)
+
+    sign = torch.where(torch.rand(100_000, generator=gen) < 0.5, -1.0, 1.0)
+    return torch.cat([
+        u(400_000, -40.0, 40.0),
+        torch.randn(200_000, generator=gen, dtype=torch.float64) * 3.0,
+        u(100_000, -30.0, -8.0), u(100_000, 8.0, 30.0),
+        u(100_000, -745.0, 710.0),
+        sign.double() * torch.pow(10.0, u(100_000, -300.0, 300.0)),
+        torch.tensor([0.0, -0.0, 1e-310, -1e-310, 709.78, -745.1, 12.0,
+                      -12.0, 25.0, -25.0, 4.0, -4.0],
+                     dtype=torch.float64)])
+
+
+def libm_value(torch, name, x):
+    """The f64 value each interval function encloses, as the port
+    evaluates its endpoints (gelu_tanh as x·σ(2y))."""
+    if name == "silu":
+        return x * torch.sigmoid(x)
+    if name == "gelu_tanh":
+        y2 = 2.0 * math.sqrt(2.0 / math.pi) * (x + 0.044715 * x * x * x)
+        return x * torch.sigmoid(y2)
+    return getattr(torch, name)(x)
+
+
+def phase_interval_libm(torch, iv):
+    """Each interval transcendental computed on the card contains the
+    CPU's f64 value at every point; directed rounding is bitwise the
+    CPU's."""
+    t0 = time.perf_counter()
+    x = libm_points(torch)
+    xg = x.cuda()
+    rows = {}
+    # the CPU's values from one thread: PyTorch 2.13's CPU build was seen to
+    # return f64 exp values up to 3e7 ulps off from its first call on a
+    # large tensor when that call ran multi-threaded
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu_vals = {name: libm_value(torch, name,
+                                     x.abs() if name == "log" else x)
+                    for name in LIBM_FUNCS}
+    finally:
+        torch.set_num_threads(threads)
+    for name in LIBM_FUNCS:
+        xs, xsg = (x.abs(), xg.abs()) if name == "log" else (x, xg)
+        enc = getattr(iv, name)(iv.Interval(xsg, xsg))
+        want = cpu_vals[name].cuda()
+        inside = (enc.lo <= want) & (want <= enc.hi)
+        if not bool(inside.all()):
+            bad = (~inside).nonzero()[:5, 0]
+            raise AssertionError(
+                f"interval_libm {name}: {int((~inside).sum())} points "
+                f"outside, e.g. x={xs[bad.cpu()].tolist()} "
+                f"cpu={want[bad].tolist()} lo={enc.lo[bad].tolist()} "
+                f"hi={enc.hi[bad].tolist()}")
+        card = libm_value(torch, name, xsg)
+        fin = torch.isfinite(want) & (want != 0)
+        ulps = ((card - want).abs() / torch.nextafter(
+            want.abs(), torch.full_like(want, math.inf)).sub(want.abs()))
+        rows[name] = {"points": x.numel(), "outside": 0,
+                      "card_vs_cpu_max_ulps": float(ulps[fin].max()),
+                      "card_equal_frac": float((card == want).double()
+                                               .mean())}
+    for name in ("_down", "_up"):
+        got = getattr(iv, name)(xg).cpu().view(torch.int64)
+        if not torch.equal(got, getattr(iv, name)(x).view(torch.int64)):
+            raise AssertionError(f"interval_libm {name} differs from the "
+                                 "CPU's bits")
+    emit("interval_libm", points=x.numel(), functions=rows,
+         directed_rounding_bitwise=True,
+         seconds=time.perf_counter() - t0)
+
+
+def train_digits(torch, PM, TorchOps, params, imgs, labels, steps=400,
+                 lr=0.2):
+    """quickstart's ``train`` in plain PyTorch autograd: SGD, batch 64 drawn
+    by ``RandomState(i)``, mean cross-entropy of the logits."""
+    import numpy as np
+
+    dev = params["w1"].device
+    x_all = torch.from_numpy(imgs).to(dev)
+    y_all = torch.from_numpy(labels).long().to(dev)
+    bk = TorchOps()
+    for i in range(steps):
+        idx = torch.from_numpy(np.random.RandomState(i).choice(
+            imgs.shape[0], 64)).to(dev)
+        ps = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        lp = torch.log_softmax(PM.digits_logits(bk, ps, x_all[idx]), -1)
+        loss = -lp.gather(-1, y_all[idx][:, None]).mean()
+        grads = torch.autograd.grad(loss, list(ps.values()))
+        params = {k: (v - lr * g).detach()
+                  for (k, v), g in zip(ps.items(), grads)}
+    acc = float((PM.digits_logits(bk, params, x_all).argmax(-1)
+                 == y_all).double().mean())
+    return params, acc
+
+
+def k_borderline(abs_u, rel_u, theory):
+    """How close a required-k decision was to flipping: the smallest
+    relative distance of bound/margin from a power of two over both
+    routes (k changes where 1 + log2(B/m) crosses an integer)."""
+    best = math.inf
+    for b, m in ((abs_u, theory.abs_margin(P_STAR)),
+                 (rel_u, theory.rel_margin(P_STAR))):
+        if math.isfinite(b) and b > 0:
+            r = b / m
+            best = min(best, abs(r / 2.0 ** round(math.log2(r)) - 1.0))
+    return best
+
+
+def table1(torch, m, dev, digits, conv, pend, imgs, labels):
+    """The Table-I flow on ``dev`` (steps 2–6 of the analyze phase):
+    bounds, decisions with the margins that decided them, seconds."""
+    import numpy as np
+
+    caa, analyze, precision, PM = m["caa"], m["analyze"], m["precision"], \
+        m["PM"]
+    CaaOps, TorchOps = m["CaaOps"], m["TorchOps"]
+    f64 = torch.float64
+    cfg = caa.CaaConfig(**TABLE1_CFG)
+    out = {"device": dev}
+
+    x0 = torch.from_numpy(imgs[0].astype(np.float64)).to(dev)
+    t0 = time.perf_counter()
+    probs = PM.digits_forward(CaaOps(cfg), digits, caa.weight(x0, cfg))
+    a_abs, a_rel = caa.actual_error_in_u(probs, cfg.u_max)
+    dbar, ebar = caa.worst(probs)
+    top2 = torch.topk(probs.val, 2).values
+    rel_fin = a_rel[torch.isfinite(a_rel)]
+    out["digits_k8"] = {
+        "dbar": dbar, "ebar": ebar, "actual_abs_u": float(a_abs.max()),
+        "actual_rel_u": float(rel_fin.max()) if rel_fin.numel() else math.inf,
+        "pred": int(probs.val.argmax()),
+        "pred_margin": float((top2[0] - top2[1]) / top2[0]),
+        "seconds": sync_seconds(torch, t0)}
+
+    trail = []
+
+    def bounds_at(u):
+        c = caa.CaaConfig(u_max=u)
+        ab = caa.worst(PM.digits_forward(CaaOps(c), digits,
+                                         caa.weight(x0, c)))
+        trail.append([u, *ab])
+        return ab
+
+    t0 = time.perf_counter()
+    dec = precision.decide_iterative(bounds_at, p_star=P_STAR)
+    out["decide_iterative"] = {
+        "required_k": dec.required_k, "dbar": dec.final_abs_bound_u,
+        "ebar": dec.final_rel_bound_u, "satisfied_by": dec.satisfied_by,
+        "trail": trail, "seconds": sync_seconds(torch, t0)}
+
+    # one input of each class in one stacked pass, at the unit of the k
+    # just decided (at k = 8 every bound of this model saturates to +inf)
+    idx = [int(np.nonzero(labels == c)[0][0]) for c in range(10)]
+    xs = torch.from_numpy(imgs[idx].astype(np.float64)).to(dev)
+    cfg_k = caa.CaaConfig(u_max=2.0 ** (1 - dec.required_k))
+    rep = analyze.analyze_batched(PM.digits_forward, digits,
+                                  caa.weight(xs, cfg_k), p_star=P_STAR,
+                                  cfg=cfg_k)
+    out["batched"] = {
+        "u_max": cfg_k.u_max,
+        "abs_u": rep.abs_u.tolist(), "rel_u": rep.rel_u.tolist(),
+        "required_k": [d.required_k if d else None for d in rep.decisions],
+        "seconds": rep.analysis_seconds,
+        "seconds_per_class": rep.analysis_seconds / rep.n_classes}
+
+    x64 = torch.from_numpy(imgs[:N_CERT].astype(np.float64)).to(dev)
+    c64 = analyze.batch_config(cfg, N_CERT)
+    t0 = time.perf_counter()
+    p8 = PM.digits_forward(CaaOps(c64), digits, caa.weight(x64, c64))
+    exact_pred = PM.digits_forward(TorchOps(f64), digits, x64).argmax(-1)
+    lo, hi = p8.exact.lo.cpu(), p8.exact.hi.cpu()
+    top2 = torch.topk(p8.val, 2, dim=-1).values.cpu()
+    pred = p8.val.argmax(-1).cpu()
+    exact_pred = exact_pred.cpu()
+    seconds = sync_seconds(torch, t0)
+    certs, margins, n_cert, n_ok = [], [], 0, 0
+    for i in range(N_CERT):
+        p = int(pred[i])
+        cert = precision.classification_safe(lo[i].numpy(), hi[i].numpy(),
+                                             p)
+        others = torch.cat([hi[i, :p], hi[i, p + 1:]])
+        margins.append(float((lo[i, p] - others.max()) / lo[i, p].abs()))
+        certs.append(bool(cert))
+        if cert:
+            n_cert += 1
+            n_ok += int(int(exact_pred[i]) == p)
+    out["certified"] = {
+        "n": N_CERT, "n_cert": n_cert, "n_ok": n_ok, "certs": certs,
+        "margins": margins, "pred": pred.tolist(),
+        "pred_margins": ((top2[:, 0] - top2[:, 1]) / top2[:, 0]).tolist(),
+        "seconds": seconds}
+
+    lo6 = torch.full((2,), -6.0, dtype=f64, device=dev)
+    rep = analyze.analyze(PM.pendulum_forward, pend,
+                          caa.from_range(lo6, -lo6),
+                          cfg=caa.CaaConfig(u_max=TABLE1_CFG["u_max"]))
+    out["pendulum"] = {"dbar": rep.final_abs_u, "ebar": rep.final_rel_u,
+                       "seconds": rep.analysis_seconds}
+
+    xc = torch.from_numpy(imgs[:1].reshape(1, 28, 28, 1)
+                          .astype(np.float64)).to(dev)
+    rep = analyze.analyze(PM.convnet_forward, conv, caa.weight(xc, cfg),
+                          p_star=P_STAR, cfg=cfg)
+    out["convnet"] = {
+        "dbar": rep.final_abs_u, "ebar": rep.final_rel_u,
+        "required_k": rep.decision.required_k if rep.decision else None,
+        "seconds": rep.analysis_seconds}
+    return out
+
+
+def compare_table1(card, cpu, theory):
+    """Card against CPU port: bounds within REL_TOL; decisions equal, or
+    the margin that decided them within REL_TOL of its threshold (printed
+    either way). Returns (bound comparisons, differing decisions, faults)."""
+    bounds, differing, faults = [], [], []
+
+    def bound(label, a, b):
+        same = (a == b) or (math.isfinite(a) and math.isfinite(b)
+                            and abs(a - b) <= REL_TOL * abs(b))
+        bounds.append({"what": label, "card": a, "cpu": b})
+        if not same:
+            faults.append(f"{label}: card {a!r} vs cpu {b!r}")
+
+    def decision(label, a, b, margin):
+        if a != b:
+            ok = margin <= REL_TOL
+            differing.append({"what": label, "card": a, "cpu": b,
+                              "margin": margin, "borderline": ok})
+            if not ok:
+                faults.append(f"{label}: card {a!r} vs cpu {b!r}, margin "
+                              f"{margin!r}")
+
+    for key in ("digits_k8", "decide_iterative", "pendulum", "convnet"):
+        bound(f"{key}.dbar", card[key]["dbar"], cpu[key]["dbar"])
+        bound(f"{key}.ebar", card[key]["ebar"], cpu[key]["ebar"])
+    decision("digits_k8.pred", card["digits_k8"]["pred"],
+             cpu["digits_k8"]["pred"],
+             min(abs(card["digits_k8"]["pred_margin"]),
+                 abs(cpu["digits_k8"]["pred_margin"])))
+    trail = min((k_borderline(a, r, theory)
+                 for _, a, r in card["decide_iterative"]["trail"]),
+                default=math.inf)
+    decision("decide_iterative.required_k",
+             card["decide_iterative"]["required_k"],
+             cpu["decide_iterative"]["required_k"], trail)
+    for c in range(10):
+        a, r = card["batched"]["abs_u"][c], card["batched"]["rel_u"][c]
+        bound(f"batched[{c}].abs_u", a, cpu["batched"]["abs_u"][c])
+        bound(f"batched[{c}].rel_u", r, cpu["batched"]["rel_u"][c])
+        decision(f"batched[{c}].required_k",
+                 card["batched"]["required_k"][c],
+                 cpu["batched"]["required_k"][c],
+                 k_borderline(a, r, theory))
+    for i in range(N_CERT):
+        decision(f"certified[{i}]", card["certified"]["certs"][i],
+                 cpu["certified"]["certs"][i],
+                 min(abs(card["certified"]["margins"][i]),
+                     abs(cpu["certified"]["margins"][i])))
+        decision(f"certified[{i}].pred", card["certified"]["pred"][i],
+                 cpu["certified"]["pred"][i],
+                 min(card["certified"]["pred_margins"][i],
+                     cpu["certified"]["pred_margins"][i]))
+    d_conv = (card["convnet"]["required_k"], cpu["convnet"]["required_k"])
+    decision("convnet.required_k", *d_conv, k_borderline(
+        card["convnet"]["dbar"], card["convnet"]["ebar"], theory))
+    for key in ("n_cert", "n_ok"):
+        decision(f"certified.{key}", card["certified"][key],
+                 cpu["certified"][key],
+                 0.0 if not any(d["borderline"] for d in differing)
+                 else REL_TOL)
+    return bounds, differing, faults
+
+
+class MatmulSpy:
+    """Stands in for ``caa.matmul`` while an analysis runs: keeps the
+    operands (CaaTensors) and config of the first call of each (M, K, N)."""
+
+    def __init__(self, fn):
+        self.fn, self.seen = fn, {}
+
+    def __call__(self, a, b, cfg):
+        key = (math.prod(a.shape[:-1]), a.shape[-1], b.shape[-1])
+        self.seen.setdefault(key, (a, b, cfg))
+        return self.fn(a, b, cfg)
+
+
+def phase_analyze(torch):
+    """quickstart's Table-I flow at the Digits model's full width on the
+    card, then on the CPU with the same weights; Pendulum and ConvNet at
+    their defaults. Returns the card's dense-layer operands of the
+    10-class and the 64-input passes, {(M, K, N): (a, b, cfg)} (kernels 5
+    and 6 are fed them)."""
+    import numpy as np
+
+    from repro_torch.core import analyze, caa, precision, theory
+    from repro_torch.core.backend import CaaOps, TorchOps
+    from repro_torch.data import synthetic_digits
+    from repro_torch.models import paper_models as PM
+
+    m = {"caa": caa, "analyze": analyze, "precision": precision, "PM": PM,
+         "CaaOps": CaaOps, "TorchOps": TorchOps}
+    t_phase = time.perf_counter()
+    imgs, labels = synthetic_digits.make_dataset(800, seed=0)
+    digits = PM.init_digits(torch.Generator().manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in digits.values())
+    t0 = time.perf_counter()
+    digits, acc = train_digits(torch, PM, TorchOps, digits, imgs, labels)
+    train_s = sync_seconds(torch, t0)
+    conv = PM.init_convnet(torch.Generator().manual_seed(1), device="cuda")
+    pend = PM.init_pendulum(torch.Generator().manual_seed(2), device="cuda")
+
+    spy = MatmulSpy(caa.matmul)
+    caa.matmul = spy
+    try:
+        card = table1(torch, m, "cuda", digits, conv, pend, imgs, labels)
+    finally:
+        caa.matmul = spy.fn
+    on_cpu = lambda p: {k: (v.cpu() if torch.is_tensor(v) else v)
+                        for k, v in p.items()}
+    cpu = table1(torch, m, "cpu", on_cpu(digits), on_cpu(conv),
+                 on_cpu(pend), imgs, labels)
+    bounds, differing, faults = compare_table1(card, cpu, theory)
+    for tbl in (card, cpu):
+        for key in ("certs", "margins", "pred", "pred_margins"):
+            tbl["certified"].pop(key)
+    emit("analyze", model="digits 784-700-256-10", params=n_params,
+         train={"steps": 400, "lr": 0.2, "batch": 64, "samples": 800,
+                "train_accuracy": acc, "seconds": train_s},
+         config={**TABLE1_CFG, "p_star": P_STAR},
+         convnet="28x28 c1 16 c2 32", pendulum="h 64, input [-6, 6]^2",
+         card=card, cpu=cpu, rel_tol=REL_TOL, bounds_compared=len(bounds),
+         differing_decisions=differing, faults=faults,
+         seconds=time.perf_counter() - t_phase)
+    if faults:
+        raise AssertionError(f"analyze: card and CPU disagree: {faults[:5]}")
+    c = card["certified"]
+    if not (c["n_cert"] > 0 and c["n_ok"] == c["n_cert"]):
+        raise AssertionError(f"analyze: certified {c['n_cert']}, "
+                             f"matching the f64 model {c['n_ok']}")
+    # the dense layers of the 10-class and the 64-input passes
+    wanted = {(M, *digits[w].shape) for M in (10, N_CERT)
+              for w in ("w1", "w2", "w3")}
+    if not wanted <= set(spy.seen):
+        raise AssertionError(f"dense operands seen {sorted(spy.seen)}")
+    return {key: spy.seen[key] for key in sorted(wanted)}
+
+
+def f32_outward(torch, t, up: bool):
+    """f64 → the nearest f32 in one direction (up: ≥ t, else ≤ t)."""
+    y = t.float()
+    y64 = y.double()
+    step = torch.full_like(y, math.inf if up else -math.inf)
+    bump = (y64 < t) if up else (y64 > t)
+    return torch.where(bump, torch.nextafter(y, step), y).contiguous()
+
+
+def analysis_operands(torch, seen):
+    """Kernel operands from the analysis's dense layers: x = mag(exact) +
+    δ̄·u_max and δ̄ of the layer's input rounded up to f32, [lo, hi] = the
+    input's exact enclosure rounded outward, W the layer's (exact, f32)
+    weights, and g = γ(K) of the pass's accumulation order. At the k = 8
+    passes (u_max = 2⁻⁷) γ(K) is +inf for every K ≥ 256 — the γ form
+    saturates there, and the analysis takes its trajectory branch — so g is
+    that order's γ(K) at u = 2⁻²³, binary32's."""
+    import dataclasses
+
+    from repro_torch.core import caa, interval as iv
+
+    out = {}
+    for (M, K, N), (a, b, cfg) in sorted(seen.items()):
+        da = caa._eff_dbar(a).reshape(M, K)
+        mag = iv.mag(a.exact).reshape(M, K)
+        w = b.val.float().contiguous()
+        if not torch.equal(w.double(), b.val):
+            raise AssertionError(f"weights of {(M, K, N)} are not f32")
+        out[(M, K, N)] = {
+            "x": f32_outward(torch, mag + da * cfg.u_max, True),
+            "d": f32_outward(torch, da, True),
+            "lo": f32_outward(torch, a.exact.lo.reshape(M, K), False),
+            "hi": f32_outward(torch, a.exact.hi.reshape(M, K), True),
+            "w": w,
+            "g": dataclasses.replace(cfg, u_max=2.0 ** -23).gamma(K)}
+    return out
+
+
+def phase_analysis_ops(torch, ops, qmm, fd, operands):
+    """The slice's kernel path: ``ops.caa_matmul_fused`` and
+    ``ops.interval_matmul_rigorous`` on the analysis's own dense-layer
+    operands, every launch count set to 0 just before and read just
+    after."""
+    fns = kernel_fns(qmm, fd)
+    reset_launches(fns)
+    outs = {key: (ops.caa_matmul_fused(o["x"], o["d"], o["w"], g=o["g"]),
+                  ops.interval_matmul_rigorous(o["lo"], o["hi"], o["w"]))
+            for key, o in operands.items()}
+    torch.cuda.synchronize()
+    launches = read_launches(fns)
+    expected = {name: 0 for name in fns}
+    expected.update(caa_matmul=len(operands), interval_matmul=len(operands))
+    emit("analysis_ops", shapes=[list(k) for k in operands],
+         launches=launches, expected_launches=expected)
+    if launches != expected:
+        raise AssertionError(f"analysis_ops launch counts {launches} != "
+                             f"{expected}")
+    return launches, outs
+
+
+def check_caa(torch, cm, x, d, w, g, val, err, what):
+    """Kernel 5's rules: val within the GEMM rule of the plain version;
+    E ≤ err ≤ E·(1 + (2K+2)·2⁻²³), E = (dbar + g·|x|)@|W| in f64 of the
+    f32 operands (g the analysis's f64 γ)."""
+    K = x.shape[1]
+    pv, _ = cm.caa_matmul_plain(x, d, w, g=g)
+    rule = gemm_order_tol(torch, x, w)
+    dv = (val.double() - pv.double()).abs()
+    E = (d.double() + g * x.double().abs()) @ w.double().abs()
+    e64 = err.double()
+    top = E * (1 + (2 * K + 2) * 2.0 ** -23)
+    ok = bool((dv <= rule).all()) and bool((e64 >= E).all()) and bool(
+        (e64 <= top).all())
+    pos = (E > 0) & torch.isfinite(E)
+    st = {"max_abs_err": float(dv.max()),
+          "val_spread": float((dv / (rule / 2)).nan_to_num(0.0).max()),
+          "err_over_E_ulps": float(((e64[pos] - E[pos]) / E[pos]).max()
+                                   / 2.0 ** -23) if pos.any() else 0.0,
+          "err_below_E": int((e64 < E).sum()),
+          "err_above_cap": int((e64 > top).sum())}
+    if not ok:
+        raise AssertionError(f"caa_matmul {what}: {st}")
+    return st
+
+
+def check_interval(torch, im, ops, lo, hi, w, out, what, samples=2):
+    """Kernel 6's rules, after the wrapper's widening: lo' ≤ L, hi' ≥ H
+    (f64 sign-split of the f32 operands), the enclosure at sampled points,
+    width ≤ the plain version's + 4·√K·2⁻²⁴·mag, mag' within the GEMM rule.
+    Returns stats; ``excess`` is how far lo'/hi' fall inside L/H in units
+    of mag (> 0 would be the reference's widening falling short)."""
+    K = lo.shape[1]
+    klo, khi, kmag = (t.double() for t in out)
+    plo, phi, pmag = im.interval_matmul_plain(lo, hi, w)
+    gw = ops.gamma_in_u(2 * K + 2, 2.0 ** -23) * 2.0 ** -23
+    p_width = ((phi + gw * pmag) - (plo - gw * pmag)).double()
+    L64, H64, W64 = lo.double(), hi.double(), w.double()
+    wp, wm = W64.clamp(min=0), W64.clamp(max=0)
+    L = L64 @ wp + H64 @ wm
+    H = H64 @ wp + L64 @ wm
+    del wp, wm
+    mag = torch.maximum(L64.abs(), H64.abs()) @ W64.abs()
+    scale = mag.clamp(min=1e-300)
+    excess = float(torch.maximum((klo - L) / scale, (H - khi) / scale).max())
+    inside = True
+    for _ in range(samples):
+        pts = (L64 + (H64 - L64) * torch.rand_like(L64)) @ W64
+        inside &= bool(((klo <= pts) & (pts <= khi)).all())
+    width_ok = bool(((khi - klo) <= p_width
+                     + 4 * math.sqrt(K) * 2.0 ** -24 * mag).all())
+    dm = (kmag - pmag.double()).abs()
+    mag_ok = bool((dm <= 2 * math.sqrt(K) * 2.0 ** -24 * mag).all())
+    st = {"max_abs_err": float(torch.maximum((klo - (plo - gw * pmag)
+                                              .double()).abs(),
+                                             (khi - (phi + gw * pmag)
+                                              .double()).abs()).max()),
+          "encloses_L_H": excess <= 0, "excess_over_mag": excess,
+          "encloses_samples": inside, "width_ok": width_ok,
+          "mag_ok": mag_ok, "mag_max_abs_err": float(dm.max())}
+    if not (excess <= 0 and inside and width_ok and mag_ok):
+        raise AssertionError(f"interval_matmul {what}: {st}")
+    return st
+
+
+def caa_coarse(torch, gen, M, K, N):
+    """Exact-sum operands: integers times 2⁻², 2⁻³, 2⁻³ and g = 1/2 — every
+    t, product and partial sum is an exact f32."""
+    x, w = coarse_operands(torch, gen, M, K, N)
+    d = torch.randint(0, 4, (M, K), device="cuda",
+                      generator=gen).float() * 2.0 ** -3
+    return x, d, w
+
+
+def analysis_kernel_bound(M, K, N, kernel):
+    n_out, fmas = (2, 2) if kernel == "caa_matmul" else (3, 3)
+    return bound_ms(4.0 * (2 * M * K + K * N + n_out * M * N),
+                    2.0 * fmas * M * K * N)
+
+
+def time_analysis_kernel(torch, kernel, fn, plain, a0, a1, w, iters):
+    """ms of the kernel and its plain version, the bound, and the yardstick:
+    one ``torch.bmm`` over operands stacked beforehand (2 products for
+    caa_matmul: x@W, t@|W|; 5 for interval_matmul: lo@W⁺, hi@W⁻, hi@W⁺,
+    lo@W⁻, mag@|W|)."""
+    M, K = a0.shape
+    N = w.shape[1]
+    row = {"ms": time_ms(torch, fn, iters),
+           "plain_ms": time_ms(torch, plain, iters)}
+    if kernel == "caa_matmul":       # a1 = t = dbar + g·|x|
+        A = torch.stack([a0, a1])
+        B = torch.stack([w, w.abs()])
+    else:
+        wp, wm = w.clamp(min=0), w.clamp(max=0)
+        A = torch.stack([a0, a1, a1, a0, torch.maximum(a0.abs(), a1.abs())])
+        B = torch.stack([wp, wm, wp, wm, w.abs()])
+    row["library_ms"] = time_ms(torch, lambda: torch.bmm(A, B), iters)
+    del A, B
+    row["bound_ms"], row["bound_by"] = analysis_kernel_bound(M, K, N, kernel)
+    return row
+
+
+def layer_sum(rows, M):
+    """One Qwen2-7B layer's seven projections at batch M, summed."""
+    rows = [r for r in rows if r["M"] == M and "ms" in r]
+    if len(rows) != len(GEMM_SHAPES):
+        raise AssertionError(f"{len(rows)} timed rows at M={M}")
+    out = {key: sum(r[key] for r in rows)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = ("operations" if any(r["bound_by"] == "operations"
+                                           for r in rows) else "bytes")
+    return out
+
+
+def phase_caa_kernel(torch, kernel, ops, operands, path_outs):
+    """Kernel 5 (``caa_matmul``) or 6 (``interval_matmul``): on the
+    analysis path's own outputs, then at the seven Qwen2-7B projections at
+    M = 4 and 512 (seeded inputs): the rules, exact-sum operands bit for
+    bit, row invariance, and times."""
+    from repro_torch.core import caa
+    from repro_torch.kernels import caa_matmul as cm
+    from repro_torch.kernels import interval_matmul as im
+
+    t0 = time.perf_counter()
+    is_caa = kernel == "caa_matmul"
+    raw = cm.caa_matmul if is_caa else im.interval_matmul
+    worst, path_rows, rows = 0.0, [], []
+    for key, o in operands.items():
+        (val, err), ivl = path_outs[key]
+        if is_caa:
+            st = check_caa(torch, cm, o["x"], o["d"], o["w"], o["g"], val,
+                           err, f"digits {key}")
+            timing = time_analysis_kernel(
+                torch, kernel,
+                lambda: cm.caa_matmul(o["x"], o["d"], o["w"], g=o["g"]),
+                lambda: cm.caa_matmul_plain(o["x"], o["d"], o["w"],
+                                            g=o["g"]),
+                o["x"], o["d"] + o["g"] * o["x"].abs(), o["w"], 20)
+        else:
+            st = check_interval(torch, im, ops, o["lo"], o["hi"], o["w"],
+                                ivl, f"digits {key}")
+            timing = time_analysis_kernel(
+                torch, kernel,
+                lambda: im.interval_matmul(o["lo"], o["hi"], o["w"]),
+                lambda: im.interval_matmul_plain(o["lo"], o["hi"], o["w"]),
+                o["lo"], o["hi"], o["w"], 20)
+        worst = max(worst, st["max_abs_err"])
+        path_rows.append({"M": key[0], "K": key[1], "N": key[2],
+                          "g": o["g"] if is_caa else None, **st, **timing})
+
+    gen = torch.Generator(device="cuda").manual_seed(5 if is_caa else 6)
+    n_exact = 0
+    for proj, (K, N) in GEMM_SHAPES.items():
+        g = caa.CaaConfig(u_max=2.0 ** -23).gamma(K)
+        for M in (4, 512):
+            x, d, w = caa_coarse(torch, gen, M, K, N)
+            if is_caa:
+                pairs = zip(cm.caa_matmul(x, d, w, g=0.5),
+                            cm.caa_matmul_plain(x, d, w, g=0.5))
+            else:
+                pairs = zip(im.interval_matmul(x - d, x + d, w),
+                            im.interval_matmul_plain(x - d, x + d, w))
+            for got, want in pairs:
+                if not same_bits(torch, got, want):
+                    raise AssertionError(f"{kernel} {proj} M={M}: differs "
+                                         "on exact-sum operands")
+            n_exact += 1
+            del x, d, w
+        w = torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)
+        for M in (4, 512):
+            x = torch.randn(M, K, device="cuda", generator=gen)
+            d = torch.rand(M, K, device="cuda", generator=gen) * 4.0
+            if is_caa:
+                out = cm.caa_matmul(x, d, w, g=g)
+                st = check_caa(torch, cm, x, d, w, g, *out, f"{proj} M={M}")
+                a0, a1 = x, d
+                fn = lambda: cm.caa_matmul(x, d, w, g=g)
+                plain = lambda: cm.caa_matmul_plain(x, d, w, g=g)
+                t_a1 = g * x.abs() + d
+            else:
+                a0, a1 = x - 0.01 * d, x + 0.01 * d
+                out = ops.interval_matmul_rigorous(a0, a1, w)
+                st = check_interval(torch, im, ops, a0, a1, w, out,
+                                    f"{proj} M={M}")
+                fn = lambda: im.interval_matmul(a0, a1, w)
+                plain = lambda: im.interval_matmul_plain(a0, a1, w)
+                t_a1 = a1
+            worst = max(worst, st["max_abs_err"])
+            row = {"proj": proj, "M": M, "K": K, "N": N, **st}
+            if M == 512:
+                # row invariance: 7 rows alone == the same rows in 512
+                full = raw(a0, a1, w, g=g) if is_caa else raw(a0, a1, w)
+                alone = (raw(a0[:7].contiguous(), a1[:7].contiguous(), w,
+                             g=g) if is_caa else
+                         raw(a0[:7].contiguous(), a1[:7].contiguous(), w))
+                for f, a in zip(full, alone):
+                    if not torch.equal(a.view(torch.int32),
+                                       f[:7].view(torch.int32)):
+                        raise AssertionError(f"{kernel} {proj}: 7 rows "
+                                             "alone differ inside M=512")
+                row["row_invariant"] = True
+                del full, alone
+            row.update(time_analysis_kernel(torch, kernel, fn, plain, a0,
+                                            t_a1 if is_caa else a1, w,
+                                            20 if M == 4 else 3))
+            rows.append(row)
+            del x, d, out, a0, a1, t_a1
+        del w
+    emit(kernel, tolerance=ANALYSIS_TOLERANCE[kernel],
+         analysis_path=path_rows, exact_checks=n_exact, checks=len(rows),
+         max_abs_err=worst, rows=rows,
+         decode_per_layer=layer_sum(rows, 4),
+         prefill_per_layer=layer_sum(rows, 512),
+         seconds=time.perf_counter() - t0)
+    return path_rows, rows, worst
+
+
+ANALYSIS_TOLERANCE = {
+    "caa_matmul": "val within 2·√K·2⁻²⁴·(|x|@|W|) of the plain version; "
+                  "E ≤ err ≤ E·(1+(2K+2)·2⁻²³), E = (dbar + g·|x|)@|W| in "
+                  "f64 of the f32 operands; exact-sum operands bit for bit; "
+                  "7 rows alone = the same rows in M=512",
+    "interval_matmul": "after widening lo' ≤ L and hi' ≥ H (f64 sign-split "
+                       "of the f32 operands) and the enclosure at sampled "
+                       "points; width ≤ the plain version's + "
+                       "4·√K·2⁻²⁴·mag; mag' within 2·√K·2⁻²⁴·mag; exact-sum "
+                       "operands bit for bit; 7 rows alone = the same rows "
+                       "in M=512",
+}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1000,6 +1686,8 @@ def main() -> int:
     from repro_torch.core import quantize
     from repro_torch.kernels import _build, flash_decode as fd
     from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.core import interval as iv
+    from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
@@ -1031,6 +1719,19 @@ def main() -> int:
              path: {key: t[key] for key in (
                  "prefill_s", "decode_ms_per_step", "decode_tokens_per_s")}
              for path, t in timings.items()})
+
+    phase_interval_libm(torch, iv)
+    seen = phase_analyze(torch)
+    operands = analysis_operands(torch, seen)
+    del seen
+    by_path["analysis_ops"], path_outs = phase_analysis_ops(
+        torch, kops, qmm, fd, operands)
+    free_device_memory(torch)
+    cpath, crows, cerr = phase_caa_kernel(torch, "caa_matmul", kops,
+                                          operands, path_outs)
+    ipath, irows, ierr = phase_caa_kernel(torch, "interval_matmul", kops,
+                                          operands, path_outs)
+    del path_outs, operands
 
     qerr = max([qerr] + [r["max_abs_err"] for r in (
         fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"])])
@@ -1084,6 +1785,21 @@ def main() -> int:
                 "Smax", "lengths", "ms", "plain_ms", "bound_ms",
                 "library_ms")} for c in acases if c != "serve_last"}),
     ]
+    for name, replaces, path_rows, rows, err in (
+            ("caa_matmul", "src/repro/kernels/caa_matmul.py:25", cpath,
+             crows, cerr),
+            ("interval_matmul", "src/repro/kernels/interval_matmul.py:34",
+             ipath, irows, ierr)):
+        kernels.append(kernel_row(
+            name, f"src/repro_torch/csrc/{name}.cu", replaces,
+            launches[name], "analysis_ops", err, layer_sum(rows, 4),
+            "the 7 GEMMs of one Qwen2-7B layer at M=4, seeded inputs; "
+            "launches: ops wrappers on the Digits analysis's own operands "
+            "(not on the analysis path, as in the reference)",
+            prefill_per_layer=layer_sum(rows, 512),
+            analysis_operands=[{key: r[key] for key in (
+                "M", "K", "N", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for r in path_rows]))
     for row in kernels:
         row["profile_roofline_frac"] = roofline.get(
             {"flash_decode_attention": "flash_decode"}.get(row["name"],

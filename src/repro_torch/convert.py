@@ -16,7 +16,10 @@ import torch
 
 def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     """Nested dicts of numpy arrays → the same dicts of tensors on
-    ``device`` (copied, contiguous, dtype kept)."""
+    ``device`` (copied, contiguous, dtype kept). Leaves that are not
+    arrays (e.g. the ConvNet's ``"meta"`` ints) are kept as they are."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if not isinstance(tree, np.ndarray):
+        return tree
     return torch.from_numpy(np.array(tree, copy=True)).to(device)

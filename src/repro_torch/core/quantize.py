@@ -20,6 +20,8 @@ from typing import Dict, Union
 
 import torch
 
+from repro_torch.core.formats import get as get_format
+
 IntLike = Union[int, torch.Tensor]
 
 _CARRIERS = {
@@ -156,3 +158,89 @@ def numeric_health(x: torch.Tensor, k: IntLike, emax: IntLike,
         "n_under": (nonzero & (a < min_norm)).sum(),
         "n_nonfinite": (~finite).sum(),
     }
+
+
+def quantize(x: torch.Tensor, fmt) -> torch.Tensor:
+    """Round every element of ``x`` into the format ``fmt`` (an
+    :class:`~repro_torch.core.formats.FpFormat`, a registry name or a
+    precision k for ``custom(k)``), value kept in the f32/f64 carrier; the
+    twin of the JAX ``quantize`` (its static-format path). Other dtypes are
+    cast to f32 first."""
+    fmt = get_format(fmt)
+    if x.dtype not in _CARRIERS:
+        x = x.to(torch.float32)
+    return quantize_to_format(x, fmt.k, fmt.emax, fmt.emin,
+                              fmt.has_subnormals, fmt.saturating,
+                              max_finite=fmt.max_finite)
+
+
+def quantized_op(op, fmt):
+    """Wrap an op so its *result* is rounded into ``fmt``: 'every FP
+    operation rounds once' (the paper's eq. (5)) at the format's
+    precision, for operands already representable in it."""
+    def wrapped(*args):
+        return quantize(op(*args), fmt)
+
+    return wrapped
+
+
+def seq_dot(x: torch.Tensor, w: torch.Tensor, fmt) -> torch.Tensor:
+    """Sequential-order ``x[..., n] @ w[n, m]`` with one rounding per
+    operation in ``fmt``: acc = fl(acc + fl(x_i·w_i)), the scalar loop the
+    paper analyses (the reference's ``lax.scan`` is a Python loop here;
+    every step is elementwise, so the bits are the reference's)."""
+    xq = quantize(x, fmt)
+    wq = quantize(w, fmt)
+    acc = torch.zeros(x.shape[:-1] + (w.shape[-1],), dtype=xq.dtype,
+                      device=x.device)
+    for i in range(x.shape[-1]):
+        prod = quantize(xq[..., i, None] * wq[i], fmt)
+        acc = quantize(acc + prod, fmt)
+    return acc
+
+
+def pairwise_dot(x: torch.Tensor, w: torch.Tensor, fmt) -> torch.Tensor:
+    """Pairwise (tree) order ``x[..., n] @ w[n, m]`` with one rounding per
+    operation in ``fmt``: the XLA/TPU reduction tree, odd counts carrying
+    their last term."""
+    prods = quantize(quantize(x, fmt)[..., :, None] * quantize(w, fmt), fmt)
+    vals = torch.movedim(prods, -2, 0)
+    while vals.shape[0] > 1:
+        if vals.shape[0] % 2:
+            carry, vals = vals[-1:], vals[:-1]
+        else:
+            carry = None
+        vals = quantize(vals[0::2] + vals[1::2], fmt)
+        if carry is not None:
+            vals = torch.cat([vals, carry], dim=0)
+    return vals[0]
+
+
+def kahan_dot(x: torch.Tensor, w: torch.Tensor, fmt) -> torch.Tensor:
+    """Kahan-compensated ``x[..., n] @ w[n, m]`` with one rounding per
+    operation in ``fmt`` — the oracle of the 'kahan' accumulation order."""
+    xq = quantize(x, fmt)
+    wq = quantize(w, fmt)
+    acc = torch.zeros(x.shape[:-1] + (w.shape[-1],), dtype=xq.dtype,
+                      device=x.device)
+    comp = torch.zeros_like(acc)
+    for i in range(x.shape[-1]):
+        prod = quantize(xq[..., i, None] * wq[i], fmt)
+        y = quantize(prod - comp, fmt)
+        t = quantize(acc + y, fmt)
+        comp = quantize(quantize(t - acc, fmt) - y, fmt)
+        acc = t
+    return acc
+
+
+def measured_error_in_u(exact: torch.Tensor, approx: torch.Tensor, fmt):
+    """(absolute, relative) error of ``approx`` against ``exact`` in units
+    of the format's u, in f64."""
+    u = get_format(fmt).u
+    exact, approx = exact.to(torch.float64), approx.to(torch.float64)
+    abs_err = (approx - exact).abs() / u
+    denom = exact.abs()
+    inf = torch.full_like(abs_err, float("inf"))
+    rel_err = torch.where(denom > 0, abs_err / denom,
+                          torch.where(abs_err > 0, inf, 0.0))
+    return abs_err, rel_err

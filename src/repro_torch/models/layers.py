@@ -8,9 +8,24 @@ the JAX package rounds (``bk.matmul``), and nothing else.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 NEG_BIG = -1e9  # mask value: exact constant, exp(-1e9) = 0
+
+
+def dense_init(n_in: int, n_out: int, scale: Optional[float] = None, *,
+               generator: torch.Generator, device=None) -> torch.Tensor:
+    """N(0, 1)·scale weights [n_in, n_out] in f32 (scale 1/√n_in by
+    default), drawn on the CPU from ``generator`` and moved to ``device``,
+    so one seed gives the same weights on every device. (PyTorch cannot
+    replay the reference's ``jax.random`` draws: tests hand the reference's
+    weights over through numpy.)"""
+    scale = scale if scale is not None else 1.0 / math.sqrt(n_in)
+    w = torch.randn((n_in, n_out), generator=generator, dtype=torch.float32)
+    return (w * scale).to(device)
 
 
 def rmsnorm(bk, x, gamma, eps: float = 1e-6):

@@ -246,3 +246,126 @@ def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
                                    kv, kv, lengths)
     with pytest.raises(ValueError):
         tqm.quant_matmul(x, w, k=0)
+
+
+# --- kernels 5 and 6: the CAA analysis GEMMs --------------------------------
+#
+# caa_matmul: val within the GEMM rule 2·√K·2⁻²⁴·(|x|@|W|) of the plain
+# version; err at least E = (dbar + g↑·|x|)@|W| in f64 from the same f32
+# operands (g↑ = g rounded up to f32) and at most E·(1 + (2K+2)·2⁻²³).
+# interval_matmul (through ops.interval_matmul_rigorous): after widening
+# lo' ≤ L and hi' ≥ H, the f64 sign-split bounds of the same f32 operands;
+# its width at most the plain version's + 4·√K·2⁻²⁴·mag; mag' within the
+# GEMM rule. Exact-sum operands: every output bit for bit.
+
+from repro_torch.kernels import caa_matmul as tcaa  # noqa: E402
+from repro_torch.kernels import interval_matmul as tim  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+
+CAA_SHAPES = [(37, 200, 70), (4, 3584, 512), (9, 1000, 70), (7, 13, 9)]
+
+
+def _gemm_rule(a, w):
+    K = a.shape[1]
+    return 2 * np.sqrt(K) * 2.0 ** -24 * (a.abs().double() @ w.abs().double())
+
+
+def _caa_inputs(M, K, N, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, device=device, generator=gen)
+    d = torch.rand(M, K, device=device, generator=gen) * 3.0
+    w = torch.randn(K, N, device=device, generator=gen) / np.sqrt(K)
+    return x, d, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", CAA_SHAPES)
+def test_caa_matmul_kernel_vs_plain_on_card(cuda_device, M, K, N):
+    x, d, w = _caa_inputs(M, K, N, cuda_device, 29)
+    g = (K / 2) / (1 - K * 2.0 ** -25) * (1 + 2.0 ** -40)  # γ(K) at u 2^-24
+    val, err = tcaa.caa_matmul(x, d, w, g=g)
+    pval, _ = tcaa.caa_matmul_plain(x, d, w, g=g)
+    diff = (val.double() - pval.double()).abs()
+    assert bool((diff <= _gemm_rule(x, w)).all()), float(diff.max())
+    g32 = tcaa.g_up_f32(g)
+    assert g32 >= g
+    E = (d.double() + g32 * x.abs().double()) @ w.abs().double()
+    assert bool((err.double() >= E).all())
+    assert bool((err.double() <= E * (1 + (2 * K + 2) * 2.0 ** -23)).all())
+    if M > 5:
+        v5, e5 = tcaa.caa_matmul(x[:5].contiguous(), d[:5].contiguous(), w,
+                                 g=g)
+        assert torch.equal(v5.view(torch.int32), val[:5].view(torch.int32))
+        assert torch.equal(e5.view(torch.int32), err[:5].view(torch.int32))
+
+
+def _coarse(M, K, N, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-3, 4, (M, K), device=device,
+                      generator=gen).float() * 2.0 ** -2
+    d = torch.randint(0, 4, (M, K), device=device,
+                      generator=gen).float() * 2.0 ** -3
+    w = torch.randint(-3, 4, (K, N), device=device,
+                      generator=gen).float() * 2.0 ** -3
+    return x, d, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (37, 1000, 70)])
+def test_caa_and_interval_kernels_exact_on_coarse_grid(cuda_device, M, K, N):
+    # integers times 2^-2/2^-3 and g = 1/2: every t, product and partial
+    # sum is an exact f32, so any order and any rounding give the same bits
+    x, d, w = _coarse(M, K, N, cuda_device, 31)
+    for got, want in zip(tcaa.caa_matmul(x, d, w, g=0.5),
+                         tcaa.caa_matmul_plain(x, d, w, g=0.5)):
+        assert_same_bits(got, want)
+    lo, hi = x - d, x + d
+    for got, want in zip(tim.interval_matmul(lo, hi, w),
+                         tim.interval_matmul_plain(lo, hi, w)):
+        assert_same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", CAA_SHAPES)
+def test_interval_matmul_kernel_vs_plain_on_card(cuda_device, M, K, N):
+    x, d, w = _caa_inputs(M, K, N, cuda_device, 37)
+    lo, hi = x - 0.05 * d, x + 0.05 * d
+    klo, khi, kmag = tops.interval_matmul_rigorous(lo, hi, w)
+    raw = tim.interval_matmul(lo, hi, w)
+    plo, phi, pmag = tim.interval_matmul_plain(lo, hi, w)
+    g = tops.gamma_in_u(2 * K + 2, 2.0 ** -23) * 2.0 ** -23
+    plo, phi = plo - g * pmag, phi + g * pmag
+    L64, H64, W64 = lo.double(), hi.double(), w.double()
+    Lx = L64 @ W64.clamp(min=0) + H64 @ W64.clamp(max=0)
+    Hx = H64 @ W64.clamp(min=0) + L64 @ W64.clamp(max=0)
+    assert bool((klo.double() <= Lx).all())
+    assert bool((khi.double() >= Hx).all())
+    mag64 = torch.maximum(lo.abs(), hi.abs()).double() @ W64.abs()
+    slack = 4 * np.sqrt(K) * 2.0 ** -24 * mag64
+    assert bool(((khi - klo).double()
+                 <= (phi - plo).double() + slack).all())
+    mdiff = (kmag.double() - pmag.double()).abs()
+    assert bool((mdiff <= _gemm_rule(torch.maximum(lo.abs(), hi.abs()),
+                                     w)).all())
+    assert torch.equal(kmag.view(torch.int32), raw[2].view(torch.int32))
+    for _ in range(3):
+        t = torch.rand(M, K, device=cuda_device, dtype=torch.float64)
+        pts = (L64 + (H64 - L64) * t) @ W64
+        assert bool(((klo.double() <= pts) & (pts <= khi.double())).all())
+
+
+@pytest.mark.cuda
+def test_caa_kernels_count_launches_and_refuse_mixed_devices(cuda_device):
+    x, d, w = _caa_inputs(6, 64, 32, cuda_device, 41)
+    tcaa.caa_matmul.launches = 0
+    tim.interval_matmul.launches = 0
+    tops.caa_matmul_fused(x.reshape(2, 3, 64), d.reshape(2, 3, 64), w, g=2.0)
+    tops.interval_matmul_rigorous(x - d, x + d, w)
+    tcaa.caa_matmul_plain(x, d, w, g=2.0)
+    tim.interval_matmul_plain(x - d, x + d, w)
+    assert tcaa.caa_matmul.launches == 1
+    assert tim.interval_matmul.launches == 1
+    with pytest.raises(ValueError):
+        tops.caa_matmul_fused(x, d, w.cpu(), g=2.0)
+    with pytest.raises(ValueError):
+        tops.interval_matmul_rigorous(x.cpu(), x, w)
