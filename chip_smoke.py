@@ -3,10 +3,15 @@
 
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
 port's six CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
-``build/repro_torch/``), checks each against its plain PyTorch version on
-the card, and drives the port's paths through the entry points a user
-calls, with every kernel's launch counter set to 0 just before each path
-and read just after:
+``build/repro_torch/``; the ``build`` line carries registers, shared memory
+and spills of the two certified GEMMs), holds those two bit for bit against
+their sequential-order plain versions on sampled columns of every Qwen2-7B
+projection (``gemm_order``), checks each kernel against its plain PyTorch
+version on the card (GEMM rows timed with the weights cold: rotated through
+copies that exceed the L2), and drives the port's paths through the entry
+points a user calls, with every kernel's launch counter set to 0 just
+before each path and read just after (each serve line carries the sha256
+of its logits):
 
 * ``serve`` — full-width Qwen2-7B (random weights from a seed) through the
   certified custom-format path (kernels ``quant_matmul_format`` and
@@ -39,8 +44,10 @@ result. It imports nothing of JAX.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -103,6 +110,53 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_BYTES = 50e6          # H100 SXM L2 (data sheet)
+
+
+def weight_copies(torch, w):
+    """Copies of ``w`` whose total exceeds the L2 twice over (at least
+    two), so that a launch that rotates through them finds its weights in
+    HBM, as a serving step does (it reads 28 layers' weights in turn)."""
+    n = max(2, math.ceil(2 * L2_BYTES / (4 * w.numel())))
+    return [w.clone() for _ in range(n)]
+
+
+def time_cold_ms(torch, fn, copies, iters: int) -> float:
+    """Mean device time of ``fn(w)`` over ``iters`` launches (at least one
+    pass over the copies), ``w`` rotating through ``copies`` (CUDA events,
+    after one warm-up pass)."""
+    for w in copies:
+        fn(w)
+    torch.cuda.synchronize()
+    iters = max(iters, len(copies))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(copies[i % len(copies)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def gemm_times(torch, kernel, plain, x, w, iters):
+    """A GEMM row's times: the kernel, its plain version and one
+    ``torch.matmul`` of the same shapes, each with weights cold (rotated
+    through :func:`weight_copies`), and the kernel with ``w`` re-read
+    (``warm_ms``: w partly in the L2, as :func:`time_ms` times it)."""
+    copies = weight_copies(torch, w)
+    out = {"ms": time_cold_ms(torch, lambda wc: kernel(x, wc), copies,
+                              iters),
+           "plain_ms": time_cold_ms(torch, lambda wc: plain(x, wc), copies,
+                                    iters),
+           "library_ms": time_cold_ms(torch, lambda wc: torch.matmul(x, wc),
+                                      copies, iters),
+           "warm_ms": time_ms(torch, lambda: kernel(x, w), iters),
+           "weight_copies": len(copies)}
+    del copies
+    return out
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_TFLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -151,6 +205,33 @@ def phase_env(torch, serve):
          tf32=False, float32_matmul_precision="highest")
 
 
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_report(log: str):
+    """{kernel symbol: {registers, static_smem_bytes, spill_store_bytes,
+    spill_load_bytes}} from ``nvcc -Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = PTXAS_SPILL.search(line)
+        if m:
+            cur["spill_store_bytes"] = int(m.group(1))
+            cur["spill_load_bytes"] = int(m.group(2))
+        m = PTXAS_USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur["static_smem_bytes"] = int(m.group(2) or 0)
+    return out
+
+
 def phase_build(build):
     t0 = time.perf_counter()
     res = build.build(build.SOURCES, ptxas_verbose=True)
@@ -158,7 +239,9 @@ def phase_build(build):
         print(f"--- nvcc {name}\n{r['log']}", file=sys.stderr)
     emit("build", seconds=time.perf_counter() - t0,
          sources=list(build.SOURCES),
-         per_source_s={n: r["seconds"] for n, r in res.items()})
+         per_source_s={n: r["seconds"] for n, r in res.items()},
+         ptxas={n: ptxas_report(res[n]["log"])
+                for n in ("quant_matmul_format", "quant_matmul")})
 
 
 def phase_rounding(torch, quantize, qmm):
@@ -273,6 +356,56 @@ def coarse_operands(torch, gen, M, K, N):
     return x, w
 
 
+ORDER_FORMATS = ("k12_e15", "k8_e7")
+ORDER_KS = (8, 12)
+ORDER_COLUMNS = 128
+
+
+def phase_gemm_order(torch, qmm):
+    """Kernels 1 and 3 against their sequential-order plain versions
+    (``*_seq_ref``: f32 sums over k = 0..K-1 from +0, the kernels' fmaf
+    order, exact products at k ≤ 12) on ORDER_COLUMNS sampled output
+    columns of each Qwen2-7B projection, M = 4 and 512, random operands:
+    equal bit for bit, or the kernels' order was not kept."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cpu_gen = torch.Generator().manual_seed(14)
+    n_cases, n_elems = 0, 0
+    for proj, (K, N) in GEMM_SHAPES.items():
+        w = torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)
+        cols = torch.randperm(N, generator=cpu_gen)[:ORDER_COLUMNS].sort()
+        cols = cols.values.cuda()
+        wc = w[:, cols].contiguous()
+        for M in (4, 512):
+            x = torch.randn(M, K, device="cuda", generator=gen)
+            cases = [(f"format {f}", lambda a, b, f=f: qmm.quant_matmul_format(
+                a, b, FORMATS[f]), lambda a, b, f=f:
+                qmm.quant_matmul_format_seq_ref(a, b, FORMATS[f]))
+                for f in ORDER_FORMATS]
+            cases += [(f"k={k}", lambda a, b, k=k: qmm.quant_matmul(a, b, k=k),
+                       lambda a, b, k=k: qmm.quant_matmul_seq_ref(a, b, k))
+                      for k in ORDER_KS]
+            for what, kernel, seq in cases:
+                got = kernel(x, w)[:, cols]
+                want = seq(x, wc)
+                if not same_bits(torch, got, want):
+                    n = int((got.view(torch.int32)
+                             != want.view(torch.int32)).sum())
+                    raise AssertionError(
+                        f"gemm_order {proj} M={M} {what}: {n} of "
+                        f"{got.numel()} elements differ from the "
+                        "sequential order")
+                n_cases += 1
+                n_elems += got.numel()
+            del x
+        del w, wc
+    emit("gemm_order", rule="bit for bit against the sequential-order "
+         "plain versions (k ≤ 12: exact products, so each step is fmaf)",
+         projections=list(GEMM_SHAPES), M=[4, 512],
+         formats=list(ORDER_FORMATS), ks=list(ORDER_KS),
+         columns_per_projection=ORDER_COLUMNS, cases=n_cases,
+         elements_compared=n_elems, bitwise_equal=True)
+
+
 def phase_quant_matmul(torch, qmm):
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
@@ -313,14 +446,11 @@ def phase_quant_matmul(torch, qmm):
                     row["row_invariant"] = True
                 if fname == "k12_e15":
                     fmt12 = FORMATS["k12_e15"]
-                    iters = 20 if M == 4 else 5
-                    row["ms"] = time_ms(torch, lambda: qmm.quant_matmul_format(
-                        x, w, fmt12), iters)
-                    row["plain_ms"] = time_ms(
-                        torch, lambda: qmm.quant_matmul_format_ref(
-                            x, w, fmt12), iters)
-                    row["library_ms"] = time_ms(
-                        torch, lambda: torch.matmul(x, w), iters)
+                    row.update(gemm_times(
+                        torch,
+                        lambda a, b: qmm.quant_matmul_format(a, b, fmt12),
+                        lambda a, b: qmm.quant_matmul_format_ref(a, b, fmt12),
+                        x, w, 20 if M == 4 else 5))
                     row["bound_ms"], row["bound_by"] = bound_ms(
                         4.0 * (M * K + K * N + M * N), 2.0 * M * N * K)
                 rows.append(row)
@@ -340,8 +470,6 @@ GEMM_K_TOLERANCE = ("equal, or |Δ| ≤ one ulp at k (emin -126) + "
 def phase_quant_matmul_k(torch, qmm):
     """Kernel 3 against its plain version at the seven Qwen2-7B
     projections, M = 4 (decode) and 512 (prefill), k ∈ GEMM_KS."""
-    from repro_torch.core.quantize import _quantize_normal
-
     gen = torch.Generator(device="cuda").manual_seed(12)
     big = 3.4028234663852886e38
     rows, worst, n_exact, n_special = [], 0.0, 0, 0
@@ -388,17 +516,12 @@ def phase_quant_matmul_k(torch, qmm):
                                 f"quant_matmul {proj}: 7 rows alone differ "
                                 "from the same rows inside M=512")
                         row["row_invariant"] = True
-                    xq, wq = _quantize_normal(x, k), _quantize_normal(w, k)
-                    iters = 20 if M == 4 else 5
-                    row["ms"] = time_ms(
-                        torch, lambda: qmm.quant_matmul(x, w, k=k), iters)
-                    row["plain_ms"] = time_ms(
-                        torch, lambda: qmm.quant_matmul_ref(x, w, k), iters)
-                    row["library_ms"] = time_ms(
-                        torch, lambda: torch.matmul(xq, wq), iters)
+                    row.update(gemm_times(
+                        torch, lambda a, b: qmm.quant_matmul(a, b, k=k),
+                        lambda a, b: qmm.quant_matmul_ref(a, b, k),
+                        x, w, 20 if M == 4 else 5))
                     row["bound_ms"], row["bound_by"] = bound_ms(
                         4.0 * (M * K + K * N + M * N), 2.0 * M * N * K)
-                    del xq, wq
                 rows.append(row)
             del x
         del w
@@ -629,6 +752,9 @@ def serve_report(torch, res, launches, expected, ref_logits):
     served = res.prefill_logits[0, -1].double()
     ref = ref_logits[0, -1].double()
     top2 = torch.topk(served, 2).values
+    digest = hashlib.sha256()
+    for lg in [res.prefill_logits] + res.decode_logits:
+        digest.update(lg.detach().float().cpu().numpy().tobytes())
     n_params = sum(t.numel() for t in _leaves(res.params))
     return dict(
         config="qwen2_7b.FULL", n_layers=res.cfg.n_layers,
@@ -643,6 +769,7 @@ def serve_report(torch, res, launches, expected, ref_logits):
         init_s=res.timing["init_s"],
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         sample_tokens=res.tokens[0].tolist(),
+        logits_sha256=digest.hexdigest(),
         replay_vs_plain={
             "max_abs_dlogits": float((served - ref).abs().max()),
             "argmax_agrees": bool(served.argmax() == ref.argmax()),
@@ -1694,6 +1821,7 @@ def main() -> int:
     phase_env(torch, serve)
     phase_build(_build)
     phase_rounding(torch, quantize, qmm)
+    phase_gemm_order(torch, qmm)
     qrows, qerr = phase_quant_matmul(torch, qmm)
     fcases, ferr = phase_flash_decode(torch, fd)
     krows, kerr = phase_quant_matmul_k(torch, qmm)
@@ -1755,7 +1883,8 @@ def main() -> int:
             "src/repro/kernels/quant_matmul.py:123",
             launches["quant_matmul_format"], "serve", qerr,
             gemm_layer_timing(qrows, SERVE_BATCH),
-            "the 7 GEMMs of one layer at decode, M=4, format k12_e15",
+            "the 7 GEMMs of one layer at decode, M=4, format k12_e15, "
+            "weights cold",
             prefill_per_layer=gemm_layer_timing(qrows, 512)),
         kernel_row(
             "flash_decode_certified",
@@ -1773,7 +1902,8 @@ def main() -> int:
             "src/repro/kernels/quant_matmul.py:39",
             launches["quant_matmul"], "serve_k", kerr,
             gemm_layer_timing(krows, SERVE_BATCH),
-            f"the 7 GEMMs of one layer at decode, M=4, k={SERVE_K}",
+            f"the 7 GEMMs of one layer at decode, M=4, k={SERVE_K}, "
+            "weights cold",
             prefill_per_layer=gemm_layer_timing(krows, 512)),
         kernel_row(
             "flash_decode_attention", "src/repro_torch/csrc/flash_decode.cu",

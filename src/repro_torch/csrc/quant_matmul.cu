@@ -9,23 +9,26 @@
 // and every lane of a per-layer map. Rounding is the bit trick of
 // _rne_to_k_bits: s = 24 - k dropped bits, k >= 24 the identity, NaN and
 // +-Inf passed through unchanged, and a finite value that rounds past the
-// f32 maximum carries into Inf (repro_quantize_to_k in quantize_format.cuh).
+// f32 maximum carries into Inf (repro_quantize_to_k_c in quantize_format.cuh).
 //
 // What bounds it on an H100: reading w once at decode (bytes, 3.35 TB/s),
 // 2·M·N·K f32 operations at prefill (67 TFLOP/s on the CUDA cores). The
 // GEMM body, its arithmetic contract (one fixed fmaf order per output
-// element, row-invariant bits) and its design are in quant_gemm.cuh,
-// shared with quant_matmul_format.cu.
+// element, row-invariant bits, no tensor cores: TF32's 11 bits are fewer
+// than the k = 12 served) and its two configurations are in quant_gemm.cuh,
+// shared with quant_matmul_format.cu. The functor carries the trick's shift
+// and masks, built once per launch on the host.
 #include "quant_gemm.cuh"
 #include "quantize_format.cuh"
 
 namespace {
 
 struct MantissaRound {
-    int k;
+    QKConsts c;
     __device__ __forceinline__ float operator()(float v) const {
-        return repro_quantize_to_k(v, k);
+        return repro_quantize_to_k_c(v, c);
     }
+    __device__ __forceinline__ void pin() { repro_pin(c); }
 };
 
 }  // namespace
@@ -36,5 +39,6 @@ extern "C" int repro_quant_matmul_f32(const void* x, const void* w, void* out,
                                       int M, int N, int K, int k,
                                       void* stream) {
     return static_cast<int>(
-        quant_gemm(x, w, out, M, N, K, MantissaRound{k}, stream));
+        quant_gemm(x, w, out, M, N, K, MantissaRound{repro_k_consts(k)},
+                   stream));
 }

@@ -22,6 +22,13 @@ a few √K·2⁻²⁴·(|q(x)| @ |q(w)|) (the rounding errors have random signs)
 after it they are equal or, where that straddles a rounding boundary, a few
 ulps at k apart. On operands whose partial sums are exact in f32 they are
 equal bit for bit.
+
+:func:`quant_matmul_format_seq_ref` and :func:`quant_matmul_seq_ref` add the
+products in the kernels' own order (k = 0..K-1, from +0, one f32 rounding
+per step). Where every product x̂·ŵ is exact in f32 (k ≤ 12, no underflow),
+each step is the kernels' ``fmaf``, so these equal the kernels bit for bit
+on any operands. They check the kernels' order; nothing serves through
+them.
 """
 from __future__ import annotations
 
@@ -54,6 +61,30 @@ def quant_matmul_format_ref(x: torch.Tensor, w: torch.Tensor, fmt, *,
                                   has_subnormals, saturating)
 
     return q(torch.matmul(q(x), q(w)))
+
+
+def _seq_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """acc = acc + xq[:, j:j+1] * wq[j:j+1, :] for j = 0..K-1, in f32 from
+    +0: one product and one rounded addition per step, in ascending j."""
+    acc = torch.zeros((xq.shape[0], wq.shape[1]), dtype=torch.float32,
+                      device=xq.device)
+    for j in range(xq.shape[1]):
+        acc = acc + xq[:, j:j + 1] * wq[j:j + 1, :]
+    return acc
+
+
+def quant_matmul_format_seq_ref(x: torch.Tensor, w: torch.Tensor, fmt, *,
+                                has_subnormals: bool = True,
+                                saturating: bool = True) -> torch.Tensor:
+    """:func:`quant_matmul_format_ref` with the product summed in the
+    kernel's sequential order (:func:`_seq_matmul`)."""
+    k, emax, emin = fmt_triple(fmt)
+
+    def q(v):
+        return quantize_to_format(v.to(torch.float32), k, emax, emin,
+                                  has_subnormals, saturating)
+
+    return q(_seq_matmul(q(x), q(w)))
 
 
 def _lib():
@@ -145,6 +176,16 @@ def quant_matmul_ref(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     xq = _quantize_normal(x.to(torch.float32), k)
     wq = _quantize_normal(w.to(torch.float32), k)
     return _quantize_normal(torch.matmul(xq, wq), k)
+
+
+def quant_matmul_seq_ref(x: torch.Tensor, w: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """:func:`quant_matmul_ref` with the product summed in the kernel's
+    sequential order (:func:`_seq_matmul`)."""
+    k = int(k)
+    xq = _quantize_normal(x.to(torch.float32), k)
+    wq = _quantize_normal(w.to(torch.float32), k)
+    return _quantize_normal(_seq_matmul(xq, wq), k)
 
 
 def _lib_k():

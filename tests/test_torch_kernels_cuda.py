@@ -369,3 +369,83 @@ def test_caa_kernels_count_launches_and_refuse_mixed_devices(cuda_device):
         tops.caa_matmul_fused(x, d, w.cpu(), g=2.0)
     with pytest.raises(ValueError):
         tops.interval_matmul_rigorous(x.cpu(), x, w)
+
+
+# The certified GEMM body (csrc/quant_gemm.cuh) has a decode configuration
+# (M <= 8) and a prefill one (M > 8); both keep one fmaf order per element,
+# so at k <= 12 (exact products) each kernel equals its sequential-order
+# plain version bit for bit, whatever the shape, the tile or the alignment.
+GEMM_FMT = (12, 15, -14)
+
+
+def _gemm_pair(x, w):
+    """(kernel, sequential-order plain version) outputs of both kernels."""
+    return [(tqm.quant_matmul_format(x, w, GEMM_FMT),
+             tqm.quant_matmul_format_seq_ref(x, w, GEMM_FMT)),
+            (tqm.quant_matmul(x, w, k=12), tqm.quant_matmul_seq_ref(x, w, 12))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 65, 129, 512])
+@pytest.mark.parametrize("N", [1, 70, 513, 3584])
+def test_quant_gemm_ragged_shapes_keep_the_sequential_order(cuda_device, M,
+                                                            N):
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    for K in (1, 31, 200, 3584):
+        x = torch.randn(M, K, device=cuda_device, generator=gen)
+        w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
+        for got, want in _gemm_pair(x, w):
+            assert_same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(200, 70), (3584, 512), (31, 3584)])
+def test_quant_gemm_rows_invariant_across_configurations(cuda_device, K, N):
+    """Rows 0..M-1 alone equal the same rows inside M = 512, for M on both
+    sides of the decode/prefill switch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    x = torch.randn(512, K, device=cuda_device, generator=gen)
+    w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
+    full = [tqm.quant_matmul_format(x, w, GEMM_FMT),
+            tqm.quant_matmul(x, w, k=12)]
+    for M in (1, 2, 4, 7, 8, 9, 65, 129):
+        xm = x[:M].contiguous()
+        alone = [tqm.quant_matmul_format(xm, w, GEMM_FMT),
+                 tqm.quant_matmul(xm, w, k=12)]
+        for a, f in zip(alone, full):
+            assert torch.equal(a.view(torch.int32), f[:M].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 40])
+@pytest.mark.parametrize("K", [17, 33])
+def test_quant_gemm_negative_zero_at_a_ragged_k_edge(cuda_device, M, K):
+    """Products that are all -0 sum to +0 from the +0 start; sums that
+    cancel exactly give +0; no zero-padded term past K changes a sign."""
+    x = torch.full((M, K), -0.0, device=cuda_device)
+    x[:, ::2] = 0.0
+    w = torch.ones(K, 5, device=cuda_device)
+    w[::3] = -1.0
+    x[-1, 0], x[-1, 1] = -0.5, 0.5
+    w[0, :], w[1, :] = 1.0, 1.0
+    for got, want in _gemm_pair(x, w):
+        assert_same_bits(got, want)
+        assert not bool(torch.signbit(got).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 129])
+@pytest.mark.parametrize("N", [512, 70])
+def test_quant_gemm_unaligned_operands(cuda_device, M, N):
+    """w and x whose base is 4 bytes past a 16-byte boundary take the
+    4-byte copies; they give the aligned copies' bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(37)
+    K = 200
+    wbuf = torch.randn(K * N + 1, device=cuda_device, generator=gen)
+    xbuf = torch.randn(M * K + 1, device=cuda_device, generator=gen)
+    w, x = wbuf[1:].view(K, N), xbuf[1:].view(M, K)
+    assert w.data_ptr() % 16 != 0 and x.data_ptr() % 16 != 0
+    aligned = _gemm_pair(x.clone(), w.clone())
+    for (got, want), (ref, _) in zip(_gemm_pair(x, w), aligned):
+        assert_same_bits(got, want)
+        assert_same_bits(got, ref)
