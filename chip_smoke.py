@@ -142,8 +142,7 @@ def time_cold_ms(torch, fn, copies, iters: int) -> float:
 def gemm_times(torch, kernel, plain, x, w, iters):
     """A GEMM row's times: the kernel, its plain version and one
     ``torch.matmul`` of the same shapes, each with weights cold (rotated
-    through :func:`weight_copies`), and the kernel with ``w`` re-read
-    (``warm_ms``: w partly in the L2, as :func:`time_ms` times it)."""
+    through :func:`weight_copies`)."""
     copies = weight_copies(torch, w)
     out = {"ms": time_cold_ms(torch, lambda wc: kernel(x, wc), copies,
                               iters),
@@ -151,7 +150,6 @@ def gemm_times(torch, kernel, plain, x, w, iters):
                                     iters),
            "library_ms": time_cold_ms(torch, lambda wc: torch.matmul(x, wc),
                                       copies, iters),
-           "warm_ms": time_ms(torch, lambda: kernel(x, w), iters),
            "weight_copies": len(copies)}
     del copies
     return out
@@ -357,6 +355,9 @@ def coarse_operands(torch, gen, M, K, N):
 
 
 ORDER_FORMATS = ("k12_e15", "k8_e7")
+# a format without subnormals, overflowing to inf: kernel 1's other GEMM
+# instantiation (has_subnormals is a template parameter of its functor)
+ORDER_FLAGS_FORMAT = ("k8_e7", (False, False))
 ORDER_KS = (8, 12)
 ORDER_COLUMNS = 128
 
@@ -381,6 +382,13 @@ def phase_gemm_order(torch, qmm):
                 a, b, FORMATS[f]), lambda a, b, f=f:
                 qmm.quant_matmul_format_seq_ref(a, b, FORMATS[f]))
                 for f in ORDER_FORMATS]
+            f, (subn, sat) = ORDER_FLAGS_FORMAT
+            cases.append((
+                f"format {f} has_subnormals={subn} saturating={sat}",
+                lambda a, b: qmm.quant_matmul_format(
+                    a, b, FORMATS[f], has_subnormals=subn, saturating=sat),
+                lambda a, b: qmm.quant_matmul_format_seq_ref(
+                    a, b, FORMATS[f], has_subnormals=subn, saturating=sat)))
             cases += [(f"k={k}", lambda a, b, k=k: qmm.quant_matmul(a, b, k=k),
                        lambda a, b, k=k: qmm.quant_matmul_seq_ref(a, b, k))
                       for k in ORDER_KS]
@@ -401,7 +409,11 @@ def phase_gemm_order(torch, qmm):
     emit("gemm_order", rule="bit for bit against the sequential-order "
          "plain versions (k ≤ 12: exact products, so each step is fmaf)",
          projections=list(GEMM_SHAPES), M=[4, 512],
-         formats=list(ORDER_FORMATS), ks=list(ORDER_KS),
+         formats=list(ORDER_FORMATS),
+         flags_format={"format": ORDER_FLAGS_FORMAT[0],
+                       "has_subnormals": ORDER_FLAGS_FORMAT[1][0],
+                       "saturating": ORDER_FLAGS_FORMAT[1][1]},
+         ks=list(ORDER_KS),
          columns_per_projection=ORDER_COLUMNS, cases=n_cases,
          elements_compared=n_elems, bitwise_equal=True)
 

@@ -47,12 +47,12 @@
 //
 // Prefill, M > 8 (what bounds it: 2·M·N·K f32 operations at 67 TFLOP/s).
 // A CUDA-core SGEMM of the standard shape: BM x BN block tiles, 8 x 8
-// register micro-tiles (4 x 4 on the narrow tiles), fragments read as
+// register micro-tiles (4 x 4 on the narrow tile), fragments read as
 // float4 from x transposed [k][m] and w [k][n], a 4-stage ring of BK = 16.
 // x arrives as raw [m][k] rows and is rounded and transposed in one pass
 // into one of two [k][m] tiles; w is rounded in place. 128 x 128 tiles
-// where the grid fills half the card, else 64 x 64, else 32 x 64 (w_k/w_v):
-// one rounding per 64 FMAs at 128 x 128.
+// where the grid fills half the card, else 32 x 64 (w_k/w_v at M = 512,
+// and small M): one rounding per 64 FMAs at 128 x 128.
 #pragma once
 
 #include <cstdint>
@@ -565,9 +565,6 @@ cudaError_t quant_gemm_w(const float* x, const float* w, float* out, int M,
     };
     if (blocks(128, 128) >= sms / 2) {
         return launch_sgemm<Q, 128, 128, 8, W>(x, w, out, M, N, K, q, s);
-    }
-    if (blocks(64, 64) >= sms) {
-        return launch_sgemm<Q, 64, 64, 4, W>(x, w, out, M, N, K, q, s);
     }
     return launch_sgemm<Q, 32, 64, 4, W>(x, w, out, M, N, K, q, s);
 }

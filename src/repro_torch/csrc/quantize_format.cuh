@@ -7,11 +7,15 @@
 // to even) on the subnormal grid, IEEE division. Build without
 // --use_fast_math: it would flush subnormals and approximate the division.
 //
-// The format's constants (largest finite value, smallest normal, subnormal
-// step, the mantissa trick's shift and masks) are built once on the host by
-// repro_format_consts and carried by value, so a GEMM's rounding functor
-// does only the per-element work, and that without a branch; the division
-// onto the subnormal grid is an exact multiplication by powers of two.
+// Two forms with the same results. repro_quantize_to_format derives the
+// format's constants per element and branches on the rare cases
+// (flash_decode_certified.cu rounds through it). The GEMM body
+// (quant_gemm.cuh) rounds whole tiles through repro_quantize_to_format_t:
+// the constants (largest finite value, smallest normal, subnormal step, the
+// mantissa trick's shift and masks) are built once on the host by
+// repro_format_consts and carried by value, every case is computed and
+// selected without a branch, and the division onto the subnormal grid is an
+// exact multiplication by powers of two.
 #pragma once
 
 #include <cstdint>
@@ -26,6 +30,49 @@ struct QFmt {
     int saturating;      // overflow clamps to +-max_finite (else +-inf)
 };
 
+// Exact 2^e on f32, carrier subnormals included (pow2 of the reference).
+__device__ __forceinline__ float repro_pow2f(int e) {
+    if (e >= -126) {
+        return __int_as_float(min(e + 127, 254) << 23);
+    }
+    return __int_as_float(1 << min(max(e + 149, 0), 23));
+}
+
+// RNE rounding of the stored mantissa to k bits; NaN/Inf pass through.
+__device__ __forceinline__ float repro_quantize_to_k(float x, int k) {
+    const int s = 24 - k;                  // dropped bits: 23 - (k - 1)
+    if (s <= 0 || !isfinite(x)) return x;
+    const int eff = min(s, 23);
+    const uint32_t b = __float_as_uint(x);
+    const uint32_t half = (1u << (eff - 1)) - 1u;
+    const uint32_t lsb = (b >> eff) & 1u;
+    return __uint_as_float((b + half + lsb) & ~((1u << eff) - 1u));
+}
+
+__device__ __forceinline__ float repro_quantize_to_format(float x,
+                                                          const QFmt f) {
+    if (!isfinite(x)) return x;
+    float y = repro_quantize_to_k(x, f.k);
+    const float max_fin = (2.0f - repro_pow2f(1 - f.k)) * repro_pow2f(f.emax);
+    const float min_norm = repro_pow2f(f.emin);
+    // gated on finite x: rounding may overflow the carrier itself (y = inf)
+    if (fabsf(y) > max_fin) {
+        y = copysignf(f.saturating ? max_fin : INFINITY, y);
+    }
+    if (fabsf(y) < min_norm && y != 0.0f) {
+        if (f.has_subnormals) {
+            // one rounding from the ORIGINAL value onto the subnormal grid
+            const float step = repro_pow2f(f.emin - (f.k - 1));
+            y = rintf(__fdiv_rn(x, step)) * step;
+        } else {
+            y = fabsf(y) < min_norm * 0.5f ? 0.0f : copysignf(min_norm, y);
+        }
+    }
+    return y;
+}
+
+// ------------------------------------------- constants built once a launch
+
 // The mantissa trick's constants for k bits: s = 24 - k dropped bits;
 // k >= 24 rounds nothing (half = lsb = 0, mask = ~0).
 struct QKConsts {
@@ -35,8 +82,8 @@ struct QKConsts {
     uint32_t mask;  // ~(2^eff - 1)
 };
 
-// A format's constants, derived from QFmt exactly as the per-element code
-// derived them.
+// A format's constants, derived from QFmt exactly as
+// repro_quantize_to_format derives them per element.
 struct QFmtConsts {
     QKConsts kc;
     float max_fin;        // (2 - 2^(1-k)) * 2^emax
@@ -48,15 +95,14 @@ struct QFmtConsts {
     int has_subnormals;
 };
 
-__host__ __device__ __forceinline__ float repro_f32_from_bits(uint32_t u) {
+inline float repro_f32_from_bits(uint32_t u) {
     float f;
     memcpy(&f, &u, sizeof f);
     return f;
 }
 
-// Exact 2^e on f32, carrier subnormals included (pow2 of the reference);
-// e is clamped to [-149, 127].
-__host__ __device__ __forceinline__ float repro_pow2f(int e) {
+// repro_pow2f on the host: e is clamped to [-149, 127].
+inline float repro_pow2f_host(int e) {
     if (e >= -126) {
         const int b = e + 127 < 254 ? e + 127 : 254;
         return repro_f32_from_bits(static_cast<uint32_t>(b) << 23);
@@ -66,28 +112,28 @@ __host__ __device__ __forceinline__ float repro_pow2f(int e) {
     return repro_f32_from_bits(1u << sh);
 }
 
-__host__ __device__ inline QKConsts repro_k_consts(int k) {
+inline QKConsts repro_k_consts(int k) {
     const int s = 24 - k;
     if (s <= 0) return QKConsts{0u, 0u, 0u, ~0u};
     const uint32_t eff = static_cast<uint32_t>(s < 23 ? s : 23);
     return QKConsts{eff, (1u << (eff - 1)) - 1u, 1u, ~((1u << eff) - 1u)};
 }
 
-__host__ __device__ inline QFmtConsts repro_format_consts(const QFmt f) {
+inline QFmtConsts repro_format_consts(const QFmt f) {
     QFmtConsts c;
     c.kc = repro_k_consts(f.k);
-    c.max_fin = (2.0f - repro_pow2f(1 - f.k)) * repro_pow2f(f.emax);
-    c.min_norm = repro_pow2f(f.emin);
+    c.max_fin = (2.0f - repro_pow2f_host(1 - f.k)) * repro_pow2f_host(f.emax);
+    c.min_norm = repro_pow2f_host(f.emin);
     c.half_min_norm = c.min_norm * 0.5f;
-    c.step = repro_pow2f(f.emin - (f.k - 1));
+    c.step = repro_pow2f_host(f.emin - (f.k - 1));
     // step is 2^e_s, e_s the clamped exponent; x / step and x * 2^-e_s are
     // the same real number, so they round to the same float. 2^-e_s is an
     // f32 for -e_s <= 127; beyond, x * 2^127 is exact (an upscale that
     // overflows only where x / step does too) and the second factor rounds.
     int e_s = f.emin - (f.k - 1);
     e_s = e_s < -149 ? -149 : (e_s > 127 ? 127 : e_s);
-    c.sub_s1 = repro_pow2f(-e_s <= 127 ? -e_s : 127);
-    c.sub_s2 = repro_pow2f(-e_s <= 127 ? 0 : -e_s - 127);
+    c.sub_s1 = repro_pow2f_host(-e_s <= 127 ? -e_s : 127);
+    c.sub_s2 = repro_pow2f_host(-e_s <= 127 ? 0 : -e_s - 127);
     c.ovf = f.saturating ? c.max_fin : repro_f32_from_bits(0x7f800000u);
     c.has_subnormals = f.has_subnormals;
     return c;
@@ -148,15 +194,4 @@ __device__ __forceinline__ float repro_quantize_to_format_t(
            : (a < c.half_min_norm ? 0.0f : copysignf(c.min_norm, y));
     y = a < c.min_norm && y != 0.0f ? sub : y;
     return isfinite(x) ? y : x;
-}
-
-__device__ __forceinline__ float repro_quantize_to_format_c(
-    float x, const QFmtConsts& c) {
-    return c.has_subnormals ? repro_quantize_to_format_t<true>(x, c)
-                            : repro_quantize_to_format_t<false>(x, c);
-}
-
-__device__ __forceinline__ float repro_quantize_to_format(float x,
-                                                          const QFmt f) {
-    return repro_quantize_to_format_c(x, repro_format_consts(f));
 }

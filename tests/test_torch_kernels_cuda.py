@@ -376,25 +376,32 @@ def test_caa_kernels_count_launches_and_refuse_mixed_devices(cuda_device):
 # so at k <= 12 (exact products) each kernel equals its sequential-order
 # plain version bit for bit, whatever the shape, the tile or the alignment.
 GEMM_FMT = (12, 15, -14)
+# Kernel 1 has one GEMM instantiation per has_subnormals value: the default
+# flags, and a format without subnormals that overflows to inf (at emin =
+# -6 many of these weights lie below the smallest normal).
+GEMM_FLAGS = [(GEMM_FMT, True, True), ((8, 7, -6), False, False)]
 
 
-def _gemm_pair(x, w):
+def _gemm_pair(x, w, fmt=GEMM_FMT, subn=True, sat=True):
     """(kernel, sequential-order plain version) outputs of both kernels."""
-    return [(tqm.quant_matmul_format(x, w, GEMM_FMT),
-             tqm.quant_matmul_format_seq_ref(x, w, GEMM_FMT)),
+    flags = dict(has_subnormals=subn, saturating=sat)
+    return [(tqm.quant_matmul_format(x, w, fmt, **flags),
+             tqm.quant_matmul_format_seq_ref(x, w, fmt, **flags)),
             (tqm.quant_matmul(x, w, k=12), tqm.quant_matmul_seq_ref(x, w, 12))]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fmt,subn,sat", GEMM_FLAGS)
 @pytest.mark.parametrize("M", [1, 4, 8, 9, 65, 129, 512])
 @pytest.mark.parametrize("N", [1, 70, 513, 3584])
 def test_quant_gemm_ragged_shapes_keep_the_sequential_order(cuda_device, M,
-                                                            N):
+                                                            N, fmt, subn,
+                                                            sat):
     gen = torch.Generator(device=cuda_device).manual_seed(29)
     for K in (1, 31, 200, 3584):
         x = torch.randn(M, K, device=cuda_device, generator=gen)
         w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
-        for got, want in _gemm_pair(x, w):
+        for got, want in _gemm_pair(x, w, fmt, subn, sat):
             assert_same_bits(got, want)
 
 
@@ -434,9 +441,10 @@ def test_quant_gemm_negative_zero_at_a_ragged_k_edge(cuda_device, M, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fmt,subn,sat", GEMM_FLAGS)
 @pytest.mark.parametrize("M", [4, 129])
 @pytest.mark.parametrize("N", [512, 70])
-def test_quant_gemm_unaligned_operands(cuda_device, M, N):
+def test_quant_gemm_unaligned_operands(cuda_device, M, N, fmt, subn, sat):
     """w and x whose base is 4 bytes past a 16-byte boundary take the
     4-byte copies; they give the aligned copies' bits."""
     gen = torch.Generator(device=cuda_device).manual_seed(37)
@@ -445,7 +453,8 @@ def test_quant_gemm_unaligned_operands(cuda_device, M, N):
     xbuf = torch.randn(M * K + 1, device=cuda_device, generator=gen)
     w, x = wbuf[1:].view(K, N), xbuf[1:].view(M, K)
     assert w.data_ptr() % 16 != 0 and x.data_ptr() % 16 != 0
-    aligned = _gemm_pair(x.clone(), w.clone())
-    for (got, want), (ref, _) in zip(_gemm_pair(x, w), aligned):
+    aligned = _gemm_pair(x.clone(), w.clone(), fmt, subn, sat)
+    for (got, want), (ref, _) in zip(_gemm_pair(x, w, fmt, subn, sat),
+                                     aligned):
         assert_same_bits(got, want)
         assert_same_bits(got, ref)
