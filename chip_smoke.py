@@ -4,9 +4,10 @@
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
 port's six CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
 ``build/repro_torch/``; the ``build`` line carries registers, shared memory
-and spills of the two certified GEMMs), holds those two bit for bit against
-their sequential-order plain versions on sampled columns of every Qwen2-7B
-projection (``gemm_order``), checks each kernel against its plain PyTorch
+and spills of the four GEMM kernels), holds the two certified GEMMs bit
+for bit against their sequential-order plain versions on sampled columns of
+every Qwen2-7B projection (``gemm_order``), checks each kernel against its
+plain PyTorch
 version on the card (GEMM rows timed with the weights cold: rotated through
 copies that exceed the L2), and drives the port's paths through the entry
 points a user calls, with every kernel's launch counter set to 0 just
@@ -31,7 +32,10 @@ of its logits):
 * ``analysis_ops`` / ``caa_matmul`` / ``interval_matmul`` — kernels 5 and 6
   through ``ops.caa_matmul_fused`` / ``ops.interval_matmul_rigorous`` on the
   analysis's own dense-layer operands, then at the seven Qwen2-7B
-  projections, against their plain versions.
+  projections, against their plain versions (rows timed with weights
+  cold); between them ``interval_gemm_order`` holds both bit for bit
+  against their sequential-order plain versions on sampled columns of the
+  projections and on every Digits analysis shape.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -239,7 +243,8 @@ def phase_build(build):
          sources=list(build.SOURCES),
          per_source_s={n: r["seconds"] for n, r in res.items()},
          ptxas={n: ptxas_report(res[n]["log"])
-                for n in ("quant_matmul_format", "quant_matmul")})
+                for n in ("quant_matmul_format", "quant_matmul",
+                          "caa_matmul", "interval_matmul")})
 
 
 def phase_rounding(torch, quantize, qmm):
@@ -1546,6 +1551,84 @@ def phase_analysis_ops(torch, ops, qmm, fd, operands):
     return launches, outs
 
 
+IVL_ORDER_COLUMNS = 64
+
+
+def ivl_order_check(torch, what, kernel_outs, seq_outs):
+    for i, (got, want) in enumerate(zip(kernel_outs, seq_outs)):
+        if not same_bits(torch, got, want):
+            n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            raise AssertionError(
+                f"interval_gemm_order {what} output {i}: {n} of "
+                f"{got.numel()} elements differ from the sequential order")
+    return sum(o.numel() for o in kernel_outs)
+
+
+def phase_interval_gemm_order(torch, operands):
+    """Kernels 5 and 6 against their sequential-order plain versions
+    (``*_seq_ref``: k = 0..K-1 from +0, fmaf and __fmaf_ru emulated
+    exactly) on IVL_ORDER_COLUMNS sampled output columns of each Qwen2-7B
+    projection at M = 4 and 512 (the seq refs run once over both batches'
+    rows, which are independent), and on every Digits analysis-path
+    shape, all columns, with the analysis's own operands: equal bit for
+    bit, or the kernels' order was not kept."""
+    from repro_torch.core import caa
+    from repro_torch.kernels import caa_matmul as cm
+    from repro_torch.kernels import interval_matmul as im
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    cpu_gen = torch.Generator().manual_seed(15)
+    n_cases, n_elems = 0, 0
+    for proj, (K, N) in GEMM_SHAPES.items():
+        g = caa.CaaConfig(u_max=2.0 ** -23).gamma(K)
+        w = torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)
+        cols = torch.randperm(N, generator=cpu_gen)[:IVL_ORDER_COLUMNS]
+        cols = cols.sort().values.cuda()
+        wc = w[:, cols].contiguous()
+        xs = [torch.randn(M, K, device="cuda", generator=gen)
+              for M in (4, 512)]
+        ds = [torch.rand(M, K, device="cuda", generator=gen) * 4.0
+              for M in (4, 512)]
+        x, d = torch.cat(xs), torch.cat(ds)
+        lo, hi = x - 0.01 * d, x + 0.01 * d
+        seq = {"caa_matmul": cm.caa_matmul_seq_ref(x, d, wc, g=g),
+               "interval_matmul": im.interval_matmul_seq_ref(lo, hi, wc)}
+        r0 = 0
+        for xm, dm in zip(xs, ds):
+            M = xm.shape[0]
+            rows = slice(r0, r0 + M)
+            outs = {"caa_matmul": cm.caa_matmul(xm, dm, w, g=g),
+                    "interval_matmul": im.interval_matmul(
+                        lo[rows].contiguous(), hi[rows].contiguous(), w)}
+            for name, out in outs.items():
+                n_elems += ivl_order_check(
+                    torch, f"{name} {proj} M={M}", [o[:, cols] for o in out],
+                    [o[rows] for o in seq[name]])
+                n_cases += 1
+            r0 += M
+        del w, wc, x, d, lo, hi, xs, ds, seq, outs
+    for (M, K, N), o in operands.items():
+        what = f"digits {(M, K, N)}"
+        n_elems += ivl_order_check(
+            torch, f"caa_matmul {what}",
+            cm.caa_matmul(o["x"], o["d"], o["w"], g=o["g"]),
+            cm.caa_matmul_seq_ref(o["x"], o["d"], o["w"], g=o["g"]))
+        n_elems += ivl_order_check(
+            torch, f"interval_matmul {what}",
+            im.interval_matmul(o["lo"], o["hi"], o["w"]),
+            im.interval_matmul_seq_ref(o["lo"], o["hi"], o["w"]))
+        n_cases += 2
+    emit("interval_gemm_order", rule="bit for bit against the "
+         "sequential-order plain versions (fmaf / __fmaf_ru emulated "
+         "exactly: f64 product, two-sum, midpoint and residual checks)",
+         projections=list(GEMM_SHAPES), M=[4, 512],
+         columns_per_projection=IVL_ORDER_COLUMNS,
+         digits_shapes=[list(k) for k in operands], cases=n_cases,
+         elements_compared=n_elems, bitwise_equal=True,
+         seconds=time.perf_counter() - t0)
+
+
 def check_caa(torch, cm, x, d, w, g, val, err, what):
     """Kernel 5's rules: val within the GEMM rule of the plain version;
     E ≤ err ≤ E·(1 + (2K+2)·2⁻²³), E = (dbar + g·|x|)@|W| in f64 of the
@@ -1625,24 +1708,35 @@ def analysis_kernel_bound(M, K, N, kernel):
                     2.0 * fmas * M * K * N)
 
 
+def bmm_operands(torch, kernel, a0, a1, w):
+    """The yardstick's operands, stacked: one ``torch.bmm(A, B)`` computes
+    the kernel's products (2 for caa_matmul: x@W, t@|W|, a1 = t; 5 for
+    interval_matmul: lo@W⁺, hi@W⁻, hi@W⁺, lo@W⁻, mag@|W|)."""
+    if kernel == "caa_matmul":
+        return torch.stack([a0, a1]), torch.stack([w, w.abs()])
+    wp, wm = w.clamp(min=0), w.clamp(max=0)
+    return (torch.stack([a0, a1, a1, a0, torch.maximum(a0.abs(), a1.abs())]),
+            torch.stack([wp, wm, wp, wm, w.abs()]))
+
+
 def time_analysis_kernel(torch, kernel, fn, plain, a0, a1, w, iters):
-    """ms of the kernel and its plain version, the bound, and the yardstick:
-    one ``torch.bmm`` over operands stacked beforehand (2 products for
-    caa_matmul: x@W, t@|W|; 5 for interval_matmul: lo@W⁺, hi@W⁻, hi@W⁺,
-    lo@W⁻, mag@|W|)."""
+    """ms of the kernel ``fn(w)`` and its plain version ``plain(w)``, the
+    bound, and the yardstick: one ``torch.bmm`` over operands stacked
+    beforehand (:func:`bmm_operands`). Each is timed with its weights cold,
+    rotated through :func:`weight_copies` (of W, resp. of the stacked B)."""
     M, K = a0.shape
     N = w.shape[1]
-    row = {"ms": time_ms(torch, fn, iters),
-           "plain_ms": time_ms(torch, plain, iters)}
-    if kernel == "caa_matmul":       # a1 = t = dbar + g·|x|
-        A = torch.stack([a0, a1])
-        B = torch.stack([w, w.abs()])
-    else:
-        wp, wm = w.clamp(min=0), w.clamp(max=0)
-        A = torch.stack([a0, a1, a1, a0, torch.maximum(a0.abs(), a1.abs())])
-        B = torch.stack([wp, wm, wp, wm, w.abs()])
-    row["library_ms"] = time_ms(torch, lambda: torch.bmm(A, B), iters)
-    del A, B
+    copies = weight_copies(torch, w)
+    row = {"ms": time_cold_ms(torch, fn, copies, iters),
+           "plain_ms": time_cold_ms(torch, plain, copies, iters),
+           "weight_copies": len(copies)}
+    del copies
+    A, B = bmm_operands(torch, kernel, a0, a1, w)
+    copies = weight_copies(torch, B)
+    del B
+    row["library_ms"] = time_cold_ms(torch, lambda b: torch.bmm(A, b),
+                                     copies, iters)
+    del A, copies
     row["bound_ms"], row["bound_by"] = analysis_kernel_bound(M, K, N, kernel)
     return row
 
@@ -1679,17 +1773,16 @@ def phase_caa_kernel(torch, kernel, ops, operands, path_outs):
                            err, f"digits {key}")
             timing = time_analysis_kernel(
                 torch, kernel,
-                lambda: cm.caa_matmul(o["x"], o["d"], o["w"], g=o["g"]),
-                lambda: cm.caa_matmul_plain(o["x"], o["d"], o["w"],
-                                            g=o["g"]),
+                lambda wc: cm.caa_matmul(o["x"], o["d"], wc, g=o["g"]),
+                lambda wc: cm.caa_matmul_plain(o["x"], o["d"], wc, g=o["g"]),
                 o["x"], o["d"] + o["g"] * o["x"].abs(), o["w"], 20)
         else:
             st = check_interval(torch, im, ops, o["lo"], o["hi"], o["w"],
                                 ivl, f"digits {key}")
             timing = time_analysis_kernel(
                 torch, kernel,
-                lambda: im.interval_matmul(o["lo"], o["hi"], o["w"]),
-                lambda: im.interval_matmul_plain(o["lo"], o["hi"], o["w"]),
+                lambda wc: im.interval_matmul(o["lo"], o["hi"], wc),
+                lambda wc: im.interval_matmul_plain(o["lo"], o["hi"], wc),
                 o["lo"], o["hi"], o["w"], 20)
         worst = max(worst, st["max_abs_err"])
         path_rows.append({"M": key[0], "K": key[1], "N": key[2],
@@ -1721,16 +1814,16 @@ def phase_caa_kernel(torch, kernel, ops, operands, path_outs):
                 out = cm.caa_matmul(x, d, w, g=g)
                 st = check_caa(torch, cm, x, d, w, g, *out, f"{proj} M={M}")
                 a0, a1 = x, d
-                fn = lambda: cm.caa_matmul(x, d, w, g=g)
-                plain = lambda: cm.caa_matmul_plain(x, d, w, g=g)
+                fn = lambda wc: cm.caa_matmul(x, d, wc, g=g)
+                plain = lambda wc: cm.caa_matmul_plain(x, d, wc, g=g)
                 t_a1 = g * x.abs() + d
             else:
                 a0, a1 = x - 0.01 * d, x + 0.01 * d
                 out = ops.interval_matmul_rigorous(a0, a1, w)
                 st = check_interval(torch, im, ops, a0, a1, w, out,
                                     f"{proj} M={M}")
-                fn = lambda: im.interval_matmul(a0, a1, w)
-                plain = lambda: im.interval_matmul_plain(a0, a1, w)
+                fn = lambda wc: im.interval_matmul(a0, a1, wc)
+                plain = lambda wc: im.interval_matmul_plain(a0, a1, wc)
                 t_a1 = a1
             worst = max(worst, st["max_abs_err"])
             row = {"proj": proj, "M": M, "K": K, "N": N, **st}
@@ -1867,6 +1960,7 @@ def main() -> int:
     by_path["analysis_ops"], path_outs = phase_analysis_ops(
         torch, kops, qmm, fd, operands)
     free_device_memory(torch)
+    phase_interval_gemm_order(torch, operands)
     cpath, crows, cerr = phase_caa_kernel(torch, "caa_matmul", kops,
                                           operands, path_outs)
     ipath, irows, ierr = phase_caa_kernel(torch, "interval_matmul", kops,
@@ -1935,7 +2029,8 @@ def main() -> int:
         kernels.append(kernel_row(
             name, f"src/repro_torch/csrc/{name}.cu", replaces,
             launches[name], "analysis_ops", err, layer_sum(rows, 4),
-            "the 7 GEMMs of one Qwen2-7B layer at M=4, seeded inputs; "
+            "the 7 GEMMs of one Qwen2-7B layer at M=4, seeded inputs, "
+            "weights cold; "
             "launches: ops wrappers on the Digits analysis's own operands "
             "(not on the analysis path, as in the reference)",
             prefill_per_layer=layer_sum(rows, 512),

@@ -13,7 +13,10 @@ bounds become a rigorous enclosure only after the γ-slop widening of
 :func:`interval_matmul` is the hand-written CUDA kernel
 (``csrc/interval_matmul.cu``: the sign split is a select per term),
 :func:`interval_matmul_plain` its plain PyTorch version (five products, as
-the reference writes it).
+the reference writes it). :func:`interval_matmul_seq_ref` repeats the
+kernel's own arithmetic step by step (k = 0..K-1 from +0, one emulated
+``fmaf`` per term and bound), so it equals the kernel bit for bit on any
+operands; it checks the kernel's order, and nothing serves through it.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.caa_matmul import fmaf_rn
 from repro_torch.kernels.quant_matmul import _check_cuda_f32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -37,6 +41,29 @@ def interval_matmul_plain(lo: torch.Tensor, hi: torch.Tensor,
     out_hi = torch.matmul(hi, wp) + torch.matmul(lo, wm)
     mag = torch.matmul(torch.maximum(lo.abs(), hi.abs()), w.abs())
     return out_lo, out_hi, mag
+
+
+def interval_matmul_seq_ref(lo: torch.Tensor, hi: torch.Tensor,
+                            w: torch.Tensor):
+    """The kernel's arithmetic in plain PyTorch: mag = fmaxf(|lo|, |hi|)
+    once per element, then for k = 0..K-1 from +0, with p = w_k ≥ 0,
+    lo' = fmaf(p ? lo_k : hi_k, w_k, lo'), hi' = fmaf(p ? hi_k : lo_k, w_k,
+    hi'), mag' = fmaf(mag_k, |w_k|, mag'). Bit for bit the kernel's
+    (lo', hi', mag'), unwidened."""
+    lo, hi, w = (v.to(torch.float32) for v in (lo, hi, w))
+    mag = torch.fmax(lo.abs(), hi.abs())
+    aw = w.abs()
+    # the three chains stacked, one emulated fmaf a step
+    acc = torch.zeros((3, lo.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=lo.device)
+    for k in range(lo.shape[1]):
+        wk = w[k:k + 1]
+        pos = wk >= 0
+        lk, hk = lo[:, k:k + 1], hi[:, k:k + 1]
+        a = torch.stack([torch.where(pos, lk, hk), torch.where(pos, hk, lk),
+                         mag[:, k:k + 1].expand_as(acc[2])])
+        acc = fmaf_rn(a, torch.stack([wk, wk, aw[k:k + 1]]), acc)
+    return tuple(acc)
 
 
 def _lib():

@@ -458,3 +458,104 @@ def test_quant_gemm_unaligned_operands(cuda_device, M, N, fmt, subn, sat):
                                      aligned):
         assert_same_bits(got, want)
         assert_same_bits(got, ref)
+
+
+# The interval GEMM body (csrc/interval_gemm.cuh, kernels caa_matmul and
+# interval_matmul) has a decode configuration (M <= 8) and prefill tiles
+# chosen by the grid; every one keeps one fmaf / __fmaf_ru order per
+# element, so each kernel equals its sequential-order plain version (exact
+# emulated steps) bit for bit, whatever the shape, tile or alignment.
+IVL_G = 0.5 + 2.0 ** -20     # a g whose t = g·|x| + dbar is rarely exact
+
+
+def _ivl_pairs(x, d, w, lohi=None):
+    """(kernel, sequential-order plain version) outputs of both kernels;
+    interval_matmul takes ``lohi`` or [x - d/20, x + d/20]."""
+    lo, hi = lohi if lohi is not None else (x - 0.05 * d, x + 0.05 * d)
+    return (list(zip(tcaa.caa_matmul(x, d, w, g=IVL_G),
+                     tcaa.caa_matmul_seq_ref(x, d, w, g=IVL_G)))
+            + list(zip(tim.interval_matmul(lo, hi, w),
+                       tim.interval_matmul_seq_ref(lo, hi, w))))
+
+
+def _ivl_operands(gen, M, K, N, device):
+    x = torch.randn(M, K, device=device, generator=gen)
+    d = torch.rand(M, K, device=device, generator=gen) * 3.0
+    w = torch.randn(K, N, device=device, generator=gen) / np.sqrt(K)
+    return x, d, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 40, 129, 512])
+@pytest.mark.parametrize("N", [1, 10, 513, 3584])
+def test_interval_gemm_ragged_shapes_keep_the_sequential_order(cuda_device,
+                                                               M, N):
+    gen = torch.Generator(device=cuda_device).manual_seed(43)
+    for K in (1, 31, 200, 1001):
+        for got, want in _ivl_pairs(*_ivl_operands(gen, M, K, N,
+                                                   cuda_device)):
+            assert_same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(200, 70), (3584, 512), (31, 3584),
+                                 (784, 700)])
+def test_interval_gemm_rows_invariant_for_m_1_to_512(cuda_device, K, N):
+    """Rows 0..M-1 alone equal the same rows inside M = 512, for M across
+    the decode configuration and every prefill tile."""
+    gen = torch.Generator(device=cuda_device).manual_seed(47)
+    x, d, w = _ivl_operands(gen, 512, K, N, cuda_device)
+    lo, hi = x - 0.05 * d, x + 0.05 * d
+    full = (tcaa.caa_matmul(x, d, w, g=IVL_G)
+            + tim.interval_matmul(lo, hi, w))
+    for M in (1, 2, 3, 4, 5, 7, 8, 9, 10, 16, 17, 33, 64, 65, 129, 257, 511):
+        alone = (tcaa.caa_matmul(x[:M].contiguous(), d[:M].contiguous(), w,
+                                 g=IVL_G)
+                 + tim.interval_matmul(lo[:M].contiguous(),
+                                       hi[:M].contiguous(), w))
+        for a, f in zip(alone, full):
+            assert torch.equal(a.view(torch.int32), f[:M].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 10, 129])
+@pytest.mark.parametrize("K,N", [(201, 10), (203, 512), (256, 10)])
+def test_interval_gemm_unaligned_operands(cuda_device, M, K, N):
+    """N = 10 or K % 4 != 0, and bases 4 bytes past a 16-byte boundary,
+    take the 4-byte copies; they give the sequential order's bits and the
+    aligned copies' bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(53)
+    bufs = [torch.randn(n + 1, device=cuda_device, generator=gen)
+            for n in (M * K, M * K, K * N)]
+    x, d, w = (b[1:].view(s) for b, s in zip(bufs, ((M, K), (M, K), (K, N))))
+    lohi = []
+    for t in (x - 0.05 * d.abs(), x + 0.05 * d.abs()):
+        u = torch.empty(M * K + 1, device=cuda_device)[1:].view(M, K)
+        lohi.append(u.copy_(t))
+    assert all(t.data_ptr() % 16 != 0 for t in (x, d, w, *lohi))
+    aligned = _ivl_pairs(x.clone(), d.clone(), w.clone(),
+                         [t.clone() for t in lohi])
+    for (got, want), (ref, _) in zip(_ivl_pairs(x, d, w, lohi), aligned):
+        assert_same_bits(got, want)
+        assert_same_bits(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 40])
+@pytest.mark.parametrize("K", [17, 33])
+def test_interval_gemm_negative_zero_at_a_ragged_k_edge(cuda_device, M, K):
+    """Products that are all ±0 sum to +0 from the +0 start in every
+    accumulator; sums that cancel exactly give +0; no zero-padded term past
+    K changes a sign."""
+    x = torch.full((M, K), -0.0, device=cuda_device)
+    x[:, ::2] = 0.0
+    d = torch.zeros(M, K, device=cuda_device)
+    d[:, -1] = -0.0
+    w = torch.ones(K, 5, device=cuda_device)
+    w[::3] = -1.0
+    w[-1] = -0.0
+    x[-1, 0], x[-1, 1] = -0.5, 0.5
+    w[0, :], w[1, :] = 1.0, 1.0
+    for got, want in _ivl_pairs(x, d, w):
+        assert_same_bits(got, want)
+        assert not bool(torch.signbit(got).any())

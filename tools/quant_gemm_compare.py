@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time and fingerprint the two certified GEMM kernels of one source tree.
+"""Time and fingerprint two GEMM kernels of one source tree.
 
-    python3 tools/quant_gemm_compare.py --src SRC_DIR --tag NAME
+    python3 tools/quant_gemm_compare.py --src SRC_DIR --tag NAME \
+        [--kernels quant|interval]
 
 ``SRC_DIR`` is a ``src`` directory that holds a ``repro_torch`` package (this
 repository's, or an older commit's unpacked with ``git archive``). The script
@@ -12,8 +13,15 @@ kernel 1, k = 12 for kernel 3. Per row it reports the kernel's time with
 weights cold (rotated through copies that exceed the L2, as
 ``chip_smoke.py`` times them), one ``torch.matmul`` of the same shapes timed
 the same way, the bound, and the sha256 of the kernel's output bits, so
-that two trees' outputs can be compared bit for bit. To compare two trees
-on one card, run them in turns on the same machine (old, new, new, old).
+that two trees' outputs can be compared bit for bit. ``--kernels interval``
+does the same for the interval GEMMs ``caa_matmul`` (x, dbar = U[0, 4),
+g = γ(K) at u = 2⁻²³) and ``interval_matmul`` ([x - dbar/100,
+x + dbar/100]), with one stacked ``torch.bmm`` as the yardstick, as
+``chip_smoke.py`` times rows 5 and 6. To compare two trees on one card,
+run them in turns on the same machine (old, new, new, old). ``--sass``
+adds each kernel function's instruction mix (``cuobjdump -sass`` of the
+built library: FFMA, SEL/FSEL, LDS, ... counted over the whole function,
+whose unrolled full-tile k-loop dominates the count).
 
 Prints one JSON object. Needs a CUDA device; imports nothing of JAX.
 """
@@ -23,6 +31,8 @@ import argparse
 import hashlib
 import json
 import math
+import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -34,6 +44,12 @@ def main() -> int:
     ap.add_argument("--src", required=True,
                     help="a src directory holding repro_torch")
     ap.add_argument("--tag", required=True, help="name of this run")
+    ap.add_argument("--kernels", choices=("quant", "interval"),
+                    default="quant", help="quant_matmul_format and "
+                    "quant_matmul (default), or caa_matmul and "
+                    "interval_matmul")
+    ap.add_argument("--sass", action="store_true",
+                    help="add the kernels' SASS instruction mix")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -51,6 +67,69 @@ def main() -> int:
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
         raise RuntimeError(f"repro_torch loaded from {repro_torch.__file__}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.kernels == "interval":
+        rows, layer, built = interval_rows(torch, cs, _build)
+    else:
+        rows, layer, built = quant_rows(torch, cs, _build, qmm)
+    res = {"tag": args.tag, "src": str(src), "kernels": args.kernels,
+           "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": cs.nvidia_smi_line(),
+           "timing": "CUDA events, weights rotated through copies that "
+                     "exceed the 50 MB L2",
+           "ptxas": {n: cs.ptxas_report(b["log"]) for n, b in built.items()},
+           "per_layer": layer, "rows": rows}
+    if args.sass:
+        res["sass"] = {n: sass_mix(_build, n) for n in built}
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+SASS_OPS = ("FFMA", "FSEL", "SEL", "LDS", "FSETP", "FADD", "FMNMX", "LOP3",
+            "IMAD", "BAR", "LDGSTS")
+
+
+def sass_mix(_build, name):
+    """{kernel function: {opcode: count}} of ``cuobjdump -sass`` on the
+    built library of ``name`` (opcodes of SASS_OPS, modifiers dropped, and
+    the total)."""
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(name))],
+                         check=True, capture_output=True, text=True).stdout
+    mix, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = mix.setdefault(m.group(1), {op: 0 for op in SASS_OPS})
+            cur["total"] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                     line)
+        if cur is not None and m:
+            cur["total"] += 1
+            if m.group(1) in cur:
+                cur[m.group(1)] += 1
+    return mix
+
+
+def sha256(outs) -> str:
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def per_layer(rows, names):
+    layer = {}
+    for M in (4, 512):
+        sel = [r for r in rows if r["M"] == M]
+        layer[M] = {"bound_ms": sum(r["bound_ms"] for r in sel),
+                    "library_ms": sum(r["library_ms"] for r in sel),
+                    **{name: sum(r[name]["ms"] for r in sel)
+                       for name in names}}
+    return layer
+
+
+def quant_rows(torch, cs, _build, qmm):
     built = _build.build(("quant_matmul_format", "quant_matmul"),
                          ptxas_verbose=True)
     fmt = cs.FORMATS["k12_e15"]
@@ -77,26 +156,58 @@ def main() -> int:
                 row[name] = {
                     "ms": cs.time_cold_ms(torch, lambda wc: fn(x, wc),
                                           copies, iters),
-                    "sha256": hashlib.sha256(
-                        out.cpu().numpy().tobytes()).hexdigest()}
+                    "sha256": sha256([out])}
             rows.append(row)
             del x
         del w, copies
-    layer = {}
-    for M in (4, 512):
-        sel = [r for r in rows if r["M"] == M]
-        layer[M] = {"bound_ms": sum(r["bound_ms"] for r in sel),
-                    "library_ms": sum(r["library_ms"] for r in sel),
-                    **{name: sum(r[name]["ms"] for r in sel)
-                       for name in kernels}}
-    res = {"tag": args.tag, "src": str(src), "device":
-           torch.cuda.get_device_name(0), "nvidia_smi": cs.nvidia_smi_line(),
-           "timing": "CUDA events, weights rotated through copies that "
-                     "exceed the 50 MB L2",
-           "ptxas": {n: cs.ptxas_report(b["log"]) for n, b in built.items()},
-           "per_layer": layer, "rows": rows}
-    print(json.dumps(res), flush=True)
-    return 0
+    return rows, per_layer(rows, kernels), built
+
+
+def interval_rows(torch, cs, _build):
+    from repro_torch.core import caa
+    from repro_torch.kernels import caa_matmul as cm
+    from repro_torch.kernels import interval_matmul as im
+
+    built = _build.build(("caa_matmul", "interval_matmul"),
+                         ptxas_verbose=True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for proj, (K, N) in cs.GEMM_SHAPES.items():
+        g = caa.CaaConfig(u_max=2.0 ** -23).gamma(K)
+        w = torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)
+        copies = cs.weight_copies(torch, w)
+        for M in (4, 512):
+            x = torch.randn(M, K, device="cuda", generator=gen)
+            d = torch.rand(M, K, device="cuda", generator=gen) * 4.0
+            lo, hi = x - 0.01 * d, x + 0.01 * d
+            iters = 20 if M == 4 else 3
+            row = {"proj": proj, "M": M, "K": K, "N": N}
+            # (kernel, the yardstick's two activation operands)
+            cases = {
+                "caa_matmul": (lambda wc: cm.caa_matmul(x, d, wc, g=g), x,
+                               d + g * x.abs()),
+                "interval_matmul": (lambda wc: im.interval_matmul(lo, hi, wc),
+                                    lo, hi)}
+            for name, (fn, a0, a1) in cases.items():
+                r = {"sha256": sha256(fn(w)),
+                     "ms": cs.time_cold_ms(torch, fn, copies, iters)}
+                A, B = cs.bmm_operands(torch, name, a0, a1, w)
+                bcopies = cs.weight_copies(torch, B)
+                del B
+                r["library_ms"] = cs.time_cold_ms(
+                    torch, lambda b: torch.bmm(A, b), bcopies, iters)
+                del A, bcopies
+                r["bound_ms"], r["bound_by"] = cs.analysis_kernel_bound(
+                    M, K, N, name)
+                row[name] = r
+            rows.append(row)
+            del x, d, lo, hi
+        del w, copies
+    layer = {M: {name: {key: sum(r[name][key] for r in rows if r["M"] == M)
+                        for key in ("ms", "library_ms", "bound_ms")}
+                 for name in ("caa_matmul", "interval_matmul")}
+             for M in (4, 512)}
+    return rows, layer, built
 
 
 if __name__ == "__main__":
