@@ -33,9 +33,10 @@ of its logits):
   through ``ops.caa_matmul_fused`` / ``ops.interval_matmul_rigorous`` on the
   analysis's own dense-layer operands, then at the seven Qwen2-7B
   projections, against their plain versions (rows timed with weights
-  cold); between them ``interval_gemm_order`` holds both bit for bit
-  against their sequential-order plain versions on sampled columns of the
-  projections and on every Digits analysis shape.
+  cold, the Digits rows from a profiler trace); between them
+  ``interval_gemm_order`` holds both bit for bit against their
+  sequential-order plain versions on sampled columns of the projections
+  and on every Digits analysis shape.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -141,6 +142,30 @@ def time_cold_ms(torch, fn, copies, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def trace_ms(torch, fn, copies, iters: int) -> float:
+    """Mean device time of ``fn(w)`` a call, ``w`` rotating through
+    ``copies`` (after one warm-up pass): the summed durations of the device
+    activities (kernels, copies) in a ``torch.profiler`` trace of ``iters``
+    calls. For calls shorter than their launch from the host, where CUDA
+    events around a loop of calls time the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for w in copies:
+        fn(w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(copies[i % len(copies)])
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("the trace holds no device activity")
+    return sum(spans) / 1e3 / iters
 
 
 def gemm_times(torch, kernel, plain, x, w, iters):
@@ -1719,23 +1744,29 @@ def bmm_operands(torch, kernel, a0, a1, w):
             torch.stack([wp, wm, wp, wm, w.abs()]))
 
 
-def time_analysis_kernel(torch, kernel, fn, plain, a0, a1, w, iters):
+def time_analysis_kernel(torch, kernel, fn, plain, a0, a1, w, iters,
+                         traced=False):
     """ms of the kernel ``fn(w)`` and its plain version ``plain(w)``, the
     bound, and the yardstick: one ``torch.bmm`` over operands stacked
     beforehand (:func:`bmm_operands`). Each is timed with its weights cold,
-    rotated through :func:`weight_copies` (of W, resp. of the stacked B)."""
+    rotated through :func:`weight_copies` (of W, resp. of the stacked B):
+    by CUDA events, or with ``traced`` from a profiler trace
+    (:func:`trace_ms`; the Digits shapes, whose calls are shorter than
+    their launch)."""
     M, K = a0.shape
     N = w.shape[1]
+    timer = trace_ms if traced else time_cold_ms
     copies = weight_copies(torch, w)
-    row = {"ms": time_cold_ms(torch, fn, copies, iters),
-           "plain_ms": time_cold_ms(torch, plain, copies, iters),
-           "weight_copies": len(copies)}
+    row = {"ms": timer(torch, fn, copies, iters),
+           "plain_ms": timer(torch, plain, copies, iters),
+           "weight_copies": len(copies),
+           "timing": "trace" if traced else "cuda_events"}
     del copies
     A, B = bmm_operands(torch, kernel, a0, a1, w)
     copies = weight_copies(torch, B)
     del B
-    row["library_ms"] = time_cold_ms(torch, lambda b: torch.bmm(A, b),
-                                     copies, iters)
+    row["library_ms"] = timer(torch, lambda b: torch.bmm(A, b), copies,
+                              iters)
     del A, copies
     row["bound_ms"], row["bound_by"] = analysis_kernel_bound(M, K, N, kernel)
     return row
@@ -1775,7 +1806,8 @@ def phase_caa_kernel(torch, kernel, ops, operands, path_outs):
                 torch, kernel,
                 lambda wc: cm.caa_matmul(o["x"], o["d"], wc, g=o["g"]),
                 lambda wc: cm.caa_matmul_plain(o["x"], o["d"], wc, g=o["g"]),
-                o["x"], o["d"] + o["g"] * o["x"].abs(), o["w"], 20)
+                o["x"], o["d"] + o["g"] * o["x"].abs(), o["w"], 200,
+                traced=True)
         else:
             st = check_interval(torch, im, ops, o["lo"], o["hi"], o["w"],
                                 ivl, f"digits {key}")
@@ -1783,7 +1815,7 @@ def phase_caa_kernel(torch, kernel, ops, operands, path_outs):
                 torch, kernel,
                 lambda wc: im.interval_matmul(o["lo"], o["hi"], wc),
                 lambda wc: im.interval_matmul_plain(o["lo"], o["hi"], wc),
-                o["lo"], o["hi"], o["w"], 20)
+                o["lo"], o["hi"], o["w"], 200, traced=True)
         worst = max(worst, st["max_abs_err"])
         path_rows.append({"M": key[0], "K": key[1], "N": key[2],
                           "g": o["g"] if is_caa else None, **st, **timing})

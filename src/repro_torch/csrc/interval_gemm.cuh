@@ -46,14 +46,18 @@
 // in one pass into one of two sets of NS [k][m] tiles. Micro-tiles sized
 // for the accumulators: 8 x 8 for CaaTerm (128) on 128 x 128 block tiles,
 // 8 x 4 for IntervalTerm (96) on 128 x 64; where that grid fills less than
-// half the card, 32 x 64 tiles of 4 x 4, and below that 16 x 32 of 2 x 2
-// (w_k/w_v at M = 512, the Digits analysis shapes). IntervalTerm issues
-// five FMAs a term (two pairs predicated on the sign, and mag's) for the
-// three that run: at most 60 % of its operations bound.
+// half the card, 32 x 64 tiles of 4 x 4 (w_k/w_v at M = 512), and below
+// that 16 x 32 of 2 x 2 (the Digits analysis shapes, grids of 1-22
+// blocks, where 2 x 2 took 0.4-0.7 of 4 x 4's device time on an H100).
+// IntervalTerm issues five FMAs a term (two pairs predicated on the sign,
+// and mag's) for the three that run; with the fragment loads, the SASS of
+// its 128 x 64 k-loop puts the ceiling at 56 % of its operations bound.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "gemm_common.cuh"
 
 namespace {
 
@@ -113,84 +117,6 @@ struct IntervalTerm {
         acc[2] = fmaf(a[2], w.aw, acc[2]);
     }
 };
-
-// ------------------------------------------------------- async copies
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-    const unsigned d =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-    const unsigned d =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    // the clobber keeps the compiler from moving a shared-memory access of
-    // this thread across the wait (each thread reads its own copies after it)
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A W-float async copy (W = 4: 16 bytes, W = 1: 4), zero-filled if !ok.
-template <int W>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool ok) {
-    if constexpr (W == 4) {
-        cp_async16(dst, src, ok);
-    } else {
-        cp_async4(dst, src, ok);
-    }
-}
-
-// W consecutive floats of shared memory, in registers.
-template <int W>
-struct Pack {
-    float v[W];
-};
-
-template <int W>
-__device__ __forceinline__ Pack<W> lds_pack(const float* p) {
-    Pack<W> r;
-    if constexpr (W == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(p);
-        r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
-    } else {
-        r.v[0] = *p;
-    }
-    return r;
-}
-
-// Copies of one K-tile of w (BK x BN at rows k0.., columns n0..) into the
-// slot ws [BK][BN] by NT copying threads: item j of thread pt is element
-// e = W*(pt + j*NT); past an edge, zero-filled.
-template <int W, int BK, int BN, int NT>
-__device__ __forceinline__ void copy_w(float* ws, const float* w, int pt,
-                                       int k0, int n0, int N, int K) {
-    constexpr int S = BK * BN, NB = (S + W * NT - 1) / (W * NT);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-        const int e = W * (pt + j * NT);
-        if (S % (W * NT) == 0 || e < S) {
-            const int gk = k0 + e / BN, gn = n0 + e % BN;
-            const bool ok = gk < K && gn < N;
-            cp_async<W>(ws + e, ok ? w + (size_t)gk * N + gn : w, ok);
-        }
-    }
-}
 
 __device__ __forceinline__ float lane4(const float4& v, int i) {
     return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -267,7 +193,7 @@ interval_gemv_kernel(const float* __restrict__ a0,
     constexpr int NT = 32 * NP, WS = BK * kDecBN, XS = kDecRows * BK;
     constexpr int SS = dec_stage_floats<Op, BK>();
     constexpr int NX = XS / NT;
-    static_assert(NX * NT == XS && WS % (W * NT) == 0, "whole shares");
+    static_assert(NX * NT == XS, "whole shares");
     extern __shared__ float4 dec_smem4[];
     float* const ring = reinterpret_cast<float*>(dec_smem4);
 
@@ -409,7 +335,7 @@ constexpr int pf_smem_bytes() {
 }
 
 // A thread's T values along a B-wide row of a tile, thread index u: T = 8
-// as two float4 at u*4 and B/2 + u*4; T = 4, 2, 1 contiguous at u*T.
+// as two float4 at u*4 and B/2 + u*4; T = 4, 2 contiguous at u*T.
 template <int T, int B>
 __device__ __forceinline__ void frag(const float* p, int u, float (&v)[T]) {
     if constexpr (T == 8) {
@@ -420,11 +346,10 @@ __device__ __forceinline__ void frag(const float* p, int u, float (&v)[T]) {
     } else if constexpr (T == 4) {
         const float4 a = *reinterpret_cast<const float4*>(p + u * 4);
         v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    } else if constexpr (T == 2) {
+    } else {
+        static_assert(T == 2, "micro-tiles of 8, 4 or 2");
         const float2 a = *reinterpret_cast<const float2*>(p + u * 2);
         v[0] = a.x; v[1] = a.y;
-    } else {
-        v[0] = p[u];
     }
 }
 
@@ -581,15 +506,6 @@ interval_sgemm_kernel(const float* __restrict__ a0,
 
 // ---------------------------------------------------------------- launch
 
-// Raise a kernel's dynamic shared memory limit once, where it needs more
-// than the default 48 KB.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 struct Operands {
     const float *a0, *a1, *w;
     float *o0, *o1, *o2;
@@ -620,17 +536,6 @@ cudaError_t launch_sgemm(const Operands& p, const Op& op, cudaStream_t s) {
         <<<grid, (BM / TM) * (BN / TN), smem, s>>>(
             p.a0, p.a1, p.w, p.o0, p.o1, p.o2, p.M, p.N, p.K, op);
     return cudaGetLastError();
-}
-
-inline int sm_count() {
-    static const int n = [] {
-        int dev = 0, v = 132;
-        if (cudaGetDevice(&dev) == cudaSuccess) {
-            cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-        }
-        return v;
-    }();
-    return n;
 }
 
 // The configuration and tile for (M, N), with copies W floats wide.

@@ -8,7 +8,8 @@
 // src/repro/kernels/interval_matmul.py (wrapper interval_matmul, reached
 // through ops.interval_matmul_rigorous). The TPU kernel ran three products
 // per tile against W⁺ = max(W, 0) and W⁻ = min(W, 0); here the sign split
-// is a select per term on the one staged W tile. Accumulation is f32 round
+// is taken per term on the one staged W tile, as two fmas per bound
+// predicated on w ≥ 0, of which one runs. Accumulation is f32 round
 // to nearest, as in the reference: K products and K sums per bound, which
 // the wrapper's γ_{2K+2}·2⁻²³·mag' widening covers for any order. Directed
 // rounding (__fmaf_rd / __fmaf_ru) would let that widening go, but would

@@ -11,7 +11,8 @@ all f32, the raw sign-split enclosure and the magnitude majorant
 bounds become a rigorous enclosure only after the γ-slop widening of
 :func:`repro_torch.kernels.ops.interval_matmul_rigorous`.
 :func:`interval_matmul` is the hand-written CUDA kernel
-(``csrc/interval_matmul.cu``: the sign split is a select per term),
+(``csrc/interval_matmul.cu``: the sign split is taken per term, as two
+fmas per bound predicated on w ≥ 0, of which one runs),
 :func:`interval_matmul_plain` its plain PyTorch version (five products, as
 the reference writes it). :func:`interval_matmul_seq_ref` repeats the
 kernel's own arithmetic step by step (k = 0..K-1 from +0, one emulated

@@ -2,7 +2,7 @@
 """Time and fingerprint two GEMM kernels of one source tree.
 
     python3 tools/quant_gemm_compare.py --src SRC_DIR --tag NAME \
-        [--kernels quant|interval]
+        [--kernels quant|interval] [--sass] [--sass-listing DIR]
 
 ``SRC_DIR`` is a ``src`` directory that holds a ``repro_torch`` package (this
 repository's, or an older commit's unpacked with ``git archive``). The script
@@ -17,11 +17,17 @@ that two trees' outputs can be compared bit for bit. ``--kernels interval``
 does the same for the interval GEMMs ``caa_matmul`` (x, dbar = U[0, 4),
 g = γ(K) at u = 2⁻²³) and ``interval_matmul`` ([x - dbar/100,
 x + dbar/100]), with one stacked ``torch.bmm`` as the yardstick, as
-``chip_smoke.py`` times rows 5 and 6. To compare two trees on one card,
+``chip_smoke.py`` times rows 5 and 6, and adds the six Digits
+analysis-path shapes (M = 10, 64; 784→700→256→10), timed from a profiler
+trace as ``chip_smoke.py`` times them. To compare two trees on one card,
 run them in turns on the same machine (old, new, new, old). ``--sass``
 adds each kernel function's instruction mix (``cuobjdump -sass`` of the
 built library: FFMA, SEL/FSEL, LDS, ... counted over the whole function,
-whose unrolled full-tile k-loop dominates the count).
+whose unrolled full-tile k-loop dominates the count). ``--sass-listing
+DIR`` writes each built library's whole ``cuobjdump -sass`` listing to
+``DIR/<kernel>.sass``, the per-file hash of the anonymous namespace taken
+out of the mangled names, so that two trees' machine code can be compared
+with ``diff -r``.
 
 Prints one JSON object. Needs a CUDA device; imports nothing of JAX.
 """
@@ -50,6 +56,8 @@ def main() -> int:
                     "interval_matmul")
     ap.add_argument("--sass", action="store_true",
                     help="add the kernels' SASS instruction mix")
+    ap.add_argument("--sass-listing", metavar="DIR",
+                    help="write each kernel's SASS listing into DIR")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -74,12 +82,18 @@ def main() -> int:
     res = {"tag": args.tag, "src": str(src), "kernels": args.kernels,
            "device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi_line(),
-           "timing": "CUDA events, weights rotated through copies that "
-                     "exceed the 50 MB L2",
+           "timing": "weights rotated through copies that exceed the "
+                     "50 MB L2; CUDA events (the Digits rows: a profiler "
+                     "trace)",
            "ptxas": {n: cs.ptxas_report(b["log"]) for n, b in built.items()},
            "per_layer": layer, "rows": rows}
     if args.sass:
-        res["sass"] = {n: sass_mix(_build, n) for n in built}
+        res["sass"] = {n: sass_mix(sass_text(_build, n)) for n in built}
+    if args.sass_listing:
+        out = Path(args.sass_listing)
+        out.mkdir(parents=True, exist_ok=True)
+        for n in built:
+            (out / f"{n}.sass").write_text(sass_text(_build, n))
     print(json.dumps(res), flush=True)
     return 0
 
@@ -88,15 +102,22 @@ SASS_OPS = ("FFMA", "FSEL", "SEL", "LDS", "FSETP", "FADD", "FMNMX", "LOP3",
             "IMAD", "BAR", "LDGSTS")
 
 
-def sass_mix(_build, name):
-    """{kernel function: {opcode: count}} of ``cuobjdump -sass`` on the
-    built library of ``name`` (opcodes of SASS_OPS, modifiers dropped, and
-    the total)."""
+def sass_text(_build, name):
+    """``cuobjdump -sass`` of the built library of ``name``, with the
+    anonymous namespace's per-file hash in mangled names replaced by
+    ``_GLOBAL__N_``."""
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(name))],
                          check=True, capture_output=True, text=True).stdout
+    return re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}",
+                  "_GLOBAL__N_", out)
+
+
+def sass_mix(text):
+    """{kernel function: {opcode: count}} of a :func:`sass_text` listing
+    (opcodes of SASS_OPS, modifiers dropped, and the total)."""
     mix, cur = {}, None
-    for line in out.splitlines():
+    for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             cur = mix.setdefault(m.group(1), {op: 0 for op in SASS_OPS})
@@ -163,6 +184,10 @@ def quant_rows(torch, cs, _build, qmm):
     return rows, per_layer(rows, kernels), built
 
 
+DIGITS_SHAPES = [(M, K, N) for M in (10, 64)
+                 for K, N in ((784, 700), (700, 256), (256, 10))]
+
+
 def interval_rows(torch, cs, _build):
     from repro_torch.core import caa
     from repro_torch.kernels import caa_matmul as cm
@@ -171,38 +196,44 @@ def interval_rows(torch, cs, _build):
     built = _build.build(("caa_matmul", "interval_matmul"),
                          ptxas_verbose=True)
     gen = torch.Generator(device="cuda").manual_seed(21)
+    # (row name, M, K, N): the projections by CUDA events, the Digits
+    # shapes from a trace
+    cases = [(proj, M, K, N) for proj, (K, N) in cs.GEMM_SHAPES.items()
+             for M in (4, 512)]
+    cases += [("digits", M, K, N) for M, K, N in DIGITS_SHAPES]
     rows = []
-    for proj, (K, N) in cs.GEMM_SHAPES.items():
+    for proj, M, K, N in cases:
         g = caa.CaaConfig(u_max=2.0 ** -23).gamma(K)
         w = torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)
         copies = cs.weight_copies(torch, w)
-        for M in (4, 512):
-            x = torch.randn(M, K, device="cuda", generator=gen)
-            d = torch.rand(M, K, device="cuda", generator=gen) * 4.0
-            lo, hi = x - 0.01 * d, x + 0.01 * d
-            iters = 20 if M == 4 else 3
-            row = {"proj": proj, "M": M, "K": K, "N": N}
-            # (kernel, the yardstick's two activation operands)
-            cases = {
-                "caa_matmul": (lambda wc: cm.caa_matmul(x, d, wc, g=g), x,
-                               d + g * x.abs()),
-                "interval_matmul": (lambda wc: im.interval_matmul(lo, hi, wc),
-                                    lo, hi)}
-            for name, (fn, a0, a1) in cases.items():
-                r = {"sha256": sha256(fn(w)),
-                     "ms": cs.time_cold_ms(torch, fn, copies, iters)}
-                A, B = cs.bmm_operands(torch, name, a0, a1, w)
-                bcopies = cs.weight_copies(torch, B)
-                del B
-                r["library_ms"] = cs.time_cold_ms(
-                    torch, lambda b: torch.bmm(A, b), bcopies, iters)
-                del A, bcopies
-                r["bound_ms"], r["bound_by"] = cs.analysis_kernel_bound(
-                    M, K, N, name)
-                row[name] = r
-            rows.append(row)
-            del x, d, lo, hi
-        del w, copies
+        x = torch.randn(M, K, device="cuda", generator=gen)
+        d = torch.rand(M, K, device="cuda", generator=gen) * 4.0
+        lo, hi = x - 0.01 * d, x + 0.01 * d
+        if proj == "digits":
+            timer, iters = cs.trace_ms, 200
+        else:
+            timer, iters = cs.time_cold_ms, 20 if M == 4 else 3
+        row = {"proj": proj, "M": M, "K": K, "N": N}
+        # (kernel, the yardstick's two activation operands)
+        kernels = {
+            "caa_matmul": (lambda wc: cm.caa_matmul(x, d, wc, g=g), x,
+                           d + g * x.abs()),
+            "interval_matmul": (lambda wc: im.interval_matmul(lo, hi, wc),
+                                lo, hi)}
+        for name, (fn, a0, a1) in kernels.items():
+            r = {"sha256": sha256(fn(w)),
+                 "ms": timer(torch, fn, copies, iters)}
+            A, B = cs.bmm_operands(torch, name, a0, a1, w)
+            bcopies = cs.weight_copies(torch, B)
+            del B
+            r["library_ms"] = timer(torch, lambda b: torch.bmm(A, b),
+                                    bcopies, iters)
+            del A, bcopies
+            r["bound_ms"], r["bound_by"] = cs.analysis_kernel_bound(
+                M, K, N, name)
+            row[name] = r
+        rows.append(row)
+        del x, d, lo, hi, w, copies
     layer = {M: {name: {key: sum(r[name][key] for r in rows if r["M"] == M)
                         for key in ("ms", "library_ms", "bound_ms")}
                  for name in ("caa_matmul", "interval_matmul")}
