@@ -4,15 +4,16 @@
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
 port's six CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
 ``build/repro_torch/``; the ``build`` line carries registers, shared memory
-and spills of the four GEMM kernels), holds the two certified GEMMs bit
-for bit against their sequential-order plain versions on sampled columns of
-every Qwen2-7B projection (``gemm_order``), checks each kernel against its
-plain PyTorch
-version on the card (GEMM rows timed with the weights cold: rotated through
-copies that exceed the L2), and drives the port's paths through the entry
-points a user calls, with every kernel's launch counter set to 0 just
-before each path and read just after (each serve line carries the sha256
-of its logits):
+and spills of every kernel), holds the two certified GEMMs bit for bit
+against their sequential-order plain versions on sampled columns of every
+Qwen2-7B projection (``gemm_order``), checks each kernel against its plain
+PyTorch version on the card (GEMM rows timed with the weights cold: rotated
+through copies that exceed the L2; the decode-attention rows timed from a
+profiler trace with the caches rotated likewise, the serve cache's shapes
+and a 32K-position one among them), and drives the port's paths through
+the entry points a user calls, with every kernel's launch counter set to 0
+just before each path and read just after (each serve line carries the
+sha256 of its logits and a profiler trace of its decode steps):
 
 * ``serve`` — full-width Qwen2-7B (random weights from a seed) through the
   certified custom-format path (kernels ``quant_matmul_format`` and
@@ -23,6 +24,10 @@ of its logits):
 * ``profile`` — the kernel profiler (every kernel, ``flash_decode_attention``
   among them) and the serving profile (at the reference's SMOKE defaults
   and at full width), under the port's JSONL tracer;
+* ``decode_trace`` — the three serve paths' decode steps side by side
+  (host-clock median; device time of the GEMM kernels, attention, the LM
+  head, other kernels and idle gaps), and the full-width serving profile
+  traced as the profile phase runs it and bare;
 * ``interval_libm`` — the interval transcendentals on the card against the
   CPU's f64 values at about 10⁶ points, directed rounding bitwise;
 * ``analyze`` — the paper's Table-I flow (``examples/quickstart.py``) on
@@ -98,21 +103,6 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
-    after one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 L2_BYTES = 50e6          # H100 SXM L2 (data sheet)
@@ -267,9 +257,7 @@ def phase_build(build):
     emit("build", seconds=time.perf_counter() - t0,
          sources=list(build.SOURCES),
          per_source_s={n: r["seconds"] for n, r in res.items()},
-         ptxas={n: ptxas_report(res[n]["log"])
-                for n in ("quant_matmul_format", "quant_matmul",
-                          "caa_matmul", "interval_matmul")})
+         ptxas={n: ptxas_report(res[n]["log"]) for n in build.SOURCES})
 
 
 def phase_rounding(torch, quantize, qmm):
@@ -614,8 +602,10 @@ def check_flash(torch, fd, q, k, v, lengths, fmt, flags=(True, True)):
     return st
 
 
-# (Smax, lengths): ragged lengths, and the serve phase's own cache (Smax =
-# prompt + steps + 1) at its first and last decode step's lengths
+# (Smax, lengths): ragged lengths, the serve phase's own cache (Smax =
+# prompt + steps + 1) at its first and last decode step's lengths, a lane of
+# length 0, and Qwen2-7B's 32K context (arXiv:2407.10671 §3) at batch 4,
+# where k and v take 537 MB and the bound is the kernels' own, not a launch's
 FLASH_CASES = {
     "ragged": (1024, [1, 255, 256, 1000]),
     "serve_first": (SERVE_PROMPT + SERVE_STEPS + 1, [SERVE_PROMPT + 1] * 4),
@@ -623,36 +613,55 @@ FLASH_CASES = {
                    [SERVE_PROMPT + SERVE_STEPS] * 4),
     "empty_lane": (SERVE_PROMPT + SERVE_STEPS + 1,
                    [0, SERVE_PROMPT + SERVE_STEPS, SERVE_PROMPT + 1, 1]),
+    "long": (32768, [32768] * 4),
 }
 
 
+def cache_copies(torch, k, v):
+    """Copies of the cache (k, v) whose total exceeds the L2 twice over (at
+    least two), so that a call that rotates through them reads its cache
+    from HBM, as a decode step does (it reads 28 layers' caches in turn)."""
+    n = max(2, math.ceil(2 * L2_BYTES / (4 * (k.numel() + v.numel()))))
+    return [(k.clone(), v.clone()) for _ in range(n)]
+
+
 def flash_timing(torch, kernel, plain, q, k, v, lengths):
-    """ms of ``kernel`` and ``plain`` on the same inputs, the SDPA
-    yardstick and the bound (bytes: q in, out, and k/v over the attended
-    positions; operations: 4·G·D per attended position and kv head)."""
+    """Device ms of ``kernel`` and ``plain`` on the same inputs and of the
+    SDPA yardstick, each from a profiler trace (:func:`trace_ms`) with the
+    cache rotated through :func:`cache_copies`; ``host_ms``: the kernel
+    timed by CUDA events around back-to-back calls, which time the host's
+    launch where that is longer. The bound: bytes (q in, out, and k/v over
+    the attended positions) or operations (4·G·D per attended position and
+    kv head)."""
     B, H, G, D = q.shape
     S = k.shape[1]
     lens = lengths.tolist()
+    iters = 10 if S > 4096 else 50
+    copies = cache_copies(torch, k, v)
+    timing = {
+        "ms": trace_ms(torch, lambda c: kernel(q, *c, lengths), copies,
+                       iters),
+        "host_ms": time_cold_ms(torch, lambda c: kernel(q, *c, lengths),
+                                copies, iters),
+        "plain_ms": trace_ms(torch, lambda c: plain(q, *c, lengths), copies,
+                             max(2, iters // 5)),
+        "cache_copies": len(copies)}
+    # the yardstick: SDPA with grouped heads on [B, H, S, D] (transposed
+    # outside the timing); uniform lengths attend to the prefix with no
+    # mask, ragged ones through a boolean mask
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    timing = {"ms": time_ms(torch, lambda: kernel(q, k, v, lengths), 50),
-              "plain_ms": time_ms(torch, lambda: plain(q, k, v, lengths),
-                                  20)}
-    # the yardstick: SDPA with grouped heads on [B, H, S, D] (the
-    # transposition is made outside the timing); uniform lengths attend to
-    # the prefix with no mask, ragged ones through a boolean mask
     qs = q.reshape(B, H * G, 1, D)
-    if len(set(lens)) == 1:
-        n = lens[0]
-        ks = k[:, :n].permute(0, 2, 1, 3).contiguous()
-        vs = v[:, :n].permute(0, 2, 1, 3).contiguous()
-        mask = None
-    else:
-        ks = k.permute(0, 2, 1, 3).contiguous()
-        vs = v.permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(S, device="cuda")[None, :]
-                < lengths[:, None])[:, None, None, :]
-    timing["library_ms"] = time_ms(
-        torch, lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), 50)
+    n = lens[0] if len(set(lens)) == 1 else S
+    mask = None if len(set(lens)) == 1 else (
+        torch.arange(S, device="cuda")[None, :]
+        < lengths[:, None])[:, None, None, :]
+    tcopies = [tuple(t[:, :n].permute(0, 2, 1, 3).contiguous() for t in c)
+               for c in copies]
+    del copies
+    timing["library_ms"] = trace_ms(
+        torch, lambda c: sdpa(qs, *c, attn_mask=mask, enable_gqa=True),
+        tcopies, iters)
+    del tcopies
     n_pos = int(attended(torch, lengths, S).sum())
     n_bytes = 4.0 * (2 * q.numel() + 2 * n_pos * H * D) + 4 * B
     timing["bound_ms"], timing["bound_by"] = bound_ms(
@@ -700,8 +709,9 @@ def check_flash_attention(torch, fd, q, k, v, lengths, what):
 
 
 def phase_flash_decode_attention(torch, fd):
-    """Kernel 4 against its plain version at the serve cache's shape, a
-    ragged Smax=1024 cache and a cache with a lane of length 0."""
+    """Kernel 4 against its plain version in every FLASH_CASES case: the
+    serve cache's shape, a ragged Smax=1024 cache, a cache with a lane of
+    length 0 and the 32K one."""
     B, H, G, D = SERVE_BATCH, 4, 7, 128
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst, cases = 0.0, {}
@@ -829,6 +839,142 @@ def replay_prefill(torch, serve, T, res, bk):
     return logits
 
 
+GEMM_KERNEL_NAMES = ("quant_gemv_kernel", "quant_sgemm_kernel")  # 1 and 3
+TRACE_STEPS = 8
+STEP_MARK = "chip_smoke.decode_step"
+
+
+def op_device_us(e):
+    """Device µs of the kernels an op launched, its children's included."""
+    return (sum(k.duration for k in e.kernels)
+            + sum(op_device_us(c) for c in e.cpu_children))
+
+
+def step_split(prof):
+    """Per decode step of a profiler trace whose steps each open a
+    ``record_function(STEP_MARK)``, over the window from one step's start
+    to the next (so the last step only closes a window): its length, and
+    the device ms of the GEMM kernels (1 and 3), of attention (kernel 2's
+    chunk and combine kernels, or the composed path's einsum and softmax
+    ops), of the LM head (its einsum), of the other kernels, and the gap in
+    which the device was idle."""
+    from torch.autograd import DeviceType
+
+    evts = list(prof.events())
+    # the marks' CPU ranges; on the device, the kernels and copies (the
+    # marks' device-side copies are annotations, not activity)
+    starts = sorted(e.time_range.start for e in evts if e.name == STEP_MARK
+                    and e.device_type == DeviceType.CPU)
+    kernels = [e for e in evts if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.name != STEP_MARK]
+    ops = [e for e in evts if e.device_type == DeviceType.CPU
+           and e.name in ("aten::einsum", "aten::softmax")]
+    rows = []
+    for lo, hi in zip(starts, starts[1:]):
+        inside = lambda e: lo <= e.time_range.start < hi
+        ks = [e for e in kernels if inside(e)]
+        busy = sum(e.time_range.elapsed_us() for e in ks)
+        gemm = sum(e.time_range.elapsed_us() for e in ks
+                   if any(n in e.name for n in GEMM_KERNEL_NAMES))
+        attn = sum(e.time_range.elapsed_us() for e in ks
+                   if "flash_decode" in e.name)
+        mine = sorted(filter(inside, ops), key=lambda e: e.time_range.start)
+        einsums = [o for o in mine if o.name == "aten::einsum"]
+        # the forward's last einsum is the LM head's; the others attend
+        lm_head = op_device_us(einsums[-1]) if einsums else 0.0
+        attn += sum(op_device_us(o) for o in mine) - lm_head
+        rows.append({"ms": (hi - lo) / 1e3, "gemm_ms": gemm / 1e3,
+                     "attention_ms": attn / 1e3, "lm_head_ms": lm_head / 1e3,
+                     "other_ms": (busy - gemm - attn - lm_head) / 1e3,
+                     "idle_ms": (hi - lo - busy) / 1e3,
+                     "kernels": len(ks)})
+    if not rows:
+        raise AssertionError("the trace holds no decode step")
+    return {key: sorted(r[key] for r in rows)[len(rows) // 2]
+            for key in rows[0]} | {"steps_traced": len(rows)}
+
+
+def decode_trace(torch, serve, T, res):
+    """Decode steps of a served run's own weights, backend and prompt from
+    a fresh cache: TRACE_STEPS timed by the host clock (each ends in a
+    synchronize; their median), then TRACE_STEPS + 1 under torch.profiler
+    split by :func:`step_split` (medians over the steps)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    bk = serve._backend(res.config)
+    cache = T.init_cache(res.cfg, res.prompt.shape[0],
+                         SERVE_PROMPT + SERVE_STEPS + 1,
+                         device=res.prompt.device)
+    state = {"pos": SERVE_PROMPT}
+    with torch.no_grad():
+        logits, state["cache"] = serve.prefill_step(bk, res.params, res.cfg,
+                                                    cache, res.prompt)
+        state["tok"] = torch.argmax(logits[:, -1, :], dim=-1)
+
+        def step():
+            state["tok"], _, state["cache"] = serve.decode_step(
+                bk, res.params, res.cfg, state["cache"],
+                state["tok"][:, None], state["pos"])
+            torch.cuda.synchronize()
+            state["pos"] += 1
+
+        host = []
+        for _ in range(TRACE_STEPS):
+            t0 = time.perf_counter()
+            step()
+            host.append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_STEPS + 1):
+                with record_function(STEP_MARK):
+                    step()
+    return {"host_ms_median": sorted(host)[len(host) // 2],
+            "host_ms": host, "traced": step_split(prof)}
+
+
+def phase_profile_trace(torch, obs, serve, qmm, fd):
+    """The profile phase's full-width serving profile (k = 12, the serve
+    phases' batch and prompt, TRACE_STEPS decodes) under torch.profiler
+    with every decode step marked, as the profile phase runs it (the JSONL
+    tracer on, the kernel spies in place) and bare: beside serve_k's trace,
+    where its decode time goes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    decode_step = serve.decode_step
+
+    def marked(*args, **kw):
+        with record_function(STEP_MARK):
+            return decode_step(*args, **kw)
+
+    out = {}
+    for name in ("as_profiled", "bare"):
+        free_device_memory(torch)
+        spies = profile_spies(qmm, fd) if name == "as_profiled" else []
+        for mod, attr, spy in spies:
+            setattr(mod, attr, spy)
+        if spies:
+            obs.configure(path=str(ROOT / "build" / "chip_smoke_trace2.jsonl"),
+                          program="chip_smoke.py")
+        serve.decode_step = marked
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = obs.profile_serving(
+                    size="full", max_layers=None, batch=SERVE_BATCH,
+                    prefill_len=SERVE_PROMPT, decode_steps=TRACE_STEPS,
+                    precision_k=SERVE_K, device="cuda")
+        finally:
+            serve.decode_step = decode_step
+            if spies:
+                obs.shutdown()
+            for mod, attr, spy in spies:
+                setattr(mod, attr, spy.fn)
+        out[name] = {"decode_mean_ms": 1e3 * res["decode"]["mean_s"],
+                     "traced": step_split(prof)}
+        del prof
+    return out
+
+
 def phase_serve(torch, serve, qmm, fd, T):
     """The certified custom-format path: kernels 1 and 2."""
     emit("free", before="serve", allocated_gb=free_device_memory(torch))
@@ -904,10 +1050,11 @@ def phase_serve(torch, serve, qmm, fd, T):
                                 RefFormatOps(SERVE_FORMAT))
     if read_launches(fns) != before:
         raise AssertionError("the plain replay launched a kernel")
+    trace = decode_trace(torch, serve, T, res)
     emit("serve", layer_format=SERVE_FORMAT,
          **serve_report(torch, res, launches, expected, ref_logits),
-         main_path_inputs_vs_plain=main_path)
-    return launches, main_path, res.timing
+         main_path_inputs_vs_plain=main_path, decode_trace=trace)
+    return launches, main_path, res.timing | {"decode_trace": trace}
 
 
 PROJ_ORDER = tuple(GEMM_SHAPES)   # the order a layer launches its GEMMs
@@ -985,13 +1132,14 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
         serve.quant_matmul_dynamic_k = dispatch
     if read_launches(fns) != before:
         raise AssertionError("the plain replay launched a kernel")
+    trace = decode_trace(torch, serve, T, res)
     emit(name, precision_k=res.config.precision_k,
          precision_layer_k=res.config.precision_layer_k,
          backend=type(serve._backend(res.config)).__name__,
          resolved_k_layers01=resolved,
          **serve_report(torch, res, launches, expected, ref_logits),
-         main_path_inputs_vs_plain=main_path)
-    return launches, main_path, res.timing
+         main_path_inputs_vs_plain=main_path, decode_trace=trace)
+    return launches, main_path, res.timing | {"decode_trace": trace}
 
 
 def uniform_ks(k_attn, k_mlp):
@@ -1909,6 +2057,10 @@ def _leaves(tree):
         yield tree
 
 
+FLASH_KEYS = ("Smax", "lengths", "ms", "host_ms", "plain_ms", "bound_ms",
+              "library_ms")
+
+
 def kernel_row(name, source, replaces, launches_by_path, path, err,
                timing, what, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -1978,6 +2130,13 @@ def main() -> int:
                       {"layer0": uniform_ks(12, 14),
                        "layer1": uniform_ks(12, 10)}))
     by_path["profile"], prows, prof_path = phase_profile(torch, obs, qmm, fd)
+    emit("decode_trace", steps=TRACE_STEPS, note="one decode step of each "
+         "full-width serve path: host-clock median, and the device split "
+         "(medians over traced steps); the profile phase's serving profile "
+         "traced as it runs there and bare",
+         **{path: t["decode_trace"] for path, t in timings.items()},
+         profile_serving_full=phase_profile_trace(torch, obs, serve, qmm,
+                                                  fd))
     free_device_memory(torch)
     emit("end_to_end", note="decode ms per step and prefill s of the three "
          "full-width serve paths, side by side", **{
@@ -2032,9 +2191,8 @@ def main() -> int:
             fcases["serve_last"],
             f"the serve cache at its last step: B=4 K=4 G=7 D=128 "
             f"{serve_last}, format k12_e15",
-            other_cases={c: {key: fcases[c][key] for key in (
-                "Smax", "lengths", "ms", "plain_ms", "bound_ms",
-                "library_ms")} for c in fcases if c != "serve_last"}),
+            other_cases={c: {key: fcases[c][key] for key in FLASH_KEYS}
+                         for c in fcases if c != "serve_last"}),
         kernel_row(
             "quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
             "src/repro/kernels/quant_matmul.py:39",
@@ -2049,9 +2207,8 @@ def main() -> int:
             launches["flash_decode_attention"], "profile", aerr,
             acases["serve_last"],
             f"the serve cache's shape: B=4 K=4 G=7 D=128 {serve_last}",
-            other_cases={c: {key: acases[c][key] for key in (
-                "Smax", "lengths", "ms", "plain_ms", "bound_ms",
-                "library_ms")} for c in acases if c != "serve_last"}),
+            other_cases={c: {key: acases[c][key] for key in FLASH_KEYS}
+                         for c in acases if c != "serve_last"}),
     ]
     for name, replaces, path_rows, rows, err in (
             ("caa_matmul", "src/repro/kernels/caa_matmul.py:25", cpath,

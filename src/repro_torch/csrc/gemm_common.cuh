@@ -1,7 +1,8 @@
 // What the two f32 CUDA-core GEMM bodies (quant_gemm.cuh, kernels 1 and 3;
 // interval_gemm.cuh, kernels 5 and 6) share: the cp.async copies and the
 // ring's commit / wait, packs of W floats in shared memory, the copy of one
-// K-tile of w, and the launch helpers.
+// K-tile of w, and the launch helpers. The decode-attention body
+// (flash_decode.cuh, kernels 2 and 4) takes the copies and allow_smem.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -7,15 +7,13 @@
 // to even) on the subnormal grid, IEEE division. Build without
 // --use_fast_math: it would flush subnormals and approximate the division.
 //
-// Two forms with the same results. repro_quantize_to_format derives the
-// format's constants per element and branches on the rare cases
-// (flash_decode_certified.cu rounds through it). The GEMM body
-// (quant_gemm.cuh) rounds whole tiles through repro_quantize_to_format_t:
-// the constants (largest finite value, smallest normal, subnormal step, the
-// mantissa trick's shift and masks) are built once on the host by
-// repro_format_consts and carried by value, every case is computed and
-// selected without a branch, and the division onto the subnormal grid is an
-// exact multiplication by powers of two.
+// The kernels (the GEMM body quant_gemm.cuh, flash_decode_certified.cu)
+// round through repro_quantize_to_format_t: the format's constants (largest
+// finite value, smallest normal, subnormal step, the mantissa trick's shift
+// and masks) are built once on the host by repro_format_consts and carried
+// by value, every case is computed and selected without a branch, and the
+// division onto the subnormal grid is an exact multiplication by powers of
+// two.
 #pragma once
 
 #include <cstdint>
@@ -30,47 +28,6 @@ struct QFmt {
     int saturating;      // overflow clamps to +-max_finite (else +-inf)
 };
 
-// Exact 2^e on f32, carrier subnormals included (pow2 of the reference).
-__device__ __forceinline__ float repro_pow2f(int e) {
-    if (e >= -126) {
-        return __int_as_float(min(e + 127, 254) << 23);
-    }
-    return __int_as_float(1 << min(max(e + 149, 0), 23));
-}
-
-// RNE rounding of the stored mantissa to k bits; NaN/Inf pass through.
-__device__ __forceinline__ float repro_quantize_to_k(float x, int k) {
-    const int s = 24 - k;                  // dropped bits: 23 - (k - 1)
-    if (s <= 0 || !isfinite(x)) return x;
-    const int eff = min(s, 23);
-    const uint32_t b = __float_as_uint(x);
-    const uint32_t half = (1u << (eff - 1)) - 1u;
-    const uint32_t lsb = (b >> eff) & 1u;
-    return __uint_as_float((b + half + lsb) & ~((1u << eff) - 1u));
-}
-
-__device__ __forceinline__ float repro_quantize_to_format(float x,
-                                                          const QFmt f) {
-    if (!isfinite(x)) return x;
-    float y = repro_quantize_to_k(x, f.k);
-    const float max_fin = (2.0f - repro_pow2f(1 - f.k)) * repro_pow2f(f.emax);
-    const float min_norm = repro_pow2f(f.emin);
-    // gated on finite x: rounding may overflow the carrier itself (y = inf)
-    if (fabsf(y) > max_fin) {
-        y = copysignf(f.saturating ? max_fin : INFINITY, y);
-    }
-    if (fabsf(y) < min_norm && y != 0.0f) {
-        if (f.has_subnormals) {
-            // one rounding from the ORIGINAL value onto the subnormal grid
-            const float step = repro_pow2f(f.emin - (f.k - 1));
-            y = rintf(__fdiv_rn(x, step)) * step;
-        } else {
-            y = fabsf(y) < min_norm * 0.5f ? 0.0f : copysignf(min_norm, y);
-        }
-    }
-    return y;
-}
-
 // ------------------------------------------- constants built once a launch
 
 // The mantissa trick's constants for k bits: s = 24 - k dropped bits;
@@ -82,8 +39,8 @@ struct QKConsts {
     uint32_t mask;  // ~(2^eff - 1)
 };
 
-// A format's constants, derived from QFmt exactly as
-// repro_quantize_to_format derives them per element.
+// A format's constants, derived from QFmt as the plain version derives
+// them.
 struct QFmtConsts {
     QKConsts kc;
     float max_fin;        // (2 - 2^(1-k)) * 2^emax
@@ -101,7 +58,8 @@ inline float repro_f32_from_bits(uint32_t u) {
     return f;
 }
 
-// repro_pow2f on the host: e is clamped to [-149, 127].
+// Exact 2^e on f32 (pow2 of the reference), on the host: e is clamped
+// to [-149, 127].
 inline float repro_pow2f_host(int e) {
     if (e >= -126) {
         const int b = e + 127 < 254 ? e + 127 : 254;

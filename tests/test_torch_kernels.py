@@ -201,6 +201,67 @@ def test_flash_decode_attention_plain_vs_jax_oracle_and_pallas(B, H, G, D, S,
         assert_ulp_rule(pallas, got, f32, pre)
 
 
+
+# lengths at and around the kernels' chunk edges (FD_CHUNK = 64), a lane of
+# length 0 and of length 1; Smax a multiple of the Pallas block (32 < S)
+SPLIT_CASES = [(192, [0, 1, 63, 64, 65, 192]), (256, [127, 128, 129, 255])]
+
+
+@pytest.mark.parametrize("fmt", [None] + FORMATS)
+@pytest.mark.parametrize("S,lens", SPLIT_CASES)
+def test_flash_decode_split_ref_vs_jax_oracle_and_pallas(fmt, S, lens):
+    """The split algorithm's plain version (chunk partials folded in chunk
+    order) against the JAX oracle and the Pallas kernel in interpret mode
+    over several S-blocks: certified for a format, uncertified for None."""
+    B, H, G, D = len(lens), 2, 3, 16
+    q, k, v = _attn_inputs(B, H, G, D, S, seed=S + len(str(fmt)))
+    lengths = np.asarray(lens, np.int32)
+    got = tfd.flash_decode_split_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), fmt).numpy()
+    assert got.shape == (B, H, G, D) and np.isfinite(got).all()
+    jq, jk, jv, jl = (jnp.asarray(a) for a in (q, k, v, lengths))
+    if fmt is None:
+        f = (24, 127, -126)          # nothing is rounded: ulps of f32
+        oracle = jref.flash_decode_ref(jq, jk, jv, jl)
+        pallas = jfd.flash_decode_attention(jq, jk, jv, jl, block_s=32,
+                                            interpret=True)
+    else:
+        f = fmt
+        oracle = jfd.flash_decode_quantized_ref(jq, jk, jv, jl, fmt)
+        pallas = jfd.flash_decode_certified(jq, jk, jv, jl, fmt, block_s=32,
+                                            interpret=True)
+    pre = _attn_pre_tol(v, lengths, f)
+    assert_ulp_rule(np.asarray(oracle), got, f, pre)
+    assert_ulp_rule(np.asarray(pallas), got, f, pre)
+
+
+@pytest.mark.parametrize("fmt", [None, (12, 15, -14)])
+def test_flash_decode_split_ref_never_reads_past_length(fmt):
+    """NaN in the cache at and past every lane's length changes no bit."""
+    S, lens = SPLIT_CASES[0]
+    q, k, v = _attn_inputs(len(lens), 2, 3, 16, S, seed=31)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    k2, v2 = k.copy(), v.copy()
+    for b, n in enumerate(lens):
+        if n > 0:
+            k2[b, n:] = np.nan
+            v2[b, n:] = np.nan
+    clean = tfd.flash_decode_split_ref(*(torch.from_numpy(a)
+                                         for a in (q, k, v)), lengths, fmt)
+    poisoned = tfd.flash_decode_split_ref(*(torch.from_numpy(a)
+                                            for a in (q, k2, v2)), lengths,
+                                          fmt)
+    assert torch.isfinite(poisoned).all()
+    assert torch.equal(clean, poisoned)
+
+
+def test_flash_decode_split_ref_chunk_is_the_kernels():
+    """The plain version, and the wrappers' scratch for the partials, split
+    the cache where the CUDA body does."""
+    src = (_build.CSRC / "flash_decode.cuh").read_text()
+    assert f"constexpr int kFdChunk = {tfd.FD_CHUNK};" in src
+
 def test_flash_decode_masks_past_length():
     """Cache entries at or beyond a lane's length never reach its output."""
     B, H, G, D, S = 2, 2, 2, 8, 16

@@ -248,6 +248,114 @@ def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
         tqm.quant_matmul(x, w, k=0)
 
 
+
+# --- kernels 2 and 4: the split decode-attention body -----------------------
+#
+# The body splits the cache into 64-position chunks and folds them in chunk
+# order; each output's summation order depends on its lane's length only.
+# So a lane's bits are the same at B = 1 and B = 4 in every lane position,
+# under Smax 145 and 1024, whatever the other lanes' lengths; a cache
+# poisoned with NaN at and past every lane's length gives the clean bits;
+# and against the plain versions the rule above holds at the chunk edges.
+
+DECODE_KERNELS = [None] + FORMATS     # None: kernel 4 (uncertified)
+DECODE_GD = [(2, 64), (7, 128), (8, 128), (2, 128), (7, 64), (8, 64)]
+
+
+def _decode(fmt, q, k, v, lengths):
+    if fmt is None:
+        return tfd.flash_decode_attention(q, k, v, lengths)
+    return tfd.flash_decode_certified(q, k, v, lengths, fmt)
+
+
+def _decode_vs_plain(fmt, q, k, v, lengths):
+    got = _decode(fmt, q, k, v, lengths)
+    assert bool(torch.isfinite(got).all())
+    if fmt is None:
+        want = tfd.flash_decode_ref(q, k, v, lengths)
+        assert_ulp_rule(got, want, (24, 127, -126), _flash_slack(v, lengths))
+    else:
+        want = tfd.flash_decode_quantized_ref(q, k, v, lengths, fmt)
+        assert_ulp_rule(got, want, fmt, _flash_slack(
+            v, lengths, quantize_to_format(v, *fmt)))
+    return got
+
+
+def _lanes(gen, B, H, G, D, S, device):
+    return (torch.randn(B, H, G, D, device=device, generator=gen),
+            torch.randn(B, S, H, D, device=device, generator=gen),
+            torch.randn(B, S, H, D, device=device, generator=gen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", DECODE_KERNELS)
+@pytest.mark.parametrize("G,D", DECODE_GD)
+def test_flash_decode_lane_bits_independent_of_batch_and_capacity(
+        cuda_device, fmt, G, D):
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    H, S, L = 2, 1024, 144
+    q1, k1, v1 = _lanes(gen, 1, H, G, D, S, cuda_device)
+    one = torch.tensor([L], dtype=torch.int32, device=cuda_device)
+    alone = _decode(fmt, q1, k1, v1, one)
+    small = _decode(fmt, q1, k1[:, :145].contiguous(),
+                    v1[:, :145].contiguous(), one)
+    assert_same_bits(small, alone)
+    for pos in range(4):
+        q, k, v = _lanes(gen, 4, H, G, D, S, cuda_device)
+        q[pos], k[pos], v[pos] = q1[0], k1[0], v1[0]
+        for others in ([1024, 0, 65, 1], [7, 144, 1000, 0]):
+            lens = list(others)
+            lens[pos] = L
+            out = _decode(fmt, q, k, v, torch.tensor(
+                lens, dtype=torch.int32, device=cuda_device))
+            assert_same_bits(out[pos:pos + 1], alone)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", DECODE_KERNELS)
+@pytest.mark.parametrize("G,D", [(2, 64), (7, 128), (8, 128)])
+@pytest.mark.parametrize("S,lens", [
+    (200, [63, 64, 65, 1]),
+    (200, [0, 200, 128, 129]),
+    (32768, [32768, 0, 5000, 64]),
+])
+def test_flash_decode_length_edges_vs_plain(cuda_device, fmt, G, D, S, lens):
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    q, k, v = _lanes(gen, len(lens), 2, G, D, S, cuda_device)
+    _decode_vs_plain(fmt, q, k, v, torch.tensor(
+        lens, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", DECODE_KERNELS)
+@pytest.mark.parametrize("G,D", [(2, 64), (7, 128), (8, 128)])
+def test_flash_decode_poisoned_cache_past_lengths(cuda_device, fmt, G, D):
+    gen = torch.Generator(device=cuda_device).manual_seed(37)
+    lens = [1, 64, 65, 130]
+    q, k, v = _lanes(gen, len(lens), 2, G, D, 200, cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    clean = _decode_vs_plain(fmt, q, k, v, lengths)
+    for b, n in enumerate(lens):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    poisoned = _decode(fmt, q, k, v, lengths)
+    assert bool(torch.isfinite(poisoned).all())
+    assert_same_bits(poisoned, clean)
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_what_its_copies_cannot_take(cuda_device):
+    q = torch.randn(1, 1, 2, 62, device=cuda_device)
+    kv = torch.randn(1, 8, 1, 62, device=cuda_device)
+    lengths = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):                       # D % 4 != 0
+        tfd.flash_decode_attention(q, kv, kv, lengths)
+    q = torch.randn(1, 1, 2, 64, device=cuda_device)
+    buf = torch.randn(8 * 64 + 1, device=cuda_device)
+    kv = buf[1:].view(1, 8, 1, 64)                        # 4-byte aligned
+    with pytest.raises(ValueError):
+        tfd.flash_decode_certified(q, kv, kv, lengths, (12, 15, -14))
+
 # --- kernels 5 and 6: the CAA analysis GEMMs --------------------------------
 #
 # caa_matmul: val within the GEMM rule 2·√K·2⁻²⁴·(|x|@|W|) of the plain

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time and fingerprint two GEMM kernels of one source tree.
+"""Time and fingerprint a pair of kernels of one source tree.
 
     python3 tools/quant_gemm_compare.py --src SRC_DIR --tag NAME \
-        [--kernels quant|interval] [--sass] [--sass-listing DIR]
+        [--kernels quant|interval|flash] [--long-iters N] [--sass]
+        [--sass-listing DIR]
 
 ``SRC_DIR`` is a ``src`` directory that holds a ``repro_torch`` package (this
 repository's, or an older commit's unpacked with ``git archive``). The script
@@ -19,7 +20,14 @@ g = γ(K) at u = 2⁻²³) and ``interval_matmul`` ([x - dbar/100,
 x + dbar/100]), with one stacked ``torch.bmm`` as the yardstick, as
 ``chip_smoke.py`` times rows 5 and 6, and adds the six Digits
 analysis-path shapes (M = 10, 64; 784→700→256→10), timed from a profiler
-trace as ``chip_smoke.py`` times them. To compare two trees on one card,
+trace as ``chip_smoke.py`` times them. ``--kernels flash`` times the
+decode-attention kernels ``flash_decode_certified`` (format k12 e[-14, 15])
+and ``flash_decode_attention`` in every case of ``chip_smoke.FLASH_CASES``
+(B = 4, K = 4, G = 7, D = 128; the 32K case with ``--long-iters`` calls,
+10 by default), each from a profiler trace with the cache rotated through
+copies that exceed the L2, as ``chip_smoke.py`` times them, with each CUDA
+kernel's share of the call (the chunk and the combine kernel) and SDPA as
+the yardstick. To compare two trees on one card,
 run them in turns on the same machine (old, new, new, old). ``--sass``
 adds each kernel function's instruction mix (``cuobjdump -sass`` of the
 built library: FFMA, SEL/FSEL, LDS, ... counted over the whole function,
@@ -50,10 +58,13 @@ def main() -> int:
     ap.add_argument("--src", required=True,
                     help="a src directory holding repro_torch")
     ap.add_argument("--tag", required=True, help="name of this run")
-    ap.add_argument("--kernels", choices=("quant", "interval"),
+    ap.add_argument("--kernels", choices=("quant", "interval", "flash"),
                     default="quant", help="quant_matmul_format and "
-                    "quant_matmul (default), or caa_matmul and "
-                    "interval_matmul")
+                    "quant_matmul (default), caa_matmul and "
+                    "interval_matmul, or flash_decode_certified and "
+                    "flash_decode_attention")
+    ap.add_argument("--long-iters", type=int, default=10,
+                    help="traced calls in the 32K flash case")
     ap.add_argument("--sass", action="store_true",
                     help="add the kernels' SASS instruction mix")
     ap.add_argument("--sass-listing", metavar="DIR",
@@ -77,14 +88,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.kernels == "interval":
         rows, layer, built = interval_rows(torch, cs, _build)
+    elif args.kernels == "flash":
+        rows, built = flash_rows(torch, cs, _build, args.long_iters)
+        layer = None
     else:
         rows, layer, built = quant_rows(torch, cs, _build, qmm)
     res = {"tag": args.tag, "src": str(src), "kernels": args.kernels,
            "device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi_line(),
-           "timing": "weights rotated through copies that exceed the "
-                     "50 MB L2; CUDA events (the Digits rows: a profiler "
-                     "trace)",
+           "timing": "weights (flash: caches) rotated through copies that "
+                     "exceed the 50 MB L2; CUDA events (the Digits rows and "
+                     "flash: a profiler trace)",
            "ptxas": {n: cs.ptxas_report(b["log"]) for n, b in built.items()},
            "per_layer": layer, "rows": rows}
     if args.sass:
@@ -239,6 +253,75 @@ def interval_rows(torch, cs, _build):
                  for name in ("caa_matmul", "interval_matmul")}
              for M in (4, 512)}
     return rows, layer, built
+
+
+
+def trace_per_kernel(torch, fn, copies, iters):
+    """{CUDA kernel: device ms a call} from a profiler trace of ``iters``
+    calls of ``fn(c)``, ``c`` rotating through ``copies``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(copies[i % len(copies)])
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {name: ms / iters for name, ms in out.items()}
+
+
+def flash_rows(torch, cs, _build, long_iters):
+    from repro_torch.kernels import flash_decode as fd
+
+    built = _build.build(("flash_decode_certified", "flash_decode"),
+                         ptxas_verbose=True)
+    fmt = cs.FORMATS["k12_e15"]
+    kernels = {
+        "flash_decode_certified":
+            lambda q, k, v, n: fd.flash_decode_certified(q, k, v, n, fmt),
+        "flash_decode_attention": fd.flash_decode_attention}
+    B, H, G, D = cs.SERVE_BATCH, 4, 7, 128
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for case, (S, lens) in cs.FLASH_CASES.items():
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(B, H, G, D, device="cuda", generator=gen)
+        k = torch.randn(B, S, H, D, device="cuda", generator=gen)
+        v = torch.randn(B, S, H, D, device="cuda", generator=gen)
+        iters = long_iters if S > 4096 else 50
+        copies = cs.cache_copies(torch, k, v)
+        row = {"case": case, "Smax": S, "lengths": lens}
+        for name, fn in kernels.items():
+            row[name] = {"sha256": sha256([fn(q, k, v, lengths)]),
+                         "ms": cs.trace_ms(
+                             torch, lambda c: fn(q, *c, lengths), copies,
+                             iters),
+                         "per_kernel_ms": trace_per_kernel(
+                             torch, lambda c: fn(q, *c, lengths), copies,
+                             iters)}
+        if len(set(lens)) == 1:
+            n = lens[0]
+            tcopies = [tuple(t[:, :n].permute(0, 2, 1, 3).contiguous()
+                             for t in c) for c in copies]
+            del copies
+            qs = q.reshape(B, H * G, 1, D)
+            row["library_ms"] = cs.trace_ms(
+                torch, lambda c: sdpa(qs, *c, enable_gqa=True), tcopies,
+                iters)
+            del tcopies
+        n_pos = int(cs.attended(torch, lengths, S).sum())
+        row["bound_ms"], row["bound_by"] = cs.bound_ms(
+            4.0 * (2 * q.numel() + 2 * n_pos * H * D) + 4 * B,
+            4.0 * G * D * H * n_pos)
+        rows.append(row)
+        del q, k, v
+    return rows, built
 
 
 if __name__ == "__main__":
