@@ -565,7 +565,8 @@ def phase_quant_matmul_k(torch, qmm):
 FLASH_TOLERANCE = ("equal, or |Δ| ≤ one ulp (at k for the certified "
                    "kernel, of f32 for the plain one) + 2·(n + 16)·2⁻²⁴·"
                    "max|v| over the n positions a lane attends (all S for a "
-                   "lane of length 0)")
+                   "lane of length 0); and against the f64 split version, "
+                   "one ulp + 8·√(n + 16)·2⁻²⁴·max|v|")
 
 
 def attended(torch, lengths, S):
@@ -574,19 +575,53 @@ def attended(torch, lengths, S):
     return torch.where(lengths <= 0, S, lengths.clamp(max=S))
 
 
-def flash_tol(torch, v, lengths, fmt=None):
-    """Sums over the n attended positions in another order, plus expf: a
-    few f32 ulps of the largest |v| attended (rounded into ``fmt`` when
-    given), 2·(n + 16)·2⁻²⁴·max|v|, per (b, kv-head)."""
+def flash_vmax(torch, v, lengths, fmt=None):
+    """The n positions each lane attends, and the largest |v| there
+    (rounded into ``fmt`` when given) per (b, kv-head)."""
     from repro_torch.core.quantize import quantize_to_format
 
     S = v.shape[1]
     n = attended(torch, lengths, S)
     valid = torch.arange(S, device=v.device)[None, :] < n[:, None]
     va = (v if fmt is None else quantize_to_format(v, *fmt)).abs()
-    vmax = torch.where(valid[:, :, None, None], va, 0).amax(dim=(1, 3))
+    return n, torch.where(valid[:, :, None, None], va, 0).amax(dim=(1, 3))
+
+
+def flash_tol(torch, v, lengths, fmt=None):
+    """Sums over the n attended positions in another order, plus expf: a
+    few f32 ulps of the largest |v| attended (rounded into ``fmt`` when
+    given), 2·(n + 16)·2⁻²⁴·max|v|, per (b, kv-head)."""
+    n, vmax = flash_vmax(torch, v, lengths, fmt)
     slack = 2.0 * (n.double() + 16)[:, None] * 2.0 ** -24
     return (slack * vmax.double())[:, :, None, None]
+
+
+def flash_f64_tol(torch, v, lengths, fmt=None):
+    """A kernel against the f64 split version: the probabilistic bound on
+    the rounding errors of its f32 sums, λ·√(n + 16)·2⁻²⁴·max|v|, λ = 8
+    (Higham and Mary, SIAM J. Sci. Comput. 41(5), 2019: exceeded with
+    probability below 2·exp(-λ²/2) ≈ 3e-14 an element). At 32K it is 45
+    times tighter than :func:`flash_tol`, below what one chunk of 64
+    positions moves an output, so a chunk dropped or folded with a wrong
+    weight fails it."""
+    n, vmax = flash_vmax(torch, v, lengths, fmt)
+    slack = 8.0 * (n.double() + 16).sqrt()[:, None] * 2.0 ** -24
+    return (slack * vmax.double())[:, :, None, None]
+
+
+def check_vs_f64(torch, fd, got, q, k, v, lengths, fmt, flags, what):
+    """``got`` against the f64 split version under :func:`flash_f64_tol`
+    plus one ulp at k (``fmt`` None: kernel 4, ulps of f32)."""
+    subn, sat = flags
+    exact = fd.flash_decode_split_ref(q, k, v, lengths, fmt,
+                                      has_subnormals=subn, saturating=sat,
+                                      dtype=torch.float64)
+    tol = flash_f64_tol(torch, v, lengths, fmt)
+    ok, st = compare(torch, got, exact, fmt or (24, 127, -126), tol)
+    if not ok:
+        raise AssertionError(f"{what} against the f64 split version: {st}")
+    return {"f64_max_abs_err": st["max_abs_err"],
+            "f64_max_tol": float(tol.max())}
 
 
 def check_flash(torch, fd, q, k, v, lengths, fmt, flags=(True, True)):
@@ -595,11 +630,13 @@ def check_flash(torch, fd, q, k, v, lengths, fmt, flags=(True, True)):
                                     has_subnormals=subn, saturating=sat)
     want = fd.flash_decode_quantized_ref(q, k, v, lengths, fmt,
                                          has_subnormals=subn, saturating=sat)
+    what = f"flash_decode_certified S={k.shape[1]} " \
+        f"lengths={lengths.tolist()} {fmt}"
     ok, st = compare(torch, got, want, fmt, flash_tol(torch, v, lengths, fmt))
     if not ok:
-        raise AssertionError(f"flash_decode_certified S={k.shape[1]} "
-                             f"lengths={lengths.tolist()} {fmt}: {st}")
-    return st
+        raise AssertionError(f"{what}: {st}")
+    return {**st, **check_vs_f64(torch, fd, got, q, k, v, lengths, fmt,
+                                 flags, what)}
 
 
 # (Smax, lengths): ragged lengths, the serve phase's own cache (Smax =
@@ -625,6 +662,13 @@ def cache_copies(torch, k, v):
     return [(k.clone(), v.clone()) for _ in range(n)]
 
 
+def flash_iters(S: int) -> int:
+    """Traced calls of one decode-attention timing: 10 for a cache of more
+    than 4,096 positions (the PR 15 body takes ~19 ms a call at 32K), else
+    50. ``tools/quant_gemm_compare.py`` times with the same count."""
+    return 10 if S > 4096 else 50
+
+
 def flash_timing(torch, kernel, plain, q, k, v, lengths):
     """Device ms of ``kernel`` and ``plain`` on the same inputs and of the
     SDPA yardstick, each from a profiler trace (:func:`trace_ms`) with the
@@ -636,7 +680,7 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths):
     B, H, G, D = q.shape
     S = k.shape[1]
     lens = lengths.tolist()
-    iters = 10 if S > 4096 else 50
+    iters = flash_iters(S)
     copies = cache_copies(torch, k, v)
     timing = {
         "ms": trace_ms(torch, lambda c: kernel(q, *c, lengths), copies,
@@ -697,15 +741,18 @@ def phase_flash_decode(torch, fd):
 
 
 def check_flash_attention(torch, fd, q, k, v, lengths, what):
-    """Kernel 4 against its plain version on the same card inputs, under
-    FLASH_TOLERANCE at f32; raises on disagreement or a non-finite output."""
+    """Kernel 4 against its plain version and the f64 split version on the
+    same card inputs, under FLASH_TOLERANCE at f32; raises on disagreement
+    or a non-finite output."""
     got = fd.flash_decode_attention(q, k, v, lengths)
     want = fd.flash_decode_ref(q, k, v, lengths)
     ok, st = compare(torch, got, want, (24, 127, -126),
                      flash_tol(torch, v, lengths))
     if not ok or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"flash_decode_attention {what}: {st}")
-    return st
+    return {**st, **check_vs_f64(torch, fd, got, q, k, v, lengths, None,
+                                 (True, True),
+                                 f"flash_decode_attention {what}")}
 
 
 def phase_flash_decode_attention(torch, fd):
@@ -930,49 +977,6 @@ def decode_trace(torch, serve, T, res):
                     step()
     return {"host_ms_median": sorted(host)[len(host) // 2],
             "host_ms": host, "traced": step_split(prof)}
-
-
-def phase_profile_trace(torch, obs, serve, qmm, fd):
-    """The profile phase's full-width serving profile (k = 12, the serve
-    phases' batch and prompt, TRACE_STEPS decodes) under torch.profiler
-    with every decode step marked, as the profile phase runs it (the JSONL
-    tracer on, the kernel spies in place) and bare: beside serve_k's trace,
-    where its decode time goes."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    decode_step = serve.decode_step
-
-    def marked(*args, **kw):
-        with record_function(STEP_MARK):
-            return decode_step(*args, **kw)
-
-    out = {}
-    for name in ("as_profiled", "bare"):
-        free_device_memory(torch)
-        spies = profile_spies(qmm, fd) if name == "as_profiled" else []
-        for mod, attr, spy in spies:
-            setattr(mod, attr, spy)
-        if spies:
-            obs.configure(path=str(ROOT / "build" / "chip_smoke_trace2.jsonl"),
-                          program="chip_smoke.py")
-        serve.decode_step = marked
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                res = obs.profile_serving(
-                    size="full", max_layers=None, batch=SERVE_BATCH,
-                    prefill_len=SERVE_PROMPT, decode_steps=TRACE_STEPS,
-                    precision_k=SERVE_K, device="cuda")
-        finally:
-            serve.decode_step = decode_step
-            if spies:
-                obs.shutdown()
-            for mod, attr, spy in spies:
-                setattr(mod, attr, spy.fn)
-        out[name] = {"decode_mean_ms": 1e3 * res["decode"]["mean_s"],
-                     "traced": step_split(prof)}
-        del prof
-    return out
 
 
 def phase_serve(torch, serve, qmm, fd, T):
@@ -2132,11 +2136,8 @@ def main() -> int:
     by_path["profile"], prows, prof_path = phase_profile(torch, obs, qmm, fd)
     emit("decode_trace", steps=TRACE_STEPS, note="one decode step of each "
          "full-width serve path: host-clock median, and the device split "
-         "(medians over traced steps); the profile phase's serving profile "
-         "traced as it runs there and bare",
-         **{path: t["decode_trace"] for path, t in timings.items()},
-         profile_serving_full=phase_profile_trace(torch, obs, serve, qmm,
-                                                  fd))
+         "(medians over traced steps)",
+         **{path: t["decode_trace"] for path, t in timings.items()})
     free_device_memory(torch)
     emit("end_to_end", note="decode ms per step and prefill s of the three "
          "full-width serve paths, side by side", **{

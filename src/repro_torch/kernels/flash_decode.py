@@ -74,20 +74,26 @@ def flash_decode_quantized_ref(q, k, v, lengths, fmt, *,
 
 def flash_decode_split_ref(q, k, v, lengths, fmt=None, *,
                            has_subnormals: bool = True,
-                           saturating: bool = True) -> torch.Tensor:
+                           saturating: bool = True,
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of the kernels' split algorithm: chunk partials over
     FD_CHUNK positions from position 0 (m_c = max(-1e30, max s), l_c = Σ p,
     acc_c = Σ p·v̂ with p = exp(s - m_c) over the chunk's attended
     positions), folded in chunk order by the online recurrence. ``fmt``
     None: no rounding (kernel 4); else q, k, v and the output are rounded
     into it (kernel 2). Positions past a lane's length are never read.
-    Shapes as :func:`flash_decode_quantized_ref`; not on the serving path."""
-    if fmt is None:
-        qf = lambda t: t.to(torch.float32)
-    else:
-        kk, emax, emin = fmt_triple(fmt)
-        qf = lambda t: quantize_to_format(t.to(torch.float32), kk, emax, emin,
-                                          has_subnormals, saturating)
+    The scores and sums run in ``dtype``: in f32 this is the kernels'
+    algorithm; in f64 it is the yardstick that the card checks hold the
+    kernels to under a rule tight enough to fail a chunk dropped or folded
+    with a wrong weight. Shapes as :func:`flash_decode_quantized_ref`; not
+    on the serving path."""
+    def rnd(t):
+        if fmt is None:
+            return t
+        return quantize_to_format(t, *fmt_triple(fmt), has_subnormals,
+                                  saturating)
+
+    qf = lambda t: rnd(t.to(torch.float32)).to(dtype)
     B, H, G, D = q.shape
     S = k.shape[1]
     nc_max = -(-S // FD_CHUNK)
@@ -118,7 +124,7 @@ def flash_decode_split_ref(q, k, v, lengths, fmt=None, *,
         acc = torch.where(live[..., None], a[..., None] * acc
                           + bt[..., None] * acc_c[..., c, :], acc)
         m = torch.where(live, m2, m)
-    return qf(acc / l[..., None]).to(q.dtype)
+    return rnd(acc / l[..., None])
 
 
 def _lib():

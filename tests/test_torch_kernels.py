@@ -256,6 +256,35 @@ def test_flash_decode_split_ref_never_reads_past_length(fmt):
     assert torch.equal(clean, poisoned)
 
 
+@pytest.mark.parametrize("fmt", [None, (12, 15, -14), (8, 7, -6)])
+@pytest.mark.parametrize("S,lens", SPLIT_CASES + [(2240, [0, 2112, 2113,
+                                                          2240])])
+def test_flash_decode_split_ref_in_f64_is_the_softmax(fmt, S, lens):
+    """In f64 the split version (the card checks' yardstick) is the masked
+    softmax over the rounded inputs, summed in f64 by numpy, to 1e-12 of
+    max|v̂| before the output's rounding into the format."""
+    B, H, G, D = len(lens), 2, 3, 16
+    q, k, v = _attn_inputs(B, H, G, D, S, seed=S + 7)
+    lengths = np.asarray(lens, np.int32)
+    got = tfd.flash_decode_split_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(lengths),
+        fmt, dtype=torch.float64).numpy()
+    f = fmt or (53, 1023, -1022)
+    rnd = lambda a: np.asarray(JQ.quantize_to_format(
+        jnp.asarray(a, jnp.float64), *f), np.float64)
+    qq, kq, vq = (rnd(a.astype(np.float64)) for a in (q, k, v))
+    s = np.einsum("bhgd,bshd->bhgs", qq, kq) / np.sqrt(D)
+    n = np.where(lengths <= 0, S, lengths)
+    s = np.where(np.arange(S)[None, None, None, :] < lengths[:, None, None,
+                                                             None], s, -1e30)
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    p = np.where(np.arange(S)[None, None, None, :] < n[:, None, None, None],
+                 p, 0.0)
+    want = rnd(np.einsum("bhgs,bshd->bhgd", p, vq) / p.sum(-1)[..., None])
+    assert got.dtype == np.float64 and np.isfinite(got).all()
+    assert_ulp_rule(got, want, f, 1e-12 * np.abs(vq).max())
+
+
 def test_flash_decode_split_ref_chunk_is_the_kernels():
     """The plain version, and the wrappers' scratch for the partials, split
     the cache where the CUDA body does."""

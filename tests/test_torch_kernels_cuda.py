@@ -7,8 +7,10 @@ Tolerance: equal, or apart by at most one ulp at k plus what two f32 sums
 of the same terms differ by when they add in different orders
 (2·√K·2⁻²⁴·(|q(x)|@|q(w)|) for the GEMM, whose rounding errors have random
 signs; 2·(len + 16)·2⁻²⁴·max|v| for decode attention, whose exp and division
-also differ by ulps). On operands whose partial sums are all exact in f32
-the GEMM must equal its plain version bit for bit.
+also differ by ulps; against decode attention's f64 split version,
+8·√(len + 16)·2⁻²⁴·max|v|). On operands whose partial sums are all exact in
+f32 the GEMM must equal its plain version bit for bit. One test runs on the
+CPU: it shows that the f64 rule fails a decode that drops a chunk.
 """
 import numpy as np
 import pytest
@@ -176,16 +178,31 @@ def test_quant_matmul_k_kernel_nonfinite_and_near_max(cuda_device, k):
                      tqm.quant_matmul_ref(x, w, k))
 
 
-def _flash_slack(v, lengths, rounded=None):
-    """2·(n + 16)·2⁻²⁴·max|v| over the n positions a lane attends (all S
-    for a lane of length 0)."""
+def _attended_vmax(v, lengths, rounded=None):
+    """The n positions each lane attends (all S for a lane of length 0) and
+    the largest |v| there, per (b, kv-head)."""
     S = v.shape[1]
     n = torch.where(lengths <= 0, S, lengths.clamp(max=S))
     valid = torch.arange(S, device=v.device)[None, :] < n[:, None]
     va = (v if rounded is None else rounded).abs()
-    vmax = torch.where(valid[:, :, None, None], va, 0).amax(dim=(1, 3))
-    slack = 2.0 * (n.double() + 16)[:, None] * 2.0 ** -24
-    return (slack * vmax.double())[:, :, None, None]
+    return n.double(), torch.where(valid[:, :, None, None], va,
+                                   0).amax(dim=(1, 3)).double()
+
+
+def _flash_slack(v, lengths, rounded=None):
+    """2·(n + 16)·2⁻²⁴·max|v| over the n positions a lane attends."""
+    n, vmax = _attended_vmax(v, lengths, rounded)
+    return (2.0 * (n + 16)[:, None] * 2.0 ** -24 * vmax)[:, :, None, None]
+
+
+def _f64_slack(v, lengths, rounded=None):
+    """8·√(n + 16)·2⁻²⁴·max|v|: against the f64 split version, the
+    probabilistic bound (λ = 8; Higham and Mary, SIAM J. Sci. Comput.
+    41(5), 2019) on the f32 sums' rounding errors, as chip_smoke.py's
+    ``flash_f64_tol``: below what one 64-position chunk moves an output."""
+    n, vmax = _attended_vmax(v, lengths, rounded)
+    return (8.0 * (n + 16).sqrt()[:, None] * 2.0 ** -24
+            * vmax)[:, :, None, None]
 
 
 @pytest.mark.cuda
@@ -256,7 +273,9 @@ def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
 # So a lane's bits are the same at B = 1 and B = 4 in every lane position,
 # under Smax 145 and 1024, whatever the other lanes' lengths; a cache
 # poisoned with NaN at and past every lane's length gives the clean bits;
-# and against the plain versions the rule above holds at the chunk edges.
+# and at the chunk edges and past one group of the combine the rule above
+# holds against the plain versions, and the tighter f64 rule against the
+# f64 split version.
 
 DECODE_KERNELS = [None] + FORMATS     # None: kernel 4 (uncertified)
 DECODE_GD = [(2, 64), (7, 128), (8, 128), (2, 128), (7, 64), (8, 64)]
@@ -266,6 +285,16 @@ def _decode(fmt, q, k, v, lengths):
     if fmt is None:
         return tfd.flash_decode_attention(q, k, v, lengths)
     return tfd.flash_decode_certified(q, k, v, lengths, fmt)
+
+
+def _assert_f64_rule(got, fmt, q, k, v, lengths):
+    """``got`` against the f64 split version: one ulp at k (of f32 for
+    kernel 4) plus :func:`_f64_slack`."""
+    exact = tfd.flash_decode_split_ref(q, k, v, lengths, fmt,
+                                       dtype=torch.float64)
+    rounded = None if fmt is None else quantize_to_format(v, *fmt)
+    assert_ulp_rule(got, exact, fmt or (24, 127, -126),
+                    _f64_slack(v, lengths, rounded))
 
 
 def _decode_vs_plain(fmt, q, k, v, lengths):
@@ -278,6 +307,7 @@ def _decode_vs_plain(fmt, q, k, v, lengths):
         want = tfd.flash_decode_quantized_ref(q, k, v, lengths, fmt)
         assert_ulp_rule(got, want, fmt, _flash_slack(
             v, lengths, quantize_to_format(v, *fmt)))
+    _assert_f64_rule(got, fmt, q, k, v, lengths)
     return got
 
 
@@ -317,13 +347,43 @@ def test_flash_decode_lane_bits_independent_of_batch_and_capacity(
 @pytest.mark.parametrize("S,lens", [
     (200, [63, 64, 65, 1]),
     (200, [0, 200, 128, 129]),
+    # the combine folds chunk 0, then groups of 32 chunks: 33 chunks end
+    # the first group, 34 open a second, 65 end it and 66 open a third
+    (4224, [2112, 2113, 4160, 4161]),
     (32768, [32768, 0, 5000, 64]),
 ])
 def test_flash_decode_length_edges_vs_plain(cuda_device, fmt, G, D, S, lens):
+    """Chunk and group edges, lengths 0 and 1 and a 32K lane, against the
+    plain version and the f64 split version."""
     gen = torch.Generator(device=cuda_device).manual_seed(31)
     q, k, v = _lanes(gen, len(lens), 2, G, D, S, cuda_device)
     _decode_vs_plain(fmt, q, k, v, torch.tensor(
         lens, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.parametrize("fmt", [None, (12, 15, -14)])
+def test_f64_rule_fails_a_dropped_chunk(fmt):
+    """On the CPU, no card needed: the split algorithm in f32 (the kernels'
+    order) meets the f64 rule, and the same cache with chunk 40 (positions
+    2560..2623) cut out fails it in every lane that holds that chunk, the
+    32K one included; the lane of 64 positions does not hold it."""
+    gen = torch.Generator().manual_seed(43)
+    S, lens = 32768, [32768, 5000, 2625, 64]
+    q, k, v = _lanes(gen, len(lens), 2, 4, 128, S, "cpu")
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    _assert_f64_rule(tfd.flash_decode_split_ref(q, k, v, lengths, fmt), fmt,
+                     q, k, v, lengths)
+    cut = [torch.cat([t[:, :2560], t[:, 2624:]], 1) for t in (k, v)]
+    dropped = tfd.flash_decode_split_ref(
+        q, *cut, torch.where(lengths > 2624, lengths - 64, lengths), fmt)
+    for b, n in enumerate(lens):
+        if n > 2624:
+            with pytest.raises(AssertionError):
+                _assert_f64_rule(dropped[b:b + 1], fmt, q[b:b + 1],
+                                 k[b:b + 1], v[b:b + 1], lengths[b:b + 1])
+        else:
+            _assert_f64_rule(dropped[b:b + 1], fmt, q[b:b + 1], k[b:b + 1],
+                             v[b:b + 1], lengths[b:b + 1])
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 """Time and fingerprint a pair of kernels of one source tree.
 
     python3 tools/quant_gemm_compare.py --src SRC_DIR --tag NAME \
-        [--kernels quant|interval|flash] [--long-iters N] [--sass]
+        [--kernels quant|interval|flash] [--sass]
         [--sass-listing DIR]
 
 ``SRC_DIR`` is a ``src`` directory that holds a ``repro_torch`` package (this
@@ -23,8 +23,8 @@ analysis-path shapes (M = 10, 64; 784→700→256→10), timed from a profiler
 trace as ``chip_smoke.py`` times them. ``--kernels flash`` times the
 decode-attention kernels ``flash_decode_certified`` (format k12 e[-14, 15])
 and ``flash_decode_attention`` in every case of ``chip_smoke.FLASH_CASES``
-(B = 4, K = 4, G = 7, D = 128; the 32K case with ``--long-iters`` calls,
-10 by default), each from a profiler trace with the cache rotated through
+(B = 4, K = 4, G = 7, D = 128), each from a profiler trace of as many calls
+as ``chip_smoke.flash_iters`` gives, with the cache rotated through
 copies that exceed the L2, as ``chip_smoke.py`` times them, with each CUDA
 kernel's share of the call (the chunk and the combine kernel) and SDPA as
 the yardstick. To compare two trees on one card,
@@ -63,8 +63,6 @@ def main() -> int:
                     "quant_matmul (default), caa_matmul and "
                     "interval_matmul, or flash_decode_certified and "
                     "flash_decode_attention")
-    ap.add_argument("--long-iters", type=int, default=10,
-                    help="traced calls in the 32K flash case")
     ap.add_argument("--sass", action="store_true",
                     help="add the kernels' SASS instruction mix")
     ap.add_argument("--sass-listing", metavar="DIR",
@@ -89,7 +87,7 @@ def main() -> int:
     if args.kernels == "interval":
         rows, layer, built = interval_rows(torch, cs, _build)
     elif args.kernels == "flash":
-        rows, built = flash_rows(torch, cs, _build, args.long_iters)
+        rows, built = flash_rows(torch, cs, _build)
         layer = None
     else:
         rows, layer, built = quant_rows(torch, cs, _build, qmm)
@@ -275,7 +273,7 @@ def trace_per_kernel(torch, fn, copies, iters):
     return {name: ms / iters for name, ms in out.items()}
 
 
-def flash_rows(torch, cs, _build, long_iters):
+def flash_rows(torch, cs, _build):
     from repro_torch.kernels import flash_decode as fd
 
     built = _build.build(("flash_decode_certified", "flash_decode"),
@@ -294,7 +292,7 @@ def flash_rows(torch, cs, _build, long_iters):
         q = torch.randn(B, H, G, D, device="cuda", generator=gen)
         k = torch.randn(B, S, H, D, device="cuda", generator=gen)
         v = torch.randn(B, S, H, D, device="cuda", generator=gen)
-        iters = long_iters if S > 4096 else 50
+        iters = cs.flash_iters(S)
         copies = cs.cache_copies(torch, k, v)
         row = {"case": case, "Smax": S, "lengths": lens}
         for name, fn in kernels.items():
