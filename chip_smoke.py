@@ -139,23 +139,26 @@ def trace_ms(torch, fn, copies, iters: int) -> float:
     ``copies`` (after one warm-up pass): the summed durations of the device
     activities (kernels, copies) in a ``torch.profiler`` trace of ``iters``
     calls. For calls shorter than their launch from the host, where CUDA
-    events around a loop of calls time the host."""
+    events around a loop of calls time the host. The profiler now and then
+    returns a trace without the device's activities: such a trace is taken
+    again, up to three times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for w in copies:
         fn(w)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(copies[i % len(copies)])
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not spans:
-        raise AssertionError("the trace holds no device activity")
-    return sum(spans) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(copies[i % len(copies)])
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if spans:
+            return sum(spans) / 1e3 / iters
+    raise AssertionError("three traces held no device activity")
 
 
 def gemm_times(torch, kernel, plain, x, w, iters):
@@ -1151,6 +1154,413 @@ def uniform_ks(k_attn, k_mlp):
             for p in PROJ_ORDER}
 
 
+# ---------------------------------------------------------------------------
+# continuous batching over a per-lane cache, served from the certificate store
+# ---------------------------------------------------------------------------
+
+BATCH_ENGINE = {"n_lanes": 4, "max_seq": 256, "page_size": 16,
+                "total_pages": 24, "queue_depth": 8}
+BATCH_REQUESTS, BATCH_K_REQUESTS = 8, 4
+BATCH_PROMPT = (40, 120)          # prompt lengths drawn in this range
+BATCH_MAX_NEW, BATCH_STRIDE = 16, 2
+BATCH_LONG_PROMPT = 250           # + max_new > max_seq: rejected too_long
+BATCH_EOS_FROM = (2, 3)           # eos = request 2's 4th reference token
+
+
+def batching_requests(torch, batching, vocab):
+    """BATCH_REQUESTS requests from seed 0 (prompt lengths in BATCH_PROMPT,
+    one every BATCH_STRIDE steps) and the over-long one, arriving at step
+    1."""
+    gen = torch.Generator().manual_seed(0)
+    draw = lambda lo, hi, n: torch.randint(lo, hi, (n,), generator=gen)
+    reqs = []
+    for i in range(BATCH_REQUESTS):
+        P = int(draw(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1, 1))
+        reqs.append(batching.Request(
+            rid=i, prompt=draw(0, vocab, P).tolist(),
+            max_new_tokens=BATCH_MAX_NEW, arrival_step=BATCH_STRIDE * i))
+    too_long = batching.Request(
+        rid=BATCH_REQUESTS, prompt=draw(0, vocab, BATCH_LONG_PROMPT).tolist(),
+        max_new_tokens=BATCH_MAX_NEW, arrival_step=1)
+    return reqs, too_long
+
+
+def write_format_entry(spec, formats, store, pipeline, root, cfg, digest):
+    """A schema-v3 set whose format map is SERVE_FORMAT, written with the
+    port's ``put`` under the port's key for these params (the format
+    pipeline's request, k_max 53). Its bounds are +inf: no analysis ran,
+    the entry only drives serving. Returns (key, path)."""
+    key, request = pipeline.serving_request("qwen2_7b", cfg, digest,
+                                            formats=True, k_max=53)
+    layer_format = {
+        s: formats.FpFormat(f"custom_k{f['k']}_e{f['emax']}_{f['emin']}",
+                            k=f["k"], emax=f["emax"], emin=f["emin"],
+                            has_subnormals=True, saturating=True).to_dict()
+        for s, f in SERVE_FORMAT.items()}
+    cert = spec.Certificate(
+        model_id="lm/qwen2_7b", params_digest=digest,
+        class_key=f"lm/{cfg.name}/tokens[1x8]seed1",
+        cfg=spec.CaaConfig(u_max=2.0 ** -52), bounds_u_max=2.0 ** -52,
+        final_abs_u=float("inf"), final_rel_u=float("inf"), required_k=None,
+        satisfied_by=[], layer_format=layer_format)
+    cs = spec.CertificateSet(model_id=cert.model_id, params_digest=digest,
+                             certificates=[cert])
+    return key, store.CertificateStore(str(root)).put(key, cs, request)
+
+
+def lane_bits(torch, served, ref):
+    """Per request: tokens equal, logit rows equal bit for bit (and the
+    first row that is not: 0 is the prefill's), the largest |Δlogit|, and
+    at the first differing token (if any) the top-1 gap of the reference's
+    logits."""
+    rows = []
+    for r in served:
+        want_toks, want_lg = ref[r["id"]]
+        got_lg = r["logits"]
+        n = min(len(got_lg), len(want_lg))
+        row = {"id": r["id"], "tokens_equal": r["tokens"] == want_toks,
+               "logits_bitwise": (got_lg.shape == want_lg.shape
+                                  and same_bits(torch, got_lg, want_lg)),
+               "first_row_differing": next(
+                   (i for i in range(n)
+                    if not same_bits(torch, got_lg[i], want_lg[i])), None),
+               "max_abs_dlogit": float((got_lg[:n].double()
+                                        - want_lg[:n].double()).abs().max())}
+        if not row["tokens_equal"]:
+            i = next(j for j, (a, b) in enumerate(zip(r["tokens"],
+                                                      want_toks)) if a != b)
+            top2 = torch.topk(want_lg[i], 2).values
+            row.update(first_diff=i, ref_top1_gap=float(top2[0] - top2[1]))
+        rows.append(row)
+    return rows
+
+
+def run_batching(torch, batching, fns, cfg, sc, params, reqs, certset,
+                 eos_id, expected_of):
+    """One engine run with every launch counter set to 0 just before and
+    read just after; raises unless the counts are ``expected_of(engine,
+    admitted)``. Returns (engine, responses, launches, registry, wall s)."""
+    from repro_torch import obs
+
+    registry = obs.MetricsRegistry()
+    engine = batching.ContinuousBatchingEngine(
+        cfg, sc, params, registry=registry, certset=certset, eos_id=eos_id,
+        device="cuda", keep_logits=True, **BATCH_ENGINE)
+    torch.cuda.synchronize()
+    reset_launches(fns)
+    t0 = time.perf_counter()
+    responses = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(fns)
+    admitted = registry.counters.get("serve.requests_admitted", 0)
+    expected = expected_of(engine, admitted)
+    if launches != expected:
+        raise AssertionError(f"batching launch counts {launches} != "
+                             f"{expected}")
+    return engine, responses, launches, registry, wall
+
+
+def batching_report(engine, responses, registry, wall):
+    steps, lanes = engine.steps, engine.n_lanes
+    return dict(
+        steps=steps, decode_tokens=engine.decode_tokens,
+        decode_tokens_per_s=engine.decode_tokens / engine.decode_s,
+        decode_ms_per_step=1e3 * engine.decode_s / steps,
+        mean_occupancy=engine.decode_tokens / (steps * lanes),
+        wall_s=wall, page_waits=engine.page_waits,
+        prefill_ms={r["id"]: 1e3 * r["prefill_s"] for r in responses},
+        lanes={r["id"]: r["lane"] for r in responses},
+        completion_order=[r["id"] for r in responses],
+        counters=registry.counters,
+        tokens={r["id"]: r["tokens"] for r in responses})
+
+
+def library_lane_bits(torch, cfg, device="cuda", lanes=4, S=256, P=83,
+                      page=16, seed=5):
+    """Whether the library products on the batching engine's path keep a
+    lane's bits, on seeded inputs at ``cfg``'s widths: each product over
+    ``lanes`` lanes against each lane alone (decode), and over a prompt of
+    ``P`` rows padded to whole pages against the unpadded one (prefill).
+    Returns {product: {"bitwise": bool, "max_abs_diff": float}}. The
+    products: the LM head (``einsum('bsd,vd->bsv')``), the plain
+    backend's ``torch.matmul`` at each projection width, the composed
+    attention's score and P·V einsums and its softmax, and the rmsnorm's
+    mean of squares."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device=device, generator=gen)
+    d, Kh, D = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // Kh
+    p_pad = page * -(-P // page)
+    out = {}
+
+    def record(name, got, want):
+        out[name] = {"bitwise": same_bits(torch, got, want),
+                     "max_abs_diff": float((got.double() - want.double())
+                                           .abs().max())}
+
+    def decode(name, fn, *args):
+        alone = torch.cat([fn(*(a[b:b + 1] if a.shape[0] == lanes else a
+                                for a in args)) for b in range(lanes)])
+        record(name, fn(*args), alone)
+
+    def prefill(name, fn, x, rows_dim, *rest):
+        full = fn(x, *rest).narrow(rows_dim, 0, P)
+        record(name, full, fn(x.narrow(rows_dim - (x.dim() - full.dim()),
+                                       0, P), *rest))
+
+    head = rnd(cfg.vocab, d)
+    lm_head = lambda x, w: torch.einsum("bsd,vd->bsv", x, w)
+    decode("lm_head_decode", lm_head, rnd(lanes, 1, d), head)
+    prefill("lm_head_prefill", lm_head, rnd(1, p_pad, d), 1, head)
+    del head
+    for n in sorted({cfg.n_heads * D, Kh * D, cfg.d_ff}):
+        w = rnd(d, n)
+        decode(f"matmul_decode_n{n}", torch.matmul, rnd(lanes, 1, d), w)
+        prefill(f"matmul_prefill_n{n}", torch.matmul, rnd(1, p_pad, d), 1, w)
+    scores = lambda q, k: torch.einsum("bqkgd,bskd->bkgqs", q, k)
+    pv = lambda p, v: torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    decode("scores_decode", scores, rnd(lanes, 1, Kh, G, D),
+           rnd(lanes, S, Kh, D))
+    decode("pv_decode", pv, rnd(lanes, Kh, G, 1, S).softmax(-1),
+           rnd(lanes, S, Kh, D))
+    k1, v1 = rnd(1, S, Kh, D), rnd(1, S, Kh, D)
+    q_pad = rnd(1, p_pad, Kh, G, D)
+    record("scores_prefill", scores(q_pad, k1)[..., :P, :],
+           scores(q_pad[:, :P], k1))
+    p_pad_probs = rnd(1, Kh, G, p_pad, S).softmax(-1)
+    record("pv_prefill", pv(p_pad_probs, v1)[:, :P],
+           pv(p_pad_probs[..., :P, :], v1))
+    soft = lambda s: torch.softmax(s, dim=-1)
+    decode("softmax_decode", soft, rnd(lanes, Kh, G, 1, S))
+    s_pad = rnd(1, Kh, G, p_pad, S)
+    record("softmax_prefill", soft(s_pad)[..., :P, :], soft(s_pad[..., :P, :]))
+    msq = lambda x: (x * x).mean(dim=-1, keepdim=True)
+    decode("mean_square_decode", msq, rnd(lanes, 1, d))
+    prefill("mean_square_prefill", msq, rnd(1, p_pad, d), 1)
+    return out
+
+
+def reference_runs(batching, cfg, sc, params, reqs, eos_id):
+    """Every request alone through ``reference_generate`` (after the
+    engine run's counts were read)."""
+    return {req.rid: batching.reference_generate(
+        cfg, sc, params, req.prompt, req.max_new_tokens,
+        max_seq=BATCH_ENGINE["max_seq"], eos_id=eos_id, return_logits=True)
+        for req in reqs}
+
+
+def phase_batching(torch, serve, batching, qmm, fd, T):
+    """Continuous batching at Qwen2-7B FULL (f32, random weights from seed
+    0): 4 lanes over a per-lane cache of 256 positions in pages of 16, 28
+    pages, 8 ragged requests (prompts 40-120, one every 2 steps) and one
+    over-long one, an EOS that ends request 2 early; served under the
+    format map read from a store entry written with the port's ``put``
+    (kernels 1 and 2), then 4 requests at ``--precision-k 12`` (kernel 3).
+    Every request's tokens must equal ``reference_generate``'s on the card;
+    the launch counts are exact; kernel 2 must see ≥ 3 distinct lengths in
+    one launch; kernels 1-3 are held against their plain versions on the
+    inputs the phase gave them."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.certify import pipeline, spec, store
+    from repro_torch.core import formats
+
+    emit("free", before="batching", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    cfg = configs.get("qwen2_7b").FULL
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    # the store: an entry put under the port's key, then found by
+    # apply_certificates, which digests the params again
+    root = ROOT / "build" / "chip_smoke_store"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    digest = store.params_digest(params)
+    digest_s = time.perf_counter() - t0
+    key, path = write_format_entry(spec, formats, store, pipeline, root, cfg,
+                                   digest)
+    t0 = time.perf_counter()
+    sc, certset = serve.apply_certificates(
+        serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
+                          max_seq=BATCH_ENGINE["max_seq"],
+                          certificates=str(root)),
+        cfg, params, formats=True, k_max=53)
+    apply_s = time.perf_counter() - t0
+    bk = serve._backend(sc)
+    want_bk = serve.FormatQuantJOps(SERVE_FORMAT)
+    paths = [["embed"], ["head"]] + [[f"layer{i}", s] for i in (0, 1, 27)
+                                     for s in ("attn", "mlp")]
+    if not isinstance(bk, serve.FormatQuantJOps) or any(
+            bk.format_for(p) != want_bk.format_for(p) for p in paths):
+        raise AssertionError(f"the store served {sc.precision_layer_format}")
+
+    reqs, too_long = batching_requests(torch, batching, cfg.vocab)
+    eos_req, eos_at = BATCH_EOS_FROM
+    eos_id = batching.reference_generate(
+        cfg, sc, params, reqs[eos_req].prompt, BATCH_MAX_NEW,
+        max_seq=BATCH_ENGINE["max_seq"])[eos_at]
+
+    # the format path, with kernel 1's inputs kept per (M, K, N, format)
+    # (one prefill M and the decode M per shape) and kernel 2's lengths at
+    # every launch, its q/k/v at layer 0's launches
+    dispatch_qmm = serve.quant_matmul_format_dispatch
+    dispatch_fd = serve.certified_decode_attention
+    gemm_in, shapes_seen, flash_lengths, flash_in = {}, set(), [], {}
+
+    def spy_qmm(x, w, fmt, **kw):
+        x2 = x.reshape(-1, x.shape[-1])
+        shape = (x2.shape[0] == BATCH_ENGINE["n_lanes"], *w.shape,
+                 tuple(fmt))
+        if shape not in shapes_seen:
+            shapes_seen.add(shape)
+            gemm_in[(*x2.shape, w.shape[1], tuple(fmt))] = (
+                x2.clone(), w.contiguous(), fmt, kw)
+        return dispatch_qmm(x, w, fmt, **kw)
+
+    def spy_fd(q, k, v, lengths, fmt, **kw):
+        if len(flash_lengths) % L_FULL == 0:
+            flash_in[len(flash_lengths)] = (
+                *(t.clone() for t in (q, k, v, lengths)), fmt, kw)
+        flash_lengths.append(lengths.clone())
+        return dispatch_fd(q, k, v, lengths, fmt, **kw)
+
+    def expected_fmt(engine, admitted):
+        return {"quant_matmul_format": 7 * L_FULL * (admitted + engine.steps),
+                "flash_decode_certified": L_FULL * engine.steps,
+                "quant_matmul": 0, "flash_decode_attention": 0,
+                **ANALYSIS_KERNELS_IDLE}
+
+    serve.quant_matmul_format_dispatch = spy_qmm
+    serve.certified_decode_attention = spy_fd
+    try:
+        engine, responses, launches, registry, wall = run_batching(
+            torch, batching, fns, cfg, sc, params, reqs + [too_long],
+            certset, eos_id, expected_fmt)
+    finally:
+        serve.quant_matmul_format_dispatch = dispatch_qmm
+        serve.certified_decode_attention = dispatch_fd
+    fmt_report = batching_report(engine, responses, registry, wall)
+
+    # the schedule's own gates
+    if registry.counters.get("serve.requests_rejected{reason=too_long}") != 1:
+        raise AssertionError(f"over-long request not rejected: "
+                             f"{registry.counters}")
+    if sorted(r["id"] for r in responses) != list(range(BATCH_REQUESTS)):
+        raise AssertionError(f"served {fmt_report['completion_order']}")
+    if engine.page_waits < 1:
+        raise AssertionError("admission never waited for pages")
+    eos_resp = next(r for r in responses if r["id"] == eos_req)
+    order = fmt_report["completion_order"]
+    recycled = [r["id"] for r in responses[order.index(eos_req) + 1:]
+                if r["lane"] == eos_resp["lane"]]
+    if eos_resp["tokens"][-1] != eos_id or len(eos_resp["tokens"]) >= \
+            BATCH_MAX_NEW or not recycled:
+        raise AssertionError(f"eos lane: {eos_resp['tokens']}, then "
+                             f"{recycled}")
+    distinct = [len(set(l.tolist())) for l in flash_lengths]
+    if max(distinct) < 3:
+        raise AssertionError(f"kernel 2 saw at most {max(distinct)} "
+                             "distinct lengths in a launch")
+    for r in responses:
+        if r.get("certificate", {}).get("params_digest") != digest:
+            raise AssertionError(f"request {r['id']} carries no certificate")
+
+    # kernels 1 and 2 against their plain versions on the phase's inputs:
+    # kernel 2 at the layer-0 launch with the most distinct lengths and at
+    # the last layer-0 launch (check_flash also holds it to the f64 split
+    # version)
+    main_path = {"quant_matmul_format": [], "flash_decode_certified": []}
+    for (M, K, N, fmt), (x, w, _, kw) in sorted(gemm_in.items()):
+        _, st = check_gemm(torch, qmm, x, w, fmt,
+                           (kw["has_subnormals"], kw["saturating"]))
+        main_path["quant_matmul_format"].append(
+            {"M": M, "K": K, "N": N, "format": list(fmt), **st})
+    widest = max(flash_in, key=lambda i: (distinct[i], i))
+    for when in sorted({widest, max(flash_in)}):
+        q, k, v, lengths, fmt, kw = flash_in[when]
+        st = check_flash(torch, fd, q, k, v, lengths, fmt,
+                         (kw["has_subnormals"], kw["saturating"]))
+        main_path["flash_decode_certified"].append(
+            {"launch": when, "Smax": k.shape[1], "lengths": lengths.tolist(),
+             "format": list(fmt), **st})
+    del gemm_in, flash_in, flash_lengths
+
+    ref = reference_runs(batching, cfg, sc, params, reqs, eos_id)
+    fmt_bits = lane_bits(torch, responses, ref)
+    del ref, responses, engine
+
+    # the k path: kernel 3, the composed decode attention
+    sc_k = serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
+                             max_seq=BATCH_ENGINE["max_seq"],
+                             precision_k=SERVE_K)
+    dispatch_k = serve.quant_matmul_dynamic_k
+    k_in, k_seen = {}, set()
+
+    def spy_k(x, w, k):
+        x2 = x.reshape(-1, x.shape[-1])
+        shape = (x2.shape[0] == BATCH_ENGINE["n_lanes"], *w.shape, int(k))
+        if shape not in k_seen:
+            k_seen.add(shape)
+            k_in[(*x2.shape, w.shape[1], int(k))] = (x2.clone(),
+                                                     w.contiguous())
+        return dispatch_k(x, w, k)
+
+    def expected_k(engine, admitted):
+        return {"quant_matmul_format": 0, "flash_decode_certified": 0,
+                "quant_matmul": 7 * L_FULL * (admitted + engine.steps),
+                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE}
+
+    k_reqs = reqs[:BATCH_K_REQUESTS]
+    serve.quant_matmul_dynamic_k = spy_k
+    try:
+        engine_k, responses_k, launches_k, registry_k, wall_k = run_batching(
+            torch, batching, fns, cfg, sc_k, params, k_reqs, None, -1,
+            expected_k)
+    finally:
+        serve.quant_matmul_dynamic_k = dispatch_k
+    k_report = batching_report(engine_k, responses_k, registry_k, wall_k)
+    k_path = []
+    for (M, K, N, k), (x, w) in sorted(k_in.items()):
+        _, st = check_gemm_k(torch, qmm, x, w, k)
+        k_path.append({"M": M, "K": K, "N": N, "k": k, **st})
+    del k_in
+    ref_k = reference_runs(batching, cfg, sc_k, params, k_reqs, -1)
+    k_bits = lane_bits(torch, responses_k, ref_k)
+    del ref_k, responses_k, engine_k, params
+
+    library = library_lane_bits(torch, cfg)
+    launches_all = {name: launches[name] + launches_k[name]
+                    for name in launches}
+    emit("batching", config="qwen2_7b.FULL", engine=BATCH_ENGINE,
+         requests=BATCH_REQUESTS, prompt_lengths=[len(r.prompt)
+                                                  for r in reqs],
+         max_new_tokens=BATCH_MAX_NEW, arrival_stride=BATCH_STRIDE,
+         eos_id=eos_id, store={"key": key, "path": str(Path(path).relative_to(
+             ROOT)), "params_digest": digest, "digest_s": digest_s,
+             "apply_certificates_s": apply_s,
+             "served_from_store": certset.meta.get("from_store")},
+         format_path=fmt_report | {"launches": launches,
+                                   "vs_reference": fmt_bits},
+         k_path=k_report | {"precision_k": SERVE_K, "launches": launches_k,
+                            "vs_reference": k_bits},
+         kernel2_distinct_lengths_max=max(distinct),
+         logits_bitwise_requests={
+             "format": sum(b["logits_bitwise"] for b in fmt_bits),
+             "k": sum(b["logits_bitwise"] for b in k_bits)},
+         library_lane_bits=library, seconds=time.perf_counter() - t_phase,
+         main_path_inputs_vs_plain={**main_path, "quant_matmul": k_path})
+    bad = [(p, b) for p, rows in (("format", fmt_bits), ("k", k_bits))
+           for b in rows if not b["tokens_equal"]]
+    if bad:
+        raise AssertionError(f"tokens differ from reference_generate: {bad}")
+    return launches_all, main_path, k_path, fmt_report | {"k": k_report}
+
+
 class KernelSpy:
     """Stands in for a kernel wrapper in its module while a path runs:
     keeps the inputs of the first call of each ``key``, then calls the
@@ -2108,7 +2518,7 @@ def main() -> int:
     from repro_torch.kernels import quant_matmul as qmm
     from repro_torch.core import interval as iv
     from repro_torch.kernels import ops as kops
-    from repro_torch.launch import serve
+    from repro_torch.launch import batching, serve
     from repro_torch.models import transformer as T
 
     phase_env(torch, serve)
@@ -2133,6 +2543,8 @@ def main() -> int:
                       ["--certificate-set", str(v2_set)],
                       {"layer0": uniform_ks(12, 14),
                        "layer1": uniform_ks(12, 10)}))
+    (by_path["batching"], batch_fmt_path, batch_k_path,
+     batch_timing) = phase_batching(torch, serve, batching, qmm, fd, T)
     by_path["profile"], prows, prof_path = phase_profile(torch, obs, qmm, fd)
     emit("decode_trace", steps=TRACE_STEPS, note="one decode step of each "
          "full-width serve path: host-clock median, and the device split "
@@ -2140,10 +2552,16 @@ def main() -> int:
          **{path: t["decode_trace"] for path, t in timings.items()})
     free_device_memory(torch)
     emit("end_to_end", note="decode ms per step and prefill s of the three "
-         "full-width serve paths, side by side", **{
+         "full-width serve paths, side by side; the batching engine's "
+         "decode on the host clock", **{
              path: {key: t[key] for key in (
                  "prefill_s", "decode_ms_per_step", "decode_tokens_per_s")}
-             for path, t in timings.items()})
+             for path, t in timings.items()}, batching={
+             path: {key: t[key] for key in (
+                 "decode_ms_per_step", "decode_tokens_per_s",
+                 "mean_occupancy", "steps")}
+             for path, t in (("format", batch_timing),
+                             ("k", batch_timing["k"]))})
 
     phase_interval_libm(torch, iv)
     seen = phase_analyze(torch)
@@ -2160,11 +2578,13 @@ def main() -> int:
     del path_outs, operands
 
     qerr = max([qerr] + [r["max_abs_err"] for r in (
-        fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"])])
-    ferr = max([ferr] + [r["max_abs_err"]
-                         for r in fmt_path["flash_decode_certified"]])
+        fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"]
+        + batch_fmt_path["quant_matmul_format"])])
+    ferr = max([ferr] + [r["max_abs_err"] for r in (
+        fmt_path["flash_decode_certified"]
+        + batch_fmt_path["flash_decode_certified"])])
     kerr = max([kerr] + [r["max_abs_err"] for r in (
-        k_path + mixed_path + prof_path["quant_matmul"])])
+        k_path + mixed_path + prof_path["quant_matmul"] + batch_k_path)])
     aerr = max([aerr] + [r["max_abs_err"]
                          for r in prof_path["flash_decode_attention"]])
     launches = {name: {path: counts[name] for path, counts in by_path.items()}

@@ -19,11 +19,17 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card and without an explicit ``cpu`` they
 raise. There is no silent CPU path.
 
+With ``--certificates STORE_DIR`` the precision comes from the certificate
+store (:func:`apply_certificates`): the set certified for this arch and
+these exact params, found under the reference's content address. A miss
+raises until the certification pipeline is ported.
+
 CLI::
 
     python -m repro_torch.launch.serve --size full --batch 4 \\
         --prefill-len 128 --decode-steps 16 --precision-k 12
-    (or --layer-format '{"": {...}}', or --certificate-set SET.json)
+    (or --layer-format '{"": {...}}', --certificate-set SET.json, or
+    --certificates STORE_DIR [--certify-formats])
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, obs
+from repro_torch.certify.pipeline import serving_certificate
 from repro_torch.certify.spec import CertificateSet
 from repro_torch.core.backend import TorchOps
 from repro_torch.core.scopes import resolve_scope_value
@@ -81,6 +88,9 @@ class ServeConfig:
     # the "" entry is the default for unmapped scopes. Takes precedence
     # over precision_layer_k and precision_k.
     precision_layer_format: Optional[Dict[str, Dict]] = None
+    # A certificate store directory: the precision comes from the set
+    # stored for (arch, exact params) (:func:`apply_certificates`).
+    certificates: Optional[str] = None
     device: str = "cuda"
 
     def __post_init__(self):
@@ -242,6 +252,8 @@ def apply_certificate_set(sc: ServeConfig,
     lf = certset.serving_layer_format
     if k is None:
         if lf is not None and lf.get(""):
+            obs.event("serve.format_only_degrade", arch=sc.arch,
+                      scopes=len(lf))
             return dataclasses.replace(sc, precision_k=None,
                                        precision_layer_k=None,
                                        precision_layer_format=lf)
@@ -251,6 +263,53 @@ def apply_certificate_set(sc: ServeConfig,
     return dataclasses.replace(sc, precision_k=k,
                                precision_layer_k=certset.serving_layer_k,
                                precision_layer_format=lf)
+
+
+def apply_certificates(sc: ServeConfig, arch_cfg, params, **certify_kw):
+    """Resolve ``sc.certificates`` (a store directory) into the precision
+    it certifies for this exact (arch, params): the stored set is read with
+    :func:`repro_torch.certify.pipeline.serving_certificate` (``certify_kw``
+    — ``k_max``, ``mixed``, ``formats``, ... — address the request as the
+    reference's ``certify_lm`` does) and resolved by
+    :func:`apply_certificate_set`, format-only degrade included. Returns
+    (updated ServeConfig, CertificateSet). A miss raises."""
+    cs = serving_certificate(sc.arch, arch_cfg, params, sc.certificates,
+                             **certify_kw)
+    return apply_certificate_set(sc, cs), cs
+
+
+def certify_kwargs(ap: argparse.ArgumentParser, args) -> Dict[str, Any]:
+    """The store request the CLI flags ``--certify-mixed``,
+    ``--certify-formats`` and ``--certify-k-max`` address, as the
+    reference's serving CLIs map them (k_max 53 for the stacked
+    pipeline); they need ``--certificates``."""
+    if ((args.certify_mixed or args.certify_formats
+         or args.certify_k_max is not None) and args.certificates is None):
+        ap.error("--certify-* require --certificates STORE_DIR")
+    if args.certify_mixed or args.certify_formats:
+        return {"mixed": args.certify_mixed, "formats": args.certify_formats,
+                "k_max": args.certify_k_max or 53}
+    if args.certify_k_max is not None:
+        return {"k_max": args.certify_k_max}
+    return {}
+
+
+def add_certificate_flags(ap: argparse.ArgumentParser) -> None:
+    """``--certificates STORE_DIR`` and the flags that pick its entry."""
+    ap.add_argument("--certificates", default=None, metavar="STORE_DIR",
+                    help="serve the certificate set stored for this arch "
+                         "and these exact params (a miss raises: the "
+                         "certification pipeline is not ported yet)")
+    ap.add_argument("--certify-mixed", action="store_true",
+                    help="with --certificates: the per-layer k entry (the "
+                         "certify CLI's --mixed)")
+    ap.add_argument("--certify-formats", action="store_true",
+                    help="with --certificates: the per-scope format entry "
+                         "(the certify CLI's --formats)")
+    ap.add_argument("--certify-k-max", type=int, default=None,
+                    help="with --certificates: the search ceiling the "
+                         "entry was certified with (default 24; 53 with "
+                         "--certify-mixed/--certify-formats)")
 
 
 def prefill_step(bk, params, cfg, cache, tokens):
@@ -321,12 +380,19 @@ def main(argv=None) -> ServeResult:
                     help="a CertificateSet JSON (schema v1/v2/v3); "
                          "serves its format map, else its per-layer k map, "
                          "else its uniform k")
+    add_certificate_flags(ap)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.certificate_set and (args.layer_format
                                  or args.precision_k is not None):
         ap.error("--certificate-set sets the precision itself: give it "
                  "without --layer-format and --precision-k")
+    if args.certificates and (args.certificate_set or args.layer_format
+                              or args.precision_k is not None):
+        ap.error("--certificates sets the precision itself: give it "
+                 "without --certificate-set, --layer-format and "
+                 "--precision-k")
+    certify_kw = certify_kwargs(ap, args)
 
     dev = resolve_device(args.device)
     configure_precision()
@@ -339,13 +405,12 @@ def main(argv=None) -> ServeResult:
                      precision_k=args.precision_k,
                      precision_layer_format=(json.loads(args.layer_format)
                                              if args.layer_format else None),
-                     device=str(dev))
+                     certificates=args.certificates, device=str(dev))
     certset = None
     if args.certificate_set:
         with open(args.certificate_set) as fh:
             certset = CertificateSet.from_json(fh.read())
         sc = apply_certificate_set(sc, certset)
-    bk = _backend(sc)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -356,6 +421,9 @@ def main(argv=None) -> ServeResult:
         rng.randint(0, cfg.vocab, (sc.batch, sc.prefill_len))).to(dev)
     _sync(dev)
     t_init = time.perf_counter() - t0
+    if sc.certificates is not None:
+        sc, certset = apply_certificates(sc, cfg, params, **certify_kw)
+    bk = _backend(sc)
 
     with torch.no_grad():
         t0 = time.perf_counter()

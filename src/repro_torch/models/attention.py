@@ -3,8 +3,9 @@
 
 Unlike the reference, whose arrays are immutable, the port writes new keys
 and values INTO the cache buffers in place (``index_copy_`` along the
-sequence axis): the returned cache holds the same storage, so a full-width
-cache is never copied per layer or per step.
+sequence axis, or one ``index_put_`` on (lane, position) when each lane
+writes at its own offset): the returned cache holds the same storage, so a
+full-width cache is never copied per layer or per step.
 """
 from __future__ import annotations
 
@@ -18,16 +19,32 @@ from repro_torch.models import layers as L
 class KVCache(NamedTuple):
     k: torch.Tensor      # [B, Smax, K, Dh]
     v: torch.Tensor      # [B, Smax, K, Dh]
-    index: torch.Tensor  # 0-d int32: tokens already present (all lanes)
+    index: torch.Tensor  # int32 tokens already present: 0-d (all lanes), or
+    #                      [B] when lanes advance independently (continuous
+    #                      batching)
 
 
 def _cache_write(buf: torch.Tensor, upd: torch.Tensor, index: torch.Tensor):
-    """Write ``upd`` [B, S, ...] into ``buf`` [B, Smax, ...] at sequence
-    offset ``index`` (a 0-d device tensor), in place and without a host
-    sync."""
-    pos = index.to(torch.int64) + torch.arange(upd.shape[1],
-                                               device=buf.device)
-    buf.index_copy_(1, pos, upd.to(buf.dtype))
+    """Write ``upd`` [B, S, ...] into ``buf`` [B, Smax, ...] in place and
+    without a host sync. A 0-d ``index`` writes every lane at that sequence
+    offset; a [B] one writes lane b at ``index[b]`` (one ``index_put_`` on
+    (lane, position)). The positions written must lie inside the buffer."""
+    steps = torch.arange(upd.shape[1], device=buf.device)
+    upd = upd.to(buf.dtype)
+    if index.dim() == 0:
+        buf.index_copy_(1, index.to(torch.int64) + steps, upd)
+        return
+    pos = index.to(torch.int64)[:, None] + steps[None, :]          # [B, S]
+    lanes = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    buf.index_put_((lanes.expand_as(pos), pos), upd)
+
+
+def _mask5(mask: torch.Tensor) -> torch.Tensor:
+    """Broadcast a [q, kv] (shared) or [B, q, kv] (per-lane) mask to the
+    [B, K, G, q, s] score layout."""
+    if mask.dim() == 3:
+        return mask[:, None, None, :, :]
+    return mask[None, None, None, :, :]
 
 
 def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
@@ -37,9 +54,10 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
     """Grouped-query attention. x: [B,S,d]. Returns (out, new_cache).
 
     With ``cache`` set, keys/values are written into the cache buffers in
-    place at ``cache.index``, and attention runs over the whole buffer under
-    ``mask``. ``fused_decode`` offers the S==1 step to
-    ``bk.decode_attention`` (the certificate-aware flash decode hook); a
+    place at ``cache.index`` (0-d, or [B] per lane), and attention runs over
+    the whole buffer under ``mask`` ([q, kv], or [B, q, kv] per lane).
+    ``fused_decode`` offers the S==1 step to ``bk.decode_attention`` (the
+    certificate-aware flash decode hook) with each lane's new length; a
     backend returning None takes the composed path. The composed prefill
     scores and probabilities are never rounded, as in the reference."""
     B, S, _ = bk.shape_of(x)
@@ -66,7 +84,10 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
         _cache_write(cache.v, v, cache.index)
         new_cache = KVCache(cache.k, cache.v, cache.index + S)
         if fused_decode and S == 1:
-            lengths = new_cache.index.to(torch.int32).expand(B).contiguous()
+            lengths = new_cache.index.to(torch.int32)
+            if lengths.dim() == 0:
+                lengths = lengths.expand(B)
+            lengths = lengths.contiguous()
             q4 = bk.reshape(q, (B, n_kv_heads, G, d_head))
             fused = bk.decode_attention(q4, cache.k, cache.v, lengths)
             if fused is not None:
@@ -79,7 +100,7 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
     scores = bk.einsum("bqkgd,bskd->bkgqs", q, k)
     scores = bk.scale(scores, d_head ** -0.5)
     neg = bk.const(L.NEG_BIG, scores)
-    scores = bk.where(mask[None, None, None, :, :], scores, neg)
+    scores = bk.where(_mask5(mask), scores, neg)
     probs = bk.softmax(scores, dim=-1)
     out = bk.einsum("bkgqs,bskd->bqkgd", probs, v)
     out = bk.reshape(out, (B, S, n_heads * d_head))

@@ -66,12 +66,17 @@ def rope_tables(positions: torch.Tensor, d_head: int,
 
 
 def apply_rope(bk, x, cos, sin):
-    """x: [B, S, H, Dh]; tables [S, Dh/2]."""
+    """x: [B, S, H, Dh]; tables [S, Dh/2], or [B, S, Dh/2] for the ragged
+    decode path (per-lane absolute positions)."""
     dh = bk.shape_of(x)[-1]
     half = dh // 2
     x1, x2 = x[..., :half], x[..., half:]
-    c = bk.param(cos[None, :, None, :])
-    s = bk.param(sin[None, :, None, :])
+    if cos.dim() == 3:                      # per-lane tables [B, S, Dh/2]
+        c = bk.param(cos[:, :, None, :])
+        s = bk.param(sin[:, :, None, :])
+    else:
+        c = bk.param(cos[None, :, None, :])
+        s = bk.param(sin[None, :, None, :])
     r1 = bk.sub(bk.mul(x1, c), bk.mul(x2, s))
     r2 = bk.add(bk.mul(x2, c), bk.mul(x1, s))
     return bk.concat([r1, r2], dim=-1)
@@ -82,4 +87,15 @@ def causal_mask(q_len: int, kv_len: int, q_offset: int = 0, *, device=None):
     positions ``q_offset + arange(q_len)``."""
     q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
     k_pos = torch.arange(kv_len, device=device)[None, :]
+    return k_pos <= q_pos
+
+
+def lane_causal_mask(q_len: int, kv_len: int, q_offsets: torch.Tensor):
+    """Per-lane boolean [B, q_len, kv_len] for the ragged decode path: lane
+    b's queries sit at absolute positions ``q_offsets[b] + arange(q_len)``.
+    Exact integer logic, the attendability rule of :func:`causal_mask`."""
+    dev = q_offsets.device
+    q_pos = (q_offsets[:, None, None]
+             + torch.arange(q_len, device=dev)[None, :, None])
+    k_pos = torch.arange(kv_len, device=dev)[None, None, :]
     return k_pos <= q_pos

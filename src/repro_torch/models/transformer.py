@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -134,14 +134,20 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
-               device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """Stacked per-layer decode cache: k/v [L, B, Smax, K, Dh], idx [L]."""
+               device, dtype=torch.float32,
+               per_lane_idx: bool = False) -> Dict[str, torch.Tensor]:
+    """Stacked per-layer decode cache: k/v [L, B, Smax, K, Dh], idx [L].
+
+    ``per_lane_idx=True`` gives each batch lane its own write index (idx
+    [L, B]): the continuous-batching engine's cache, where lanes prefill
+    and decode at independent positions."""
     check_supported(cfg)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    idx = (cfg.n_layers, batch) if per_lane_idx else (cfg.n_layers,)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "idx": torch.zeros((cfg.n_layers,), dtype=torch.int32, device=device),
+        "idx": torch.zeros(idx, dtype=torch.int32, device=device),
     }
 
 
@@ -157,14 +163,18 @@ def analytic_params(cfg: ArchConfig) -> int:
 
 def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            q_offset: int = 0) -> Tuple[torch.Tensor, Any]:
+            q_offset: Union[int, torch.Tensor] = 0
+            ) -> Tuple[torch.Tensor, Any]:
     """Returns (logits [B, S, V], new_cache). ``tokens``: [B, S] int.
 
     With a cache, the S new tokens sit at absolute positions
-    ``q_offset + arange(S)`` (one offset for the whole batch), their keys
-    and values are written into the cache in place, and the returned cache
-    shares its k/v storage with the one passed in. The scopes "embed",
-    "layer{i}"/"attn"|"mlp" and "head" are the keys certificates assign."""
+    ``q_offset + arange(S)``, their keys and values are written into the
+    cache in place, and the returned cache shares its k/v storage with the
+    one passed in. ``q_offset`` is one offset for the whole batch (an int),
+    or a [B] device tensor of per-lane offsets (the ragged path of
+    continuous batching, which needs a cache): rope rows and the causal
+    mask are then per lane. The scopes "embed", "layer{i}"/"attn"|"mlp" and
+    "head" are the keys certificates assign."""
     check_supported(cfg)
     dev = tokens.device
     with bk.scope("embed"):
@@ -172,7 +182,14 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     B, Sq, _ = bk.shape_of(x)
     kv_len = cache["k"].shape[2] if cache is not None else Sq
-    positions = torch.arange(Sq, device=dev) + q_offset
+    ragged = isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1
+    if ragged and cache is None:
+        raise ValueError("per-lane q_offset requires a KV cache")
+    if ragged:
+        positions = (q_offset.to(torch.int64)[:, None]
+                     + torch.arange(Sq, device=dev)[None, :])      # [B, Sq]
+    else:
+        positions = torch.arange(Sq, device=dev) + q_offset
     rope_positions = (torch.arange(kv_len, device=dev) if cache is not None
                       else positions)
     cos_full, sin_full = L.rope_tables(rope_positions, cfg.head_dim,
@@ -181,7 +198,10 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
         cos_q, sin_q = cos_full[-Sq:], sin_full[-Sq:]
     else:
         cos_q, sin_q = cos_full[positions], sin_full[positions]
-    mask = L.causal_mask(Sq, kv_len, q_offset, device=dev)
+    if ragged:
+        mask = L.lane_causal_mask(Sq, kv_len, q_offset.to(torch.int64))
+    else:
+        mask = L.causal_mask(Sq, kv_len, q_offset, device=dev)
     fused_ok = cache is not None and Sq == 1
 
     def layer_fn(p, x, i, aux):

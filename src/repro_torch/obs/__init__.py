@@ -5,7 +5,9 @@ package's ``repro.obs`` for what the port runs so far.
   reference's schema (``obs.span``/``counter``/``gauge``/``event`` are cheap
   no-ops until :func:`configure` installs a tracer);
 * :mod:`repro_torch.obs.metrics` — log-bucket latency histograms and a
-  metrics registry (the JSONL and Prometheus exports are not ported yet);
+  metrics registry with its JSONL and Prometheus exports;
+* :mod:`repro_torch.obs.log` — structured ``[component] msg k=v`` logging,
+  mirrored to the tracer as events;
 * :mod:`repro_torch.obs.costmodel` — roofline hardware terms (the H100 the
   port runs on) and the fitted two-term latency model;
 * :mod:`repro_torch.obs.profile` — kernel and serving profiles on the card.
@@ -29,6 +31,7 @@ from .trace import (  # noqa: F401
     validate_events,
 )
 from .metrics import Histogram, MetricsRegistry  # noqa: F401
+from .log import get_logger  # noqa: F401
 from .costmodel import (  # noqa: F401
     H100_SXM,
     TPU_POD_CHIP,

@@ -4,9 +4,10 @@ imports no JAX; same buckets, same quantiles, same snapshot).
 
 Pure-Python accumulators (no server, no dependency); a registry's
 snapshot is one ``{"type": "metrics", ...}`` object
-(:meth:`MetricsRegistry.to_dict`). The reference's JSONL and Prometheus
-file exports come with the serve CLI's ``--metrics``/``--prom`` flags,
-which the port does not have yet.
+(:meth:`MetricsRegistry.to_dict`), appended to a JSONL file by
+:meth:`MetricsRegistry.write_jsonl` or rendered in the Prometheus text
+exposition format by :meth:`MetricsRegistry.render_prometheus` (the
+continuous-batching CLI's ``--metrics`` / ``--prom``).
 
 Histograms use fixed log-spaced latency buckets (100µs … ~100s) which
 cover both a prefill over long context and a single decode step; sum and
@@ -14,7 +15,9 @@ count make the mean exact, and quantiles are read from the buckets.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -122,7 +125,7 @@ class MetricsRegistry:
     def observe(self, name: str, value: float):
         self.histogram(name).observe(value)
 
-    # -- snapshot -----------------------------------------------------------
+    # -- export -------------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
         return {
             "type": "metrics", "t": time.time(), "meta": dict(self.meta),
@@ -130,3 +133,95 @@ class MetricsRegistry:
             "histograms": {k: h.to_dict()
                            for k, h in self.histograms.items()},
         }
+
+    def write_jsonl(self, path: str):
+        """Append the snapshot to ``path`` as one JSON line."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps(self.to_dict()) + "\n")
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format (scrape-file shaped).
+
+        Registry keys may carry labels inline — ``base{key=value,k2=v2}``
+        — which render as Prometheus labels with the exposition format's
+        escaping (``\\``, ``"``, newline) applied to values; label-less
+        keys render bare."""
+        lines: List[str] = []
+        typed: set = set()
+
+        def _name(n: str) -> str:
+            return "".join(ch if (ch.isalnum() or ch in "_:") else "_"
+                           for ch in n)
+
+        def _esc(v: str) -> str:
+            return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+                    .replace("\n", "\\n"))
+
+        def _split(key: str):
+            """``base{k=v,k2=v2}`` → (base, [(k, v), ...])."""
+            if key.endswith("}") and "{" in key:
+                base, _, body = key[:-1].partition("{")
+                pairs = []
+                for part in body.split(","):
+                    if not part:
+                        continue
+                    lk, eq, lv = part.partition("=")
+                    pairs.append((lk.strip(), lv if eq else ""))
+                return base, pairs
+            return key, []
+
+        def _labels(pairs) -> str:
+            return ",".join(f'{_name(lk)}="{_esc(lv)}"' for lk, lv in pairs)
+
+        def _series(key: str):
+            base, pairs = _split(key)
+            n = _name(base)
+            body = _labels(pairs)
+            return n, (f"{n}{{{body}}}" if body else n)
+
+        def _type_line(n: str, kind: str):
+            if n not in typed:
+                typed.add(n)
+                lines.append(f"# TYPE {n} {kind}")
+
+        for k in sorted(self.counters):
+            n, series = _series(k)
+            _type_line(n, "counter")
+            lines.append(f"{series} {self.counters[k]}")
+        for k in sorted(self.gauges):
+            n, series = _series(k)
+            _type_line(n, "gauge")
+            lines.append(f"{series} {self.gauges[k]:.9g}")
+        for k in sorted(self.histograms):
+            h = self.histograms[k]
+            base, pairs = _split(k)
+            n = _name(base)
+            lbody = _labels(pairs)
+            own = f"{{{lbody}}}" if lbody else ""
+
+            def _bucket(le: str) -> str:
+                body = (lbody + "," if lbody else "") + f'le="{le}"'
+                return f"{n}_bucket{{{body}}}"
+
+            _type_line(n, "histogram")
+            if h.help_text:
+                lines.append(f"# HELP {n} {h.help_text}")
+            acc = 0
+            for b, c in zip(h.buckets, h.counts):
+                acc += c
+                if acc:
+                    lines.append(f"{_bucket(f'{b:.9g}')} {acc}")
+            acc += h.counts[-1]
+            lines.append(f"{_bucket('+Inf')} {acc}")
+            lines.append(f"{n}_sum{own} {h.sum:.9g}")
+            lines.append(f"{n}_count{own} {h.count}")
+        return "\n".join(lines) + "\n"
+
+    def write_prometheus(self, path: str):
+        """Write :meth:`render_prometheus` to ``path`` atomically."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(self.render_prometheus())
+        os.replace(tmp, path)
