@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
-port's six CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
+port's eight CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
 ``build/repro_torch/``; the ``build`` line carries registers, shared memory
 and spills of every kernel), holds the two certified GEMMs bit for bit
 against their sequential-order plain versions on sampled columns of every
@@ -10,7 +10,10 @@ Qwen2-7B projection (``gemm_order``), checks each kernel against its plain
 PyTorch version on the card (GEMM rows timed with the weights cold: rotated
 through copies that exceed the L2; the decode-attention rows timed from a
 profiler trace with the caches rotated likewise, the serve cache's shapes
-and a 32K-position one among them), and drives the port's paths through
+and a 32K-position one among them; ``row_order``: the two port-only
+kernels that give serving's rmsnorm mean and LM head one fixed order per
+row, bit for bit against their plain versions), and drives the port's
+paths through
 the entry points a user calls, with every kernel's launch counter set to 0
 just before each path and read just after (each serve line carries the
 sha256 of its logits and a profiler trace of its decode steps):
@@ -28,8 +31,17 @@ sha256 of its logits and a profiler trace of its decode steps):
   (host-clock median; device time of the GEMM kernels, attention, the LM
   head, other kernels and idle gaps), and the full-width serving profile
   traced as the profile phase runs it and bare;
+* ``batching`` — the continuous-batching engine at full width from a store
+  entry: every request's tokens, and on the format path its logits bit for
+  bit, equal ``reference_generate``'s (the request alone); every op of one
+  ragged decode step, each lane against itself alone;
 * ``interval_libm`` — the interval transcendentals on the card against the
   CPU's f64 values at about 10⁶ points, directed rounding bitwise;
+* ``ranges`` — the range, affine and layer-stacked CAA passes on Qwen2-7B
+  at full width (depth cut to 2 layers): stacked equals eager per scope,
+  the affine enclosures are finite, the exact f64 forward lies inside every
+  scope's max_abs; the card's maps equal the CPU port's at SMOKE and on
+  the Digits and ConvNet models;
 * ``analyze`` — the paper's Table-I flow (``examples/quickstart.py``) on
   the Digits model at its full width 784→700→256→10, trained on the card,
   with Pendulum and ConvNet at their defaults, then again on the CPU with
@@ -53,6 +65,7 @@ result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -90,7 +103,8 @@ MIXED_K = 16                      # the v2 set's serving_k ...
 MIXED_LAYER_K = {"layer*/attn": 12, "layer*/mlp": 10, "layer0/mlp": 14}
 GEMM_KS = (8, 12, 24)
 KERNELS = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
-           "flash_decode_attention", "caa_matmul", "interval_matmul")
+           "flash_decode_attention", "caa_matmul", "interval_matmul",
+           "row_mean", "f32_matmul")
 
 
 def emit(phase: str, **fields) -> None:
@@ -495,6 +509,118 @@ def phase_quant_matmul(torch, qmm):
     return rows, worst
 
 
+HEAD_COLUMNS = 64                 # LM-head columns held to the fmaf chain
+ROW_ORDER_REPLACES = {
+    "row_mean": "none: port-only (XLA's mean in the reference's rmsnorm, "
+                "src/repro/models/layers.py:46)",
+    "f32_matmul": "none: port-only (XLA's einsum in the reference's "
+                  "logits_head, src/repro/models/layers.py:84)"}
+
+
+def phase_row_order(torch, cfg):
+    """Serving's two fixed-order kernels at the shapes serving gives them
+    (``cfg`` = qwen2_7b.FULL): ``row_mean`` over d_model for 4 rows
+    (decode) and 512 (a 4 × 128 prefill), bit for bit against its plain
+    version, a row alone equal to the same row in the batch; ``f32_matmul``
+    as the LM head (x [M, d] against the transposed [d, V] table) at M = 4
+    and 512, bit for bit against the fmaf chain on HEAD_COLUMNS sampled
+    columns, rows alone equal. Times: ``row_mean`` from a profiler trace
+    (its call is shorter than its launch), inputs rotated past the L2;
+    ``f32_matmul`` by CUDA events (its 2.18 GB table is never in the L2);
+    the library yardsticks are ``Tensor.mean`` and ``torch.einsum`` of the
+    untransposed table."""
+    from repro_torch.kernels import row_order as ro
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    d, V = cfg.d_model, cfg.vocab
+    out = {"row_mean": {}, "f32_matmul": {}}
+    for what, R in (("decode", SERVE_BATCH), ("prefill", 512)):
+        x = torch.randn(R, d, device="cuda", generator=gen) ** 2
+        got = ro.row_mean(x)
+        if not same_bits(torch, got, ro.row_mean_ref(x)[:, 0]):
+            raise AssertionError(f"row_mean {what}: differs from its plain "
+                                 "version")
+        for r in (0, R - 1):
+            if not same_bits(torch, ro.row_mean(x[r:r + 1].contiguous()),
+                             got[r:r + 1]):
+                raise AssertionError(f"row_mean {what}: row {r} alone "
+                                     "differs")
+        lib = x.mean(dim=-1)
+        copies = weight_copies(torch, x)
+        row = {"R": R, "n": d, "bitwise_vs_plain": True,
+               "row_invariant": True,
+               "max_abs_err": 0.0,
+               "max_abs_vs_library": float((got - lib).abs().max()),
+               "ms": trace_ms(torch, ro.row_mean, copies, 50),
+               "plain_ms": trace_ms(torch, ro.row_mean_ref, copies, 5),
+               "library_ms": trace_ms(
+                   torch, lambda t: t.mean(dim=-1, keepdim=True), copies,
+                   50), "input_copies": len(copies)}
+        row["bound_ms"], row["bound_by"] = bound_ms(4.0 * (R * d + R),
+                                                    float(R * d))
+        out["row_mean"][what] = row
+        del x, copies
+
+    table = torch.randn(V, d, device="cuda", generator=gen) * 0.02
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    table_t = ro.transposed(table)
+    end.record()
+    end.synchronize()
+    transposed = {"ms": start.elapsed_time(end),
+                  "gb": (torch.cuda.memory_allocated() - m0) / 1e9}
+    cols = torch.linspace(0, V - 1, HEAD_COLUMNS, device="cuda").long()
+    for what, M in (("decode", SERVE_BATCH), ("prefill", 512)):
+        x = torch.randn(M, d, device="cuda", generator=gen)
+        got = ro.f32_matmul(x, table_t)
+        want = ro.f32_matmul_seq_ref(x, table_t[:, cols])
+        if not same_bits(torch, got[:, cols].contiguous(), want):
+            raise AssertionError(f"f32_matmul {what}: differs from the "
+                                 "fmaf chain")
+        for r in (0, M - 1):
+            if not same_bits(torch, ro.f32_matmul(x[r:r + 1].contiguous(),
+                                                  table_t), got[r:r + 1]):
+                raise AssertionError(f"f32_matmul {what}: row {r} alone "
+                                     "differs")
+        lib = torch.einsum("bsd,vd->bsv", x[None], table)[0]
+        iters = 20 if M <= 8 else 3
+        row = {"M": M, "K": d, "N": V, "bitwise_vs_plain_columns":
+               HEAD_COLUMNS, "row_invariant": True, "max_abs_err": 0.0,
+               "max_abs_vs_library": float((got - lib).abs().max()),
+               "ms": time_cold_ms(torch, lambda w: ro.f32_matmul(x, w),
+                                  [table_t], iters),
+               "library_ms": time_cold_ms(
+                   torch, lambda w: torch.einsum("bsd,vd->bsv", x[None], w),
+                   [table], iters)}
+        if M <= 8:
+            # the whole fmaf chain once (K steps over the [M, V] rows)
+            start.record()
+            ro.f32_matmul_seq_ref(x, table_t)
+            end.record()
+            end.synchronize()
+            row["plain_ms"] = start.elapsed_time(end)
+        else:
+            start.record()
+            ro.f32_matmul_seq_ref(x, table_t[:, :1024])
+            end.record()
+            end.synchronize()
+            row["plain_ms_1024_columns"] = start.elapsed_time(end)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            4.0 * (M * d + d * V + M * V), 2.0 * M * V * d)
+        out["f32_matmul"][what] = row
+        del x, lib
+    del table, table_t
+    emit("row_order", config="qwen2_7b.FULL", transposed_table=transposed,
+         note="port-only kernels: one fixed order per row (row_mean: 256 "
+              "strided sums, a butterfly a warp, 8 warp sums in order; "
+              "f32_matmul: quant_gemm.cuh with a PassThrough functor, one "
+              "fmaf chain a logit)", **out)
+    return out
+
+
 GEMM_K_TOLERANCE = ("equal, or |Δ| ≤ one ulp at k (emin -126) + "
                     "2·√K·2⁻²⁴·(|q_k(x)|@|q_k(w)|); exact-sum operands and "
                     "NaN/±inf/near-f32-max inputs bit for bit")
@@ -782,20 +908,50 @@ def phase_flash_decode_attention(torch, fd):
 
 
 def kernel_fns(qmm, fd):
-    """The six kernel wrappers by name; each counts its launches."""
+    """The eight kernel wrappers by name; each counts its launches."""
     from repro_torch.kernels import caa_matmul as cm
     from repro_torch.kernels import interval_matmul as im
+    from repro_torch.kernels import row_order as ro
 
     return {"quant_matmul_format": qmm.quant_matmul_format,
             "flash_decode_certified": fd.flash_decode_certified,
             "quant_matmul": qmm.quant_matmul,
             "flash_decode_attention": fd.flash_decode_attention,
             "caa_matmul": cm.caa_matmul,
-            "interval_matmul": im.interval_matmul}
+            "interval_matmul": im.interval_matmul,
+            "row_mean": ro.row_mean, "f32_matmul": ro.f32_matmul}
 
 
 # the serving and profile paths launch neither analysis kernel
 ANALYSIS_KERNELS_IDLE = {"caa_matmul": 0, "interval_matmul": 0}
+
+
+def row_order_launches(forwards: int, n_layers: int = None):
+    """Launches of the two fixed-order serving kernels over ``forwards``
+    forwards of an f32 TorchOps backend on the card: one row_mean a
+    rmsnorm (2 a layer and the final one), one f32_matmul (the LM head)."""
+    n_layers = L_FULL if n_layers is None else n_layers
+    return {"row_mean": (2 * n_layers + 1) * forwards,
+            "f32_matmul": forwards}
+
+
+@contextlib.contextmanager
+def plain_row_order():
+    """Serving's mean and LM head through their plain versions (the
+    replays of a served run through the plain versions)."""
+    from repro_torch.kernels import row_order as ro
+
+    saved = ro.row_mean_dispatch, ro.lm_head_dispatch
+
+    def head(x, table_t):
+        rows = ro.f32_matmul_seq_ref(x.reshape(-1, x.shape[-1]), table_t)
+        return rows.reshape(*x.shape[:-1], table_t.shape[-1])
+
+    ro.row_mean_dispatch, ro.lm_head_dispatch = ro.row_mean_ref, head
+    try:
+        yield
+    finally:
+        ro.row_mean_dispatch, ro.lm_head_dispatch = saved
 
 
 def reset_launches(fns):
@@ -890,6 +1046,7 @@ def replay_prefill(torch, serve, T, res, bk):
 
 
 GEMM_KERNEL_NAMES = ("quant_gemv_kernel", "quant_sgemm_kernel")  # 1 and 3
+HEAD_KERNEL_MARK = "PassThrough"  # the same body as the LM head (f32_matmul)
 TRACE_STEPS = 8
 STEP_MARK = "chip_smoke.decode_step"
 
@@ -906,8 +1063,9 @@ def step_split(prof):
     to the next (so the last step only closes a window): its length, and
     the device ms of the GEMM kernels (1 and 3), of attention (kernel 2's
     chunk and combine kernels, or the composed path's einsum and softmax
-    ops), of the LM head (its einsum), of the other kernels, and the gap in
-    which the device was idle."""
+    ops), of the LM head (the f32_matmul kernel: the GEMM body
+    instantiated with its PassThrough functor), of the other kernels, and
+    the gap in which the device was idle."""
     from torch.autograd import DeviceType
 
     evts = list(prof.events())
@@ -924,15 +1082,15 @@ def step_split(prof):
         inside = lambda e: lo <= e.time_range.start < hi
         ks = [e for e in kernels if inside(e)]
         busy = sum(e.time_range.elapsed_us() for e in ks)
+        lm_head = sum(e.time_range.elapsed_us() for e in ks
+                      if HEAD_KERNEL_MARK in e.name)
         gemm = sum(e.time_range.elapsed_us() for e in ks
-                   if any(n in e.name for n in GEMM_KERNEL_NAMES))
+                   if any(n in e.name for n in GEMM_KERNEL_NAMES)) - lm_head
         attn = sum(e.time_range.elapsed_us() for e in ks
                    if "flash_decode" in e.name)
-        mine = sorted(filter(inside, ops), key=lambda e: e.time_range.start)
-        einsums = [o for o in mine if o.name == "aten::einsum"]
-        # the forward's last einsum is the LM head's; the others attend
-        lm_head = op_device_us(einsums[-1]) if einsums else 0.0
-        attn += sum(op_device_us(o) for o in mine) - lm_head
+        # the composed attention's einsum and softmax ops (the LM head is
+        # no longer an einsum on the card)
+        attn += sum(op_device_us(o) for o in filter(inside, ops))
         rows.append({"ms": (hi - lo) / 1e3, "gemm_ms": gemm / 1e3,
                      "attention_ms": attn / 1e3, "lm_head_ms": lm_head / 1e3,
                      "other_ms": (busy - gemm - attn - lm_head) / 1e3,
@@ -1012,7 +1170,8 @@ def phase_serve(torch, serve, qmm, fd, T):
     expected = {"quant_matmul_format": 7 * L_FULL * (1 + SERVE_STEPS),
                 "flash_decode_certified": L_FULL * SERVE_STEPS,
                 "quant_matmul": 0, "flash_decode_attention": 0,
-                **ANALYSIS_KERNELS_IDLE}
+                **ANALYSIS_KERNELS_IDLE,
+                **row_order_launches(1 + SERVE_STEPS)}
     serve.quant_matmul_format_dispatch = spy_qmm
     serve.certified_decode_attention = spy_fd
     try:
@@ -1053,8 +1212,9 @@ def phase_serve(torch, serve, qmm, fd, T):
                 saturating=self.saturating)
 
     before = read_launches(fns)
-    ref_logits = replay_prefill(torch, serve, T, res,
-                                RefFormatOps(SERVE_FORMAT))
+    with plain_row_order():
+        ref_logits = replay_prefill(torch, serve, T, res,
+                                    RefFormatOps(SERVE_FORMAT))
     if read_launches(fns) != before:
         raise AssertionError("the plain replay launched a kernel")
     trace = decode_trace(torch, serve, T, res)
@@ -1110,7 +1270,8 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
 
     expected = {"quant_matmul_format": 0, "flash_decode_certified": 0,
                 "quant_matmul": 7 * L_FULL * (1 + SERVE_STEPS),
-                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE}
+                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE,
+                **row_order_launches(1 + SERVE_STEPS)}
     serve.quant_matmul_dynamic_k = spy
     try:
         res, launches = run_serve(torch, serve, fns, serve_argv(*extra),
@@ -1133,8 +1294,9 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
     before = read_launches(fns)
     serve.quant_matmul_dynamic_k = qmm.quant_matmul_ref
     try:
-        ref_logits = replay_prefill(torch, serve, T, res,
-                                    serve._backend(res.config))
+        with plain_row_order():
+            ref_logits = replay_prefill(torch, serve, T, res,
+                                        serve._backend(res.config))
     finally:
         serve.quant_matmul_dynamic_k = dispatch
     if read_launches(fns) != before:
@@ -1341,6 +1503,91 @@ def library_lane_bits(torch, cfg, device="cuda", lanes=4, S=256, P=83,
     return out
 
 
+# every TorchOps op the transformer runs (op_lane_bits, exact_maxima)
+LANE_OPS = ("param", "input", "const", "add", "sub", "mul", "scale",
+            "shift", "matmul", "einsum", "tanh", "rsqrt", "square", "relu",
+            "silu", "softmax", "mean", "maximum", "where", "reshape",
+            "broadcast_to", "concat", "take", "slice", "decode_attention")
+
+
+def op_lane_bits(torch, serve, T, cfg, params, bk, lengths=(1, 17, 64, 65),
+                 smax=96, seed=1):
+    """Every backend op of one ragged decode step, each lane against the
+    same lane run alone at B = 1: lane b sits at offset lengths[b] - 1 of a
+    per-lane cache holding seeded values below it and NaN from lengths[b]
+    on. ``bk`` is the serving backend under test (its class is wrapped, so
+    every op it runs is recorded in order). Returns {"ops": n compared,
+    "differing": [(i, op, scope, max |Δ|), ...] (at most 12), "by_op":
+    {op: [compared, differing]}}."""
+    dev = params["embed"].device
+    B = len(lengths)
+    records = []
+
+    class Recorded(type(bk)):
+        pass
+
+    def wrap(name):
+        def op(self, *a, **kw):
+            out = getattr(super(Recorded, self), name)(*a, **kw)
+            if isinstance(out, torch.Tensor):
+                records[-1].append((name, "/".join(self.scope_path), out))
+            return out
+        return op
+
+    for name in LANE_OPS:
+        setattr(Recorded, name, wrap(name))
+    rec = Recorded.__new__(Recorded)
+    rec.__dict__.update(bk.__dict__)
+
+    def cache_for(lanes):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        c = T.init_cache(cfg, B, smax, device=dev, per_lane_idx=True)
+        for name in ("k", "v"):
+            c[name].normal_(generator=gen)
+            for b, n in enumerate(lengths):
+                c[name][:, b, n:] = float("nan")
+        if lanes is not None:
+            c = {name: c[name][:, lanes].clone() for name in ("k", "v")} | {
+                "idx": c["idx"][:, lanes].clone()}
+        return c
+
+    tokens = torch.arange(B, device=dev) * 7 + 3
+
+    def step(lanes):
+        sel = list(range(B)) if lanes is None else lanes
+        c = cache_for(lanes)
+        offs = torch.tensor([lengths[b] for b in sel], dtype=torch.int32,
+                            device=dev) - 1
+        c["idx"].copy_(offs[None, :].expand_as(c["idx"]))
+        records.append([])
+        with torch.no_grad():
+            T.forward(rec, params, cfg, tokens[sel][:, None], cache=c,
+                      q_offset=offs)
+        return records[-1]
+
+    batch = step(None)
+    by_op, differing, n = {}, [], 0
+    for b in range(B):
+        alone = step([b])
+        if [r[:2] for r in alone] != [r[:2] for r in batch]:
+            raise AssertionError("a lane alone ran another op sequence")
+        for i, ((name, scope, got), (_, _, want)) in enumerate(
+                zip(batch, alone)):
+            if got.dim() == 0 or got.shape[0] != B or want.shape[0] != 1:
+                continue       # not lane-shaped (weights, constants)
+            n += 1
+            cnt = by_op.setdefault(name, [0, 0])
+            cnt[0] += 1
+            if not same_bits(torch, got[b:b + 1], want):
+                cnt[1] += 1
+                if len(differing) < 12:
+                    ok = torch.isfinite(want)
+                    d = (got[b:b + 1][ok].double() - want[ok].double())
+                    differing.append((i, name, scope, float(d.abs().max())
+                                      if d.numel() else math.nan))
+    return {"ops": n, "differing": differing, "by_op": by_op}
+
+
 def reference_runs(batching, cfg, sc, params, reqs, eos_id):
     """Every request alone through ``reference_generate`` (after the
     engine run's counts were read)."""
@@ -1433,10 +1680,21 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
         return {"quant_matmul_format": 7 * L_FULL * (admitted + engine.steps),
                 "flash_decode_certified": L_FULL * engine.steps,
                 "quant_matmul": 0, "flash_decode_attention": 0,
-                **ANALYSIS_KERNELS_IDLE}
+                **ANALYSIS_KERNELS_IDLE,
+                **row_order_launches(admitted + engine.steps)}
 
+    # the fixed-order kernels' inputs, the first of each shape
+    from repro_torch.kernels import row_order as ro
+    ro_spies = [
+        (ro, "row_mean", KernelSpy(ro.row_mean, lambda x: tuple(x.shape),
+                                   lambda x: x.clone())),
+        (ro, "f32_matmul", KernelSpy(
+            ro.f32_matmul, lambda x, w: (*x.shape, w.shape[1]),
+            lambda x, w: (x.clone(), w)))]
     serve.quant_matmul_format_dispatch = spy_qmm
     serve.certified_decode_attention = spy_fd
+    for mod, name, spy in ro_spies:
+        setattr(mod, name, spy)
     try:
         engine, responses, launches, registry, wall = run_batching(
             torch, batching, fns, cfg, sc, params, reqs + [too_long],
@@ -1444,6 +1702,8 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
     finally:
         serve.quant_matmul_format_dispatch = dispatch_qmm
         serve.certified_decode_attention = dispatch_fd
+        for mod, name, spy in ro_spies:
+            setattr(mod, name, spy.fn)
     fmt_report = batching_report(engine, responses, registry, wall)
 
     # the schedule's own gates
@@ -1489,10 +1749,34 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
             {"launch": when, "Smax": k.shape[1], "lengths": lengths.tolist(),
              "format": list(fmt), **st})
     del gemm_in, flash_in, flash_lengths
+    main_path["row_mean"] = []
+    for (R, n), x in sorted(ro_spies[0][2].seen.items()):
+        main_path["row_mean"].append(
+            {"R": R, "n": n, "bitwise_vs_plain": same_bits(
+                torch, ro.row_mean(x), ro.row_mean_ref(x)[:, 0])})
+    main_path["f32_matmul"] = []
+    cols = torch.linspace(0, cfg.vocab - 1, HEAD_COLUMNS,
+                          device="cuda").long()
+    for (M, K, N), (x, w) in sorted(ro_spies[1][2].seen.items()):
+        main_path["f32_matmul"].append(
+            {"M": M, "K": K, "N": N, "columns": HEAD_COLUMNS,
+             "bitwise_vs_plain": same_bits(
+                 torch, ro.f32_matmul(x, w)[:, cols].contiguous(),
+                 ro.f32_matmul_seq_ref(x, w[:, cols]))})
+    del ro_spies
+    bad = [r for k in ("row_mean", "f32_matmul") for r in main_path[k]
+           if not r["bitwise_vs_plain"]]
+    if bad:
+        raise AssertionError(f"fixed-order kernels differ from their plain "
+                             f"versions on the phase's inputs: {bad}")
 
     ref = reference_runs(batching, cfg, sc, params, reqs, eos_id)
     fmt_bits = lane_bits(torch, responses, ref)
     del ref, responses, engine
+    # every op of one ragged decode step, each lane against itself alone
+    fmt_ops = op_lane_bits(torch, serve, T, cfg, params,
+                           serve.FormatQuantJOps(SERVE_FORMAT),
+                           smax=BATCH_ENGINE["max_seq"])
 
     # the k path: kernel 3, the composed decode attention
     sc_k = serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
@@ -1513,7 +1797,8 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
     def expected_k(engine, admitted):
         return {"quant_matmul_format": 0, "flash_decode_certified": 0,
                 "quant_matmul": 7 * L_FULL * (admitted + engine.steps),
-                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE}
+                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE,
+                **row_order_launches(admitted + engine.steps)}
 
     k_reqs = reqs[:BATCH_K_REQUESTS]
     serve.quant_matmul_dynamic_k = spy_k
@@ -1531,7 +1816,11 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
     del k_in
     ref_k = reference_runs(batching, cfg, sc_k, params, k_reqs, -1)
     k_bits = lane_bits(torch, responses_k, ref_k)
-    del ref_k, responses_k, engine_k, params
+    del ref_k, responses_k, engine_k
+    k_ops = op_lane_bits(torch, serve, T, cfg, params,
+                         serve.QuantJOps(SERVE_K),
+                         smax=BATCH_ENGINE["max_seq"])
+    del params
 
     library = library_lane_bits(torch, cfg)
     launches_all = {name: launches[name] + launches_k[name]
@@ -1552,12 +1841,18 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
          logits_bitwise_requests={
              "format": sum(b["logits_bitwise"] for b in fmt_bits),
              "k": sum(b["logits_bitwise"] for b in k_bits)},
-         library_lane_bits=library, seconds=time.perf_counter() - t_phase,
+         library_lane_bits=library,
+         step_op_lane_bits={"format": fmt_ops, "k": k_ops},
+         seconds=time.perf_counter() - t_phase,
          main_path_inputs_vs_plain={**main_path, "quant_matmul": k_path})
     bad = [(p, b) for p, rows in (("format", fmt_bits), ("k", k_bits))
            for b in rows if not b["tokens_equal"]]
     if bad:
         raise AssertionError(f"tokens differ from reference_generate: {bad}")
+    bad = [b["id"] for b in fmt_bits if not b["logits_bitwise"]]
+    if bad:
+        raise AssertionError(f"format path: the logits of requests {bad} "
+                             "differ from reference_generate's bit for bit")
     return launches_all, main_path, k_path, fmt_report | {"k": k_report}
 
 
@@ -1645,11 +1940,14 @@ def phase_profile(torch, obs, qmm, fd):
     calls = reps + warmup
     n_serving = sum(7 * s["n_layers"] * (2 + s["decode_steps"])
                     for s in (serving, serving_full))
+    row_order = [row_order_launches(2 + s["decode_steps"], s["n_layers"])
+                 for s in (serving, serving_full)]
     expected = {"quant_matmul_format": len(shapes) * calls,
                 "flash_decode_certified": 0,
                 "quant_matmul": 2 * len(shapes) * calls + n_serving,
                 "flash_decode_attention": len(flash_shapes) * calls,
-                **ANALYSIS_KERNELS_IDLE}
+                **ANALYSIS_KERNELS_IDLE,
+                **{k: sum(r[k] for r in row_order) for k in row_order[0]}}
     if serving_full["n_layers"] != L_FULL:
         raise AssertionError(f"full-width profile ran "
                              f"{serving_full['n_layers']} layers")
@@ -1701,6 +1999,271 @@ def phase_profile(torch, obs, qmm, fd):
         raise AssertionError(f"profile launch counts {launches} != "
                              f"{expected}")
     return launches, rows, main_path
+
+
+# ---------------------------------------------------------------------------
+# the range, affine and layer-stacked CAA passes (the evidence behind format
+# certificates) at Qwen2-7B's width
+# ---------------------------------------------------------------------------
+
+RANGES_LAYERS, RANGES_TOKENS = 2, 8     # depth cut; one sequence of 8
+RANGES_UMAX = 2.0 ** -20                # the IA passes' u_max
+RANGES_FMTS = {"layer*": 12, "layer*/mlp": 10}   # custom(k) per scope
+RANGES_FMT_DEFAULT = 14
+RANGES_SUB = ("attn", "mlp")
+
+
+def ranges_keys(n_layers):
+    return ["embed", "head"] + [f"layer{i}{s}" for i in range(n_layers)
+                                for s in ("", "/attn", "/mlp")]
+
+
+def lm_forward(T, cfg, tokens):
+    """The transformer as a classifier-shaped ``forward(bk, params, x)``
+    (the reference's certify_lm adapter): the last position's logits; the
+    dummy ``x`` is not read."""
+    from repro_torch.core import caa
+
+    def forward(bk, params, x):
+        logits, _ = T.forward(bk, params, cfg, tokens)
+        if not bk.is_analysis:
+            return logits[:, -1:]
+        return caa.slice_(logits, (slice(None), slice(-1, None)))
+
+    return forward
+
+
+def exact_maxima(torch, forward, params, x, keys):
+    """max |v| per key over every tensor the exact f64 forward
+    (TorchOps(f64)) produces or consumes, observed per scope path as the
+    range passes observe, paths assigned to keys as aggregate_ranges
+    assigns them."""
+    from repro_torch.core.backend import TorchOps
+    from repro_torch.core.scopes import resolve_scope_value
+
+    seen = {}
+
+    class Observed(TorchOps):
+        pass
+
+    def wrap(name):
+        def op(self, *a, **kw):
+            out = getattr(super(Observed, self), name)(*a, **kw)
+            path = "/".join(self.scope_path)
+            for t in (out,) + a:
+                if torch.is_tensor(t) and t.is_floating_point() and t.numel():
+                    m = t.abs().amax()
+                    seen[path] = m if path not in seen else torch.maximum(
+                        seen[path], m)
+            return out
+        return op
+
+    for name in LANE_OPS:
+        setattr(Observed, name, wrap(name))
+    with torch.no_grad():
+        forward(Observed(torch.float64), params, x)
+    ident = {k: k for k in keys}
+    out = {}
+    for path, v in seen.items():
+        k = resolve_scope_value([p for p in path.split("/") if p], ident, "")
+        out[k] = max(out.get(k, 0.0), float(v))
+    return out
+
+
+def same_range_maps(a, b, what, rel=1e-9):
+    """Raise unless two {key: RangeStat} maps have the same keys, n_ops and
+    crosses_zero, and max_abs / min_nonzero within ``rel`` (inf equal)."""
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: keys {sorted(set(a) ^ set(b))}")
+    worst = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if (x.n_ops, x.crosses_zero) != (y.n_ops, y.crosses_zero):
+            raise AssertionError(f"{what} {k!r}: {x} != {y}")
+        for f in ("max_abs", "min_nonzero"):
+            u, v = getattr(x, f), getattr(y, f)
+            if math.isinf(u) or math.isinf(v):
+                if u != v:
+                    raise AssertionError(f"{what} {k!r} {f}: {u} != {v}")
+                continue
+            r = abs(u - v) / max(abs(v), 1e-300)
+            if r > rel:
+                raise AssertionError(f"{what} {k!r} {f}: {u} vs {v}")
+            worst = max(worst, r)
+    return worst
+
+
+def range_map_json(m):
+    return {k: v.to_dict() for k, v in sorted(m.items())}
+
+
+def run_ranges(torch, A, forward, params, x, cfg, fmts, dflt, n_layers,
+               timed=None):
+    """The four drivers over one model: eager IA, stacked IA (sub-layer
+    lanes), eager and stacked affine, then tighten; ``timed`` collects the
+    seconds and peak device memory of each pass."""
+    keys = ranges_keys(n_layers) if n_layers else None
+
+    def run(name, fn):
+        if timed is not None:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        if timed is not None:
+            torch.cuda.synchronize()
+            timed[name] = {
+                "seconds": time.perf_counter() - t0,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9}
+        return out
+
+    got = {"ia": run("analyze_ranges", lambda: A.analyze_ranges(
+        forward, params, x, cfg, keys=keys))}
+    got["aff"] = run("analyze_ranges_affine_eager",
+                     lambda: A.analyze_ranges_affine(
+                         forward, params, x, fmts, dflt, keys=keys,
+                         stacked=False, sublanes=RANGES_SUB))
+    if n_layers:
+        got["ia_stacked"] = run(
+            "analyze_ranges_stacked", lambda: A.analyze_ranges_stacked(
+                forward, params, x, cfg, keys=keys, sublanes=RANGES_SUB))
+        got["aff_stacked"] = run(
+            "analyze_ranges_affine_stacked", lambda: A.analyze_ranges_affine(
+                forward, params, x, fmts, dflt, keys=keys, stacked=True,
+                sublanes=RANGES_SUB))
+    got["tight"] = run("tighten_range_maps",
+                       lambda: A.tighten_range_maps(got["ia"], got["aff"]))
+    return got
+
+
+def phase_ranges(torch, qmm, fd, cfg=None, dev="cuda"):
+    """The range, affine and stacked CAA passes through the port's drivers
+    at Qwen2-7B's full width (qwen2_7b.FULL, depth cut to 2 layers, f32
+    random weights from seed 0, one sequence of 8 seeded tokens): eager
+    and stacked IA, eager and stacked affine, tighten, scope discovery and
+    the stacked sensitivity. Gates: stacked == eager per scope (1e-9
+    relative, crosses_zero and n_ops equal), for IA and for affine; the
+    tightened map below both; every affine enclosure finite; every value
+    of the exact f64 forward inside its scope's max_abs in both maps; no
+    kernel launched (the passes reach no kernel, as in the reference).
+    Then the card's maps against the CPU port's at qwen2_7b.SMOKE and on
+    the Digits and ConvNet models at full width."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import analyze as A
+    from repro_torch.core import caa
+    from repro_torch.core import formats as F
+    from repro_torch.data import synthetic_digits
+    from repro_torch.models import paper_models as PM
+    from repro_torch.models import transformer as T
+
+    emit("free", before="ranges", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    cfg = cfg or dataclasses.replace(configs.get("qwen2_7b").FULL,
+                                     n_layers=RANGES_LAYERS)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (1, RANGES_TOKENS),
+                           generator=torch.Generator().manual_seed(1))
+    fw = lm_forward(T, cfg, tokens.to(dev))
+    x = caa.make(torch.zeros((1, 1), dtype=torch.float64, device=dev))
+    ccfg = caa.CaaConfig(u_max=RANGES_UMAX)
+    fmts = {k: F.custom(v) for k, v in RANGES_FMTS.items()}
+    dflt = F.custom(RANGES_FMT_DEFAULT)
+    timed = {}
+    torch.cuda.synchronize()
+    reset_launches(fns)
+    got = run_ranges(torch, A, fw, params, x, ccfg, fmts, dflt,
+                     RANGES_LAYERS, timed)
+    t0 = time.perf_counter()
+    scopes = A.discover_scopes_stacked(fw, params, x, RANGES_LAYERS, ccfg)
+    timed["discover_scopes_stacked"] = {"seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    sens = A.sensitivity_stacked(fw, params, x, scopes, ccfg)
+    timed["sensitivity_stacked"] = {"seconds": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    launches = read_launches(fns)
+    keys = ranges_keys(RANGES_LAYERS)
+    exact = exact_maxima(torch, fw, params, x, keys)
+    del params
+
+    # the gates at full width
+    gates = {
+        "ia_stacked_vs_eager": same_range_maps(
+            got["ia_stacked"], got["ia"], "IA stacked vs eager"),
+        "affine_stacked_vs_eager": same_range_maps(
+            got["aff_stacked"], got["aff"], "affine stacked vs eager")}
+    if scopes != ["embed"] + [f"layer{i}" for i in range(RANGES_LAYERS)] + [
+            "head"]:
+        raise AssertionError(f"discover_scopes_stacked: {scopes}")
+    for k in keys:
+        t, a, i = got["tight"][k], got["aff"][k], got["ia"][k]
+        if not (t.max_abs <= i.max_abs and t.max_abs <= a.max_abs):
+            raise AssertionError(f"tightened {k}: {t} above IA {i} or "
+                                 f"affine {a}")
+        if a.n_ops and not math.isfinite(a.max_abs):
+            raise AssertionError(f"affine enclosure of {k} not finite: {a}")
+    outside = {k: v for k, v in exact.items()
+               if not (v <= got["ia"][k].max_abs
+                       and v <= got["aff"][k].max_abs)}
+    if outside:
+        raise AssertionError(f"exact f64 values outside max_abs: {outside}")
+    if any(launches.values()):
+        raise AssertionError(f"the range passes launched kernels: "
+                             f"{launches}")
+    full = {"maps": {name: range_map_json(m) for name, m in got.items()},
+            "sensitivity_stacked": sens, "scopes": scopes,
+            "exact_f64_max_abs": exact, "passes": timed,
+            "stacked_vs_eager_worst_rel": gates}
+    free_device_memory(torch)
+
+    # the card against the CPU port on the same seeded inputs
+    cpu_vs_card = {}
+    smoke = configs.get("qwen2_7b").SMOKE
+    sp = T.init_params(smoke, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    stoks = torch.randint(0, smoke.vocab, (1, RANGES_TOKENS),
+                          generator=torch.Generator().manual_seed(1))
+    models = {"qwen2_7b.SMOKE": (
+        lambda dev: lm_forward(T, smoke, stoks.to(dev)), sp,
+        lambda dev: caa.make(torch.zeros((1, 1), dtype=torch.float64,
+                                         device=dev)), smoke.n_layers)}
+    imgs, _ = synthetic_digits.make_dataset(4, seed=0)
+    img = torch.from_numpy(imgs[0].astype(np.float64)).reshape(1, 784)
+    models["digits 784-700-256-10"] = (
+        lambda dev: PM.digits_forward,
+        PM.init_digits(torch.Generator().manual_seed(0), device="cpu"),
+        lambda dev: caa.from_range((img - 0.01).to(dev),
+                                   (img + 0.01).to(dev)), 0)
+    models["convnet 28x28 c1 16 c2 32"] = (
+        lambda dev: PM.convnet_forward,
+        PM.init_convnet(torch.Generator().manual_seed(1), device="cpu"),
+        lambda dev: caa.make(img.reshape(1, 28, 28, 1).to(dev)), 0)
+    on = lambda p, dev: {k: (v.to(dev) if torch.is_tensor(v) else
+                             (on(v, dev) if isinstance(v, dict) else v))
+                         for k, v in p.items()}
+    for name, (fwd, p, xin, L) in models.items():
+        card = run_ranges(torch, A, fwd(dev), on(p, dev), xin(dev), ccfg,
+                          fmts, dflt, L)
+        with torch.no_grad():
+            cpu = run_ranges(torch, A, fwd("cpu"), p, xin("cpu"), ccfg, fmts,
+                             dflt, L)
+        cpu_vs_card[name] = {m: same_range_maps(card[m], cpu[m],
+                                                f"{name} {m} card vs CPU")
+                             for m in card}
+    emit("ranges", config=cfg.name, n_layers=cfg.n_layers,
+         tokens=RANGES_TOKENS, u_max=RANGES_UMAX,
+         formats={"map": RANGES_FMTS, "default": RANGES_FMT_DEFAULT},
+         sublanes=list(RANGES_SUB), full_width=full, launches=launches,
+         cpu_vs_card_worst_rel=cpu_vs_card, rel_tol=1e-9,
+         nvidia_smi=nvidia_smi_line(),
+         seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2529,6 +3092,7 @@ def main() -> int:
     fcases, ferr = phase_flash_decode(torch, fd)
     krows, kerr = phase_quant_matmul_k(torch, qmm)
     acases, aerr = phase_flash_decode_attention(torch, fd)
+    rorows = phase_row_order(torch, serve.configs.get("qwen2_7b").FULL)
 
     by_path, timings = {}, {}
     by_path["serve"], fmt_path, timings["serve"] = phase_serve(
@@ -2564,6 +3128,7 @@ def main() -> int:
                              ("k", batch_timing["k"]))})
 
     phase_interval_libm(torch, iv)
+    by_path["ranges"] = phase_ranges(torch, qmm, fd)
     seen = phase_analyze(torch)
     operands = analysis_operands(torch, seen)
     del seen
@@ -2647,6 +3212,15 @@ def main() -> int:
             analysis_operands=[{key: r[key] for key in (
                 "M", "K", "N", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")} for r in path_rows]))
+    for name, what in (
+            ("row_mean", "the rmsnorm's mean of squares over d_model=3584 "
+                         "for the 4 rows of a decode step"),
+            ("f32_matmul", "the LM head at decode: 4 rows x 3584 against the "
+                           "transposed 3584 x 152064 table")):
+        kernels.append(kernel_row(
+            name, f"src/repro_torch/csrc/{name}.cu", ROW_ORDER_REPLACES[name],
+            launches[name], "batching", 0.0, rorows[name]["decode"], what,
+            prefill=rorows[name]["prefill"], port_only=True))
     for row in kernels:
         row["profile_roofline_frac"] = roofline.get(
             {"flash_decode_attention": "flash_decode"}.get(row["name"],

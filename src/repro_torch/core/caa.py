@@ -189,6 +189,14 @@ def make(val, exact: Optional[Interval] = None, dbar=0.0,
     val = _f(val)
     if exact is None:
         exact = iv.point(val)
+        if isinstance(dbar, float) and isinstance(ebar, float) \
+                and dbar == 0.0 and ebar == 0.0:
+            # a point with no error normalises to δ̄ = ε̄ = 0 everywhere:
+            # keep them as one broadcast zero, not two [*S] tensors (a
+            # full-width embedding table is 4.4 GB in f64)
+            zero = torch.zeros((), dtype=_F64, device=val.device)
+            return CaaTensor(val, exact, zero.expand(val.shape),
+                             zero.expand(val.shape))
     dbar = torch.broadcast_to(_f(dbar, val.device), val.shape)
     ebar = torch.broadcast_to(_f(ebar, val.device), val.shape)
     return _normalize(CaaTensor(val, exact, dbar, ebar))

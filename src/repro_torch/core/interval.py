@@ -1,7 +1,8 @@
 """Vectorised rigorous interval arithmetic (IA) in PyTorch, float64.
 
-The counterpart of the JAX package's ``repro.core.interval`` (its
-``Interval`` half; the affine forms come with the certification slice).
+The counterpart of the JAX package's ``repro.core.interval``: the
+``Interval`` half, and the affine forms (``AffineForm``, ``aff_*``) of the
+affine range pass.
 Bounds are computed in f64 round-to-nearest and then widened outward with
 ``torch.nextafter``: the enclosure property holds, one or two ulps looser,
 and every operation vectorises over tensors on the CPU or the card.
@@ -476,3 +477,331 @@ def softmax_range(x: Interval, axis: int = -1) -> Interval:
     lo = torch.clamp(_down(lo), 0.0, 1.0)
     hi = torch.clamp(_up(hi), 0.0, 1.0)
     return Interval(lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# affine forms (zonotopes) — the paper's antidote to IA decorrelation
+# ---------------------------------------------------------------------------
+#
+# An AffineForm encloses a tensor of real values as
+#
+#     v ∈ center + Σ_b terms[b]·ε_b + rad·ε̂,     ε_b, ε̂ ∈ [-1, 1]
+#
+# where every (slot b, element) pair carries an INDEPENDENT noise symbol
+# identified by ids[b] (0 marks an empty slot — its coefficients are zero by
+# invariant). Linear ops propagate the terms exactly, so correlated paths
+# (residual adds, x - mean(x)) cancel instead of compounding the way plain
+# IA does; everything nonlinear and every f64 slop of the bound computation
+# itself folds into the interval remainder ``rad``. The slot budget is
+# fixed, so :func:`aff_condense` soundly folds the smallest slots into
+# ``rad`` when ops overflow it.
+#
+# Symbols are per-element: ids identify tensors' rounding/creation events,
+# and two forms sharing id b mean their elements' symbols agree elementwise.
+# Contractions (matmul/einsum/sum) mix symbols of different elements, which
+# no single coefficient can represent — callers collapse terms through
+# :func:`aff_tot` there (see repro_torch.core.backend.AffineRangeCaaOps).
+#
+# ``terms`` and ``rad`` may be stored broadcastable to the form's shape
+# (``terms`` [B, 1, ..., 1], ``rad`` 0-d): :func:`aff_make` stores a point
+# form so, which keeps a full-width weight's zero terms out of memory (8
+# slots of Qwen2-7B's embedding table would be 35 GB in f64). Every
+# function gives the values it would give on the broadcast-out form; those
+# that combine slots broadcast first.
+
+#: default noise-symbol slot budget per tensor
+AFF_DEFAULT_BUDGET = 8
+
+#: condensation rankings: which slots survive when a form overflows its
+#: budget. "sensitivity" keeps the symbols holding the largest SHARE of some
+#: element's total deviation, whose future cancellations the form channel
+#: still needs; "magnitude" is the total-coefficient-mass order. Both are
+#: sound: the ranking only picks WHICH dropped slots fold into ``rad``.
+AFF_RANK_SENSITIVITY = "sensitivity"
+AFF_RANK_MAGNITUDE = "magnitude"
+AFF_DEFAULT_RANK = AFF_RANK_SENSITIVITY
+
+_I32 = torch.int32
+
+
+class AffineForm(NamedTuple):
+    center: torch.Tensor   # [*S] f64
+    terms: torch.Tensor    # [B, *S] f64 (or broadcastable) — coefficient
+    #                        of noise symbol ids[b]
+    ids: torch.Tensor      # [B] int32; 0 = empty slot (zero coefficients)
+    rad: torch.Tensor      # [*S] f64 ≥ 0 (or broadcastable) — remainder
+
+    @property
+    def shape(self):
+        return tuple(self.center.shape)
+
+    @property
+    def budget(self) -> int:
+        return int(self.terms.shape[0])
+
+
+def aff_make(center, budget: int = AFF_DEFAULT_BUDGET) -> AffineForm:
+    """Point form (exactly-known values; e.g. weights under weights_exact),
+    its zero terms and remainder stored broadcastable."""
+    c = _f(center)
+    return AffineForm(
+        c, torch.zeros((budget,) + (1,) * c.dim(), dtype=_F64,
+                       device=c.device),
+        torch.zeros((budget,), dtype=_I32, device=c.device),
+        torch.zeros((), dtype=_F64, device=c.device))
+
+
+def aff_from_interval(ivl: Interval, budget: int = AFF_DEFAULT_BUDGET,
+                      center=None) -> AffineForm:
+    """Terms-free form from an enclosure; ``center`` defaults to the
+    midpoint, and may lie anywhere (rad covers both endpoints)."""
+    c = midpoint(ivl) if center is None else _f(center, ivl.lo.device)
+    r = _up(torch.maximum((c - ivl.lo).abs(), (ivl.hi - c).abs()))
+    r = torch.where(torch.isnan(r) | ~torch.isfinite(ivl.lo)
+                    | ~torch.isfinite(ivl.hi), _INF, r)
+    c, r = torch.broadcast_tensors(c, r)
+    return AffineForm(torch.where(torch.isfinite(c), c, 0.0),
+                      torch.zeros((budget,) + tuple(c.shape), dtype=_F64,
+                                  device=c.device),
+                      torch.zeros((budget,), dtype=_I32, device=c.device),
+                      r)
+
+
+def _slot_abs_sum(a: AffineForm) -> torch.Tensor:
+    """Σ_b |terms[b]| per element (broadcastable)."""
+    return torch.sum(a.terms.abs(), dim=0)
+
+
+def aff_tot(a: AffineForm) -> torch.Tensor:
+    """Per-element upper bound on the total deviation Σ_b|terms| + rad."""
+    s = _slot_abs_sum(a) + a.rad
+    t = _up(s * (1.0 + _gamma_f64(a.budget + 2)))
+    return torch.where(torch.isnan(t), _INF, t)
+
+
+def aff_interval(a: AffineForm) -> Interval:
+    """Sound enclosure center ± tot (nan-guarded to [-inf, inf])."""
+    t = aff_tot(a)
+    lo = _down(a.center - t)
+    hi = _up(a.center + t)
+    bad = torch.isnan(lo) | torch.isnan(hi) | torch.isnan(a.center)
+    return Interval(torch.where(bad, -_INF, lo), torch.where(bad, _INF, hi))
+
+
+def _aff_slop(a: AffineForm, n_ops: int = 4) -> AffineForm:
+    """Charge the f64 round-to-nearest error of the bound computation
+    itself: every produced quantity comes from a chain of ≤ B + n_ops f64
+    ops on magnitudes bounded by |center| + tot, so γ_{B+n}·(|center| +
+    tot) rounded outward covers it."""
+    g = _gamma_f64(a.budget + n_ops)
+    tot = _slot_abs_sum(a) + a.rad
+    rad = _up(a.rad + g * (a.center.abs() + tot))
+    rad = torch.where(torch.isnan(rad) | torch.isnan(a.center), _INF, rad)
+    return AffineForm(a.center, a.terms, a.ids, rad)
+
+
+def _condense_counters(dropped: int) -> None:
+    from repro_torch import obs
+
+    obs.counter("affine.condense_calls")
+    obs.counter("affine.condense_drops", dropped)
+    tr = obs.get_tracer()
+    if tr is not None:
+        obs.gauge("affine.condense_drops",
+                  tr.counters.get("affine.condense_drops", 0))
+
+
+def aff_condense(a: AffineForm, budget: int,
+                 rank: str = AFF_DEFAULT_RANK) -> AffineForm:
+    """Fold slots into ``rad`` until ≤ ``budget`` remain.
+
+    ``rank`` picks the survivors (empty slots always rank last):
+
+    * :data:`AFF_RANK_SENSITIVITY` — keep the slots carrying the largest
+      share of some element's total deviation; a mass tiebreak keeps the
+      order total among non-dominant slots.
+    * :data:`AFF_RANK_MAGNITUDE` — total coefficient mass.
+
+    Ties keep the lower slot first (a stable sort, as the reference's
+    ``argsort``). Either way the dropped mass enters rad via the triangle
+    inequality — a pure widening, hence sound under every ranking."""
+    if rank not in (AFF_RANK_SENSITIVITY, AFF_RANK_MAGNITUDE):
+        raise ValueError(f"unknown affine condensation rank {rank!r}")
+    B = a.budget
+    if B <= budget:
+        return a
+    _condense_counters(B - budget)
+    terms = a.terms.expand((B,) + a.shape)
+    red = tuple(range(1, terms.dim()))
+    mass = terms.abs()
+    sums = torch.sum(mass, dim=red) if red else mass
+    if rank == AFF_RANK_MAGNITUDE:
+        norms = sums
+    else:
+        # share of each element's total deviation held by each slot; a
+        # saturated element (tot = inf) gives finite coefficients share 0,
+        # an infinite coefficient keeps share 1 (it IS that element's
+        # enclosure)
+        tot = torch.sum(mass, dim=0) + a.rad
+        denom = torch.where((tot > 0.0) & torch.isfinite(tot), tot, _INF)
+        share = torch.where(torch.isfinite(mass), mass / denom, 1.0)
+        peak = torch.amax(share.reshape(B, -1), dim=1)
+        msum = torch.amax(torch.where(torch.isfinite(sums), sums, 0.0))
+        msum = torch.where(msum > 0.0, msum, 1.0)
+        tie = torch.where(torch.isfinite(sums), sums, msum) / msum
+        norms = peak + 1e-3 * tie
+    norms = torch.where(a.ids == 0, -1.0, norms)
+    order = torch.argsort(-norms, stable=True)
+    keep, drop = order[:budget], order[budget:]
+    dropped = terms.index_select(0, drop).abs()
+    extra = torch.sum(dropped, dim=0) * (1.0 + _gamma_f64(B - budget + 2))
+    rad = _up(a.rad + extra)
+    rad = torch.where(torch.isnan(rad), _INF, rad)
+    return AffineForm(a.center, terms.index_select(0, keep),
+                      a.ids.index_select(0, keep), rad)
+
+
+def aff_append_symbol(a: AffineForm, coeff, sym_id: int, budget: int,
+                      rank: str = AFF_DEFAULT_RANK) -> AffineForm:
+    """Add a FRESH independent per-element unknown of half-width ``coeff``
+    (≥ 0) — the shape a rounding error charge takes."""
+    c = torch.broadcast_to(_up(_f(coeff, a.center.device)), a.shape)
+    t = torch.cat([a.terms.expand((a.budget,) + a.shape), c[None]], dim=0)
+    i = torch.cat([a.ids, torch.tensor([int(sym_id)], dtype=_I32,
+                                       device=a.ids.device)])
+    return aff_condense(AffineForm(a.center, t, i, a.rad), budget, rank)
+
+
+def _aff_broadcast(a: AffineForm, shape) -> AffineForm:
+    B = a.budget
+    shape = tuple(shape)
+    t = a.terms
+    el = tuple(t.shape[1:])
+    if len(el) < len(shape):
+        # grow the element rank behind the slot dim before broadcasting
+        t = t.reshape((B,) + (1,) * (len(shape) - len(el)) + el)
+    return AffineForm(torch.broadcast_to(a.center, shape),
+                      torch.broadcast_to(t, (B,) + shape), a.ids,
+                      torch.broadcast_to(a.rad, shape))
+
+
+def _aff_common(a: AffineForm, b: AffineForm):
+    """Rewrite both forms over one shared id layout [Ba+Bb].
+
+    ids are unique per form (creation is a strictly increasing counter and
+    merges preserve uniqueness), so the match matrix has at most one hit
+    per row/column and matched coefficients move with ONE addition. Each
+    side keeps its own element shape (a concatenation joins forms of other
+    shapes; the reference pads ``a`` with zeros of ``b``'s shape, which
+    fails from a concatenation's third part on)."""
+    eq = (a.ids[:, None] == b.ids[None, :]) & (a.ids[:, None] != 0)
+    matched = eq.any(dim=0)                                  # [Bb]
+    b_on_a = torch.tensordot(eq.to(_F64), b.terms, dims=([1], [0]))
+    mshape = (b.ids.shape[0],) + (1,) * (b.terms.dim() - 1)
+    b_un = torch.where(matched.reshape(mshape), 0.0, b.terms)
+    ids = torch.cat([a.ids, torch.where(matched, 0, b.ids).to(_I32)])
+    ta = torch.cat([a.terms, a.terms.new_zeros(
+        (b_un.shape[0],) + tuple(a.terms.shape[1:]))], dim=0)
+    tb = torch.cat([b_on_a, b_un], dim=0)
+    return ids, ta, tb
+
+
+def _bshape(*xs):
+    return torch.broadcast_shapes(*(tuple(x.shape) for x in xs))
+
+
+def _aff_linear(a: AffineForm, b: AffineForm, ca, cb, budget: int,
+                rank: str = AFF_DEFAULT_RANK) -> AffineForm:
+    """ca·a + cb·b for exact per-element multipliers ca/cb (the one affine
+    combinator: add, sub and where-blends route through it)."""
+    dev = a.center.device
+    ca, cb = _f(ca, dev), _f(cb, dev)
+    shape = _bshape(a.center, b.center, ca, cb)
+    a, b = _aff_broadcast(a, shape), _aff_broadcast(b, shape)
+    ids, ta, tb = _aff_common(a, b)
+    center = ca * a.center + cb * b.center
+    terms = ca * ta + cb * tb
+    rad = ca.abs() * a.rad + cb.abs() * b.rad
+    out = _aff_slop(AffineForm(center, terms, ids, rad), n_ops=6)
+    return aff_condense(out, budget, rank)
+
+
+def aff_add(a: AffineForm, b: AffineForm, budget: int,
+            rank: str = AFF_DEFAULT_RANK) -> AffineForm:
+    return _aff_linear(a, b, 1.0, 1.0, budget, rank)
+
+
+def aff_sub(a: AffineForm, b: AffineForm, budget: int,
+            rank: str = AFF_DEFAULT_RANK) -> AffineForm:
+    return _aff_linear(a, b, 1.0, -1.0, budget, rank)
+
+
+def aff_neg(a: AffineForm) -> AffineForm:
+    return AffineForm(-a.center, -a.terms, a.ids, a.rad)
+
+
+def aff_scale(a: AffineForm, c) -> AffineForm:
+    """Multiply by an exact constant (scalar or array)."""
+    c = _f(c, a.center.device)
+    a = _aff_broadcast(a, _bshape(a.center, c))
+    out = AffineForm(a.center * c, a.terms * c, a.ids, a.rad * c.abs())
+    return _aff_slop(out, n_ops=4)
+
+
+def aff_shift(a: AffineForm, c) -> AffineForm:
+    c = _f(c, a.center.device)
+    a = _aff_broadcast(a, _bshape(a.center, c))
+    return _aff_slop(AffineForm(a.center + c, a.terms, a.ids, a.rad),
+                     n_ops=4)
+
+
+def aff_mul(a: AffineForm, b: AffineForm, budget: int,
+            rank: str = AFF_DEFAULT_RANK) -> AffineForm:
+    """Bilinear product: linear parts keep their symbols, the quadratic
+    cross term (deviation × deviation) and each center × remainder term
+    fold into rad."""
+    shape = _bshape(a.center, b.center)
+    a, b = _aff_broadcast(a, shape), _aff_broadcast(b, shape)
+    ta_tot, tb_tot = aff_tot(a), aff_tot(b)
+    ids, ta, tb = _aff_common(a, b)
+    center = a.center * b.center
+    terms = b.center * ta + a.center * tb
+    rad = (a.center.abs() * b.rad + b.center.abs() * a.rad
+           + ta_tot * tb_tot)
+    out = _aff_slop(AffineForm(center, terms, ids, rad), n_ops=8)
+    return aff_condense(out, budget, rank)
+
+
+def aff_where(mask, a: AffineForm, b: AffineForm, budget: int,
+              rank: str = AFF_DEFAULT_RANK) -> AffineForm:
+    """Element-wise select — exact (comparisons don't round). The common
+    id layout keeps each element's coefficients attached to its own
+    symbols."""
+    m = torch.as_tensor(mask, device=a.center.device)
+    shape = _bshape(a.center, b.center, m)
+    a, b = _aff_broadcast(a, shape), _aff_broadcast(b, shape)
+    ids, ta, tb = _aff_common(a, b)
+    out = AffineForm(torch.where(m, a.center, b.center),
+                     torch.where(m[None], ta, tb),
+                     ids, torch.where(m, a.rad, b.rad))
+    return aff_condense(out, budget, rank)
+
+
+def aff_intersect(a: AffineForm, ivl: Interval) -> AffineForm:
+    """Intersect with an externally-proven bound (clamp_range): keep the
+    center (it is the reference value) and terms only when the affine
+    enclosure was already at least as tight; otherwise recenter on the
+    intersection. Never empty (a wrong external bound keeps the original —
+    mirroring caa.clamp_exact's guard)."""
+    own = aff_interval(a)
+    lo = torch.maximum(own.lo, ivl.lo)
+    hi = torch.minimum(own.hi, ivl.hi)
+    bad = lo > hi
+    lo = torch.where(bad, own.lo, lo)
+    hi = torch.where(bad, own.hi, hi)
+    tighter = (lo <= own.lo) & (own.hi <= hi)
+    rec = aff_from_interval(Interval(lo, hi), a.budget, center=a.center)
+    keep = torch.broadcast_to(tighter, a.shape)
+    return AffineForm(a.center,
+                      torch.where(keep[None], a.terms, rec.terms),
+                      a.ids, torch.where(keep, a.rad, rec.rad))

@@ -102,7 +102,14 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
     neg = bk.const(L.NEG_BIG, scores)
     scores = bk.where(_mask5(mask), scores, neg)
     probs = bk.softmax(scores, dim=-1)
+    probs = bk.record("attn_probs", probs, kind="softmax")
     out = bk.einsum("bkgqs,bskd->bqkgd", probs, v)
+    if bk.is_analysis:
+        # convex-combination fact: Σ_s probs = 1, probs ≥ 0 ⇒ out lies in
+        # the value hull (IA cannot see the simplex constraint)
+        vlo = torch.amin(v.exact.lo, dim=1)[:, None, :, None, :]
+        vhi = torch.amax(v.exact.hi, dim=1)[:, None, :, None, :]
+        out = bk.clamp_range(out, vlo, vhi)
     out = bk.reshape(out, (B, S, n_heads * d_head))
     return bk.matmul(out, bk.param(p["wo"])), new_cache
 

@@ -29,11 +29,25 @@ def dense_init(n_in: int, n_out: int, scale: Optional[float] = None, *,
 
 
 def rmsnorm(bk, x, gamma, eps: float = 1e-6):
-    """x * rsqrt(mean(x², -1) + eps) * γ."""
+    """x * rsqrt(mean(x², -1) + eps) * γ.
+
+    On the card the mean of squares is the fixed-order ``row_mean`` kernel
+    (``TorchOps.mean``), so a lane's bits do not depend on its batch.
+
+    Global insight injected for the analysis: |x_i|/√(mean(x²)+eps) ≤ √n
+    always (x_i² ≤ n·mean(x²)) — IA alone pairs x_hi with 1/√eps and
+    explodes; the clamp is the algebraic fact it cannot see. Outside the
+    analysis ``clamp_range`` is the identity, and the bound is not
+    computed."""
     g = bk.param(gamma)
     ms = bk.mean(bk.square(x), dim=-1, keepdim=True)
     inv = bk.rsqrt(bk.shift(ms, eps))
-    return bk.mul(bk.mul(x, inv), g)
+    y = bk.mul(bk.mul(x, inv), g)
+    if not bk.is_analysis:
+        return y
+    n = bk.shape_of(x)[-1]
+    bound = (math.sqrt(n) * 1.0000001) * gamma.to(torch.float64).abs()
+    return bk.clamp_range(y, -bound, bound)
 
 
 def embed(bk, table, ids):
@@ -43,7 +57,9 @@ def embed(bk, table, ids):
 
 def logits_head(bk, x, table):
     """Final projection through ``bk.einsum``: the certified backends do not
-    round it, so it stays a plain f32 product."""
+    round it, so it stays an f32 product — on the card the row-invariant
+    ``f32_matmul`` kernel (``TorchOps.einsum``: one fmaf order per logit,
+    whatever the batch)."""
     return bk.einsum("bsd,vd->bsv", x, bk.param(table))
 
 
@@ -70,7 +86,8 @@ def apply_rope(bk, x, cos, sin):
     decode path (per-lane absolute positions)."""
     dh = bk.shape_of(x)[-1]
     half = dh // 2
-    x1, x2 = x[..., :half], x[..., half:]
+    x1 = bk.slice(x, (Ellipsis, slice(0, half)))
+    x2 = bk.slice(x, (Ellipsis, slice(half, dh)))
     if cos.dim() == 3:                      # per-lane tables [B, S, Dh/2]
         c = bk.param(cos[:, :, None, :])
         s = bk.param(sin[:, :, None, :])

@@ -233,4 +233,5 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
         x = L.rmsnorm(bk, x, params["final_norm"])
         head = params["embed"] if cfg.tie_embeddings else params["head"]
         logits = L.logits_head(bk, x, head)
+        logits = bk.record("logits", logits, kind="head")
     return logits, new_cache

@@ -15,7 +15,14 @@ JAX, so they run on a machine that has only PyTorch:
 * The library products on the engine's path (``chip_smoke.
   library_lane_bits``): the ones the card keeps lane-invariant are asserted
   here; the others are named in ROADMAP §3.
+* At Qwen2-7B's full width (depth cut to 2 layers), EVERY op of one ragged
+  decode step on the format path (``chip_smoke.op_lane_bits``: kernels 1
+  and 2, the rmsnorm's mean through ``row_mean``, the LM head through
+  ``f32_matmul``, the elementwise ops) gives each lane the bits it gives
+  alone; and on the format path the engine's logits equal
+  ``reference_generate``'s bit for bit.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -146,6 +153,48 @@ def test_engine_matches_reference_generate_on_card(cuda_device, case):
                                            req.max_new_tokens, max_seq=64,
                                            eos_id=eos)
         assert got == want, (req.rid, got, want)
+
+
+@pytest.mark.cuda
+def test_engine_format_logits_bitwise_equal_reference_generate(cuda_device):
+    dev = cuda_device
+    params = _params(dev)
+    sc = serve.ServeConfig(device="cuda", max_seq=64,
+                           precision_layer_format=FMT)
+    gen = torch.Generator().manual_seed(4)
+    reqs = [batching.Request(
+        rid=i, prompt=torch.randint(0, CFG.vocab, (int(n),),
+                                    generator=gen).tolist(),
+        max_new_tokens=6, arrival_step=i)
+        for i, n in enumerate(torch.randint(3, 40, (5,), generator=gen))]
+    eng = batching.ContinuousBatchingEngine(
+        CFG, sc, params, n_lanes=4, max_seq=64, page_size=16,
+        keep_logits=True)
+    for r in eng.run(reqs):
+        req = reqs[r["id"]]
+        toks, rows = batching.reference_generate(
+            CFG, sc, params, req.prompt, req.max_new_tokens, max_seq=64,
+            return_logits=True)
+        assert r["tokens"] == toks
+        assert torch.equal(_bits(r["logits"]), _bits(rows)), r["id"]
+
+
+@pytest.mark.cuda
+def test_format_step_every_op_lane_bits_at_full_width(cuda_device):
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    cfg = dataclasses.replace(configs.get("qwen2_7b").FULL, n_layers=2)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    bk = serve.FormatQuantJOps(
+        {"": {"k": 12, "emax": 15, "emin": -14},
+         "layer*/mlp": {"k": 10, "emax": 15, "emin": -14}})
+    got = chip_smoke.op_lane_bits(torch, serve, T, cfg, params, bk)
+    print(got)
+    assert got["ops"] > 0 and got["differing"] == [], got["differing"]
+    assert {"mean", "einsum", "matmul", "decode_attention"} <= set(
+        got["by_op"])
 
 
 # which library products on the engine's path keep a lane's bits on the

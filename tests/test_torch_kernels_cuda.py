@@ -11,6 +11,11 @@ also differ by ulps; against decode attention's f64 split version,
 8·√(len + 16)·2⁻²⁴·max|v|). On operands whose partial sums are all exact in
 f32 the GEMM must equal its plain version bit for bit. One test runs on the
 CPU: it shows that the f64 rule fails a decode that drops a chunk.
+
+Serving's two port-only fixed-order kernels (``row_order.row_mean``,
+``row_order.f32_matmul``) equal their plain versions bit for bit (the
+plain versions compute the kernels' own order), and a row alone equals the
+same row in a batch.
 """
 import numpy as np
 import pytest
@@ -727,3 +732,85 @@ def test_interval_gemm_negative_zero_at_a_ragged_k_edge(cuda_device, M, K):
     for got, want in _ivl_pairs(x, d, w):
         assert_same_bits(got, want)
         assert not bool(torch.signbit(got).any())
+
+
+# ---------------------------------------------------------------------------
+# the port-only fixed-order kernels of serving: row_mean and f32_matmul
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import row_order as tro  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 255, 256, 300, 3584, 18944])
+def test_row_mean_kernel_bitwise_vs_plain_and_row_invariant(cuda_device, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(37, n, device=cuda_device, generator=gen) ** 2
+    before = tro.row_mean.launches
+    got = tro.row_mean(x)
+    assert tro.row_mean.launches == before + 1
+    want = tro.row_mean_ref(x)[:, 0]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for r in (0, 5, 36):
+        alone = tro.row_mean(x[r:r + 1].contiguous())
+        assert torch.equal(alone.view(torch.int32),
+                           got[r:r + 1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1, 3584, 1000), (4, 3584, 4000),
+                                   (4, 130, 1001), (37, 200, 70),
+                                   (96, 3584, 520)])
+def test_f32_matmul_kernel_bitwise_vs_fmaf_chain(cuda_device, M, K, N):
+    gen = torch.Generator(device=cuda_device).manual_seed(M + N)
+    x = torch.randn(M, K, device=cuda_device, generator=gen)
+    w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
+    before = tro.f32_matmul.launches
+    got = tro.f32_matmul(x, w)
+    assert tro.f32_matmul.launches == before + 1
+    cols = torch.arange(0, N, max(1, N // 64), device=cuda_device)
+    want = tro.f32_matmul_seq_ref(x, w[:, cols])
+    assert torch.equal(got[:, cols].view(torch.int32),
+                       want.view(torch.int32))
+    # one order per element in both tiers (GEMV M <= 8, SGEMM M > 8): a
+    # row alone gives the bits it gives in the batch
+    for r in (0, M - 1):
+        alone = tro.f32_matmul(x[r:r + 1].contiguous(), w)
+        assert torch.equal(alone.view(torch.int32),
+                           got[r:r + 1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_torch_ops_route_mean_and_lm_head_through_the_kernels(cuda_device):
+    from repro_torch.core.backend import TorchOps
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(4, 1, 3584, device=cuda_device, generator=gen)
+    table = torch.randn(1000, 3584, device=cuda_device, generator=gen)
+    bk = TorchOps()
+    m0, h0 = tro.row_mean.launches, tro.f32_matmul.launches
+    ms = bk.mean(bk.square(x), dim=-1, keepdim=True)
+    logits = bk.einsum("bsd,vd->bsv", x, table)
+    bk.einsum("bsd,vd->bsv", x[:1], table)
+    assert (tro.row_mean.launches, tro.f32_matmul.launches) == (m0 + 1,
+                                                                h0 + 2)
+    assert torch.equal(ms, tro.row_mean_ref(x * x))
+    assert logits.shape == (4, 1, 1000)
+    # the transposed table is made once and kept while the table is
+    assert bk._head_t[1].shape == (3584, 1000)
+    # f64 (the exact model) and other reductions keep the library
+    assert torch.equal(bk.mean(x.double(), dim=-1, keepdim=True),
+                       x.double().mean(-1, keepdim=True))
+    assert tro.row_mean.launches == m0 + 1
+
+
+@pytest.mark.cuda
+def test_row_order_kernels_refuse_what_they_cannot_take(cuda_device):
+    x = torch.randn(4, 64, device=cuda_device)
+    for bad in (x.double(), x.t(), x.cpu()):
+        with pytest.raises(ValueError):
+            tro.row_mean(bad)
+        with pytest.raises(ValueError):
+            tro.f32_matmul(bad, torch.randn(64, 8, device=cuda_device))
+    with pytest.raises(ValueError):
+        tro.f32_matmul(x, torch.randn(63, 8, device=cuda_device))
