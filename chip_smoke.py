@@ -32,9 +32,10 @@ sha256 of its logits and a profiler trace of its decode steps):
   head, other kernels and idle gaps), and the full-width serving profile
   traced as the profile phase runs it and bare;
 * ``batching`` — the continuous-batching engine at full width from a store
-  entry: every request's tokens, and on the format path its logits bit for
-  bit, equal ``reference_generate``'s (the request alone); every op of one
-  ragged decode step, each lane against itself alone;
+  entry: every request's tokens and logits, on the format path and on the
+  k path (whose decode attention runs ``flash_decode_attention``), bit for
+  bit ``reference_generate``'s (the request alone); every op of one ragged
+  decode step, each lane against itself alone;
 * ``interval_libm`` — the interval transcendentals on the card against the
   CPU's f64 values at about 10⁶ points, directed rounding bitwise;
 * ``ranges`` — the range, affine and layer-stacked CAA passes on Qwen2-7B
@@ -42,6 +43,15 @@ sha256 of its logits and a profiler trace of its decode steps):
   the affine enclosures are finite, the exact f64 forward lies inside every
   scope's max_abs; the card's maps equal the CPU port's at SMOKE and on
   the Digits and ConvNet models;
+* ``certify`` — the certification pipeline: Digits at full width certified
+  uniform, mixed and mixed + formats on the card and on the CPU (decisions
+  equal, bounds within 1e-9), its format map served through
+  ``quant_matmul_format`` bit for bit as its plain emulation, a store hit
+  and ``gc``; Qwen2-7B at full width (depth cut to 2 layers) through
+  ``certify_lm`` uniform and mixed + formats with seconds and peak memory
+  per stage, served by ``launch/batching.py --certificates`` if it
+  certifies; the nano LM certified on card and CPU and its own format and
+  k maps served, logits bit for bit ``reference_generate``'s;
 * ``analyze`` — the paper's Table-I flow (``examples/quickstart.py``) on
   the Digits model at its full width 784→700→256→10, trained on the card,
   with Pendulum and ConvNet at their defaults, then again on the CPU with
@@ -66,6 +76,7 @@ result. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import json
@@ -1270,14 +1281,19 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
 
     expected = {"quant_matmul_format": 0, "flash_decode_certified": 0,
                 "quant_matmul": 7 * L_FULL * (1 + SERVE_STEPS),
-                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE,
+                "flash_decode_attention": L_FULL * SERVE_STEPS,
+                **ANALYSIS_KERNELS_IDLE,
                 **row_order_launches(1 + SERVE_STEPS)}
+    # kernel 4 (TorchOps.decode_attention): its first and last launches
+    fd_spy = FirstLastSpy(fd.flash_decode_attention)
     serve.quant_matmul_dynamic_k = spy
+    fd.flash_decode_attention = fd_spy
     try:
         res, launches = run_serve(torch, serve, fns, serve_argv(*extra),
                                   expected)
     finally:
         serve.quant_matmul_dynamic_k = dispatch
+        fd.flash_decode_attention = fd_spy.fn
     resolved = {f"layer{i}": dict(zip(PROJ_ORDER, ks_seen[7 * i:7 * i + 7]))
                 for i in range(2)}
     if resolved != want_ks:
@@ -1289,6 +1305,8 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
         _, st = check_gemm_k(torch, qmm, x, w, k)
         main_path.append({"M": M, "K": K, "N": N, "k": k, **st})
     del gemm_in
+    attn_path = flash_attention_rows(torch, fd, fd_spy.seen)
+    del fd_spy
 
     # replay request 0's prefill with the plain version on every GEMM
     before = read_launches(fns)
@@ -1307,8 +1325,22 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
          backend=type(serve._backend(res.config)).__name__,
          resolved_k_layers01=resolved,
          **serve_report(torch, res, launches, expected, ref_logits),
-         main_path_inputs_vs_plain=main_path, decode_trace=trace)
-    return launches, main_path, res.timing | {"decode_trace": trace}
+         main_path_inputs_vs_plain={"quant_matmul": main_path,
+                                    "flash_decode_attention": attn_path},
+         decode_trace=trace)
+    return launches, main_path, attn_path, res.timing | {
+        "decode_trace": trace}
+
+
+def flash_attention_rows(torch, fd, seen):
+    """Kernel 4 against its plain version (and the f64 split version) on
+    the inputs a path gave it: {launch tag: (q, k, v, lengths)}."""
+    rows = []
+    for when, (q, k, v, lengths) in sorted(seen.items()):
+        st = check_flash_attention(torch, fd, q, k, v, lengths, when)
+        rows.append({"launch": when, "Smax": k.shape[1],
+                     "lengths": lengths.tolist(), **st})
+    return rows
 
 
 def uniform_ks(k_attn, k_mlp):
@@ -1778,7 +1810,7 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
                            serve.FormatQuantJOps(SERVE_FORMAT),
                            smax=BATCH_ENGINE["max_seq"])
 
-    # the k path: kernel 3, the composed decode attention
+    # the k path: kernel 3, the decode attention through kernel 4
     sc_k = serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
                              max_seq=BATCH_ENGINE["max_seq"],
                              precision_k=SERVE_K)
@@ -1797,22 +1829,29 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
     def expected_k(engine, admitted):
         return {"quant_matmul_format": 0, "flash_decode_certified": 0,
                 "quant_matmul": 7 * L_FULL * (admitted + engine.steps),
-                "flash_decode_attention": 0, **ANALYSIS_KERNELS_IDLE,
+                "flash_decode_attention": L_FULL * engine.steps,
+                **ANALYSIS_KERNELS_IDLE,
                 **row_order_launches(admitted + engine.steps)}
 
     k_reqs = reqs[:BATCH_K_REQUESTS]
+    fd_spy = FirstLastSpy(fd.flash_decode_attention)
     serve.quant_matmul_dynamic_k = spy_k
+    fd.flash_decode_attention = fd_spy
     try:
         engine_k, responses_k, launches_k, registry_k, wall_k = run_batching(
             torch, batching, fns, cfg, sc_k, params, k_reqs, None, -1,
             expected_k)
     finally:
         serve.quant_matmul_dynamic_k = dispatch_k
+        fd.flash_decode_attention = fd_spy.fn
     k_report = batching_report(engine_k, responses_k, registry_k, wall_k)
-    k_path = []
+    k_path = {"quant_matmul": [],
+              "flash_decode_attention": flash_attention_rows(
+                  torch, fd, fd_spy.seen)}
+    del fd_spy
     for (M, K, N, k), (x, w) in sorted(k_in.items()):
         _, st = check_gemm_k(torch, qmm, x, w, k)
-        k_path.append({"M": M, "K": K, "N": N, "k": k, **st})
+        k_path["quant_matmul"].append({"M": M, "K": K, "N": N, "k": k, **st})
     del k_in
     ref_k = reference_runs(batching, cfg, sc_k, params, k_reqs, -1)
     k_bits = lane_bits(torch, responses_k, ref_k)
@@ -1844,15 +1883,22 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
          library_lane_bits=library,
          step_op_lane_bits={"format": fmt_ops, "k": k_ops},
          seconds=time.perf_counter() - t_phase,
-         main_path_inputs_vs_plain={**main_path, "quant_matmul": k_path})
+         main_path_inputs_vs_plain={**main_path, **k_path})
     bad = [(p, b) for p, rows in (("format", fmt_bits), ("k", k_bits))
            for b in rows if not b["tokens_equal"]]
     if bad:
         raise AssertionError(f"tokens differ from reference_generate: {bad}")
-    bad = [b["id"] for b in fmt_bits if not b["logits_bitwise"]]
-    if bad:
-        raise AssertionError(f"format path: the logits of requests {bad} "
-                             "differ from reference_generate's bit for bit")
+    for path, rows in (("format", fmt_bits), ("k", k_bits)):
+        bad = [b["id"] for b in rows if not b["logits_bitwise"]]
+        if bad:
+            raise AssertionError(f"{path} path: the logits of requests {bad} "
+                                 "differ from reference_generate's bit for "
+                                 "bit")
+    for path, ops in (("format", fmt_ops), ("k", k_ops)):
+        if ops["differing"]:
+            raise AssertionError(f"{path} path: ops of a ragged step give a "
+                                 f"lane other bits than alone: "
+                                 f"{ops['differing']}")
     return launches_all, main_path, k_path, fmt_report | {"k": k_report}
 
 
@@ -1874,6 +1920,19 @@ class KernelSpy:
 
     launches = property(lambda self: self.fn.launches,
                         lambda self, n: setattr(self.fn, "launches", n))
+
+
+class FirstLastSpy(KernelSpy):
+    """A KernelSpy that keeps copies of the inputs of the first and of the
+    last call, as ``seen["first"]`` / ``seen["last"]``."""
+
+    def __init__(self, fn):
+        super().__init__(fn, None, None)
+
+    def __call__(self, *args):
+        self.seen["last" if self.seen else "first"] = tuple(
+            t.clone() for t in args)
+        return self.fn(*args)
 
 
 def profile_spies(qmm, fd):
@@ -1942,10 +2001,14 @@ def phase_profile(torch, obs, qmm, fd):
                     for s in (serving, serving_full))
     row_order = [row_order_launches(2 + s["decode_steps"], s["n_layers"])
                  for s in (serving, serving_full)]
+    # the serving profiles decode through TorchOps.decode_attention:
+    # kernel 4 once a layer per decode forward (one untimed, then steps)
+    n_attn = sum(s["n_layers"] * (1 + s["decode_steps"])
+                 for s in (serving, serving_full))
     expected = {"quant_matmul_format": len(shapes) * calls,
                 "flash_decode_certified": 0,
                 "quant_matmul": 2 * len(shapes) * calls + n_serving,
-                "flash_decode_attention": len(flash_shapes) * calls,
+                "flash_decode_attention": len(flash_shapes) * calls + n_attn,
                 **ANALYSIS_KERNELS_IDLE,
                 **{k: sum(r[k] for r in row_order) for k in row_order[0]}}
     if serving_full["n_layers"] != L_FULL:
@@ -2367,25 +2430,18 @@ def phase_interval_libm(torch, iv):
 
 def train_digits(torch, PM, TorchOps, params, imgs, labels, steps=400,
                  lr=0.2):
-    """quickstart's ``train`` in plain PyTorch autograd: SGD, batch 64 drawn
-    by ``RandomState(i)``, mean cross-entropy of the logits."""
-    import numpy as np
+    """The certify CLI's training (quickstart's ``train`` in PyTorch
+    autograd: SGD, batch 64 drawn by ``RandomState(i)``, mean cross-entropy
+    of the logits); returns (params, training accuracy)."""
+    from repro_torch.certify.__main__ import train_digits as train
 
+    params = train(params, imgs, labels, steps, lr)
     dev = params["w1"].device
-    x_all = torch.from_numpy(imgs).to(dev)
-    y_all = torch.from_numpy(labels).long().to(dev)
-    bk = TorchOps()
-    for i in range(steps):
-        idx = torch.from_numpy(np.random.RandomState(i).choice(
-            imgs.shape[0], 64)).to(dev)
-        ps = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        lp = torch.log_softmax(PM.digits_logits(bk, ps, x_all[idx]), -1)
-        loss = -lp.gather(-1, y_all[idx][:, None]).mean()
-        grads = torch.autograd.grad(loss, list(ps.values()))
-        params = {k: (v - lr * g).detach()
-                  for (k, v), g in zip(ps.items(), grads)}
-    acc = float((PM.digits_logits(bk, params, x_all).argmax(-1)
-                 == y_all).double().mean())
+    with torch.no_grad():
+        pred = PM.digits_logits(TorchOps(), params,
+                                torch.from_numpy(imgs).to(dev)).argmax(-1)
+    acc = float((pred == torch.from_numpy(labels).long().to(dev))
+                .double().mean())
     return params, acc
 
 
@@ -3026,6 +3082,491 @@ ANALYSIS_TOLERANCE = {
 }
 
 
+# ---------------------------------------------------------------------------
+# the certification pipeline: certify on the card, the same on the CPU,
+# serve what was certified
+# ---------------------------------------------------------------------------
+
+CERT_P_STAR = 0.6
+CERT_DIGITS_K_MAX = 53     # the certify CLI's default for Digits: at full
+                           # width every class needs k = 27 (k_max 24
+                           # certifies none)
+CERT_DIGITS_RUNS = {"uniform": {}, "mixed": {"mixed": True},
+                    "formats": {"mixed": True, "formats": True}}
+CERT_LM_LAYERS = 2         # Qwen2-7B's depth cut, as in ``ranges``
+CERT_NANO = {"seq": 6, "batch": 2, "seed": 0, "k_max": 53, "mixed": True,
+             "formats": True, "profiles": (4,)}
+CERT_NANO_STEPS, CERT_NANO_LR = 200, 0.5
+CERT_REL_TOL = 1e-9        # card against CPU: δ̄ / ε̄, relative
+# an LM's δ̄, card against CPU: f64 sums in other orders carried through
+# two layers and the head (tests/test_torch_ranges.py's rule); its ε̄ is
+# reported, not held (inf must still match inf): the relative bound of a
+# logit divides by an enclosure endpoint the sums reach through
+# cancellation (1.3e-4 apart on the nano), and no LM decision reads it —
+# the argmax rule is 2·δ̄·u < gap
+CERT_LM_REL_TOL = 1e-6
+
+
+def cert_decisions(cs):
+    """What a certificate set decides: per certificate its required k,
+    formats satisfying it, k map, format map and map provenance, and the
+    set's probes."""
+    return {"required_k": [c.required_k for c in cs.certificates],
+            "satisfied_by": [c.satisfied_by for c in cs.certificates],
+            "layer_k": [c.layer_k for c in cs.certificates],
+            "layer_format": [c.layer_format for c in cs.certificates],
+            "map_provenance": [c.meta.get("map_provenance")
+                               for c in cs.certificates],
+            "probes": cs.meta.get("probes")}
+
+
+def cert_bounds(cs):
+    return [(c.final_abs_u, c.final_rel_u) for c in cs.certificates]
+
+
+def same_bound(a, b, rel=CERT_REL_TOL) -> bool:
+    """Equal (inf equal to inf), or within ``rel`` relative."""
+    return a == b or (math.isfinite(a) and math.isfinite(b)
+                      and abs(a - b) <= rel * max(abs(a), abs(b)))
+
+
+def card_vs_cpu(what, card, cpu, rel=CERT_REL_TOL, rel_ebar=None):
+    """Raises unless the two sets decide the same and their bounds agree:
+    δ̄ within ``rel``, ε̄ within ``rel_ebar`` (default ``rel``; inf reports
+    it, holding only inf to inf); returns the worst relative difference of
+    each."""
+    if cert_decisions(card) != cert_decisions(cpu):
+        raise AssertionError(f"certify {what}: card decides "
+                             f"{cert_decisions(card)}, CPU "
+                             f"{cert_decisions(cpu)}")
+    worst = {"dbar": 0.0, "ebar": 0.0}
+    for (a, r), (a2, r2) in zip(cert_bounds(card), cert_bounds(cpu)):
+        for key, x, y, tol in (("dbar", a, a2, rel),
+                               ("ebar", r, r2, rel_ebar or rel)):
+            if not same_bound(x, y, tol):
+                raise AssertionError(f"certify {what}: {key} {x!r} on the "
+                                     f"card, {y!r} on the CPU")
+            if math.isfinite(x) and x != y:
+                worst[key] = max(worst[key],
+                                 abs(x - y) / max(abs(x), abs(y)))
+    return worst
+
+
+def timed_certify(torch, fn, *args, **kw):
+    """(result, seconds, peak device GB) of one certification call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    # a stacked certification resets the peak at its stage boundaries and
+    # keeps each stage's own peak in its meta
+    peak = max([torch.cuda.max_memory_allocated() / 1e9]
+               + list(out.meta.get("stage_peak_gb", {}).values()))
+    return out, secs, peak
+
+
+def cert_summary(cs, seconds=None, peak_gb=None):
+    c = cs.certificates[0]
+    out = {"required_k": c.required_k, "final_abs_u": c.final_abs_u,
+           "final_rel_u": c.final_rel_u, "layer_k": c.layer_k,
+           "layer_format": c.layer_format,
+           "map_provenance": c.meta.get("map_provenance"),
+           "certificates": len(cs.certificates),
+           "probes": cs.meta.get("probes"),
+           "from_store": cs.meta.get("from_store"),
+           "reason": cs.meta.get("reason"),
+           "min_gap": c.meta.get("min_gap")}
+    for key in ("stage_seconds", "stage_peak_gb"):
+        if key in cs.meta:
+            out[key] = cs.meta[key]
+    for key in ("mixed", "formats"):
+        m = cs.meta.get(key)
+        if m:
+            out[key] = {k: m.get(k) for k in (
+                "applied", "attached", "reason", "mantissa_mode",
+                "mean_k_flop_weighted", "mean_bits_flop_weighted",
+                "baseline_bits", "probes")}
+    if seconds is not None:
+        out.update(seconds=seconds, peak_gb=peak_gb)
+    return out
+
+
+class ShapeSpy(KernelSpy):
+    """A KernelSpy keeping copies of the tensor inputs (and the keyword
+    arguments) of the first call of each input shape."""
+
+    def __init__(self, fn):
+        super().__init__(
+            fn, lambda *a, **kw: tuple(tuple(t.shape) for t in a
+                                       if hasattr(t, "shape")),
+            lambda *a, **kw: (tuple(t.clone() if hasattr(t, "clone") else t
+                                    for t in a), dict(kw)))
+
+
+@contextlib.contextmanager
+def serving_spies(qmm, fd):
+    """ShapeSpies on the four serving kernels while a path runs; yields
+    {name: spy}."""
+    spies = {"quant_matmul_format": (qmm, ShapeSpy(qmm.quant_matmul_format)),
+             "flash_decode_certified": (fd, ShapeSpy(
+                 fd.flash_decode_certified)),
+             "quant_matmul": (qmm, ShapeSpy(qmm.quant_matmul)),
+             "flash_decode_attention": (fd, ShapeSpy(
+                 fd.flash_decode_attention))}
+    for name, (mod, spy) in spies.items():
+        setattr(mod, name, spy)
+    try:
+        yield {name: spy for name, (_, spy) in spies.items()}
+    finally:
+        for name, (mod, spy) in spies.items():
+            setattr(mod, name, spy.fn)
+
+
+def spied_vs_plain(torch, qmm, fd, spies):
+    """Each serving kernel against its plain version on the first inputs
+    of each shape a path gave it (the rules of the kernel phases): rows of
+    shapes and agreement stats per kernel; raises on disagreement."""
+    rows = {name: [] for name in spies}
+    for (x, w, fmt), kw in spies["quant_matmul_format"].seen.values():
+        _, st = check_gemm(torch, qmm, x, w, fmt,
+                           (kw["has_subnormals"], kw["saturating"]))
+        rows["quant_matmul_format"].append(
+            {"M": x.shape[0], "K": x.shape[1], "N": w.shape[1],
+             "format": list(fmt), **st})
+    for (q, k, v, lengths, fmt), kw in \
+            spies["flash_decode_certified"].seen.values():
+        st = check_flash(torch, fd, q, k, v, lengths, fmt,
+                         (kw["has_subnormals"], kw["saturating"]))
+        rows["flash_decode_certified"].append(
+            {"shape": list(q.shape), "Smax": k.shape[1],
+             "lengths": lengths.tolist(), "format": list(fmt), **st})
+    for (x, w), kw in spies["quant_matmul"].seen.values():
+        _, st = check_gemm_k(torch, qmm, x, w, kw["k"])
+        rows["quant_matmul"].append({"M": x.shape[0], "K": x.shape[1],
+                                     "N": w.shape[1], "k": kw["k"], **st})
+    for (q, k, v, lengths), _ in \
+            spies["flash_decode_attention"].seen.values():
+        st = check_flash_attention(torch, fd, q, k, v, lengths,
+                                   f"shape {list(q.shape)}")
+        rows["flash_decode_attention"].append(
+            {"shape": list(q.shape), "Smax": k.shape[1],
+             "lengths": lengths.tolist(), **st})
+    return rows
+
+
+def train_nano(torch, T, TorchOps, cfg):
+    """The 2-layer nano LM overfit to one profile of 2 × 6 tokens, on the
+    host: full-batch gradient descent (lr 0.5, 200 steps) on the mean
+    next-token cross-entropy, from ``torch.Generator`` seed 0. Returns
+    (params on the CPU, final loss)."""
+    import numpy as np
+
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 6)))
+    tgt = torch.roll(toks, -1, dims=1)
+    bk = TorchOps()
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        else:
+            yield path, tree
+
+    def rebuild(flat):
+        out = {}
+        for path, t in flat:
+            d = out
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = t
+        return out
+
+    flat = list(leaves(params))
+    loss = None
+    for _ in range(CERT_NANO_STEPS):
+        ps = [(p, t.detach().requires_grad_(True)) for p, t in flat]
+        logits, _ = T.forward(bk, rebuild(ps), cfg, toks)
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg.vocab).float(), tgt.reshape(-1))
+        grads = torch.autograd.grad(loss, [t for _, t in ps])
+        flat = [(p, (t - CERT_NANO_LR * g).detach())
+                for (p, t), g in zip(ps, grads)]
+    return rebuild(flat), float(loss.detach())
+
+
+def certify_digits(torch, C, PM, TorchOps, qmm, serve, fns, store):
+    """Digits at full width: trained on the card, certified three ways on
+    the card and on the CPU with the same weights (decisions equal, bounds
+    within CERT_REL_TOL), the format map served through FormatQuantJOps on
+    the card bit for bit against its emulation through the plain versions;
+    then a store hit. Returns (report, launches of the serve)."""
+    import numpy as np
+
+    from repro_torch.data import synthetic_digits
+
+    imgs, labels = synthetic_digits.make_dataset(800, seed=0)
+    params = PM.init_digits(torch.Generator().manual_seed(0), device="cuda")
+    t0 = time.perf_counter()
+    params, acc = train_digits(torch, PM, TorchOps, params, imgs, labels)
+    train_s = sync_seconds(torch, t0)
+    on_cpu = {k: v.cpu() for k, v in params.items()}
+    los, his = [], []
+    for c in range(10):
+        m = imgs[labels == c].mean(0)
+        los.append(np.clip(m - 0.02, 0.0, 1.0))
+        his.append(np.clip(m + 0.02, 0.0, 1.0))
+    common = dict(p_star=CERT_P_STAR, model_id="digits/h700x256",
+                  k_max=CERT_DIGITS_K_MAX)
+    report, card = {}, {}
+    for name, kw in CERT_DIGITS_RUNS.items():
+        cs, secs, peak = timed_certify(
+            torch, C.certify, PM.digits_forward, params, los, his,
+            store=store if name == "formats" else None, **common, **kw)
+        t0 = time.perf_counter()
+        cpu = C.certify(PM.digits_forward, on_cpu, los, his, **common, **kw)
+        cpu_s = time.perf_counter() - t0
+        worst = card_vs_cpu(f"digits {name}", cs, cpu)
+        report[name] = {**cert_summary(cs, secs, peak), "cpu_seconds": cpu_s,
+                        "worst_rel_bound_vs_cpu": worst,
+                        "required_k_all": [c.required_k
+                                           for c in cs.certificates]}
+        card[name] = cs
+    cs = card["formats"]
+    sm = cs.serving_layer_format
+    if sm is None or any(c.required_k is None for c in cs.certificates):
+        raise AssertionError(f"digits: no format map certified: "
+                             f"{cs.meta.get('formats')}")
+
+    # the v3 map served on the card, against the plain versions
+    bk = serve.FormatQuantJOps(sm)
+    x = torch.from_numpy(imgs[:64]).cuda()
+    reset_launches(fns)
+    with torch.no_grad():
+        got = PM.digits_forward(bk, params, x)
+    torch.cuda.synchronize()
+    launches = read_launches(fns)
+    from repro_torch.core.quantize import quantize_to_format
+    from repro_torch.kernels.row_order import f32_matmul_seq_ref
+
+    # the kernel's order: one exact fmaf chain an output from +0 (products
+    # of operands wider than 12 bits are not exact in f32, so a separate
+    # multiply and add would round twice)
+    h = x
+    for scope, w, b in (("dense1", "w1", "b1"), ("dense2", "w2", "b2"),
+                        ("dense3", "w3", "b3")):
+        fmt = bk.format_for([scope])
+        q = lambda v: quantize_to_format(v, *fmt, bk.has_subnormals,
+                                         bk.saturating)
+        o = q(f32_matmul_seq_ref(q(h), q(params[w]))) + params[b]
+        h = torch.relu(o)
+    want = torch.softmax(o.float(), dim=-1)
+    if launches["quant_matmul_format"] < 1 or not same_bits(torch, got,
+                                                            want):
+        raise AssertionError(f"digits v3 serve: launches {launches}, "
+                             "softmax not bit for bit the emulation")
+    # the second call is a store hit
+    hit = C.certify(PM.digits_forward, params, los, his, store=store,
+                    **common, **CERT_DIGITS_RUNS["formats"])
+    if not hit.meta.get("from_store") or \
+            cert_decisions(hit) != cert_decisions(cs):
+        raise AssertionError("digits: the second certify was not a store "
+                             "hit of the first")
+    return {"train": {"steps": 400, "accuracy": acc, "seconds": train_s},
+            "runs": report, "served_format": sm, "serve_rows": 64,
+            "serve_launches": launches, "serve_bitwise_vs_plain": True,
+            "store_hit_lookup_s": hit.meta.get("lookup_seconds")}, launches
+
+
+def certify_qwen(torch, C, T, batching, fns, qmm, fd, root):
+    """Qwen2-7B at full width, depth cut to CERT_LM_LAYERS: certify_lm
+    uniform (k_max 24) and mixed + formats (k_max 53) into a store; if a
+    set certifies, ``launch/batching.py --certificates`` serves it from the
+    store with a reference check. Returns (report, launches)."""
+    from repro_torch import configs
+    from repro_torch.certify.store import CertificateStore
+
+    cfg = dataclasses.replace(configs.get("qwen2_7b").FULL,
+                              n_layers=CERT_LM_LAYERS)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    store = CertificateStore(str(root))
+    uni, uni_s, uni_peak = timed_certify(
+        torch, C.certify_lm, "qwen2_7b", cfg, params, k_max=24, store=store)
+    mf, mf_s, mf_peak = timed_certify(
+        torch, C.certify_lm, "qwen2_7b", cfg, params, k_max=53, mixed=True,
+        formats=True, store=store)
+    report = {"config": "qwen2_7b.FULL", "n_layers": CERT_LM_LAYERS,
+              "profile": "batch 1 x seq 8, seed 1",
+              "uniform": cert_summary(uni, uni_s, uni_peak),
+              "mixed_formats": cert_summary(mf, mf_s, mf_peak)}
+    del params
+    free_device_memory(torch)
+    launches = {name: 0 for name in fns}
+    for tag, cs, flags in (
+            ("mixed_formats", mf, ["--certify-mixed", "--certify-formats",
+                                   "--certify-k-max", "53"]),
+            ("uniform", uni, ["--certify-k-max", "24"])):
+        if cs.serving_k is None:
+            continue
+        argv = ["--size", "full", "--max-layers", str(CERT_LM_LAYERS),
+                "--device", "cuda", "--lanes", "4", "--max-seq", "64",
+                "--requests", "4", "--prompt-len", "24", "--max-new", "8",
+                "--certificates", str(root), "--check-ref", *flags]
+        reset_launches(fns)
+        engine, responses = batching.main(argv)
+        launches = read_launches(fns)
+        report["served"] = {"certificate": tag, "argv": argv,
+                            "launches": launches, "steps": engine.steps,
+                            "tokens": {r["id"]: r["tokens"]
+                                       for r in responses},
+                            "reference_check": "passed"}
+        del engine, responses
+        break
+    else:
+        report["served"] = None
+    return report, launches
+
+
+def certify_nano(torch, C, T, TorchOps, serve, batching, fns, qmm, fd,
+                 root):
+    """The 2-layer nano LM (d 16, 2 heads of 8, d_ff 32, vocab 256),
+    trained on the host, certified mixed + formats + profiles (4,) on the
+    card and on the CPU (decisions equal), and served from its own store
+    entry through the batching engine: the format map (kernels 1-2) and
+    the k map (kernels 3-4), every request's tokens and logits bit for bit
+    ``reference_generate``'s. Returns (report, launches summed)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.certify.store import CertificateStore
+
+    cfg = dataclasses.replace(
+        configs.get("qwen2_7b").SMOKE, name="qwen2-nano", n_layers=2,
+        d_model=16, n_heads=2, n_kv_heads=2, d_head=8, d_ff=32, vocab=256)
+    t0 = time.perf_counter()
+    host, loss = train_nano(torch, T, TorchOps, cfg)
+    train_s = time.perf_counter() - t0
+    if not loss < 0.1:
+        raise AssertionError(f"nano LM did not overfit its profile: {loss}")
+    params = _to_device(host, "cuda")
+    store = CertificateStore(str(root))
+    cs, secs, peak = timed_certify(torch, C.certify_lm, "qwen2_7b", cfg,
+                                   params, store=store, **CERT_NANO)
+    t0 = time.perf_counter()
+    cpu = C.certify_lm("qwen2_7b", cfg, host, **CERT_NANO)
+    cpu_s = time.perf_counter() - t0
+    worst = card_vs_cpu("nano", cs, cpu, rel=CERT_LM_REL_TOL,
+                        rel_ebar=math.inf)
+    if cs.serving_k is None:
+        raise AssertionError(f"nano: not certified: {cs.meta.get('reason')}")
+
+    sc0 = serve.ServeConfig(arch="qwen2_7b", batch=4, max_seq=32,
+                            certificates=str(root))
+    sc_fmt, hit = serve.apply_certificates(sc0, cfg, params, **{
+        k: v for k, v in CERT_NANO.items()})
+    if not hit.meta.get("from_store"):
+        raise AssertionError("nano: serving did not find its own entry")
+    sc_k = dataclasses.replace(sc_fmt, precision_layer_format=None,
+                               precision_layer_k=cs.serving_layer_k)
+    rng = np.random.RandomState(3)
+    reqs = [batching.Request(rid=i, prompt=rng.randint(
+        0, cfg.vocab, int(rng.randint(3, 12))).tolist(), max_new_tokens=6,
+        arrival_step=i) for i in range(6)]
+    served, launches_all = {}, {name: 0 for name in fns}
+    for tag, sc in (("format", sc_fmt), ("k", sc_k)):
+        if tag == "format" and not sc.precision_layer_format:
+            raise AssertionError("nano: the certificate carries no format "
+                                 "map to serve")
+        with serving_spies(qmm, fd) as spies:
+            reset_launches(fns)
+            engine = batching.ContinuousBatchingEngine(
+                cfg, sc, params, n_lanes=4, max_seq=32, page_size=8,
+                certset=hit, device="cuda", keep_logits=True)
+            responses = engine.run(reqs)
+            torch.cuda.synchronize()
+            launches = read_launches(fns)
+        for name in fns:
+            launches_all[name] += launches[name]
+        vs_plain = spied_vs_plain(torch, qmm, fd, spies)
+        bits = lane_bits(torch, responses, {
+            r.rid: batching.reference_generate(
+                cfg, sc, params, r.prompt, r.max_new_tokens, max_seq=32,
+                return_logits=True) for r in reqs})
+        want = (("quant_matmul_format", "flash_decode_certified")
+                if tag == "format" else
+                ("quant_matmul", "flash_decode_attention"))
+        if any(launches[name] < 1 for name in want):
+            raise AssertionError(f"nano {tag}: launches {launches}")
+        bad = [b for b in bits if not (b["tokens_equal"]
+                                       and b["logits_bitwise"])]
+        if bad:
+            raise AssertionError(f"nano {tag}: not reference_generate's bit "
+                                 f"for bit: {bad}")
+        served[tag] = {"launches": launches, "steps": engine.steps,
+                       "requests": len(responses), "vs_reference": bits,
+                       "kernels_vs_plain": vs_plain}
+    return {"config": "qwen2-nano (d 16, 2 x 8 heads, d_ff 32, vocab 256, "
+                      "2 layers)",
+            "train": {"steps": CERT_NANO_STEPS, "lr": CERT_NANO_LR,
+                      "loss": loss, "seconds": train_s},
+            "request": {k: list(v) if isinstance(v, tuple) else v
+                        for k, v in CERT_NANO.items()},
+            "card": cert_summary(cs, secs, peak), "cpu_seconds": cpu_s,
+            "worst_rel_bound_vs_cpu": worst, "served": served}, launches_all
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_certify(torch, serve, batching, qmm, fd, T):
+    """The certification pipeline on the card: Digits at full width, then
+    Qwen2-7B at full width with its depth cut, then the nano LM; each
+    certifies, is held against the CPU port where the CPU can run it, and
+    serves what it certified."""
+    import shutil
+
+    from repro_torch import certify as C
+    from repro_torch.certify.store import CertificateStore
+    from repro_torch.core.backend import TorchOps
+    from repro_torch.models import paper_models as PM
+
+    emit("free", before="certify", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    root = ROOT / "build" / "chip_smoke_certify"
+    shutil.rmtree(root, ignore_errors=True)
+    digits_store = CertificateStore(str(root / "digits"))
+    digits, l_digits = certify_digits(torch, C, PM, TorchOps, qmm, serve,
+                                      fns, digits_store)
+    evicted = C.CertificateStore(str(root / "digits")).gc(max_entries=0)
+    if evicted != 1 or len(digits_store) != 0:
+        raise AssertionError(f"gc --max-entries 0 evicted {evicted}")
+    emit("certify_digits", **digits, gc_evicted=evicted,
+         rel_tol=CERT_REL_TOL)
+    free_device_memory(torch)
+    qwen, l_qwen = certify_qwen(torch, C, T, batching, fns, qmm, fd,
+                                root / "qwen2_7b")
+    emit("certify_qwen2_7b", **qwen)
+    free_device_memory(torch)
+    nano, l_nano = certify_nano(torch, C, T, TorchOps, serve, batching, fns,
+                                qmm, fd, root / "nano")
+    emit("certify_nano", **nano)
+    launches = {name: l_digits[name] + l_qwen[name] + l_nano[name]
+                for name in fns}
+    emit("certify", launches=launches, by_part={
+        "digits": l_digits, "qwen2_7b": l_qwen, "nano": l_nano},
+        seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3097,12 +3638,14 @@ def main() -> int:
     by_path, timings = {}, {}
     by_path["serve"], fmt_path, timings["serve"] = phase_serve(
         torch, serve, qmm, fd, T)
-    by_path["serve_k"], k_path, timings["serve_k"] = phase_serve_k(
+    (by_path["serve_k"], k_path, k_attn_path,
+     timings["serve_k"]) = phase_serve_k(
         torch, serve, qmm, fd, T, "serve_k",
         ["--precision-k", str(SERVE_K)],
         {f"layer{i}": uniform_ks(SERVE_K, SERVE_K) for i in range(2)})
     v2_set = write_v2_set(spec)
-    by_path["serve_mixed"], mixed_path, timings["serve_mixed"] = (
+    (by_path["serve_mixed"], mixed_path, mixed_attn_path,
+     timings["serve_mixed"]) = (
         phase_serve_k(torch, serve, qmm, fd, T, "serve_mixed",
                       ["--certificate-set", str(v2_set)],
                       {"layer0": uniform_ks(12, 14),
@@ -3129,6 +3672,7 @@ def main() -> int:
 
     phase_interval_libm(torch, iv)
     by_path["ranges"] = phase_ranges(torch, qmm, fd)
+    by_path["certify"] = phase_certify(torch, serve, batching, qmm, fd, T)
     seen = phase_analyze(torch)
     operands = analysis_operands(torch, seen)
     del seen
@@ -3149,9 +3693,11 @@ def main() -> int:
         fmt_path["flash_decode_certified"]
         + batch_fmt_path["flash_decode_certified"])])
     kerr = max([kerr] + [r["max_abs_err"] for r in (
-        k_path + mixed_path + prof_path["quant_matmul"] + batch_k_path)])
-    aerr = max([aerr] + [r["max_abs_err"]
-                         for r in prof_path["flash_decode_attention"]])
+        k_path + mixed_path + prof_path["quant_matmul"]
+        + batch_k_path["quant_matmul"])])
+    aerr = max([aerr] + [r["max_abs_err"] for r in (
+        prof_path["flash_decode_attention"] + k_attn_path + mixed_attn_path
+        + batch_k_path["flash_decode_attention"])])
     launches = {name: {path: counts[name] for path, counts in by_path.items()}
                 for name in KERNELS}
     roofline = {}
@@ -3190,7 +3736,7 @@ def main() -> int:
         kernel_row(
             "flash_decode_attention", "src/repro_torch/csrc/flash_decode.cu",
             "src/repro/kernels/flash_decode.py:40",
-            launches["flash_decode_attention"], "profile", aerr,
+            launches["flash_decode_attention"], "serve_k", aerr,
             acases["serve_last"],
             f"the serve cache's shape: B=4 K=4 G=7 D=128 {serve_last}",
             other_cases={c: {key: acases[c][key] for key in FLASH_KEYS}

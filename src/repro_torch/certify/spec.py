@@ -2,10 +2,9 @@
 
 The PyTorch port's copy of the JAX package's ``repro.certify.spec``: the
 same dataclasses and the same JSON, so a certificate set the JAX package
-wrote loads here and writes back byte for byte. The analysis that makes
-certificates is not ported yet, so :class:`CaaConfig` is a plain dataclass
-with the fields of the reference's ``repro.core.caa.CaaConfig`` (it only has
-to round-trip).
+wrote loads here and writes back byte for byte. :class:`CaaConfig` is the
+analysis's own (:mod:`repro_torch.core.caa`), field for field the
+reference's.
 
 A :class:`Certificate` is one (model, params, input-range/class) precision
 fact — everything Table I of the paper reports for one class run, plus the
@@ -27,6 +26,7 @@ import json
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core import formats
+from repro_torch.core.caa import CaaConfig
 
 # v1 (PR 1): uniform per-class required_k only.
 # v2 (PR 2): adds the per-layer mixed-precision map ``layer_k`` (+ mixed meta).
@@ -37,22 +37,6 @@ from repro_torch.core import formats
 # carries the writer schema, so newer entries never shadow older addresses).
 SCHEMA_VERSION = 3
 _READABLE_SCHEMAS = (1, 2, 3)
-
-
-@dataclasses.dataclass(frozen=True)
-class CaaConfig:
-    """The analysis-wide parameters a certificate records (field for field
-    the reference's ``CaaConfig``; see its docstring for the meaning)."""
-
-    u_max: float = 2.0 ** -7
-    acc_order: str = "sequential"
-    libm_rel: float = 0.5
-    round_scale: float = 1.0
-    round_abs: float = 0.0
-    use_trajectory: bool = True
-    traj_max_elems: int = 2 ** 24
-    emulate_k: Optional[int] = None
-    emulate_accum: bool = True
 
 
 def _cfg_to_dict(cfg: CaaConfig) -> Dict[str, Any]:
@@ -375,3 +359,25 @@ class CertificateSet:
     def from_json(cls, s: str) -> "CertificateSet":
         return cls.from_dict(json.loads(s))
 
+
+
+def trace_summary(records, top_n: int = 8) -> List[Dict[str, Any]]:
+    """The dominant layers of a trace, JSON-ready (inf kept, nan dropped)."""
+    import math
+
+    def _key(r):
+        v = r.max_dbar
+        return -1.0 if math.isnan(v) else (math.inf if math.isinf(v) else v)
+
+    ranked = sorted(records, key=_key, reverse=True)[:top_n]
+    out = []
+    for r in ranked:
+        out.append({
+            "name": r.name,
+            "kind": r.kind,
+            "shape": list(r.shape),
+            "out_mag": None if math.isnan(r.out_mag) else r.out_mag,
+            "max_dbar": None if math.isnan(r.max_dbar) else r.max_dbar,
+            "max_ebar": None if math.isnan(r.max_ebar) else r.max_ebar,
+        })
+    return out

@@ -17,9 +17,11 @@ a tensor on the card streams to the host in chunks, so a 30 GB model is
 never copied whole.
 
 Layout: ``<root>/<key>.json``, one CertificateSet per file, with the key
-and the request stored alongside. Eviction (``gc``), the persistent stats
-sidecar, ``entry_summary`` and ``invalidate_params`` come with the
-certification pipeline.
+and the request stored alongside, and the ``_stats.json`` sidecar of
+lifetime counters (:meth:`CertificateStore.persist_stats`). Every write —
+an entry or the sidecar — is one fsynced temporary file published by an
+atomic ``os.replace``; :meth:`CertificateStore.gc` evicts by age and
+count, :meth:`CertificateStore.invalidate_params` by weights.
 """
 from __future__ import annotations
 
@@ -45,6 +47,12 @@ _DTYPE_NAMES = {
     torch.int8: "int8", torch.uint8: "uint8", torch.bool: "bool",
 }
 _CHUNK_BYTES = 64 << 20
+
+# the CLIs' default store: build/certificates of the checkout the package
+# sits in (git-ignored), never a directory outside it
+DEFAULT_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "build", "certificates")
 
 
 def _treedef_str(tree) -> str:
@@ -158,7 +166,7 @@ class StoreStats:
     rejected_stale: int = 0
     corrupt: int = 0
     read_v1: int = 0   # legacy uniform-k entries served
-    evicted: int = 0   # entries removed by gc (with the pipeline)
+    evicted: int = 0   # entries removed by gc
 
     def to_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
@@ -172,7 +180,7 @@ class CertificateStore:
     serves bounds for other weights. ``root`` is the store directory
     (created if missing)."""
 
-    def __init__(self, root: str, lru_size: int = 64):
+    def __init__(self, root: str = DEFAULT_ROOT, lru_size: int = 64):
         self.root = root
         self.lru_size = int(lru_size)
         self._lru: "collections.OrderedDict[str, CertificateSet]" = (
@@ -261,6 +269,67 @@ class CertificateStore:
             if name.endswith(".json") and not name.startswith("_"):
                 yield name[:-len(".json")]
 
+    # -- stats persistence (gc --stats reads these) --
+    _STATS_NAME = "_stats.json"
+
+    def _stats_path(self) -> str:
+        return os.path.join(self.root, self._STATS_NAME)
+
+    def read_persistent_stats(self) -> Dict[str, int]:
+        """Cumulative lifetime counters persisted by past processes."""
+        try:
+            with open(self._stats_path()) as f:
+                data = json.load(f)
+            return {k: int(v) for k, v in data.items()
+                    if isinstance(v, (int, float))}
+        except (OSError, json.JSONDecodeError, ValueError):
+            return {}
+
+    def persist_stats(self) -> Dict[str, int]:
+        """Fold this process's counters into the on-disk cumulative sidecar
+        (atomic read-modify-replace; the folded counters are zeroed locally
+        so a second call never double-counts). Returns the new cumulative
+        totals. CLI entry points call this at exit; stats stop being
+        write-only internals without the hot path paying any disk I/O."""
+        cumulative = self.read_persistent_stats()
+        session = self.stats.to_dict()
+        merged = dict(cumulative)
+        for k, v in session.items():
+            merged[k] = merged.get(k, 0) + v
+        fd, tmp = tempfile.mkstemp(dir=self.root, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(merged, f, sort_keys=True)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._stats_path())
+        finally:
+            try:
+                os.unlink(tmp)
+            except FileNotFoundError:
+                pass
+        self.stats = StoreStats()
+        return merged
+
+    def entry_summary(self) -> Dict[str, Any]:
+        """Scan of what is on disk right now: entry count, bytes, and the
+        per-schema-version breakdown (v1/v2 counts = migration debt)."""
+        n = 0
+        total_bytes = 0
+        by_schema: Dict[str, int] = {}
+        for key in self.keys():
+            path = self.path_for(key)
+            try:
+                total_bytes += os.stat(path).st_size
+                with open(path) as f:
+                    payload = json.load(f)
+                v = payload["certificate_set"].get("schema_version", 1)
+            except (OSError, json.JSONDecodeError, KeyError, TypeError):
+                v = "unreadable"
+            n += 1
+            by_schema[f"v{v}"] = by_schema.get(f"v{v}", 0) + 1
+        return {"entries": n, "bytes": total_bytes, "by_schema": by_schema}
+
     @staticmethod
     def _touch(path: str):
         """Refresh the entry's recency marker (mtime): serving an entry
@@ -269,6 +338,73 @@ class CertificateStore:
             os.utime(path)
         except OSError:
             pass                     # raced with an evictor: harmless
+
+    def gc(self, max_age_days: Optional[float] = None,
+           max_entries: Optional[int] = None) -> int:
+        """Evict certificate sets by age and/or count; returns #removed.
+
+        Entries whose recency marker (mtime — refreshed by every disk read
+        and every put's atomic replace) is older than ``max_age_days`` go
+        first; then, if the store still holds more than ``max_entries``,
+        the oldest-unused survivors go until it fits. Deletion is per-file
+        ``os.unlink`` — each entry was published by fsync+atomic-replace as
+        one complete file, so eviction can never expose a torn entry, and
+        losing a race with a concurrent writer/invalidator is harmless
+        (FileNotFoundError is swallowed; a re-put simply re-creates the
+        address). Evicted entries are dropped from the LRU and counted in
+        ``stats.evicted``.
+        """
+        import time as _time
+
+        entries = []
+        for key in self.keys():
+            path = self.path_for(key)
+            try:
+                entries.append((os.stat(path).st_mtime, key))
+            except OSError:
+                continue             # concurrently removed
+        entries.sort()               # oldest-unused first
+        doomed = []
+        if max_age_days is not None:
+            cutoff = _time.time() - float(max_age_days) * 86400.0
+            doomed += [kv for kv in entries if kv[0] < cutoff]
+        if max_entries is not None:
+            doomed_set = set(doomed)
+            survivors = [kv for kv in entries if kv not in doomed_set]
+            excess = len(survivors) - int(max_entries)
+            if excess > 0:
+                doomed += survivors[:excess]
+        n = 0
+        for _, key in doomed:
+            try:
+                os.unlink(self.path_for(key))
+                n += 1
+            except FileNotFoundError:
+                pass                 # a concurrent evictor won the race
+            self._lru.pop(key, None)
+        self._bump("evicted", n)
+        return n
+
+    def invalidate_params(self, params_digest_: str) -> int:
+        """Drop every stored set proven for the given weights (e.g. after a
+        rollback forces re-certification). Returns the number removed."""
+        n = 0
+        for key in list(self.keys()):
+            path = self.path_for(key)
+            try:
+                with open(path) as f:
+                    payload = json.load(f)
+                stored = payload["certificate_set"]["params_digest"]
+            except (json.JSONDecodeError, KeyError, OSError):
+                continue
+            if stored == params_digest_:
+                try:
+                    os.unlink(path)
+                except FileNotFoundError:
+                    pass                 # a concurrent invalidator won the race
+                self._lru.pop(key, None)
+                n += 1
+        return n
 
     def __len__(self) -> int:
         return sum(1 for _ in self.keys())

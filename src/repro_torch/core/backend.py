@@ -36,7 +36,7 @@ from repro_torch.core import caa
 from repro_torch.core import interval as iv
 from repro_torch.core.caa import CaaConfig, CaaTensor, DEFAULT_CONFIG
 from repro_torch.core.scopes import STACK_SCOPE, resolve_scope_value
-from repro_torch.kernels import row_order
+from repro_torch.kernels import flash_decode, row_order
 
 _HEAD = "bsd,vd->bsv"     # the LM head's einsum (models/layers.logits_head)
 
@@ -240,7 +240,32 @@ class TorchOps(UnrolledLayerLoop, Backend):
         return a + c
 
     def matmul(self, a, b):
+        """On the card, ``a [..., K] @ b [K, N]`` of f32 tensors runs through
+        the fixed-order ``f32_matmul`` kernel
+        (:mod:`repro_torch.kernels.row_order`): one order per output
+        element whatever the row count, so a lane's bits do not depend on
+        its batch. The weights are read where they lie (a contiguous
+        ``[K, N]`` slice of the stacked params), no copy. Under autograd
+        (the kernel has no backward), for other dtypes and on the CPU it is
+        ``torch.matmul``."""
+        if (a.is_cuda and a.dtype == b.dtype == torch.float32
+                and b.dim() == 2 and not (torch.is_grad_enabled() and (
+                    a.requires_grad or b.requires_grad))):
+            return row_order.matmul_dispatch(a, b)
         return torch.matmul(a, b).to(self.compute_dtype)
+
+    def decode_attention(self, q, k, v, lengths):
+        """On the card, the single-token decode attention of f32 tensors
+        runs through the fixed-order ``flash_decode_attention`` kernel
+        (:mod:`repro_torch.kernels.flash_decode`): a lane's bits depend on
+        its own length only. Outside the kernel's limits (G ≤ 8, D ≤ 128,
+        D % 4 == 0, f32) it raises: it never composes on the card. On the
+        CPU it returns None, the composed einsum/softmax path of the
+        reference."""
+        if not q.is_cuda:
+            return None
+        return flash_decode.flash_decode_attention(
+            q.contiguous(), k, v, lengths)
 
     def einsum(self, subscripts, a, b):
         """On the card, the LM head ("bsd,vd->bsv" of f32 tensors) runs

@@ -17,8 +17,9 @@ their place on the card:
   chain per output from +0 in k order, whatever M; :func:`f32_matmul_seq_ref`
   is that chain with ``fmaf`` emulated exactly, bit for bit.
 
-:func:`row_mean_dispatch` and :func:`lm_head_dispatch` are what serving
-calls (``TorchOps.mean`` / ``TorchOps.einsum`` on the card): the plain
+:func:`row_mean_dispatch`, :func:`lm_head_dispatch` and
+:func:`matmul_dispatch` are what serving calls (``TorchOps.mean`` /
+``TorchOps.einsum`` / ``TorchOps.matmul`` on the card): the plain
 version for tensors on the CPU, the kernel for tensors on the card, or an
 exception — no fallback. Against ``torch.mean`` / ``torch.einsum`` both
 differ only by summation order (a few f32 ulps of the sum of magnitudes).
@@ -169,6 +170,19 @@ def transposed(table: torch.Tensor) -> torch.Tensor:
     """A contiguous ``[D, V]`` copy of an embedding table ``[V, D]``: the
     layout the GEMM body reads w in (2.18 GB at Qwen2-7B's width)."""
     return table.t().contiguous()
+
+
+def matmul_dispatch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` of f32 tensors with a fixed order per
+    output element: the plain version on the CPU, the kernel on the card
+    (``w`` read as it lies: it must be contiguous, so no copy is made)."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, K)
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        out = f32_matmul_seq_ref(rows, w)
+    else:
+        out = f32_matmul(rows.contiguous(), w)
+    return out.reshape(*lead, w.shape[-1])
 
 
 def lm_head_dispatch(x: torch.Tensor, table_t: torch.Tensor) -> torch.Tensor:

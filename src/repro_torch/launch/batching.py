@@ -355,6 +355,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2_7b")
     ap.add_argument("--size", choices=("smoke", "full"), default="smoke",
                     help="the arch's SMOKE or FULL (published) config")
+    ap.add_argument("--max-layers", type=int, default=None,
+                    help="cap the config's layer count (the certify CLI's "
+                         "--max-layers: a certificate of the cut model)")
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--page-size", type=int, default=16)
@@ -385,6 +388,9 @@ def main(argv=None):
     serve.configure_precision()
     mod = configs.get(args.arch)
     arch_cfg = mod.FULL if args.size == "full" else mod.SMOKE
+    if args.max_layers is not None:
+        arch_cfg = dataclasses.replace(
+            arch_cfg, n_layers=min(args.max_layers, arch_cfg.n_layers))
     sc = serve.ServeConfig(arch=args.arch, batch=args.lanes,
                            max_seq=args.max_seq,
                            precision_k=args.precision_k,

@@ -11,9 +11,12 @@ certificate, in the reference's precedence (:func:`_backend`):
 * :class:`QuantJOps` — a v1 uniform k.
 
 The last two round operands and result to k mantissa bits through the
-``quant_matmul`` CUDA kernel and, as in the reference, decode through the
-composed, unrounded einsum/softmax attention. Prefill attention and the LM
-head stay unrounded true-f32 products in every backend.
+``quant_matmul`` CUDA kernel and decode through the unrounded attention of
+:class:`repro_torch.core.backend.TorchOps`: on the card the fixed-order
+``flash_decode_attention`` kernel (the reference composes einsums and a
+softmax, which the card's library products run in an order that depends on
+the batch), on the CPU the composed path. Prefill attention and the LM head
+stay unrounded true-f32 products in every backend.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card and without an explicit ``cpu`` they
@@ -22,7 +25,8 @@ raise. There is no silent CPU path.
 With ``--certificates STORE_DIR`` the precision comes from the certificate
 store (:func:`apply_certificates`): the set certified for this arch and
 these exact params, found under the reference's content address. A miss
-raises until the certification pipeline is ported.
+certifies on first use (:func:`repro_torch.certify.pipeline.
+serving_certificate`) and persists the set.
 
 CLI::
 
@@ -272,7 +276,7 @@ def apply_certificates(sc: ServeConfig, arch_cfg, params, **certify_kw):
     — ``k_max``, ``mixed``, ``formats``, ... — address the request as the
     reference's ``certify_lm`` does) and resolved by
     :func:`apply_certificate_set`, format-only degrade included. Returns
-    (updated ServeConfig, CertificateSet). A miss raises."""
+    (updated ServeConfig, CertificateSet). A miss certifies and persists."""
     cs = serving_certificate(sc.arch, arch_cfg, params, sc.certificates,
                              **certify_kw)
     return apply_certificate_set(sc, cs), cs
@@ -298,8 +302,8 @@ def add_certificate_flags(ap: argparse.ArgumentParser) -> None:
     """``--certificates STORE_DIR`` and the flags that pick its entry."""
     ap.add_argument("--certificates", default=None, metavar="STORE_DIR",
                     help="serve the certificate set stored for this arch "
-                         "and these exact params (a miss raises: the "
-                         "certification pipeline is not ported yet)")
+                         "and these exact params (a miss certifies them "
+                         "and stores the set)")
     ap.add_argument("--certify-mixed", action="store_true",
                     help="with --certificates: the per-layer k entry (the "
                          "certify CLI's --mixed)")

@@ -151,8 +151,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     }
 
 
-def analytic_params(cfg: ArchConfig) -> int:
-    """Closed-form parameter count."""
+def analytic_params(cfg: ArchConfig, active: bool = False) -> int:
+    """Closed-form parameter count. ``active`` counts the parameters one
+    token runs through (the reference's MoE distinction; the dense family
+    the port supports runs through all of them)."""
+    del active
     check_supported(cfg)
     d, dh = cfg.d_model, cfg.head_dim
     emb = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)

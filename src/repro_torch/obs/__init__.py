@@ -12,8 +12,8 @@ package's ``repro.obs`` for what the port runs so far.
   port runs on) and the fitted two-term latency model;
 * :mod:`repro_torch.obs.profile` — kernel and serving profiles on the card.
 
-Violation monitors, the bench trajectory, the report CLI and the
-certificate cost report are not ported yet.
+Violation monitors, the bench trajectory and the report CLI are not
+ported yet.
 """
 from .trace import (  # noqa: F401
     SCHEMA,
@@ -37,8 +37,11 @@ from .costmodel import (  # noqa: F401
     TPU_POD_CHIP,
     CostModel,
     Hardware,
+    certificate_cost_report,
+    cost_report,
     fit_cost_model,
     format_bits,
+    render_cost_report,
     scope_class,
 )
 from .profile import (  # noqa: F401

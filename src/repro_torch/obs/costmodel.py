@@ -1,7 +1,7 @@
 """Measured cost model: {scope_class × (k, emax)} → predicted serving latency.
 
-The PyTorch port's copy of the fitting half of the JAX package's
-``repro.obs.costmodel``: it FITS a two-term roofline cost model to measured
+The PyTorch port's copy of the JAX package's ``repro.obs.costmodel``: it
+FITS a two-term roofline cost model to measured
 kernel timings (:mod:`repro_torch.obs.profile`) and predicts per-scope
 serving latency as
 
@@ -11,8 +11,10 @@ with α (achieved FLOP/s) and β (achieved bytes/s) taken per kernel class
 from the medians of the measured profile — not the data sheet. Hardware
 peaks live here too: :data:`H100_SXM` is the port's device, and
 :data:`TPU_POD_CHIP` is kept as data so the port's terms can be held
-against the reference's on the same inputs. The reference's certificate
-re-scoring (``cost_report``, ``certificate_cost_report``) is not ported yet.
+against the reference's on the same inputs. :func:`cost_report` and
+:func:`certificate_cost_report` re-score a certified serving map under both
+objectives (FLOP-weighted bits and predicted latency) per scope;
+:func:`render_cost_report` prints the comparison.
 """
 from __future__ import annotations
 
@@ -214,3 +216,146 @@ def fit_cost_model(records: Sequence[Dict[str, Any]],
     if plain_only:
         meta["plain_only"] = True
     return CostModel(alpha=alpha, beta=beta, hardware=hardware, meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# certificate re-scoring: FLOP-weighted bits vs predicted latency
+# ---------------------------------------------------------------------------
+
+def _resolve_fmt(scope: str, layer_format: Optional[Dict[str, Dict]],
+                 layer_k: Optional[Dict[str, int]],
+                 uniform_k: Optional[int]):
+    """(k, emax, emin) a scope would serve under — format map first, then
+    mixed map (binary32 carrier), then the uniform k."""
+    if layer_format:
+        f = layer_format.get(scope, layer_format.get(""))
+        if f is not None:
+            return int(f["k"]), int(f["emax"]), int(f["emin"])
+    if layer_k and scope in layer_k:
+        return int(layer_k[scope]), None, None
+    if uniform_k is not None:
+        return int(uniform_k), None, None
+    return 24, None, None  # binary32 carrier, full mantissa
+
+
+def cost_report(model: CostModel,
+                layer_flops: Dict[str, float],
+                layer_format: Optional[Dict[str, Dict]] = None,
+                layer_k: Optional[Dict[str, int]] = None,
+                uniform_k: Optional[int] = None,
+                tokens: int = 1) -> Dict[str, Any]:
+    """Score a certified serving map under BOTH objectives, per scope.
+
+    For every scope with a FLOP weight: its serving format, the
+    FLOP-weighted-bits objective share, the measured-model predicted
+    latency share, the savings each objective credits vs a uniform
+    binary32 baseline, and the rank each objective assigns the scope.
+    ``disagreements`` lists scopes the two objectives order differently —
+    exactly where swapping the greedy descent's objective would change the
+    map. The full objective swap stays a follow-up; this report is the
+    evidence for it.
+    """
+    rows: List[Dict[str, Any]] = []
+    for scope in sorted(layer_flops):
+        fl = float(layer_flops[scope])
+        k, emax, emin = _resolve_fmt(scope, layer_format, layer_k, uniform_k)
+        pred = model.predict(scope, fl, k, emax, emin, tokens=tokens)
+        base = model.predict(scope, fl, 24, None, None, tokens=tokens)
+        rows.append({
+            "scope": scope, "class": scope_class(scope),
+            "k": k, "emax": emax, "emin": emin,
+            "bits": pred["bits"], "flops_per_token": fl,
+            "kernel": pred["kernel"], "bound": pred["bound"],
+            "predicted_s": pred["latency_s"],
+            "compute_s": pred["compute_s"], "memory_s": pred["memory_s"],
+            # what each objective says this scope's narrowing was worth:
+            "bits_saved_weighted": fl * (BINARY32_BITS - pred["bits"]),
+            "latency_saved_s": base["latency_s"] - pred["latency_s"],
+        })
+    tot_fl = sum(r["flops_per_token"] for r in rows) or 1.0
+    tot_lat = sum(r["predicted_s"] for r in rows) or 1.0
+    for r in rows:
+        r["bits_objective_share"] = (r["flops_per_token"] * r["bits"]
+                                     / (tot_fl * BINARY32_BITS))
+        r["latency_share"] = r["predicted_s"] / tot_lat
+
+    def _rank(key):
+        order = sorted(range(len(rows)), key=lambda i: -rows[i][key])
+        rk = [0] * len(rows)
+        for pos, i in enumerate(order):
+            rk[i] = pos
+        return rk
+
+    rank_bits = _rank("bits_saved_weighted")
+    rank_lat = _rank("latency_saved_s")
+    disagreements = []
+    for i, r in enumerate(rows):
+        r["rank_by_bits_saved"] = rank_bits[i]
+        r["rank_by_latency_saved"] = rank_lat[i]
+        r["rank_disagreement"] = rank_bits[i] - rank_lat[i]
+        if rank_bits[i] != rank_lat[i] or (
+                r["bound"] == "compute" and r["bits"] < BINARY32_BITS):
+            disagreements.append({
+                "scope": r["scope"], "bound": r["bound"],
+                "rank_by_bits_saved": rank_bits[i],
+                "rank_by_latency_saved": rank_lat[i],
+                "note": ("compute-bound: narrower storage buys ~no latency "
+                         "here, but the bits objective still credits it"
+                         if r["bound"] == "compute"
+                         else "objectives rank this scope differently"),
+            })
+    mean_bits = sum(r["flops_per_token"] * r["bits"] for r in rows) / tot_fl
+    agree = sum(1 for i in range(len(rows)) if rank_bits[i] == rank_lat[i])
+    return {
+        "schema": 1,
+        "tokens": int(tokens),
+        "scopes": rows,
+        "mean_bits_flop_weighted": mean_bits,
+        "predicted_step_latency_s": tot_lat,
+        "rank_agreement": agree / max(len(rows), 1),
+        "disagreements": sorted(
+            disagreements,
+            key=lambda d: -abs(d["rank_by_bits_saved"]
+                               - d["rank_by_latency_saved"])),
+    }
+
+
+def certificate_cost_report(certset, layer_flops: Dict[str, float],
+                            model: CostModel, tokens: int = 1
+                            ) -> Dict[str, Any]:
+    """`cost_report` over what a :class:`repro_torch.certify.spec.CertificateSet`
+    would actually serve (format map ≻ mixed map ≻ uniform k)."""
+    lf = certset.serving_layer_format
+    lk = certset.serving_layer_k
+    rep = cost_report(model, layer_flops, layer_format=lf, layer_k=lk,
+                      uniform_k=certset.serving_k, tokens=tokens)
+    rep["model_id"] = certset.model_id
+    rep["params_digest"] = certset.params_digest
+    rep["serving_map"] = ("format" if lf else
+                          "mixed" if lk else "uniform")
+    return rep
+
+
+def render_cost_report(rep: Dict[str, Any]) -> str:
+    """Human-readable bits-vs-predicted-latency table."""
+    lines = [
+        f"cost model what-if — {rep.get('serving_map', '?')} map, "
+        f"mean bits {rep['mean_bits_flop_weighted']:.2f}, predicted step "
+        f"latency {rep['predicted_step_latency_s'] * 1e6:.2f}us, "
+        f"objective rank agreement {rep['rank_agreement']:.0%}",
+        f"{'scope':<18} {'bits':>5} {'bound':>8} {'pred_us':>10} "
+        f"{'lat%':>6} {'bits_rank':>9} {'lat_rank':>8}",
+    ]
+    for r in rep["scopes"]:
+        lines.append(
+            f"{(r['scope'] or '<default>'):<18} {r['bits']:>5.0f} "
+            f"{r['bound']:>8} {r['predicted_s'] * 1e6:>10.3f} "
+            f"{r['latency_share']:>6.1%} {r['rank_by_bits_saved']:>9} "
+            f"{r['rank_by_latency_saved']:>8}")
+    if rep["disagreements"]:
+        lines.append("objective disagreements (bits-objective blind spots):")
+        for d in rep["disagreements"]:
+            lines.append(f"  {d['scope'] or '<default>'}: {d['note']}")
+    else:
+        lines.append("objectives agree on every scope's ranking")
+    return "\n".join(lines)

@@ -21,6 +21,13 @@ JAX, so they run on a machine that has only PyTorch:
   ``f32_matmul``, the elementwise ops) gives each lane the bits it gives
   alone; and on the format path the engine's logits equal
   ``reference_generate``'s bit for bit.
+* The same on the k path (``QuantJOps``: kernel 3, and the decode attention
+  of ``TorchOps.decode_attention`` through kernel 4) and on the plain
+  backend (``TorchOps.matmul`` through ``f32_matmul``, reading the stacked
+  weights where they lie); outside kernel 4's limits the card path raises.
+  On the CPU, ``TorchOps.decode_attention`` returns None (the composed path
+  the CPU tests hold against the reference) and ``TorchOps.matmul`` is
+  ``torch.matmul`` (an unmarked test).
 """
 import dataclasses
 import sys
@@ -177,6 +184,115 @@ def test_engine_format_logits_bitwise_equal_reference_generate(cuda_device):
             return_logits=True)
         assert r["tokens"] == toks
         assert torch.equal(_bits(r["logits"]), _bits(rows)), r["id"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k", "plain"])
+def test_engine_k_and_plain_logits_bitwise_equal_reference_generate(
+        cuda_device, case):
+    dev = cuda_device
+    params = _params(dev)
+    sc = serve.ServeConfig(device="cuda", max_seq=64, **{
+        "k": {"precision_k": 12}, "plain": {}}[case])
+    gen = torch.Generator().manual_seed(4)
+    reqs = [batching.Request(
+        rid=i, prompt=torch.randint(0, CFG.vocab, (int(n),),
+                                    generator=gen).tolist(),
+        max_new_tokens=6, arrival_step=i)
+        for i, n in enumerate(torch.randint(3, 40, (5,), generator=gen))]
+    eng = batching.ContinuousBatchingEngine(
+        CFG, sc, params, n_lanes=4, max_seq=64, page_size=16,
+        keep_logits=True)
+    for r in eng.run(reqs):
+        req = reqs[r["id"]]
+        toks, rows = batching.reference_generate(
+            CFG, sc, params, req.prompt, req.max_new_tokens, max_seq=64,
+            return_logits=True)
+        assert r["tokens"] == toks
+        assert torch.equal(_bits(r["logits"]), _bits(rows)), r["id"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k", "plain"])
+def test_k_and_plain_step_every_op_lane_bits_at_full_width(cuda_device,
+                                                           case):
+    """Every op of one ragged decode step at Qwen2-7B's width (2 layers):
+    the k path's decode attention goes through kernel 4, the plain
+    backend's matmuls through ``f32_matmul`` on the weights as they lie."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import row_order as ro
+
+    cfg = dataclasses.replace(configs.get("qwen2_7b").FULL, n_layers=2)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    bk = serve.QuantJOps(12) if case == "k" else serve.TorchOps()
+    stacked = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+               for g in ("attn", "mlp") for t in params["layers"][g].values()
+               if t.dim() == 3]
+    seen = {"attn": 0, "mm": []}
+    d_fd, d_mm = fd.flash_decode_attention, ro.f32_matmul
+
+    def spy_fd(*a, **kw):
+        seen["attn"] += 1
+        return d_fd(*a, **kw)
+
+    def spy_mm(x, w):
+        seen["mm"].append((w.data_ptr(), w.is_contiguous()))
+        return d_mm(x, w)
+
+    # the wrappers count their launches under their module-level names
+    spy_fd.launches = spy_mm.launches = 0
+    fd.flash_decode_attention, ro.f32_matmul = spy_fd, spy_mm
+    try:
+        got = chip_smoke.op_lane_bits(torch, serve, T, cfg, params, bk)
+    finally:
+        fd.flash_decode_attention, ro.f32_matmul = d_fd, d_mm
+    print(got)
+    assert got["ops"] > 0 and got["differing"] == [], got["differing"]
+    assert {"decode_attention", "matmul"} <= set(got["by_op"])
+    assert seen["attn"] > 0
+    if case == "plain":
+        # every projection reads its weights in place: a contiguous view
+        # into the layer's slice of a stacked parameter (5 forwards: the
+        # batch, then each of the 4 lanes alone; the LM head reads its
+        # transposed table)
+        in_place = [c for p, c in seen["mm"]
+                    if any(lo <= p < hi for lo, hi in stacked)]
+        assert len(in_place) == 5 * 7 * cfg.n_layers and all(in_place)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 9, 64), (1, 2, 4, 130),
+                                   (1, 2, 4, 66)])
+def test_card_decode_attention_raises_outside_kernel_limits(cuda_device,
+                                                            shape):
+    B, K, G, D = shape
+    q = torch.zeros(shape, device=cuda_device)
+    k = torch.zeros((B, 32, K, D), device=cuda_device)
+    lengths = torch.ones(B, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        serve.TorchOps().decode_attention(q, k, k.clone(), lengths)
+    with pytest.raises(ValueError):           # f64 is outside them too
+        serve.TorchOps(torch.float64).decode_attention(
+            q[..., :64].double(), k[..., :64].double(),
+            k[..., :64].double(), lengths)
+
+
+def test_cpu_decode_attention_composes_and_matmul_is_the_library():
+    """On the CPU nothing reroutes: the fused hook returns None (the
+    composed path) and ``matmul`` equals ``torch.matmul`` bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 2, 4, 16, generator=gen)
+    k = torch.randn(2, 8, 2, 16, generator=gen)
+    lengths = torch.tensor([3, 8], dtype=torch.int32)
+    for bk in (serve.TorchOps(), serve.QuantJOps(12)):
+        assert bk.decode_attention(q, k, k, lengths) is None
+    x, w = torch.randn(3, 5, 64, generator=gen), torch.randn(64, 32,
+                                                             generator=gen)
+    assert torch.equal(_bits(serve.TorchOps().matmul(x, w)),
+                       _bits(torch.matmul(x, w)))
 
 
 @pytest.mark.cuda

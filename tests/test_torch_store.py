@@ -2,8 +2,7 @@
 against the JAX package's: the same params digest for the same numbers,
 the same request keys, entries written by one package read by the other,
 the same stats for the same sequence of reads, and the same ServeConfig
-resolved from a store hit. A miss raises in the port (certifying on first
-use waits for the certification pipeline)."""
+resolved from a store hit. A miss certifies on first use and persists."""
 import dataclasses
 import os
 import shutil
@@ -153,13 +152,23 @@ def test_serving_certificate_key_equals_reference(params, tmp_path,
 
 
 def test_store_miss_raises(params, tmp_path):
+    """A miss no longer raises: ``serving_certificate`` certifies on first
+    use and persists the set under the same key; the second call, and
+    ``apply_certificates``, are store hits."""
     _, tp = params
-    with pytest.raises(LookupError, match="certification pipeline"):
-        tpipeline.serving_certificate("qwen2_7b", TCFG, tp, str(tmp_path))
+    cs = tpipeline.serving_certificate("qwen2_7b", TCFG, tp, str(tmp_path))
+    assert cs.meta["from_store"] is False and cs.serving_k is not None
+    key, _ = tpipeline.serving_request("qwen2_7b", TCFG,
+                                       tstore.params_digest(tp))
+    assert os.listdir(tmp_path) == [f"{key}.json"]
+    again = tpipeline.serving_certificate("qwen2_7b", TCFG, tp,
+                                          str(tmp_path))
+    assert again.meta["from_store"] is True
+    assert dataclasses.replace(again, meta=cs.meta).to_json() == cs.to_json()
     sc = tserve.ServeConfig(device="cpu", certificates=str(tmp_path))
-    with pytest.raises(LookupError):
-        tserve.apply_certificates(sc, TCFG, tp)
-    assert os.listdir(tmp_path) == []          # nothing was certified
+    sc2, hit = tserve.apply_certificates(sc, TCFG, tp)
+    assert hit.meta["from_store"] is True
+    assert sc2.precision_k == cs.serving_k
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +281,7 @@ def test_apply_certificates_without_precision_raises_like_reference(
 def test_serve_main_serves_from_the_store(tmp_path):
     """``--certificates`` on the serve CLI: the set stored for the CLI's
     own seeded params (found by their digest) is served, with its error
-    bars; without an entry the CLI raises."""
+    bars (a miss certifies: ``test_store_miss_raises``)."""
     tp = TT.init_params(TCFG, generator=torch.Generator().manual_seed(0),
                         device="cpu")
     digest = tstore.params_digest(tp)
@@ -282,8 +291,6 @@ def test_serve_main_serves_from_the_store(tmp_path):
     argv = ["--device", "cpu", "--batch", "1", "--prefill-len", "4",
             "--decode-steps", "2", "--certificates", str(tmp_path),
             "--certify-formats"]
-    with pytest.raises(LookupError):
-        tserve.main(argv)
     tstore.CertificateStore(str(tmp_path)).put(key, cs, request=request)
     res = tserve.main(argv)
     assert res.config.precision_layer_format == cs.serving_layer_format

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Serve the format-map path of one source tree and print what it served.
+"""Serve the format-map (or a uniform-k) path of one source tree; print it.
 
     python3 tools/serve_tokens.py --src SRC_DIR
 
@@ -12,9 +12,11 @@ the sha256 of the logits as ``chip_smoke.py`` takes it, every lane's
 tokens, and every lane's top-1 logit gap (largest minus second largest
 logit) at each token, so that two trees' tokens can be compared and a token
 that differs be weighed by how near its choice was to a tie, with the run's
-decode ms a step (host clock). ``--batching`` then serves the ``batching``
+decode ms a step (host clock). ``--precision-k K`` serves the uniform-k
+path (``serve_k``'s: kernel 3 and the k backends' decode attention) in
+place of the format map. ``--batching`` then serves the ``batching``
 phase's 8 requests through the continuous-batching engine on the same
-weights under the same format map (4 lanes, 256 positions, pages of 16, 24
+weights under the same precision (4 lanes, 256 positions, pages of 16, 24
 pages) and adds its decode ms a step and every request's tokens. Run two
 trees in turns within one chip call to compare their times. Needs a CUDA
 device; imports nothing of JAX.
@@ -36,6 +38,8 @@ def main() -> int:
                     help="a src directory holding repro_torch")
     ap.add_argument("--batching", action="store_true",
                     help="also serve the batching phase's requests")
+    ap.add_argument("--precision-k", type=int, default=None,
+                    help="serve a uniform k in place of the format map")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
@@ -48,8 +52,10 @@ def main() -> int:
     import repro_torch
     from repro_torch.launch import serve
 
-    res = serve.main(cs.serve_argv("--layer-format",
-                                   json.dumps(cs.SERVE_FORMAT)))
+    precision = (["--precision-k", str(args.precision_k)]
+                 if args.precision_k is not None else
+                 ["--layer-format", json.dumps(cs.SERVE_FORMAT)])
+    res = serve.main(cs.serve_argv(*precision))
     digest, gaps = hashlib.sha256(), []
     for lg in [res.prefill_logits] + res.decode_logits:
         digest.update(lg.detach().float().cpu().numpy().tobytes())
@@ -68,7 +74,10 @@ def main() -> int:
         sc = serve.ServeConfig(arch="qwen2_7b",
                                batch=cs.BATCH_ENGINE["n_lanes"],
                                max_seq=cs.BATCH_ENGINE["max_seq"],
-                               precision_layer_format=cs.SERVE_FORMAT)
+                               **({"precision_k": args.precision_k}
+                                  if args.precision_k is not None else
+                                  {"precision_layer_format":
+                                   cs.SERVE_FORMAT}))
         reqs, _ = cs.batching_requests(torch, batching, res.cfg.vocab)
         engine = batching.ContinuousBatchingEngine(
             res.cfg, sc, res.params, device="cuda", **cs.BATCH_ENGINE)
