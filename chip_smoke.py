@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
-port's eight CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
+port's nine CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
 ``build/repro_torch/``; the ``build`` line carries registers, shared memory
 and spills of every kernel), holds the two certified GEMMs bit for bit
 against their sequential-order plain versions on sampled columns of every
@@ -24,6 +24,13 @@ sha256 of its logits and a profiler trace of its decode steps):
 * ``serve_k`` / ``serve_mixed`` — the same model at a uniform certified
   k = 12, and from a v2 certificate set with a per-layer k map (kernel
   ``quant_matmul``);
+* ``serve_monitor`` — ``serve``'s run again under a certificate-violation
+  monitor (``--monitor --metrics --prom --trace``, a v3 set whose
+  ``scope_ranges`` are the per-label maxima of a first monitored pass):
+  logits bit for bit ``serve``'s, one ``numeric_health`` launch and one
+  observation a GEMM, silent at the observed maxima, firing with
+  ``layer*/mlp`` halved, one more device-to-host copy a decode step; then
+  the same at the uniform k = 12 against ``serve_k``;
 * ``profile`` — the kernel profiler (every kernel, ``flash_decode_attention``
   among them) and the serving profile (at the reference's SMOKE defaults
   and at full width), under the port's JSONL tracer;
@@ -51,7 +58,8 @@ sha256 of its logits and a profiler trace of its decode steps):
   ``certify_lm`` uniform and mixed + formats with seconds and peak memory
   per stage, served by ``launch/batching.py --certificates`` if it
   certifies; the nano LM certified on card and CPU and its own format and
-  k maps served, logits bit for bit ``reference_generate``'s;
+  k maps served, logits bit for bit ``reference_generate``'s, and its v3
+  set served under a violation monitor on card and CPU, counters equal;
 * ``analyze`` — the paper's Table-I flow (``examples/quickstart.py``) on
   the Digits model at its full width 784→700→256→10, trained on the card,
   with Pendulum and ConvNet at their defaults, then again on the CPU with
@@ -75,12 +83,14 @@ result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
 import hashlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -115,7 +125,7 @@ MIXED_LAYER_K = {"layer*/attn": 12, "layer*/mlp": 10, "layer0/mlp": 14}
 GEMM_KS = (8, 12, 24)
 KERNELS = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
            "flash_decode_attention", "caa_matmul", "interval_matmul",
-           "row_mean", "f32_matmul")
+           "row_mean", "f32_matmul", "numeric_health")
 
 
 def emit(phase: str, **fields) -> None:
@@ -919,8 +929,9 @@ def phase_flash_decode_attention(torch, fd):
 
 
 def kernel_fns(qmm, fd):
-    """The eight kernel wrappers by name; each counts its launches."""
+    """The nine kernel wrappers by name; each counts its launches."""
     from repro_torch.kernels import caa_matmul as cm
+    from repro_torch.kernels import health
     from repro_torch.kernels import interval_matmul as im
     from repro_torch.kernels import row_order as ro
 
@@ -930,11 +941,14 @@ def kernel_fns(qmm, fd):
             "flash_decode_attention": fd.flash_decode_attention,
             "caa_matmul": cm.caa_matmul,
             "interval_matmul": im.interval_matmul,
-            "row_mean": ro.row_mean, "f32_matmul": ro.f32_matmul}
+            "row_mean": ro.row_mean, "f32_matmul": ro.f32_matmul,
+            "numeric_health": health.numeric_health}
 
 
-# the serving and profile paths launch neither analysis kernel
-ANALYSIS_KERNELS_IDLE = {"caa_matmul": 0, "interval_matmul": 0}
+# the serving and profile paths launch neither analysis kernel, and
+# without a violation monitor no health kernel
+IDLE_ON_SERVING = {"caa_matmul": 0, "interval_matmul": 0,
+                   "numeric_health": 0}
 
 
 def row_order_launches(forwards: int, n_layers: int = None):
@@ -1021,9 +1035,6 @@ def serve_report(torch, res, launches, expected, ref_logits):
     served = res.prefill_logits[0, -1].double()
     ref = ref_logits[0, -1].double()
     top2 = torch.topk(served, 2).values
-    digest = hashlib.sha256()
-    for lg in [res.prefill_logits] + res.decode_logits:
-        digest.update(lg.detach().float().cpu().numpy().tobytes())
     n_params = sum(t.numel() for t in _leaves(res.params))
     return dict(
         config="qwen2_7b.FULL", n_layers=res.cfg.n_layers,
@@ -1038,7 +1049,7 @@ def serve_report(torch, res, launches, expected, ref_logits):
         init_s=res.timing["init_s"],
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         sample_tokens=res.tokens[0].tolist(),
-        logits_sha256=digest.hexdigest(),
+        logits_sha256=logits_sha256(res),
         replay_vs_plain={
             "max_abs_dlogits": float((served - ref).abs().max()),
             "argmax_agrees": bool(served.argmax() == ref.argmax()),
@@ -1058,6 +1069,8 @@ def replay_prefill(torch, serve, T, res, bk):
 
 GEMM_KERNEL_NAMES = ("quant_gemv_kernel", "quant_sgemm_kernel")  # 1 and 3
 HEAD_KERNEL_MARK = "PassThrough"  # the same body as the LM head (f32_matmul)
+HEALTH_KERNEL_MARK = "numeric_health_kernel"
+DTOH_MARK = "Memcpy DtoH"
 TRACE_STEPS = 8
 STEP_MARK = "chip_smoke.decode_step"
 
@@ -1068,15 +1081,17 @@ def op_device_us(e):
             + sum(op_device_us(c) for c in e.cpu_children))
 
 
-def step_split(prof):
+def step_split(prof, names=False):
     """Per decode step of a profiler trace whose steps each open a
     ``record_function(STEP_MARK)``, over the window from one step's start
     to the next (so the last step only closes a window): its length, and
     the device ms of the GEMM kernels (1 and 3), of attention (kernel 2's
     chunk and combine kernels, or the composed path's einsum and softmax
     ops), of the LM head (the f32_matmul kernel: the GEMM body
-    instantiated with its PassThrough functor), of the other kernels, and
-    the gap in which the device was idle."""
+    instantiated with its PassThrough functor), of the violation monitor's
+    health kernel, of the other kernels, and the gap in which the device
+    was idle; and its counts of device activities (kernels, copies and
+    fills), health kernels and device-to-host copies."""
     from torch.autograd import DeviceType
 
     evts = list(prof.events())
@@ -1102,25 +1117,47 @@ def step_split(prof):
         # the composed attention's einsum and softmax ops (the LM head is
         # no longer an einsum on the card)
         attn += sum(op_device_us(o) for o in filter(inside, ops))
+        health = [e for e in ks if HEALTH_KERNEL_MARK in e.name]
+        health_us = sum(e.time_range.elapsed_us() for e in health)
         rows.append({"ms": (hi - lo) / 1e3, "gemm_ms": gemm / 1e3,
                      "attention_ms": attn / 1e3, "lm_head_ms": lm_head / 1e3,
-                     "other_ms": (busy - gemm - attn - lm_head) / 1e3,
+                     "health_ms": health_us / 1e3,
+                     "other_ms": (busy - gemm - attn - lm_head
+                                  - health_us) / 1e3,
                      "idle_ms": (hi - lo - busy) / 1e3,
-                     "kernels": len(ks)})
+                     "kernels": len(ks), "health_kernels": len(health),
+                     "dtoh_copies": sum(DTOH_MARK in e.name for e in ks)})
     if not rows:
         raise AssertionError("the trace holds no decode step")
+    counts = ("kernels", "health_kernels", "dtoh_copies")
+    # the whole trace's counts need no window: every traced step ends in a
+    # synchronize inside the profiler, so each of its device activities
+    # is in the trace once, wherever its timestamp puts it
+    whole = {"kernels": len(kernels),
+             "health_kernels": sum(HEALTH_KERNEL_MARK in e.name
+                                   for e in kernels),
+             "dtoh_copies": sum(DTOH_MARK in e.name for e in kernels),
+             "steps": len(starts)}
+    if names:
+        whole["by_name"] = dict(collections.Counter(e.name for e in kernels))
     return {key: sorted(r[key] for r in rows)[len(rows) // 2]
-            for key in rows[0]} | {"steps_traced": len(rows)}
+            for key in rows[0]} | {"steps_traced": len(rows),
+                                   "per_step": {key: [r[key] for r in rows]
+                                                for key in counts},
+                                   "whole_trace": whole}
 
 
-def decode_trace(torch, serve, T, res):
+def decode_trace(torch, serve, T, res, monitor=None, names=False):
     """Decode steps of a served run's own weights, backend and prompt from
     a fresh cache: TRACE_STEPS timed by the host clock (each ends in a
     synchronize; their median), then TRACE_STEPS + 1 under torch.profiler
-    split by :func:`step_split` (medians over the steps)."""
+    split by :func:`step_split` (medians over the steps; with ``names``,
+    the whole trace's activities counted by name too). With a violation
+    ``monitor``, every step ends in its ``flush()`` as the serving loop's
+    steps do."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    bk = serve._backend(res.config)
+    bk = serve._backend(res.config, monitor)
     cache = T.init_cache(res.cfg, res.prompt.shape[0],
                          SERVE_PROMPT + SERVE_STEPS + 1,
                          device=res.prompt.device)
@@ -1129,11 +1166,15 @@ def decode_trace(torch, serve, T, res):
         logits, state["cache"] = serve.prefill_step(bk, res.params, res.cfg,
                                                     cache, res.prompt)
         state["tok"] = torch.argmax(logits[:, -1, :], dim=-1)
+        if monitor is not None:
+            monitor.flush()
 
         def step():
             state["tok"], _, state["cache"] = serve.decode_step(
                 bk, res.params, res.cfg, state["cache"],
                 state["tok"][:, None], state["pos"])
+            if monitor is not None:
+                monitor.flush()
             torch.cuda.synchronize()
             state["pos"] += 1
 
@@ -1148,7 +1189,7 @@ def decode_trace(torch, serve, T, res):
                 with record_function(STEP_MARK):
                     step()
     return {"host_ms_median": sorted(host)[len(host) // 2],
-            "host_ms": host, "traced": step_split(prof)}
+            "host_ms": host, "traced": step_split(prof, names)}
 
 
 def phase_serve(torch, serve, qmm, fd, T):
@@ -1181,7 +1222,7 @@ def phase_serve(torch, serve, qmm, fd, T):
     expected = {"quant_matmul_format": 7 * L_FULL * (1 + SERVE_STEPS),
                 "flash_decode_certified": L_FULL * SERVE_STEPS,
                 "quant_matmul": 0, "flash_decode_attention": 0,
-                **ANALYSIS_KERNELS_IDLE,
+                **IDLE_ON_SERVING,
                 **row_order_launches(1 + SERVE_STEPS)}
     serve.quant_matmul_format_dispatch = spy_qmm
     serve.certified_decode_attention = spy_fd
@@ -1229,10 +1270,11 @@ def phase_serve(torch, serve, qmm, fd, T):
     if read_launches(fns) != before:
         raise AssertionError("the plain replay launched a kernel")
     trace = decode_trace(torch, serve, T, res)
-    emit("serve", layer_format=SERVE_FORMAT,
-         **serve_report(torch, res, launches, expected, ref_logits),
+    report = serve_report(torch, res, launches, expected, ref_logits)
+    emit("serve", layer_format=SERVE_FORMAT, **report,
          main_path_inputs_vs_plain=main_path, decode_trace=trace)
-    return launches, main_path, res.timing | {"decode_trace": trace}
+    return launches, main_path, res.timing | {
+        "decode_trace": trace, "logits_sha256": report["logits_sha256"]}
 
 
 PROJ_ORDER = tuple(GEMM_SHAPES)   # the order a layer launches its GEMMs
@@ -1282,7 +1324,7 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
     expected = {"quant_matmul_format": 0, "flash_decode_certified": 0,
                 "quant_matmul": 7 * L_FULL * (1 + SERVE_STEPS),
                 "flash_decode_attention": L_FULL * SERVE_STEPS,
-                **ANALYSIS_KERNELS_IDLE,
+                **IDLE_ON_SERVING,
                 **row_order_launches(1 + SERVE_STEPS)}
     # kernel 4 (TorchOps.decode_attention): its first and last launches
     fd_spy = FirstLastSpy(fd.flash_decode_attention)
@@ -1320,16 +1362,16 @@ def phase_serve_k(torch, serve, qmm, fd, T, name, extra, want_ks):
     if read_launches(fns) != before:
         raise AssertionError("the plain replay launched a kernel")
     trace = decode_trace(torch, serve, T, res)
+    report = serve_report(torch, res, launches, expected, ref_logits)
     emit(name, precision_k=res.config.precision_k,
          precision_layer_k=res.config.precision_layer_k,
          backend=type(serve._backend(res.config)).__name__,
-         resolved_k_layers01=resolved,
-         **serve_report(torch, res, launches, expected, ref_logits),
+         resolved_k_layers01=resolved, **report,
          main_path_inputs_vs_plain={"quant_matmul": main_path,
                                     "flash_decode_attention": attn_path},
          decode_trace=trace)
     return launches, main_path, attn_path, res.timing | {
-        "decode_trace": trace}
+        "decode_trace": trace, "logits_sha256": report["logits_sha256"]}
 
 
 def flash_attention_rows(torch, fd, seen):
@@ -1346,6 +1388,405 @@ def flash_attention_rows(torch, fd, seen):
 def uniform_ks(k_attn, k_mlp):
     return {p: (k_attn if p in ("wq", "wk", "wv", "wo") else k_mlp)
             for p in PROJ_ORDER}
+
+
+# ---------------------------------------------------------------------------
+# certificate-violation monitors on the certified serving path
+# ---------------------------------------------------------------------------
+
+MONITOR_LABELS = ("layer*/attn", "layer*/mlp")
+MONITOR_WIDE = 1e30               # the first pass's envelopes: finite, wide
+MLP_OBSERVATIONS = 3 * L_FULL * (1 + SERVE_STEPS)     # gate, up, down
+HEALTH_REPLACES = ("none: port-only (XLA computes the stats in the "
+                   "reference, src/repro/core/quantize.py:213 "
+                   "numeric_health, read through one jax.debug.callback "
+                   "a matmul, src/repro/launch/serve.py:41)")
+HEALTH_FORMAT = FORMATS["k12_e15"]
+
+
+def write_monitor_set(spec, name, ranges, required_k, layer_format=None):
+    """A schema-v3 CertificateSet file: one certificate (``required_k``,
+    the format map ``layer_format`` when given) and set-level
+    ``scope_ranges`` ``ranges`` {label: max_abs}. Nothing certified it:
+    Qwen2-7B does not certify at full width (PERF.md §6), so its bounds are
+    +inf ("no bound of this kind") and its ranges come from what the
+    smoke observed; the set only drives the monitored serving path."""
+    from repro_torch.core import formats
+
+    fmts = None
+    if layer_format is not None:
+        fmts = {s: formats.FpFormat(
+            f"custom_k{f['k']}_e{f['emax']}_{f['emin']}", k=f["k"],
+            emax=f["emax"], emin=f["emin"]).to_dict()
+            for s, f in layer_format.items()}
+    cert = spec.Certificate(
+        model_id="qwen2-7b/chip-smoke", params_digest="0" * 64,
+        class_key="prompt128", cfg=spec.CaaConfig(),
+        bounds_u_max=2.0 ** (1 - required_k), final_abs_u=float("inf"),
+        final_rel_u=float("inf"), required_k=required_k, satisfied_by=[],
+        layer_format=fmts)
+    cs = spec.CertificateSet(
+        model_id=cert.model_id, params_digest=cert.params_digest,
+        certificates=[cert], meta={"formats": {
+            "applied": True, "scope_ranges": {
+                s: {"max_abs": float(v)} for s, v in ranges.items()},
+            "note": "observed maxima of the chip smoke, not certified"}})
+    path = ROOT / "build" / f"chip_smoke_{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(cs.to_json())
+    return path
+
+
+class RecordingMonitor:
+    """Stands in for ``serve.ViolationMonitor`` during a run: the same
+    monitor, which also keeps the largest max_abs each label observed."""
+
+    def __init__(self, serve):
+        self.serve, self.cls = serve, serve.ViolationMonitor
+        self.maxima = {}
+
+        rec = self
+
+        class Monitor(self.cls):
+            def observe_scope(self, scope, stats):
+                label = "/".join(scope)
+                rec.maxima[label] = max(rec.maxima.get(label, 0.0),
+                                        stats["max_abs"])
+                return super().observe_scope(scope, stats)
+
+        self.monitor_cls = Monitor
+
+    def __enter__(self):
+        self.serve.ViolationMonitor = self.monitor_cls
+        return self
+
+    def __exit__(self, *exc):
+        self.serve.ViolationMonitor = self.cls
+
+
+def monitor_argv(set_path, out, tag):
+    return serve_argv("--certificate-set", str(set_path), "--monitor",
+                      "--metrics", str(out / f"{tag}_metrics.jsonl"),
+                      "--prom", str(out / f"{tag}.prom"),
+                      "--trace", str(out / f"{tag}_trace.jsonl"))
+
+
+def monitored_expected(gemm, attn, observations):
+    """Launches of a monitored full-width serve: the path's GEMM and
+    decode-attention kernels, one health kernel a GEMM, and the error
+    sample's one full-precision prefill (TorchOps: f32_matmul on every
+    projection and the head, row_mean on every rmsnorm)."""
+    counts = {"quant_matmul_format": 0, "flash_decode_certified": 0,
+              "quant_matmul": 0, "flash_decode_attention": 0,
+              "caa_matmul": 0, "interval_matmul": 0,
+              "numeric_health": observations}
+    counts[gemm] = 7 * L_FULL * (1 + SERVE_STEPS)
+    counts[attn] = L_FULL * SERVE_STEPS
+    rows = row_order_launches(1 + SERVE_STEPS + 1)
+    rows["f32_matmul"] += 7 * L_FULL
+    return counts | rows
+
+
+def run_monitored(torch, serve, fns, argv, expected, sha=None):
+    """A monitored ``serve.main`` with every launch count set to 0 just
+    before and read just after; raises unless the counts, the monitor's
+    observations and (given ``sha``) the logits' sha256 are as expected."""
+    res, launches = run_serve(torch, serve, fns, argv, expected)
+    mon = res.monitor
+    if mon is None or mon.pending:
+        raise AssertionError("the run has no monitor, or left rows unfolded")
+    obs_n = mon.counters["obs.scope_observations"]
+    if obs_n != expected["numeric_health"]:
+        raise AssertionError(f"{obs_n} observations, not "
+                             f"{expected['numeric_health']}")
+    digest = logits_sha256(res)
+    if sha is not None and digest != sha:
+        raise AssertionError(f"monitored logits {digest} != {sha}")
+    return res, launches, digest
+
+
+def logits_sha256(res):
+    digest = hashlib.sha256()
+    for lg in [res.prefill_logits] + res.decode_logits:
+        digest.update(lg.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def health_edge_inputs(torch):
+    """NaN, ±inf, −0, f32 subnormals, all zero, all beyond max_finite."""
+    inf, nan = float("inf"), float("nan")
+    sub = torch.arange(1, 5001, dtype=torch.float32) * 2.0 ** -149
+    return {
+        "specials": torch.tensor([nan, inf, -inf, -0.0, 0.0, 1.5, -2.0,
+                                  2.0 ** -140, -2.0 ** -140, 2.0 ** -149,
+                                  3e38]),
+        "all_zero": torch.zeros(1000), "neg_zero": torch.full((77,), -0.0),
+        "all_nan": torch.full((33,), nan), "subnormals": sub,
+        "all_over": torch.full((4099,), 3.0e38)}
+
+
+def health_vs_plain(torch, health, x, fmt):
+    """The kernel's row and the plain version's row for ``x``; raises
+    unless every stat is equal bit for bit."""
+    from repro_torch.core.quantize import numeric_health as plain
+
+    got = health.init_rows(1, x.device)
+    health.numeric_health(x.contiguous(), *fmt, got, 0)
+    want = health.init_rows(1, x.device)
+    health.pack_row(plain(x, *fmt), want[0])
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"numeric_health {tuple(x.shape)} {fmt}: "
+            f"{health.unpack_rows(got.cpu())} != "
+            f"{health.unpack_rows(want.cpu())}")
+    return health.unpack_rows(got.cpu())[0]
+
+
+def health_timing(torch, health, M, N, gen):
+    """One launch at [M, N] (a projection's product): device time of the
+    kernel and of its plain version from a profiler trace; at decode the
+    product is hot in the L2 (the GEMM just wrote it), at prefill rotated
+    through copies that exceed the L2."""
+    from repro_torch.core.quantize import numeric_health as plain
+
+    x = torch.randn(M, N, device="cuda", generator=gen)
+    copies = [x] if M <= 8 else weight_copies(torch, x)
+    row = health.init_rows(1, "cuda")
+    fmt = HEALTH_FORMAT
+    kernel = lambda t: health.numeric_health(t, *fmt, row, 0)
+    ref = lambda t: health.pack_row(plain(t, *fmt), row[0])
+    iters = 200 if M <= 8 else 30
+    n_bytes = 4.0 * M * N + 4 * 8
+    bound, by = bound_ms(n_bytes, 4.0 * M * N)
+    out = {"M": M, "N": N, "ms": trace_ms(torch, kernel, copies, iters),
+           "plain_ms": trace_ms(torch, ref, copies, iters),
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    del copies
+    return out
+
+
+def phase_serve_monitor(torch, serve, qmm, fd, T, shas):
+    """Monitored certified serving at full width, through ``serve.main``
+    with ``--monitor --metrics --prom --trace`` and a v3 certificate-set
+    file: the serve run's format map, then the uniform k = 12.
+
+    A first pass under finite, very wide envelopes records every label's
+    largest max_abs; the set's ``scope_ranges`` are then those observed
+    maxima (not certified: Qwen2-7B does not certify at full width). Gates:
+    logits bit for bit ``serve``'s (``serve_k``'s at k = 12); exact
+    launches (one health kernel and one observation a GEMM); silent at the
+    observed maxima; ``layer*/mlp`` halved fires 1..1,428 times, the same
+    count twice, only that label's margin negative; a monitored decode
+    step has one more device-to-host copy, 196 more health kernels and at
+    most one more launch (the log's re-initialisation) than the
+    unmonitored one; the trace validates and ``python -m repro_torch.obs
+    report`` renders it; the health kernel bit for bit its plain version
+    on the path's own products and on edge inputs."""
+    from repro_torch import obs
+    from repro_torch.certify import spec
+    from repro_torch.kernels import health
+
+    emit("free", before="serve_monitor", allocated_gb=free_device_memory(
+        torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    out = ROOT / "build" / "chip_smoke_monitor"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*"):
+        f.unlink()
+    n_obs = 7 * L_FULL * (1 + SERVE_STEPS)
+    expected = monitored_expected("quant_matmul_format",
+                                  "flash_decode_certified", n_obs)
+    wide = {label: MONITOR_WIDE for label in MONITOR_LABELS}
+
+    # pass 1: wide envelopes record each label's largest max_abs
+    with RecordingMonitor(serve) as rec:
+        res, _, _ = run_monitored(
+            torch, serve, fns, monitor_argv(write_monitor_set(
+                spec, "monitor_wide", wide, 24, SERVE_FORMAT), out, "wide"),
+            expected, shas["serve"])
+    maxima = dict(rec.maxima)
+    if sorted(maxima) != sorted(MONITOR_LABELS) or res.monitor.violations:
+        raise AssertionError(f"wide pass: labels {sorted(maxima)}, "
+                             f"violations {res.monitor.violations}")
+    del res
+    free_device_memory(torch)
+
+    # pass 2: envelopes at the observed maxima; the health kernel's inputs
+    dispatch = health.numeric_health_dispatch
+    products = {}
+
+    def spy(x, k, emax, emin, buf, row):
+        x2 = x.reshape(-1, x.shape[-1])
+        key = (*x2.shape, (k, emax, emin))
+        if key not in products:
+            products[key] = x2.clone()
+        return dispatch(x, k, emax, emin, buf, row)
+
+    at_max = write_monitor_set(spec, "monitor_at_max", maxima, 24,
+                               SERVE_FORMAT)
+    health.numeric_health_dispatch = spy
+    try:
+        res, launches, digest = run_monitored(
+            torch, serve, fns, monitor_argv(at_max, out, "at_max"),
+            expected, shas["serve"])
+    finally:
+        health.numeric_health_dispatch = dispatch
+    summary = res.monitor.summary()
+    if summary["violations"] != 0 or summary["counters"][
+            "obs.enclosure_violations"]:
+        raise AssertionError(f"at the observed maxima: {summary}")
+    snapshot = json.loads((out / "at_max_metrics.jsonl").read_text()
+                          .splitlines()[-1])
+    events = obs.load_events(str(out / "at_max_trace.jsonl"))
+    errors = obs.validate_events(events)
+    if errors:
+        raise AssertionError(f"trace invalid: {errors[:5]}")
+    report = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "report",
+         str(out / "at_max_trace.jsonl")], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if report.returncode != 0 or "serve.decode" not in report.stdout:
+        raise AssertionError(f"obs report failed: {report.stderr[-2000:]}")
+
+    # the health kernel against its plain version, bit for bit
+    shapes_checked = []
+    for (M, N, fmt), x in sorted(products.items()):
+        st = health_vs_plain(torch, health, x, fmt)
+        shapes_checked.append({"M": M, "N": N, "format": list(fmt),
+                               "max_abs": st["max_abs"],
+                               "n_under": st["n_under"]})
+    del products
+    if {(r["M"], r["N"]) for r in shapes_checked} != {
+            (M, N) for M in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT)
+            for _, N in GEMM_SHAPES.values()}:
+        raise AssertionError(f"products seen: {shapes_checked}")
+    edge_checked = 0
+    for x in health_edge_inputs(torch).values():
+        for fmt in [(k, 15, emin) for k in (8, 12, 24, 26)
+                    for emin in (-6, -14, -126, -150)]:
+            health_vs_plain(torch, health, x.cuda(), fmt)
+            edge_checked += 1
+
+    # decode steps traced with and without the monitor, side by side
+    mon_trace = serve.ViolationMonitor.from_certificate_set(
+        spec.CertificateSet.from_json(at_max.read_text()))
+    plain_trace = decode_trace(torch, serve, T, res, names=True)
+    monitored_trace = decode_trace(torch, serve, T, res, mon_trace,
+                                   names=True)
+    # per step from the whole traces' counts by activity name (the same
+    # steps, each traced from its first launch to its closing
+    # synchronize), not from windows between the steps' marks, whose edges
+    # the device clock's offset against the host's can move an activity
+    # across; rounded, because a trace may miss a few activities of its
+    # first step
+    a, b = (t["traced"]["whole_trace"] for t in (plain_trace,
+                                                 monitored_trace))
+    n = a["steps"]
+    per_name = {name: round((b["by_name"].get(name, 0)
+                             - a["by_name"].get(name, 0)) / n)
+                for name in set(a["by_name"]) | set(b["by_name"])}
+    extra = {"health_kernels": sum(v for k, v in per_name.items()
+                                   if HEALTH_KERNEL_MARK in k),
+             "dtoh_copies": sum(v for k, v in per_name.items()
+                                if DTOH_MARK in k),
+             "other": {k: v for k, v in per_name.items() if v and not (
+                 HEALTH_KERNEL_MARK in k or DTOH_MARK in k)},
+             "kernels": (b["kernels"] - a["kernels"]) / n}
+    for t in (a, b):
+        del t["by_name"]
+    if (b["steps"] != n or extra["dtoh_copies"] != 1
+            or extra["health_kernels"] != 7 * L_FULL
+            or sum(max(v, 0) for v in extra["other"].values()) > 1):
+        raise AssertionError(
+            f"a monitored decode step adds {extra}: unmonitored {a} "
+            f"{plain_trace['traced']['per_step']}, monitored {b} "
+            f"{monitored_trace['traced']['per_step']}")
+    timing = res.timing
+    del res
+    free_device_memory(torch)
+
+    # layer*/mlp halved, twice: fires, the same count, only that label
+    halved = dict(maxima, **{"layer*/mlp": maxima["layer*/mlp"] / 2})
+    half_set = write_monitor_set(spec, "monitor_mlp_halved", halved, 24,
+                                 SERVE_FORMAT)
+    fired = []
+    for i in range(2):
+        res, _, _ = run_monitored(
+            torch, serve, fns, monitor_argv(half_set, out, f"halved{i}"),
+            expected, shas["serve"])
+        s = res.monitor.summary()
+        negative = sorted(lb for lb, m in s["scope_margin_log2"].items()
+                          if m < 0)
+        fired.append({"enclosure_violations":
+                      s["counters"]["obs.enclosure_violations"],
+                      "negative_margins": negative,
+                      "scope_margin_log2": s["scope_margin_log2"]})
+        del res
+        free_device_memory(torch)
+    n_fired = fired[0]["enclosure_violations"]
+    if (not 1 <= n_fired <= MLP_OBSERVATIONS
+            or fired[1]["enclosure_violations"] != n_fired
+            or any(f["negative_margins"] != ["layer*/mlp"] for f in fired)):
+        raise AssertionError(f"halved layer*/mlp: {fired}")
+
+    # the uniform k = 12, monitored
+    expected_k = monitored_expected("quant_matmul", "flash_decode_attention",
+                                    n_obs)
+    res_k, launches_k, digest_k = run_monitored(
+        torch, serve, fns, monitor_argv(write_monitor_set(
+            spec, "monitor_k12", wide, SERVE_K), out, "k12"),
+        expected_k, shas["serve_k"])
+    k_summary = res_k.monitor.summary()
+    if k_summary["violations"]:
+        raise AssertionError(f"k = 12 under wide envelopes: {k_summary}")
+    k_timing = res_k.timing
+    del res_k
+    free_device_memory(torch)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    health_rows = [health_timing(torch, health, M, N, gen)
+                   for M in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT)
+                   for _, N in GEMM_SHAPES.values()]
+    per_layer = {M: {key: sum(r[key] for r in health_rows if r["M"] == M)
+                     for key in ("ms", "plain_ms", "bound_ms")}
+                 for M in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT)}
+    for M, t in per_layer.items():
+        t.update(bound_by="bytes", library_ms=None,
+                 us_per_launch=1e3 * t["ms"] / len(GEMM_SHAPES))
+
+    emit("serve_monitor",
+         note="monitored certified serving at full width through "
+              "serve.main --monitor --metrics --prom --trace; the set's "
+              "scope_ranges are the per-label maxima of a first monitored "
+              "pass under wide envelopes, not certified (Qwen2-7B does not "
+              "certify at full width)",
+         observed_maxima=maxima, launches=launches,
+         expected_launches=expected, logits_sha256=digest,
+         serve_sha256=shas["serve"], summary=summary,
+         sampled_err_u=summary["worst_err_u"],
+         snapshot_keys={part: sorted(snapshot[part]) for part in
+                        ("counters", "gauges", "histograms")},
+         trace_events=len(events), report_lines=len(
+             report.stdout.splitlines()),
+         mlp_halved=fired, mlp_observations=MLP_OBSERVATIONS,
+         health_vs_plain={"products": shapes_checked,
+                          "edge_cases": edge_checked},
+         decode_ms_per_step={"monitored": timing["decode_ms_per_step"],
+                             "serve_unmonitored": shas["serve_decode_ms"]},
+         prefill_s=timing["prefill_s"],
+         decode_trace={"unmonitored": plain_trace,
+                       "monitored": monitored_trace, "extra": extra},
+         k12={"launches": launches_k, "expected_launches": expected_k,
+              "logits_sha256": digest_k, "serve_k_sha256": shas["serve_k"],
+              "summary": k_summary,
+              "decode_ms_per_step": k_timing["decode_ms_per_step"]},
+         health_kernel={"rows": health_rows, "per_layer": per_layer,
+                        "format": list(HEALTH_FORMAT)},
+         seconds=time.perf_counter() - t_phase)
+    launches_all = {name: launches[name] + launches_k[name] for name in fns}
+    return launches_all, per_layer, timing | {
+        "decode_trace": monitored_trace}
 
 
 # ---------------------------------------------------------------------------
@@ -1712,7 +2153,7 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
         return {"quant_matmul_format": 7 * L_FULL * (admitted + engine.steps),
                 "flash_decode_certified": L_FULL * engine.steps,
                 "quant_matmul": 0, "flash_decode_attention": 0,
-                **ANALYSIS_KERNELS_IDLE,
+                **IDLE_ON_SERVING,
                 **row_order_launches(admitted + engine.steps)}
 
     # the fixed-order kernels' inputs, the first of each shape
@@ -1830,7 +2271,7 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
         return {"quant_matmul_format": 0, "flash_decode_certified": 0,
                 "quant_matmul": 7 * L_FULL * (admitted + engine.steps),
                 "flash_decode_attention": L_FULL * engine.steps,
-                **ANALYSIS_KERNELS_IDLE,
+                **IDLE_ON_SERVING,
                 **row_order_launches(admitted + engine.steps)}
 
     k_reqs = reqs[:BATCH_K_REQUESTS]
@@ -2009,7 +2450,7 @@ def phase_profile(torch, obs, qmm, fd):
                 "flash_decode_certified": 0,
                 "quant_matmul": 2 * len(shapes) * calls + n_serving,
                 "flash_decode_attention": len(flash_shapes) * calls + n_attn,
-                **ANALYSIS_KERNELS_IDLE,
+                **IDLE_ON_SERVING,
                 **{k: sum(r[k] for r in row_order) for k in row_order[0]}}
     if serving_full["n_layers"] != L_FULL:
         raise AssertionError(f"full-width profile ran "
@@ -3510,6 +3951,10 @@ def certify_nano(torch, C, T, TorchOps, serve, batching, fns, qmm, fd,
         served[tag] = {"launches": launches, "steps": engine.steps,
                        "requests": len(responses), "vs_reference": bits,
                        "kernels_vs_plain": vs_plain}
+    reset_launches(fns)
+    monitored = nano_monitored(torch, T, serve, cfg, cs, params, host)
+    for name, n in read_launches(fns).items():
+        launches_all[name] += n
     return {"config": "qwen2-nano (d 16, 2 x 8 heads, d_ff 32, vocab 256, "
                       "2 layers)",
             "train": {"steps": CERT_NANO_STEPS, "lr": CERT_NANO_LR,
@@ -3517,7 +3962,41 @@ def certify_nano(torch, C, T, TorchOps, serve, batching, fns, qmm, fd,
             "request": {k: list(v) if isinstance(v, tuple) else v
                         for k, v in CERT_NANO.items()},
             "card": cert_summary(cs, secs, peak), "cpu_seconds": cpu_s,
-            "worst_rel_bound_vs_cpu": worst, "served": served}, launches_all
+            "worst_rel_bound_vs_cpu": worst, "served": served,
+            "monitored": monitored}, launches_all
+
+
+def nano_monitored(torch, T, serve, cfg, cs, params, host, steps=3):
+    """The nano's card-certified v3 set served under a violation monitor
+    on its own certification profile (prefill, then ``steps`` greedy
+    decode steps, one ``flush()`` a step), on the card and on the CPU with
+    the same weights; raises unless the counters are equal."""
+    from repro_torch.certify.tokens import profile_tokens
+
+    toks = profile_tokens(CERT_NANO["seed"], CERT_NANO["batch"],
+                          CERT_NANO["seq"], cfg.vocab)
+    sc = serve.apply_certificate_set(serve.ServeConfig(), cs)
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", host)):
+        mon = serve.ViolationMonitor.from_certificate_set(cs)
+        bk = serve._backend(sc, mon)
+        B, S = toks.shape
+        cache = T.init_cache(cfg, B, S + steps + 1, device=dev)
+        with torch.no_grad():
+            logits, cache = serve.prefill_step(bk, p, cfg, cache,
+                                               toks.to(dev))
+            mon.flush()
+            tok = torch.argmax(logits[:, -1], -1)
+            for i in range(steps):
+                tok, _, cache = serve.decode_step(bk, p, cfg, cache,
+                                                  tok[:, None], S + i)
+                mon.flush()
+        out[dev] = mon.summary()
+    if out["cuda"]["counters"] != out["cpu"]["counters"]:
+        raise AssertionError(f"nano monitored: card {out['cuda']} != "
+                             f"CPU {out['cpu']}")
+    return {"envelopes": len(serve.ViolationMonitor.from_certificate_set(
+        cs).envelopes), "card": out["cuda"], "cpu": out["cpu"]}
 
 
 def _to_device(tree, dev):
@@ -3643,6 +4122,12 @@ def main() -> int:
         torch, serve, qmm, fd, T, "serve_k",
         ["--precision-k", str(SERVE_K)],
         {f"layer{i}": uniform_ks(SERVE_K, SERVE_K) for i in range(2)})
+    (by_path["serve_monitor"], health_layer,
+     timings["serve_monitor"]) = phase_serve_monitor(
+        torch, serve, qmm, fd, T, {
+            "serve": timings["serve"]["logits_sha256"],
+            "serve_k": timings["serve_k"]["logits_sha256"],
+            "serve_decode_ms": timings["serve"]["decode_ms_per_step"]})
     v2_set = write_v2_set(spec)
     (by_path["serve_mixed"], mixed_path, mixed_attn_path,
      timings["serve_mixed"]) = (
@@ -3767,6 +4252,15 @@ def main() -> int:
             name, f"src/repro_torch/csrc/{name}.cu", ROW_ORDER_REPLACES[name],
             launches[name], "batching", 0.0, rorows[name]["decode"], what,
             prefill=rorows[name]["prefill"], port_only=True))
+    kernels.append(kernel_row(
+        "numeric_health", "src/repro_torch/csrc/numeric_health.cu",
+        HEALTH_REPLACES, launches["numeric_health"], "serve_monitor", 0.0,
+        health_layer[SERVE_BATCH],
+        "the violation monitor's stats of the 7 GEMM products of one layer "
+        "at decode (4 rows), hot in the L2 as the GEMM leaves them; "
+        "library_ms null: no single PyTorch call computes the five stats",
+        prefill_per_layer=health_layer[SERVE_BATCH * SERVE_PROMPT],
+        port_only=True))
     for row in kernels:
         row["profile_roofline_frac"] = roofline.get(
             {"flash_decode_attention": "flash_decode"}.get(row["name"],

@@ -260,6 +260,30 @@ def _log_maps(cs):
             log.info("custom formats not applied", reason=fm.get("reason"))
 
 
+def _append_run(args, cs, n_probes: int) -> None:
+    """The reference's ``runs`` trajectory entry of a fresh certification,
+    into the port's own ``BENCH_torch_runs.json``
+    (:mod:`repro_torch.obs.bench`)."""
+    fm = cs.meta.get("formats") or {}
+    mx = cs.meta.get("mixed") or {}
+    serving = cs.meta.get("serving") or {}
+    obs.append_bench("runs", {
+        "kind": "certify", "arch": args.arch,
+        "mixed": bool(args.mixed), "formats": bool(args.formats),
+        "analysis_seconds": cs.meta["analysis_seconds"],
+        "probes": n_probes,
+        "ladder_compiles": cs.meta.get("ladder_compiles"),
+        "mantissa_mode": fm.get("mantissa_mode"),
+        "mean_bits_flop_weighted": fm.get(
+            "mean_bits_flop_weighted", mx.get("mean_bits_flop_weighted")),
+        "baseline_bits": fm.get("baseline_bits"),
+        "profiles": cs.meta.get("profiles") or None,
+        "serving_mean_bits": serving.get("mean_bits_flop_weighted"),
+        "raised_baseline_bits": serving.get("raised_baseline_mean_bits"),
+        "profile_maps_differ": serving.get("profile_maps_differ"),
+    })
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "gc":
@@ -366,11 +390,13 @@ def main(argv=None):
                  store=store.root)
     else:
         probes = cs.meta.get("probes", [])
+        n_probes = probes if isinstance(probes, int) else len(probes)
         log.info("analysed (all classes batched per probe)",
                  seconds=round(cs.meta["analysis_seconds"], 2),
-                 probes=probes if isinstance(probes, int) else len(probes))
+                 probes=n_probes)
         log.info("persisted — re-run to load from the store",
                  store=store.root)
+        _append_run(args, cs, n_probes)
     _log_maps(cs)
     if args.cost_report:
         _cost_report(args.cost_report, cs, layer_flops, dev)

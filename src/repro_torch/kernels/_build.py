@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
            "flash_decode", "caa_matmul", "interval_matmul", "row_mean",
-           "f32_matmul")
+           "f32_matmul", "numeric_health")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -28,12 +28,20 @@ these exact params, found under the reference's content address. A miss
 certifies on first use (:func:`repro_torch.certify.pipeline.
 serving_certificate`) and persists the set.
 
+With ``--monitor`` a :class:`repro_torch.obs.ViolationMonitor` built from
+the set observes every matmul product of the certified backends (one row
+of a device log each, read back once a step) and one sampled
+full-precision prefill; ``--metrics`` / ``--prom`` write the registry
+(latency histograms, tokens/s, the monitor's counters and margins) and
+``--trace`` a JSONL trace for ``python -m repro_torch.obs report``.
+
 CLI::
 
     python -m repro_torch.launch.serve --size full --batch 4 \\
         --prefill-len 128 --decode-steps 16 --precision-k 12
     (or --layer-format '{"": {...}}', --certificate-set SET.json, or
-    --certificates STORE_DIR [--certify-formats])
+    --certificates STORE_DIR [--certify-formats]; plus --monitor,
+    --metrics OUT.jsonl, --prom OUT.prom, --trace OUT.jsonl)
 """
 from __future__ import annotations
 
@@ -55,6 +63,27 @@ from repro_torch.kernels.flash_decode import certified_decode_attention
 from repro_torch.kernels.quant_matmul import (quant_matmul_dynamic_k,
                                               quant_matmul_format_dispatch)
 from repro_torch.models import transformer as T
+from repro_torch.obs.monitors import ViolationMonitor, stacked_label
+
+log = obs.get_logger("serve")
+
+
+def _emit_health(bk, out, k, emax=127, emin=-126):
+    """Log the numeric health of a matmul product ``out`` against (k, emax,
+    emin) to the backend's attached :class:`ViolationMonitor`, if any: one
+    row of the monitor's device log (the ``numeric_health`` kernel on the
+    card), no host sync; the serving loop folds the step's rows with
+    ``monitor.flush()``. The product is only read, on the same stream, so
+    the served values stay what they are without a monitor; with no monitor
+    (the default) nothing runs at all.
+
+    The label is the scope path with its ``layer<i>`` segment replaced by
+    ``layer*``: the reference serves every layer through one scanned body
+    under the stacked scope and observes there, so labels and envelope
+    look-ups follow it. The format or k the product was rounded to still
+    comes from the concrete path."""
+    if bk.monitor is not None:
+        bk.monitor.record(stacked_label(bk.scope_path), out, k, emax, emin)
 
 
 def configure_precision() -> None:
@@ -108,14 +137,24 @@ class QuantJOps(TorchOps):
     """TorchOps whose matmuls run in the certified k-bit emulation:
     operands and result RNE-rounded to ``k`` mantissa bits (full f32
     exponent range), f32 accumulation — through the ``quant_matmul`` CUDA
-    kernel on the card."""
+    kernel on the card.
+
+    ``monitor`` (a :class:`ViolationMonitor`, default None) observes every
+    matmul product. The reference observes its product before the final
+    rounding; the port observes what kernel 3 returns, rounded to k (no
+    second GEMM): ``max_abs`` within one ulp at k plus the GEMM rule of the
+    reference's, which the monitor's slack of 1 + 2⁻¹⁰ absorbs."""
+
+    monitor = None
 
     def __init__(self, k: int, compute_dtype=torch.float32):
         super().__init__(compute_dtype)
         self.k = int(k)
 
     def matmul(self, a, b):
-        return quant_matmul_dynamic_k(a, b, self.k).to(self.compute_dtype)
+        out = quant_matmul_dynamic_k(a, b, self.k)
+        _emit_health(self, out, self.k)
+        return out.to(self.compute_dtype)
 
 
 class MixedQuantJOps(TorchOps):
@@ -145,7 +184,9 @@ class MixedQuantJOps(TorchOps):
         return got
 
     def matmul(self, a, b):
-        out = quant_matmul_dynamic_k(a, b, self.k_for(self.scope_path))
+        k = self.k_for(self.scope_path)
+        out = quant_matmul_dynamic_k(a, b, k)
+        _emit_health(self, out, k)
         return out.to(self.compute_dtype)
 
 
@@ -169,7 +210,11 @@ class FormatQuantJOps(TorchOps):
     current scope path resolves to (``layer3/attn`` against ``layer*/attn``,
     ``layer0/mlp``, ...), exactly as the reference's unrolled baseline
     resolves it. The subnormal/saturation flags must be uniform over the
-    map."""
+    map. ``monitor`` observes every (rounded) matmul product against its
+    scope's format, as in the reference; decode attention is not
+    observed."""
+
+    monitor = None
 
     def __init__(self, layer_format: Dict[str, Dict],
                  compute_dtype=torch.float32):
@@ -212,9 +257,11 @@ class FormatQuantJOps(TorchOps):
         return got
 
     def matmul(self, a, b):
+        fmt = self.format_for(self.scope_path)
         out = quant_matmul_format_dispatch(
-            a, b, self.format_for(self.scope_path),
-            has_subnormals=self.has_subnormals, saturating=self.saturating)
+            a, b, fmt, has_subnormals=self.has_subnormals,
+            saturating=self.saturating)
+        _emit_health(self, out, *fmt)
         return out.to(self.compute_dtype)
 
     def decode_attention(self, q, k, v, lengths):
@@ -227,20 +274,24 @@ class FormatQuantJOps(TorchOps):
 def _backend(sc: ServeConfig, monitor=None):
     """The serving backend, in the reference's precedence: the format map,
     then the per-layer k map (which needs ``precision_k`` as its default),
-    then the uniform k, then plain TorchOps. A violation ``monitor`` is not
-    ported yet and raises."""
-    if monitor is not None:
-        raise NotImplementedError(
-            "violation monitors are not ported to repro_torch yet")
+    then the uniform k, then plain TorchOps. A violation ``monitor`` is
+    attached to the certified backends; the plain one refuses it."""
+    bk = None
     if sc.precision_layer_format:
-        return FormatQuantJOps(sc.precision_layer_format)
-    if sc.precision_layer_k:
+        bk = FormatQuantJOps(sc.precision_layer_format)
+    elif sc.precision_layer_k:
         if sc.precision_k is None:
             raise ValueError("precision_layer_k needs precision_k as the "
                              "default for unmapped scopes")
-        return MixedQuantJOps(sc.precision_layer_k, sc.precision_k)
-    if sc.precision_k is not None:
-        return QuantJOps(sc.precision_k)
+        bk = MixedQuantJOps(sc.precision_layer_k, sc.precision_k)
+    elif sc.precision_k is not None:
+        bk = QuantJOps(sc.precision_k)
+    if bk is not None:
+        bk.monitor = monitor
+        return bk
+    if monitor is not None:
+        raise ValueError("violation monitoring needs a certified quantised "
+                         "backend (precision_k / layer map / format map)")
     return TorchOps(torch.float32)
 
 
@@ -357,11 +408,58 @@ class ServeResult:
     params: Dict[str, Any]
     cfg: Any
     config: ServeConfig
+    registry: Optional[obs.MetricsRegistry] = None
+    monitor: Optional[ViolationMonitor] = None
 
 
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def sample_error(monitor, certset, params, cfg, prompt, logits, max_seq):
+    """The reference's one sampled empirical-error check: a full-precision
+    ``TorchOps`` prefill of the same prompts, max |Δlogits| of the last
+    position in units of the certified u, folded by
+    :meth:`ViolationMonitor.observe_error` (nothing when the set has no
+    u)."""
+    u = certset.error_bars().get("u")
+    if not u:
+        return
+    cache = T.init_cache(cfg, prompt.shape[0], max_seq, device=prompt.device)
+    ref, _ = T.forward(TorchOps(torch.float32), params, cfg, prompt,
+                       cache=cache, q_offset=0)
+    err = (ref[:, -1:, :].double() - logits.double()).abs().max()
+    monitor.observe_error(float(err) / u)
+
+
+def _log_served(registry, monitor, certset, responses, args, sc, toks,
+                wall, t_prefill, t_decode):
+    """The reference's closing log lines and latency-percentile gauges."""
+    log.info("served", seqs=sc.batch, decode_steps=args.decode_steps,
+             total_s=round(wall, 2), prefill_s=round(t_prefill, 3),
+             decode_s_per_tok=round(t_decode / max(args.decode_steps, 1), 4),
+             sample=toks[0][:10].tolist())
+    dh = registry.histograms.get("serve.decode_latency_s")
+    if dh is not None and dh.count:
+        pct = dh.percentiles()
+        log.info("decode latency percentiles",
+                 p50_ms=round(pct["p50"] * 1e3, 3),
+                 p95_ms=round(pct["p95"] * 1e3, 3),
+                 p99_ms=round(pct["p99"] * 1e3, 3), steps=dh.count)
+        for q, v in pct.items():
+            registry.gauge(f"serve.decode_latency_{q}_s", v)
+    if certset is not None:
+        log.info("response metadata",
+                 certificate=responses[0]["certificate"])
+    if monitor is not None:
+        monitor.export(registry)
+        ms = monitor.summary()
+        log.info("monitor", violations=ms["violations"],
+                 observations=ms["counters"]["obs.scope_observations"],
+                 worst_err_u=ms["worst_err_u"], dbar_u=ms["dbar_u"],
+                 scope_margin_log2={k: round(v, 2) for k, v in
+                                    ms["scope_margin_log2"].items()})
 
 
 def main(argv=None) -> ServeResult:
@@ -385,6 +483,27 @@ def main(argv=None) -> ServeResult:
                          "serves its format map, else its per-layer k map, "
                          "else its uniform k")
     add_certificate_flags(ap)
+    ap.add_argument("--metrics", default=None, metavar="OUT.JSONL",
+                    help="append a serving-metrics snapshot (latency "
+                         "histograms, tokens/s, occupancy, violation "
+                         "counters) as one JSONL object")
+    ap.add_argument("--prom", default=None, metavar="OUT.PROM",
+                    help="also write the metrics as a Prometheus text "
+                         "exposition file (no server)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="attach certificate-violation monitors: every "
+                         "matmul's numeric health checked against the "
+                         "certified enclosures (one device log, read back "
+                         "once a step), plus one sampled empirical-error "
+                         "check against δ̄ (needs --certificates or "
+                         "--certificate-set)")
+    ap.add_argument("--trace", default=None, metavar="OUT.JSONL",
+                    help="record a JSONL trace of the serving run "
+                         "(prefill / decode spans, log events); render "
+                         "with `python -m repro_torch.obs report`. The "
+                         "reference's compile-time and jaxpr-size gauges "
+                         "have no PyTorch counterpart and are not "
+                         "recorded")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.certificate_set and (args.layer_format
@@ -396,9 +515,15 @@ def main(argv=None) -> ServeResult:
         ap.error("--certificates sets the precision itself: give it "
                  "without --certificate-set, --layer-format and "
                  "--precision-k")
+    if args.monitor and not (args.certificates or args.certificate_set):
+        ap.error("--monitor needs --certificates or --certificate-set "
+                 "(violations are relative to a certificate's bounds)")
     certify_kw = certify_kwargs(ap, args)
 
     dev = resolve_device(args.device)
+    if args.trace:
+        obs.configure(path=args.trace, program="repro_torch.launch.serve",
+                      argv=argv)
     configure_precision()
     mod = configs.get(args.arch)
     cfg = mod.FULL if args.size == "full" else mod.SMOKE
@@ -427,24 +552,55 @@ def main(argv=None) -> ServeResult:
     t_init = time.perf_counter() - t0
     if sc.certificates is not None:
         sc, certset = apply_certificates(sc, cfg, params, **certify_kw)
-    bk = _backend(sc)
+    if certset is not None:
+        log.info("certificate resolved", k=sc.precision_k,
+                 source=("store" if certset.meta.get("from_store")
+                         else "file" if args.certificate_set
+                         else "fresh analysis (now persisted)"),
+                 mixed_scopes=(None if sc.precision_layer_k is None
+                               else len(sc.precision_layer_k)),
+                 format_scopes=(None if sc.precision_layer_format is None
+                                else len(sc.precision_layer_format)),
+                 error_bars=certset.error_bars())
+    monitor = None
+    if args.monitor:
+        monitor = ViolationMonitor.from_certificate_set(certset)
+        log.info("violation monitor attached",
+                 envelopes=len(monitor.envelopes), dbar_u=monitor.dbar_u)
+    registry = obs.MetricsRegistry()
+    registry.meta.update(arch=args.arch, batch=sc.batch,
+                         precision_k=sc.precision_k)
+    bk = _backend(sc, monitor)
 
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, cache = prefill_step(bk, params, cfg, cache, prompt)
-        tok = torch.argmax(logits[:, -1, :], dim=-1)
-        _sync(dev)
+        with obs.span("serve.prefill", arch=args.arch, batch=sc.batch,
+                      prefill_len=sc.prefill_len):
+            logits, cache = prefill_step(bk, params, cfg, cache, prompt)
+            tok = torch.argmax(logits[:, -1, :], dim=-1)
+            if monitor is not None:
+                monitor.flush()
+            _sync(dev)
         t_prefill = time.perf_counter() - t0
+        registry.observe("serve.prefill_latency_s", t_prefill)
         out_toks, decode_logits, step_s = [tok], [], []
         for i in range(args.decode_steps):
             td = time.perf_counter()
-            tok, last, cache = decode_step(bk, params, cfg, cache,
-                                           tok[:, None],
-                                           sc.prefill_len + i)
-            _sync(dev)
+            with obs.span("serve.decode", step=i):
+                tok, last, cache = decode_step(bk, params, cfg, cache,
+                                               tok[:, None],
+                                               sc.prefill_len + i)
+                if monitor is not None:
+                    monitor.flush()
+                _sync(dev)
             step_s.append(time.perf_counter() - td)
+            registry.observe("serve.decode_latency_s", step_s[-1])
             out_toks.append(tok)
             decode_logits.append(last)
+        wall = time.perf_counter() - t0
+        if monitor is not None:
+            sample_error(monitor, certset, params, cfg, prompt, logits,
+                         sc.max_seq)
     toks = torch.stack(out_toks, dim=1)
     t_decode = sum(step_s)
     timing = {
@@ -456,10 +612,32 @@ def main(argv=None) -> ServeResult:
                                 if t_decode > 0 else float("nan")),
         "prefill_tokens_per_s": sc.batch * sc.prefill_len / t_prefill,
     }
+    registry.counter("serve.requests", sc.batch)
+    registry.counter("serve.tokens", int(toks.numel()))
+    registry.gauge("serve.batch_occupancy", 1.0)     # every lane is live
+    if t_decode > 0:
+        registry.gauge("serve.decode_tokens_per_s",
+                       timing["decode_tokens_per_s"])
+    registry.gauge("serve.prefill_tokens_per_s",
+                   timing["prefill_tokens_per_s"])
+    responses = make_responses(toks, certset)
+    _log_served(registry, monitor, certset, responses, args, sc, toks,
+                wall, t_prefill, t_decode)
+    if args.metrics:
+        registry.write_jsonl(args.metrics)
+        log.info("metrics written", path=args.metrics)
+    if args.prom:
+        registry.write_prometheus(args.prom)
+        log.info("prometheus exposition written", path=args.prom)
+    if args.trace:
+        obs.shutdown()
+        log.info("trace written", path=args.trace,
+                 hint="render with: python -m repro_torch.obs report "
+                      + args.trace)
     return ServeResult(tokens=toks, prompt=prompt, prefill_logits=logits,
-                       decode_logits=decode_logits,
-                       responses=make_responses(toks, certset),
-                       timing=timing, params=params, cfg=cfg, config=sc)
+                       decode_logits=decode_logits, responses=responses,
+                       timing=timing, params=params, cfg=cfg, config=sc,
+                       registry=registry, monitor=monitor)
 
 
 if __name__ == "__main__":

@@ -10,10 +10,15 @@ package's ``repro.obs`` for what the port runs so far.
   mirrored to the tracer as events;
 * :mod:`repro_torch.obs.costmodel` — roofline hardware terms (the H100 the
   port runs on) and the fitted two-term latency model;
-* :mod:`repro_torch.obs.profile` — kernel and serving profiles on the card.
-
-Violation monitors, the bench trajectory and the report CLI are not
-ported yet.
+* :mod:`repro_torch.obs.profile` — kernel and serving profiles on the card;
+* :mod:`repro_torch.obs.monitors` — certificate-violation monitors: every
+  served matmul's numeric health (one row of a device log, read back once a
+  step) against the certified enclosures and (δ̄, ε̄) bounds;
+* :mod:`repro_torch.obs.report` and ``python -m repro_torch.obs
+  report|validate|perfgate`` — a trace rendered into summary tables, its
+  schema checked, the kernel trajectory's soft perf gate;
+* :mod:`repro_torch.obs.bench` — the port's append-only
+  ``BENCH_torch_*.json`` trajectories.
 """
 from .trace import (  # noqa: F401
     SCHEMA,
@@ -32,6 +37,8 @@ from .trace import (  # noqa: F401
 )
 from .metrics import Histogram, MetricsRegistry  # noqa: F401
 from .log import get_logger  # noqa: F401
+from .monitors import ViolationMonitor  # noqa: F401
+from .bench import append_bench, check_regressions, read_bench  # noqa: F401
 from .costmodel import (  # noqa: F401
     H100_SXM,
     TPU_POD_CHIP,

@@ -141,21 +141,27 @@ def test_unported_frontend_raises(nano):
         tcertify.certify_lm("qwen2_7b", audio, tp, mixed=True, k_max=24)
 
 
-def test_certify_cli_on_the_cpu(tmp_path):
+def test_certify_cli_on_the_cpu(tmp_path, monkeypatch):
     """``python -m repro_torch.certify --arch transformer --device cpu``:
-    the SMOKE config's port-seeded params certify, persist, and the second
-    run is a store hit; without a card and without ``--device cpu`` the
-    CLI raises."""
+    the SMOKE config's port-seeded params certify, persist (with one
+    ``runs`` entry in the port's bench trajectory, as the reference's CLI
+    appends), and the second run is a store hit; without a card and
+    without ``--device cpu`` the CLI raises."""
     import torch
 
     from repro_torch.certify.__main__ import main
+    from repro_torch.obs import bench
 
+    monkeypatch.setenv("REPRO_TORCH_BENCH_DIR", str(tmp_path / "bench"))
     argv = ["--arch", "transformer", "--device", "cpu", "--store",
             str(tmp_path)]
     first = main(argv)
     assert first.meta["from_store"] is False
     assert first.serving_k is not None
     assert main(argv).meta["from_store"] is True
+    runs = bench.read_bench("runs")
+    assert [(r["kind"], r["arch"], r["mixed"]) for r in runs] == [
+        ("certify", "qwen2_7b", False)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device cpu"):
             main(argv[:2] + argv[4:])

@@ -17,6 +17,8 @@ Serving's two port-only fixed-order kernels (``row_order.row_mean``,
 plain versions compute the kernels' own order), and a row alone equals the
 same row in a batch.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -366,12 +368,31 @@ def test_flash_decode_length_edges_vs_plain(cuda_device, fmt, G, D, S, lens):
         lens, dtype=torch.int32, device=cuda_device))
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """PyTorch's CPU f64 ``exp`` was seen to return values up to 3e7 ulps
+    off when its first call on a tensor above the parallel grain ran on
+    several threads; one thread keeps the f64 reference exact."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("fmt", [None, (12, 15, -14)])
 def test_f64_rule_fails_a_dropped_chunk(fmt):
     """On the CPU, no card needed: the split algorithm in f32 (the kernels'
     order) meets the f64 rule, and the same cache with chunk 40 (positions
     2560..2623) cut out fails it in every lane that holds that chunk, the
-    32K one included; the lane of 64 positions does not hold it."""
+    32K one included; the lane of 64 positions does not hold it. Computed
+    on one thread (:func:`_one_thread`)."""
+    with _one_thread():
+        _f64_rule_fails_a_dropped_chunk(fmt)
+
+
+def _f64_rule_fails_a_dropped_chunk(fmt):
     gen = torch.Generator().manual_seed(43)
     S, lens = 32768, [32768, 5000, 2625, 64]
     q, k, v = _lanes(gen, len(lens), 2, 4, 128, S, "cpu")

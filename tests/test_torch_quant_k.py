@@ -270,13 +270,21 @@ def test_backend_precedence_and_guards():
 
 
 def test_monitors_are_refused_not_ignored():
+    """The three certified backends carry a violation monitor (as the
+    reference's do); the plain backend refuses one with the reference's
+    ValueError instead of ignoring it."""
     S = tserve.ServeConfig
-    for sc in (S(), S(precision_k=12),
+    mon = object()
+    for sc in (S(precision_k=12),
                S(precision_k=12, precision_layer_k={"layer0": 9}),
                S(precision_layer_format={"": {"k": 11, "emax": 15,
                                               "emin": -14}})):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tserve._backend(sc, monitor=object())
+        assert tserve._backend(sc, monitor=mon).monitor is mon
+        assert tserve._backend(sc).monitor is None
+    with pytest.raises(ValueError, match="certified quantised backend"):
+        tserve._backend(S(), monitor=mon)
+    with pytest.raises(ValueError, match="certified quantised backend"):
+        jserve._backend(jserve.ServeConfig(), monitor=mon)
 
 
 # ---------------------------------------------------------------------------
