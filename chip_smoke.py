@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
-port's nine CUDA kernels from ``src/repro_torch/csrc`` with nvcc (into
+port's CUDA kernels (nine sources in ``src/repro_torch/csrc``) with nvcc (into
 ``build/repro_torch/``; the ``build`` line carries registers, shared memory
 and spills of every kernel), holds the two certified GEMMs bit for bit
 against their sequential-order plain versions on sampled columns of every
@@ -30,7 +30,9 @@ sha256 of its logits and a profiler trace of its decode steps):
   logits bit for bit ``serve``'s, one ``numeric_health`` launch and one
   observation a GEMM, silent at the observed maxima, firing with
   ``layer*/mlp`` halved, one more device-to-host copy a decode step; then
-  the same at the uniform k = 12 against ``serve_k``;
+  the same at the uniform k = 12 against ``serve_k``, each product read
+  before its final rounding and rounded in place (``round_k_inplace``),
+  its decode step traced beside the unmonitored one;
 * ``profile`` — the kernel profiler (every kernel, ``flash_decode_attention``
   among them) and the serving profile (at the reference's SMOKE defaults
   and at full width), under the port's JSONL tracer;
@@ -71,7 +73,14 @@ sha256 of its logits and a profiler trace of its decode steps):
   cold, the Digits rows from a profiler trace); between them
   ``interval_gemm_order`` holds both bit for bit against their
   sequential-order plain versions on sampled columns of the projections
-  and on every Digits analysis shape.
+  and on every Digits analysis shape;
+* ``paper`` — the paper's drivers (``python -m
+  repro_torch.benchmarks.run``: Table I, analysis speed, bound tightness)
+  and the examples ``quickstart`` (Digits at full width; its required k
+  and certified / correct counts equal on the card and on the CPU with the
+  same weights), ``serve_custom_formats``, ``serve_certified
+  --precision-k 12`` and ``serve_certified_lm``, each through its
+  ``main``, with its launches of kernels 1-4.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -125,7 +134,7 @@ MIXED_LAYER_K = {"layer*/attn": 12, "layer*/mlp": 10, "layer0/mlp": 14}
 GEMM_KS = (8, 12, 24)
 KERNELS = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
            "flash_decode_attention", "caa_matmul", "interval_matmul",
-           "row_mean", "f32_matmul", "numeric_health")
+           "row_mean", "f32_matmul", "numeric_health", "round_k_inplace")
 
 
 def emit(phase: str, **fields) -> None:
@@ -175,15 +184,18 @@ def trace_ms(torch, fn, copies, iters: int) -> float:
     activities (kernels, copies) in a ``torch.profiler`` trace of ``iters``
     calls. For calls shorter than their launch from the host, where CUDA
     events around a loop of calls time the host. The profiler now and then
-    returns a trace without the device's activities: such a trace is taken
-    again, up to three times in all."""
+    returns a trace without the device's activities (three such traces in
+    a row were seen once, after the monitored serve runs): such a trace is
+    taken again, after a pause, up to six times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for w in copies:
         fn(w)
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
@@ -193,7 +205,7 @@ def trace_ms(torch, fn, copies, iters: int) -> float:
                  if e.device_type == DeviceType.CUDA]
         if spans:
             return sum(spans) / 1e3 / iters
-    raise AssertionError("three traces held no device activity")
+    raise AssertionError("six traces held no device activity")
 
 
 def gemm_times(torch, kernel, plain, x, w, iters):
@@ -802,6 +814,26 @@ FLASH_CASES = {
                    [0, SERVE_PROMPT + SERVE_STEPS, SERVE_PROMPT + 1, 1]),
     "long": (32768, [32768] * 4),
 }
+# (Smax, lengths, (K, G, D)): the shapes beyond the serve's K=4, G=7, D=128
+# that kernels 2 and 4 take, at batch 4 — paligemma_3b's head dim 256 with
+# G = 8 and one kv head, a second tile of query heads (G = 16), hymba_1p5b's
+# G = 5 at D = 64 (5 kv heads), and D = 96. Beside FLASH_CASES, whose
+# (Smax, lengths) pairs tools/quant_gemm_compare.py times at the serve's
+# shape.
+FLASH_WIDE_CASES = {
+    "g8_d256": (8192, [8192, 4097, 64, 0], (1, 8, 256)),
+    "g16_d64": (1024, [1, 255, 256, 1000], (2, 16, 64)),
+    "g5_d64": (1024, [1000, 64, 65, 0], (5, 5, 64)),
+    "g7_d96": (1024, [1, 255, 256, 1000], (4, 7, 96)),
+}
+
+
+def flash_cases():
+    """(case, Smax, lengths, (K, G, D)) of every decode-attention case."""
+    for case, (S, lens) in FLASH_CASES.items():
+        yield case, S, lens, (4, 7, 128)
+    for case, (S, lens, shape) in FLASH_WIDE_CASES.items():
+        yield case, S, lens, shape
 
 
 def cache_copies(torch, k, v):
@@ -824,9 +856,11 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths):
     SDPA yardstick, each from a profiler trace (:func:`trace_ms`) with the
     cache rotated through :func:`cache_copies`; ``host_ms``: the kernel
     timed by CUDA events around back-to-back calls, which time the host's
-    launch where that is longer. The bound: bytes (q in, out, and k/v over
-    the attended positions) or operations (4·G·D per attended position and
-    kv head)."""
+    launch where that is longer. The bound: bytes (q in, out, k over the
+    positions below each lane's length, v over the attended ones) or
+    operations (2·G·D a position and kv head for the scores, the same for
+    P·V): a lane of length 0 reads no k and computes no score, its weights
+    are all exp(0)."""
     B, H, G, D = q.shape
     S = k.shape[1]
     lens = lengths.tolist()
@@ -856,19 +890,20 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths):
         torch, lambda c: sdpa(qs, *c, attn_mask=mask, enable_gqa=True),
         tcopies, iters)
     del tcopies
-    n_pos = int(attended(torch, lengths, S).sum())
-    n_bytes = 4.0 * (2 * q.numel() + 2 * n_pos * H * D) + 4 * B
+    n_k = int(lengths.clamp(min=0, max=S).sum())
+    n_v = int(attended(torch, lengths, S).sum())
+    n_bytes = 4.0 * (2 * q.numel() + (n_k + n_v) * H * D) + 4 * B
     timing["bound_ms"], timing["bound_by"] = bound_ms(
-        n_bytes, 4.0 * G * D * H * n_pos)
+        n_bytes, 2.0 * G * D * H * (n_k + n_v))
     return timing
 
 
 def phase_flash_decode(torch, fd):
-    B, H, G, D = SERVE_BATCH, 4, 7, 128
+    B = SERVE_BATCH
     gen = torch.Generator(device="cuda").manual_seed(3)
     fmt12 = FORMATS["k12_e15"]
     worst, cases = 0.0, {}
-    for case, (S, lens) in FLASH_CASES.items():
+    for case, S, lens, (H, G, D) in flash_cases():
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q = torch.randn(B, H, G, D, device="cuda", generator=gen)
         k = torch.randn(B, S, H, D, device="cuda", generator=gen)
@@ -882,10 +917,11 @@ def phase_flash_decode(torch, fd):
             torch, lambda *a: fd.flash_decode_certified(*a, fmt12),
             lambda *a: fd.flash_decode_quantized_ref(*a, fmt12),
             q, k, v, lengths)
-        cases[case] = {"Smax": S, "lengths": lens, **timing, "rows": rows}
+        cases[case] = {"Smax": S, "lengths": lens,
+                       "shape": {"B": B, "K": H, "G": G, "D": D}, **timing,
+                       "rows": rows}
         del q, k, v
-    emit("flash_decode_certified",
-         shape={"B": B, "K": H, "G": G, "D": D}, tolerance=FLASH_TOLERANCE,
+    emit("flash_decode_certified", tolerance=FLASH_TOLERANCE,
          max_abs_err=worst, cases=cases)
     return cases, worst
 
@@ -906,13 +942,13 @@ def check_flash_attention(torch, fd, q, k, v, lengths, what):
 
 
 def phase_flash_decode_attention(torch, fd):
-    """Kernel 4 against its plain version in every FLASH_CASES case: the
+    """Kernel 4 against its plain version in every FLASH_CASES case (the
     serve cache's shape, a ragged Smax=1024 cache, a cache with a lane of
-    length 0 and the 32K one."""
-    B, H, G, D = SERVE_BATCH, 4, 7, 128
+    length 0 and the 32K one) and every FLASH_WIDE_CASES shape."""
+    B = SERVE_BATCH
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst, cases = 0.0, {}
-    for case, (S, lens) in FLASH_CASES.items():
+    for case, S, lens, (H, G, D) in flash_cases():
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q = torch.randn(B, H, G, D, device="cuda", generator=gen)
         k = torch.randn(B, S, H, D, device="cuda", generator=gen)
@@ -921,15 +957,17 @@ def phase_flash_decode_attention(torch, fd):
         worst = max(worst, st["max_abs_err"])
         timing = flash_timing(torch, fd.flash_decode_attention,
                               fd.flash_decode_ref, q, k, v, lengths)
-        cases[case] = {"Smax": S, "lengths": lens, **st, **timing}
+        cases[case] = {"Smax": S, "lengths": lens,
+                       "shape": {"B": B, "K": H, "G": G, "D": D}, **st,
+                       **timing}
         del q, k, v
-    emit("flash_decode_attention", shape={"B": B, "K": H, "G": G, "D": D},
-         tolerance=FLASH_TOLERANCE, max_abs_err=worst, cases=cases)
+    emit("flash_decode_attention", tolerance=FLASH_TOLERANCE,
+         max_abs_err=worst, cases=cases)
     return cases, worst
 
 
 def kernel_fns(qmm, fd):
-    """The nine kernel wrappers by name; each counts its launches."""
+    """The ten kernel wrappers by name; each counts its launches."""
     from repro_torch.kernels import caa_matmul as cm
     from repro_torch.kernels import health
     from repro_torch.kernels import interval_matmul as im
@@ -942,13 +980,14 @@ def kernel_fns(qmm, fd):
             "caa_matmul": cm.caa_matmul,
             "interval_matmul": im.interval_matmul,
             "row_mean": ro.row_mean, "f32_matmul": ro.f32_matmul,
-            "numeric_health": health.numeric_health}
+            "numeric_health": health.numeric_health,
+            "round_k_inplace": qmm.round_k_inplace}
 
 
 # the serving and profile paths launch neither analysis kernel, and
-# without a violation monitor no health kernel
+# without a violation monitor no health kernel and no rounding in place
 IDLE_ON_SERVING = {"caa_matmul": 0, "interval_matmul": 0,
-                   "numeric_health": 0}
+                   "numeric_health": 0, "round_k_inplace": 0}
 
 
 def row_order_launches(forwards: int, n_layers: int = None):
@@ -1473,13 +1512,17 @@ def monitor_argv(set_path, out, tag):
 
 def monitored_expected(gemm, attn, observations):
     """Launches of a monitored full-width serve: the path's GEMM and
-    decode-attention kernels, one health kernel a GEMM, and the error
-    sample's one full-precision prefill (TorchOps: f32_matmul on every
-    projection and the head, row_mean on every rmsnorm)."""
+    decode-attention kernels, one health kernel a GEMM (on the uniform-k
+    path also one rounding in place, of the product the monitor read
+    unrounded), and the error sample's one full-precision prefill
+    (TorchOps: f32_matmul on every projection and the head, row_mean on
+    every rmsnorm)."""
     counts = {"quant_matmul_format": 0, "flash_decode_certified": 0,
               "quant_matmul": 0, "flash_decode_attention": 0,
               "caa_matmul": 0, "interval_matmul": 0,
-              "numeric_health": observations}
+              "numeric_health": observations,
+              "round_k_inplace": observations if gemm == "quant_matmul"
+              else 0}
     counts[gemm] = 7 * L_FULL * (1 + SERVE_STEPS)
     counts[attn] = L_FULL * SERVE_STEPS
     rows = row_order_launches(1 + SERVE_STEPS + 1)
@@ -1565,6 +1608,131 @@ def health_timing(torch, health, M, N, gen):
     return out
 
 
+def layer_of_products(rows):
+    """Per-product rows (one launch at each of the seven [M, N] products
+    of a layer) summed into one layer at each M."""
+    out = {}
+    for M in sorted({r["M"] for r in rows}):
+        t = {key: sum(r[key] for r in rows if r["M"] == M)
+             for key in ("ms", "plain_ms", "bound_ms")}
+        t.update(bound_by="bytes", library_ms=None,
+                 us_per_launch=1e3 * t["ms"] / len(GEMM_SHAPES))
+        out[M] = t
+    return out
+
+
+def round_k_timing(torch, qmm, M, N, gen):
+    """``round_k_inplace`` at k = SERVE_K on an [M, N] product: bit for bit
+    its plain version ``_quantize_normal`` on the same values, then the
+    device time of both from a profiler trace, hot in the L2 at decode (the
+    GEMM just wrote the product, the health kernel just read it), rotated
+    through copies that exceed the L2 at prefill. The bound: the bytes of
+    one read and one write of the product (its integer work has no
+    published rate to count against); library_ms null: no PyTorch call
+    rounds a mantissa to k bits."""
+    from repro_torch.core.quantize import _quantize_normal as plain
+
+    x = torch.randn(M, N, device="cuda", generator=gen) * 1e3
+    want = plain(x, SERVE_K)
+    got = qmm.round_k_inplace(x.clone(), SERVE_K)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"round_k_inplace [{M}, {N}] differs from "
+                             "_quantize_normal")
+    copies = [x] if M <= 8 else weight_copies(torch, x)
+    iters = 200 if M <= 8 else 30
+    bound, by = bound_ms(8.0 * M * N, 0.0)
+    out = {"M": M, "N": N,
+           "ms": trace_ms(torch, lambda t: qmm.round_k_inplace(t, SERVE_K),
+                          copies, iters),
+           "plain_ms": trace_ms(torch, lambda t: plain(t, SERVE_K), copies,
+                                iters),
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "bitwise": True}
+    del copies
+    return out
+
+
+def round_k_edge_cases(torch, qmm):
+    """``round_k_inplace`` bit for bit ``_quantize_normal`` at every k from
+    1 to 24 on ±0, NaN, ±inf, the largest finite f32 (which carries into
+    inf below k = 24), the f32 subnormals' ends, halfway cases and random
+    values over the whole exponent range; returns the values checked."""
+    from repro_torch.core.quantize import _quantize_normal as plain
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 16,), device="cuda",
+                         generator=gen, dtype=torch.int64).to(torch.int32)
+    special = torch.tensor(
+        [0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+         3.4028234663852886e38, -3.4028234663852886e38, 1.401298464e-45,
+         1.1754942107e-38, 1.1754943508e-38, 1.5, 2.5, 1.0 + 2 ** -12,
+         1.0 + 3 * 2 ** -13], dtype=torch.float32, device="cuda")
+    x = torch.cat([special, bits.view(torch.float32)])
+    for k in range(1, 25):
+        got = qmm.round_k_inplace(x.clone(), k)
+        want = plain(x, k)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"round_k_inplace at k={k} differs from "
+                                 "_quantize_normal on edge inputs")
+    return {"values": x.numel(), "ks": 24}
+
+
+ROUND_K_MARK = "repro_round_elementwise_kernel"
+ROUND_K_REPLACES = ("none: port-only (XLA's final _quantize_normal in the "
+                    "reference's monitored uniform-k matmul, "
+                    "src/repro/launch/serve.py:120, after the health stats "
+                    "of :119)")
+RAW_GEMM_MARK = "RawOut"
+
+
+def k12_decode_traces(torch, serve, T, spec, res_k, set_path):
+    """The monitored uniform-k decode step traced beside the unmonitored
+    one on the same run's weights and prompt (:func:`decode_trace`); raises
+    unless, a step, the monitor adds one health kernel and one rounding in
+    place a GEMM (196 each), turns each GEMM into its raw instance (the
+    GEMM count unchanged), adds one device-to-host copy, and at most one
+    other launch (the log's re-initialisation)."""
+    mon = serve.ViolationMonitor.from_certificate_set(
+        spec.CertificateSet.from_json(set_path.read_text()))
+    plain = decode_trace(torch, serve, T, res_k, names=True)
+    monitored = decode_trace(torch, serve, T, res_k, mon, names=True)
+    a, b = (t["traced"]["whole_trace"] for t in (plain, monitored))
+    n = a["steps"]
+    names = set(a["by_name"]) | set(b["by_name"])
+    per_name = {name: round((b["by_name"].get(name, 0)
+                             - a["by_name"].get(name, 0)) / n)
+                for name in names}
+    gemm = lambda counts: sum(v for k, v in counts.items()
+                              if any(g in k for g in GEMM_KERNEL_NAMES))
+    marks = (HEALTH_KERNEL_MARK, DTOH_MARK, ROUND_K_MARK)
+    extra = {"health_kernels": sum(v for k, v in per_name.items()
+                                   if HEALTH_KERNEL_MARK in k),
+             "rounded_in_place": sum(v for k, v in per_name.items()
+                                     if ROUND_K_MARK in k),
+             "raw_gemms": sum(v for k, v in per_name.items()
+                              if RAW_GEMM_MARK in k),
+             "gemms": round((gemm(b["by_name"]) - gemm(a["by_name"])) / n),
+             "dtoh_copies": sum(v for k, v in per_name.items()
+                                if DTOH_MARK in k),
+             "other": {k: v for k, v in per_name.items() if v and not (
+                 any(m in k for m in marks)
+                 or any(g in k for g in GEMM_KERNEL_NAMES))},
+             "kernels": (b["kernels"] - a["kernels"]) / n}
+    for t in (a, b):
+        del t["by_name"]
+    per_step = 7 * L_FULL
+    if (b["steps"] != n or extra["dtoh_copies"] != 1
+            or extra["health_kernels"] != per_step
+            or extra["rounded_in_place"] != per_step
+            or extra["raw_gemms"] != per_step or extra["gemms"] != 0
+            or sum(max(v, 0) for v in extra["other"].values()) > 1):
+        raise AssertionError(
+            f"a monitored k = 12 decode step adds {extra}: unmonitored {a} "
+            f"{plain['traced']['per_step']}, monitored {b} "
+            f"{monitored['traced']['per_step']}")
+    return {"unmonitored": plain, "monitored": monitored, "extra": extra}
+
+
 def phase_serve_monitor(torch, serve, qmm, fd, T, shas):
     """Monitored certified serving at full width, through ``serve.main``
     with ``--monitor --metrics --prom --trace`` and a v3 certificate-set
@@ -1579,9 +1747,13 @@ def phase_serve_monitor(torch, serve, qmm, fd, T, shas):
     count twice, only that label's margin negative; a monitored decode
     step has one more device-to-host copy, 196 more health kernels and at
     most one more launch (the log's re-initialisation) than the
-    unmonitored one; the trace validates and ``python -m repro_torch.obs
-    report`` renders it; the health kernel bit for bit its plain version
-    on the path's own products and on edge inputs."""
+    unmonitored one; at k = 12 every product read before its final
+    rounding and rounded in place (one ``round_k_inplace`` a GEMM), a
+    monitored decode step 196 raw GEMMs in place of the rounding ones, 196
+    roundings and 196 health kernels more; the trace validates and
+    ``python -m repro_torch.obs report`` renders it; the health kernel and
+    the rounding in place bit for bit their plain versions on the path's
+    shapes and on edge inputs."""
     from repro_torch import obs
     from repro_torch.certify import spec
     from repro_torch.kernels import health
@@ -1730,17 +1902,19 @@ def phase_serve_monitor(torch, serve, qmm, fd, T, shas):
             or any(f["negative_margins"] != ["layer*/mlp"] for f in fired)):
         raise AssertionError(f"halved layer*/mlp: {fired}")
 
-    # the uniform k = 12, monitored
+    # the uniform k = 12, monitored: every product observed before its
+    # final rounding (kernel 3's raw instance, then the rounding in place)
     expected_k = monitored_expected("quant_matmul", "flash_decode_attention",
                                     n_obs)
+    k12_set = write_monitor_set(spec, "monitor_k12", wide, SERVE_K)
     res_k, launches_k, digest_k = run_monitored(
-        torch, serve, fns, monitor_argv(write_monitor_set(
-            spec, "monitor_k12", wide, SERVE_K), out, "k12"),
-        expected_k, shas["serve_k"])
+        torch, serve, fns, monitor_argv(k12_set, out, "k12"), expected_k,
+        shas["serve_k"])
     k_summary = res_k.monitor.summary()
     if k_summary["violations"]:
         raise AssertionError(f"k = 12 under wide envelopes: {k_summary}")
     k_timing = res_k.timing
+    k_traces = k12_decode_traces(torch, serve, T, spec, res_k, k12_set)
     del res_k
     free_device_memory(torch)
 
@@ -1748,12 +1922,12 @@ def phase_serve_monitor(torch, serve, qmm, fd, T, shas):
     health_rows = [health_timing(torch, health, M, N, gen)
                    for M in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT)
                    for _, N in GEMM_SHAPES.values()]
-    per_layer = {M: {key: sum(r[key] for r in health_rows if r["M"] == M)
-                     for key in ("ms", "plain_ms", "bound_ms")}
-                 for M in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT)}
-    for M, t in per_layer.items():
-        t.update(bound_by="bytes", library_ms=None,
-                 us_per_launch=1e3 * t["ms"] / len(GEMM_SHAPES))
+    per_layer = layer_of_products(health_rows)
+    round_rows = [round_k_timing(torch, qmm, M, N, gen)
+                  for M in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT)
+                  for _, N in GEMM_SHAPES.values()]
+    round_edges = round_k_edge_cases(torch, qmm)
+    round_layer = layer_of_products(round_rows)
 
     emit("serve_monitor",
          note="monitored certified serving at full width through "
@@ -1778,14 +1952,20 @@ def phase_serve_monitor(torch, serve, qmm, fd, T, shas):
          decode_trace={"unmonitored": plain_trace,
                        "monitored": monitored_trace, "extra": extra},
          k12={"launches": launches_k, "expected_launches": expected_k,
+              "rounded_in_place": launches_k["round_k_inplace"],
               "logits_sha256": digest_k, "serve_k_sha256": shas["serve_k"],
               "summary": k_summary,
-              "decode_ms_per_step": k_timing["decode_ms_per_step"]},
+              "decode_ms_per_step": k_timing["decode_ms_per_step"],
+              "decode_trace": k_traces},
          health_kernel={"rows": health_rows, "per_layer": per_layer,
                         "format": list(HEALTH_FORMAT)},
+         round_k_inplace={"rows": round_rows, "per_layer": round_layer,
+                          "k": SERVE_K, "edge_cases": round_edges,
+                          "tolerance": "bit for bit _quantize_normal"},
          seconds=time.perf_counter() - t_phase)
     launches_all = {name: launches[name] + launches_k[name] for name in fns}
-    return launches_all, per_layer, timing | {
+    return launches_all, {"numeric_health": per_layer,
+                          "round_k_inplace": round_layer}, timing | {
         "decode_trace": monitored_trace}
 
 
@@ -4046,6 +4226,127 @@ def phase_certify(torch, serve, batching, qmm, fd, T):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the paper's drivers and the examples, through their entry points
+# ---------------------------------------------------------------------------
+
+PAPER_KERNELS = ("quant_matmul_format", "flash_decode_certified",
+                 "quant_matmul", "flash_decode_attention")
+
+
+def phase_paper(torch, qmm, fd):
+    """The paper's drivers and the six examples' card paths, as a user runs
+    them (``main`` of each with ``--device cuda``): ``benchmarks.run``
+    (Table I, analysis speed, bound tightness; its bench entry written
+    under ``build/``), ``examples.quickstart`` at the Digits model's full
+    width, whose required k and certified / correct counts must equal the
+    same analysis on the CPU with the card-trained weights, and
+    ``serve_custom_formats``, ``serve_certified --precision-k 12`` and
+    ``serve_certified_lm`` (its differential bit for bit). Each step's
+    launches of kernels 1-4 are counted (the counts set to 0 just before
+    it); gates: the format sweep and ``serve_custom_formats`` launch kernel
+    1, the serving rows and ``serve_certified`` kernels 3 and 4;
+    ``serve_certified_lm`` certifies a layer map and its differential holds
+    bit for bit."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import (quickstart, serve_certified,
+                                      serve_certified_lm,
+                                      serve_custom_formats)
+
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    out = ROOT / "build" / "chip_smoke_paper"
+    if out.exists():
+        import shutil
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    steps, seconds, results = {}, {}, {}
+
+    def step(name, fn, *args):
+        reset_launches(fns)
+        t0 = time.perf_counter()
+        results[name] = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        steps[name] = {k: v for k, v in read_launches(fns).items() if v}
+        print(f"[paper] {name}: {seconds[name]:.2f} s, launches "
+              f"{ {k: steps[name].get(k, 0) for k in PAPER_KERNELS} }",
+              flush=True)
+
+    prev = os.environ.get("REPRO_TORCH_BENCH_DIR")
+    os.environ["REPRO_TORCH_BENCH_DIR"] = str(out)
+    try:
+        step("benchmarks.run", bench_run.main, ["--device", "cuda"])
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_TORCH_BENCH_DIR")
+        else:
+            os.environ["REPRO_TORCH_BENCH_DIR"] = prev
+    step("quickstart", quickstart.main, ["--device", "cuda"])
+    card = results["quickstart"]
+    from repro_torch.data import synthetic_digits
+
+    imgs, _ = synthetic_digits.make_dataset(800, seed=0)
+    t0 = time.perf_counter()
+    cpu = quickstart.analyse({k: v.cpu() for k, v in card["params"].items()},
+                             imgs)
+    cpu_s = time.perf_counter() - t0
+    differ = sorted(key for key in ("required_k", "n_cert", "n_ok")
+                    if card[key] != cpu[key])
+    per_input = {key: sum(a != b for a, b in zip(card[key], cpu[key]))
+                 for key in ("certs", "pred")}
+    step("serve_custom_formats", serve_custom_formats.main,
+         ["--device", "cuda"])
+    step("serve_certified", serve_certified.main,
+         ["--device", "cuda", "--precision-k", "12"])
+    step("serve_certified_lm", serve_certified_lm.main,
+         ["--device", "cuda", "--certificates", str(out / "lm_store")])
+
+    rows = results["benchmarks.run"]
+    table1 = {name: {"seconds": us / 1e6, "max_abs_u": d}
+              for name, us, d in rows if name.startswith("table1_")}
+    q = {key: card[key] for key in ("required_k", "n_cert", "n_ok",
+                                    "max_abs_u", "max_rel_u", "seconds",
+                                    "n_params", "train_accuracy")}
+    emit("paper", steps=steps, seconds=seconds, csv_rows=len(rows),
+         table1=table1, bench={r[0]: r[2] for r in rows},
+         quickstart={"card": q, "cpu": {key: cpu[key] for key in (
+             "required_k", "n_cert", "n_ok", "max_abs_u", "max_rel_u")},
+             "cpu_seconds": cpu_s, "differing": differ,
+             "per_input_differing": per_input},
+         serve_custom_formats={
+             "kernel_vs_plain_rule": results["serve_custom_formats"][
+                 "kernel_vs_plain_rule"],
+             "accuracy": results["serve_custom_formats"]["accuracy"]},
+         serve_certified={key: results["serve_certified"][key] for key in (
+             "mode", "prefill_s", "decode_s")},
+         serve_certified_lm={
+             "precision_k": results["serve_certified_lm"]["precision_k"],
+             "layer_k": results["serve_certified_lm"]["layer_k"],
+             "differential_bitwise": results["serve_certified_lm"][
+                 "differential_bitwise"]},
+         phase_seconds=time.perf_counter() - t_phase)
+    if differ:
+        raise AssertionError(f"quickstart: card and CPU differ in {differ}")
+    if card["n_ok"] != card["n_cert"]:
+        raise AssertionError(f"quickstart: {card['n_cert']} certified, "
+                             f"{card['n_ok']} match the exact model")
+    need = {"benchmarks.run": ("quant_matmul_format", "quant_matmul"),
+            "serve_custom_formats": ("quant_matmul_format",),
+            "serve_certified": ("quant_matmul", "flash_decode_attention")}
+    for name, kernels in need.items():
+        missing = [k for k in kernels if not steps[name].get(k)]
+        if missing:
+            raise AssertionError(f"paper {name}: no launch of {missing}")
+    lm = results["serve_certified_lm"]
+    if not lm["layer_k"] or lm["differential_bitwise"] is not True:
+        raise AssertionError(f"serve_certified_lm: no certified layer map "
+                             f"({lm['layer_k']}) or its differential did "
+                             f"not hold ({lm['differential_bitwise']})")
+    return {name: sum(s.get(name, 0) for s in steps.values())
+            for name in fns}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4054,8 +4355,8 @@ def _leaves(tree):
         yield tree
 
 
-FLASH_KEYS = ("Smax", "lengths", "ms", "host_ms", "plain_ms", "bound_ms",
-              "library_ms")
+FLASH_KEYS = ("Smax", "lengths", "shape", "ms", "host_ms", "plain_ms",
+              "bound_ms", "library_ms")
 
 
 def kernel_row(name, source, replaces, launches_by_path, path, err,
@@ -4122,7 +4423,7 @@ def main() -> int:
         torch, serve, qmm, fd, T, "serve_k",
         ["--precision-k", str(SERVE_K)],
         {f"layer{i}": uniform_ks(SERVE_K, SERVE_K) for i in range(2)})
-    (by_path["serve_monitor"], health_layer,
+    (by_path["serve_monitor"], product_layer,
      timings["serve_monitor"]) = phase_serve_monitor(
         torch, serve, qmm, fd, T, {
             "serve": timings["serve"]["logits_sha256"],
@@ -4170,6 +4471,8 @@ def main() -> int:
     ipath, irows, ierr = phase_caa_kernel(torch, "interval_matmul", kops,
                                           operands, path_outs)
     del path_outs, operands
+    free_device_memory(torch)
+    by_path["paper"] = phase_paper(torch, qmm, fd)
 
     qerr = max([qerr] + [r["max_abs_err"] for r in (
         fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"]
@@ -4252,6 +4555,7 @@ def main() -> int:
             name, f"src/repro_torch/csrc/{name}.cu", ROW_ORDER_REPLACES[name],
             launches[name], "batching", 0.0, rorows[name]["decode"], what,
             prefill=rorows[name]["prefill"], port_only=True))
+    health_layer = product_layer["numeric_health"]
     kernels.append(kernel_row(
         "numeric_health", "src/repro_torch/csrc/numeric_health.cu",
         HEALTH_REPLACES, launches["numeric_health"], "serve_monitor", 0.0,
@@ -4260,6 +4564,18 @@ def main() -> int:
         "at decode (4 rows), hot in the L2 as the GEMM leaves them; "
         "library_ms null: no single PyTorch call computes the five stats",
         prefill_per_layer=health_layer[SERVE_BATCH * SERVE_PROMPT],
+        port_only=True))
+    round_layer = product_layer["round_k_inplace"]
+    kernels.append(kernel_row(
+        "round_k_inplace", "src/repro_torch/csrc/quant_matmul.cu",
+        ROUND_K_REPLACES, launches["round_k_inplace"], "serve_monitor", 0.0,
+        round_layer[SERVE_BATCH],
+        f"the final rounding at k={SERVE_K}, in place, of the 7 GEMM "
+        "products of one monitored layer at decode (4 rows), hot in the L2 "
+        "as the GEMM and the health kernel leave them; bit for bit "
+        "_quantize_normal; library_ms null: no PyTorch call rounds a "
+        "mantissa to k bits",
+        prefill_per_layer=round_layer[SERVE_BATCH * SERVE_PROMPT],
         port_only=True))
     for row in kernels:
         row["profile_roofline_frac"] = roofline.get(

@@ -61,8 +61,20 @@
 //
 // Arithmetic: expf (not __expf), IEEE division for acc / l, no fast math, no
 // tensor cores.
+//
+// Shapes. Any G: the query heads of a kv head run in tiles of 8 (one
+// launch of the chunk kernel a tile, each reading the tile's k and v; the
+// combine takes every head at once), and each head's sums run as they do
+// in a group of 8 or fewer. Any D <= 256: an instance for D <= 128 holds 4
+// elements a lane (above), one for D <= 256 holds 8, as two 4-element
+// parts d = 4l.. and 128 + 4l.. (two 16-byte copies a row; a score's fmaf
+// chain runs over the first part's four, then the second's). Where D % 4
+// != 0, or k or v is not 16-byte aligned, an instance copies 4 bytes at a
+// time into the same layout, zero-filled past D. The wrappers refuse
+// D > 256.
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "gemm_common.cuh"
@@ -73,19 +85,20 @@ constexpr int kFdChunk = 64;                  // cached positions a block
 constexpr int kFdWarps = 8;
 constexpr int kFdRows = kFdChunk / kFdWarps;  // positions a warp
 constexpr int kFdThreads = 32 * kFdWarps;
-constexpr int kFdDMax = 128;                  // head dim: 4 elements a lane
-constexpr int kFdGMax = 8;                    // query heads per kv head
+constexpr int kFdGMax = 8;                    // query heads a tile
 constexpr int kFdSRow = kFdChunk + 4;         // score rows on distinct banks
+constexpr int kFdPart = 4 * 32;               // elements of a 4-element part
 constexpr float kFdNeg = -1e30f;
 constexpr unsigned kFdFull = 0xffffffffu;
 static_assert(kFdRows >= kFdGMax, "a warp's k rows hold its acc afterwards");
-static_assert(kFdDMax == 4 * 32, "4 elements a lane");
 static_assert(kFdChunk % 4 == 0, "a head's 4 lanes split the chunk's max");
 
+// DM = 32 * DL: the head dims an instance holds, DL = 4 or 8 a lane.
+template <int DM>
 struct FdSmem {
-    float k[kFdChunk][kFdDMax];  // after the scores: warp w's acc, its rows
-    float v[kFdChunk][kFdDMax];
-    float q[kFdGMax][kFdDMax];
+    float k[kFdChunk][DM];  // after the scores: warp w's acc, its rows
+    float v[kFdChunk][DM];
+    float q[kFdGMax][DM];
     float s[kFdGMax][kFdSRow];
     float p[kFdChunk][kFdGMax];
     float l[kFdWarps][kFdGMax];
@@ -107,8 +120,26 @@ __device__ __forceinline__ float4 fd_load_round(const float* p, const Q& rnd) {
     return make_float4(rnd(x.x), rnd(x.y), rnd(x.z), rnd(x.w));
 }
 
-template <class Q>
-__global__ void __launch_bounds__(kFdThreads, 3)
+// The async copy of one lane's 4-element part of a row: one 16-byte copy
+// (V), or four 4-byte ones, each zero-filled past D.
+template <bool V>
+__device__ __forceinline__ void fd_copy_part(float* dst, const float* src,
+                                             int d, int D) {
+    if constexpr (V) {
+        cp_async16(dst, src, true);
+    } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            cp_async4(dst + i, d + i < D ? src + i : src, d + i < D);
+        }
+    }
+}
+
+// One tile of GT <= 8 query heads: q points at the tile's first head, the
+// partials at its first head's rows; G is the heads of a kv head (the
+// stride of q and of the partials). DL elements a lane, V: 16-byte copies.
+template <class Q, int DL, bool V>
+__global__ void __launch_bounds__(kFdThreads, DL == 4 ? 3 : 1)
 flash_decode_chunk_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -116,9 +147,10 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
                           float* __restrict__ part_acc,
                           float* __restrict__ part_m,
                           float* __restrict__ part_l, int S, int H, int G,
-                          int D, int NC, float scale, Q rnd) {
+                          int GT, int D, int NC, float scale, Q rnd) {
+    constexpr int DM = 32 * DL, NP = DL / 4;
     extern __shared__ float4 fd_smem[];
-    FdSmem& sm = *reinterpret_cast<FdSmem*>(fd_smem);
+    FdSmem<DM>& sm = *reinterpret_cast<FdSmem<DM>*>(fd_smem);
     const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int len = lengths[b];
     const bool empty = len <= 0;
@@ -130,51 +162,72 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     const int r0 = warp * kFdRows;           // the warp's rows
     const int nr = max(0, min(kFdRows, tc - r0));
     const int d0 = 4 * lane;
-    const bool has_d = d0 < D;
+    // the lane's parts within D
+    auto has_d = [&](int pt) { return kFdPart * pt + d0 < D; };
 
-    // the warp's k rows (group 0) and v rows (group 1): lane l copies d0..
+    // the warp's k rows (group 0) and v rows (group 1): lane l copies its
+    // parts d0.. and 128 + d0..
     const size_t row0 = ((size_t)b * S + t0 + r0) * H + h;
-    if (has_d && !empty) {
-        for (int j = 0; j < nr; ++j) {
-            cp_async16(&sm.k[r0 + j][d0], k + (row0 + (size_t)j * H) * D + d0,
-                       true);
+#pragma unroll
+    for (int pt = 0; pt < NP; ++pt) {
+        const int d = kFdPart * pt + d0;
+        if (has_d(pt) && !empty) {
+            for (int j = 0; j < nr; ++j) {
+                fd_copy_part<V>(&sm.k[r0 + j][d],
+                                k + (row0 + (size_t)j * H) * D + d, d, D);
+            }
         }
     }
     cp_async_commit();
-    if (has_d) {
-        for (int j = 0; j < nr; ++j) {
-            cp_async16(&sm.v[r0 + j][d0], v + (row0 + (size_t)j * H) * D + d0,
-                       true);
+#pragma unroll
+    for (int pt = 0; pt < NP; ++pt) {
+        const int d = kFdPart * pt + d0;
+        if (has_d(pt)) {
+            for (int j = 0; j < nr; ++j) {
+                fd_copy_part<V>(&sm.v[r0 + j][d],
+                                v + (row0 + (size_t)j * H) * D + d, d, D);
+            }
         }
     }
     cp_async_commit();
 
-    // q, rounded, zero past G and D
+    // q, rounded, zero past GT and D
     const float* qb = q + (size_t)(b * H + h) * G * D;
-    for (int e = threadIdx.x; e < kFdGMax * kFdDMax; e += kFdThreads) {
-        const int g = e / kFdDMax, d = e % kFdDMax;
-        sm.q[g][d] = g < G && d < D ? rnd(qb[g * D + d]) : 0.0f;
+    for (int e = threadIdx.x; e < kFdGMax * DM; e += kFdThreads) {
+        const int g = e / DM, d = e % DM;
+        sm.q[g][d] = g < GT && d < D ? rnd(qb[g * D + d]) : 0.0f;
     }
     __syncthreads();
 
     // scores of the warp's rows; lane l ends with head hl's
     const int hl = lane / 4, i4 = lane % 4;
     if (!empty) {
-        float4 qr[kFdGMax];   // slot j: head j ^ hl
+        float4 qr[NP][kFdGMax];   // slot j: head j ^ hl
 #pragma unroll
-        for (int j = 0; j < kFdGMax; ++j) {
-            qr[j] = *reinterpret_cast<const float4*>(&sm.q[j ^ hl][d0]);
+        for (int pt = 0; pt < NP; ++pt) {
+#pragma unroll
+            for (int j = 0; j < kFdGMax; ++j) {
+                qr[pt][j] = *reinterpret_cast<const float4*>(
+                    &sm.q[j ^ hl][kFdPart * pt + d0]);
+            }
         }
         cp_async_wait<1>();
         for (int j = 0; j < nr; ++j) {
-            const float4 kk = has_d ? fd_load_round(&sm.k[r0 + j][d0], rnd)
-                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             float x[kFdGMax];
 #pragma unroll
-            for (int g = 0; g < kFdGMax; ++g) {
-                x[g] = fmaf(qr[g].w, kk.w,
-                            fmaf(qr[g].z, kk.z,
-                                 fmaf(qr[g].y, kk.y, qr[g].x * kk.x)));
+            for (int pt = 0; pt < NP; ++pt) {
+                const float4 kk =
+                    has_d(pt)
+                        ? fd_load_round(&sm.k[r0 + j][kFdPart * pt + d0], rnd)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+                for (int g = 0; g < kFdGMax; ++g) {
+                    const float4 qq = qr[pt][g];
+                    const float a = pt == 0 ? qq.x * kk.x
+                                            : fmaf(qq.x, kk.x, x[g]);
+                    x[g] = fmaf(qq.w, kk.w,
+                                fmaf(qq.z, kk.z, fmaf(qq.y, kk.y, a)));
+                }
             }
             // reduce-scatter: the partner's slot g + half holds my slot g's
             // head, since its hl differs from mine in that bit
@@ -189,9 +242,9 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
             x[0] += __shfl_xor_sync(kFdFull, x[1], 4);
             x[0] += __shfl_xor_sync(kFdFull, x[0], 2);
             x[0] += __shfl_xor_sync(kFdFull, x[0], 1);
-            if (i4 == 0 && hl < G) sm.s[hl][r0 + j] = x[0] * scale;
+            if (i4 == 0 && hl < GT) sm.s[hl][r0 + j] = x[0] * scale;
         }
-    } else if (i4 == 0 && hl < G) {
+    } else if (i4 == 0 && hl < GT) {
         for (int j = 0; j < nr; ++j) sm.s[hl][r0 + j] = kFdNeg;
     }
     __syncthreads();
@@ -199,7 +252,7 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     // the chunk's max of head hl (-1e30 at least, as the reference clamps):
     // each of its 4 lanes takes a quarter of the chunk
     float mx = kFdNeg;
-    if (hl < G) {
+    if (hl < GT) {
         const int e = min(kFdChunk / 4 * (i4 + 1), tc);
         for (int i = kFdChunk / 4 * i4; i < e; ++i) {
             mx = fmaxf(mx, sm.s[hl][i]);
@@ -208,12 +261,12 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     mx = fmaxf(mx, __shfl_xor_sync(kFdFull, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(kFdFull, mx, 2));
 
-    // p of the warp's rows (0 for heads past G), then the warp's sum of
+    // p of the warp's rows (0 for heads past GT), then the warp's sum of
     // head hl's p in order
 #pragma unroll
     for (int j = i4; j < kFdRows; j += 4) {
         if (j < nr) {
-            sm.p[r0 + j][hl] = hl < G ? expf(sm.s[hl][r0 + j] - mx) : 0.0f;
+            sm.p[r0 + j][hl] = hl < GT ? expf(sm.s[hl][r0 + j] - mx) : 0.0f;
         }
     }
     __syncwarp();
@@ -224,35 +277,47 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
         if (warp == 0) sm.m[hl] = mx;
     }
 
-    // P·V over the warp's rows in order: lane l owns d0.. of every head
-    float acc[kFdGMax][4];
+    // P·V over the warp's rows in order: lane l owns its parts of every head
+    float acc[kFdGMax][DL];
 #pragma unroll
     for (int g = 0; g < kFdGMax; ++g) {
-        acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < DL; ++i) acc[g][i] = 0.0f;
     }
     cp_async_wait<0>();
     for (int j = 0; j < nr; ++j) {
-        const float4 vv = has_d ? fd_load_round(&sm.v[r0 + j][d0], rnd)
-                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         const float4 pa = *reinterpret_cast<const float4*>(&sm.p[r0 + j][0]);
         const float4 pb = *reinterpret_cast<const float4*>(&sm.p[r0 + j][4]);
         const float pg[kFdGMax] = {pa.x, pa.y, pa.z, pa.w,
                                    pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
-        for (int g = 0; g < kFdGMax; ++g) {
-            acc[g][0] = fmaf(pg[g], vv.x, acc[g][0]);
-            acc[g][1] = fmaf(pg[g], vv.y, acc[g][1]);
-            acc[g][2] = fmaf(pg[g], vv.z, acc[g][2]);
-            acc[g][3] = fmaf(pg[g], vv.w, acc[g][3]);
+        for (int pt = 0; pt < NP; ++pt) {
+            const float4 vv =
+                has_d(pt)
+                    ? fd_load_round(&sm.v[r0 + j][kFdPart * pt + d0], rnd)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+            for (int g = 0; g < kFdGMax; ++g) {
+                acc[g][4 * pt] = fmaf(pg[g], vv.x, acc[g][4 * pt]);
+                acc[g][4 * pt + 1] = fmaf(pg[g], vv.y, acc[g][4 * pt + 1]);
+                acc[g][4 * pt + 2] = fmaf(pg[g], vv.z, acc[g][4 * pt + 2]);
+                acc[g][4 * pt + 3] = fmaf(pg[g], vv.w, acc[g][4 * pt + 3]);
+            }
         }
     }
     // into the warp's own k rows (row r0 + g: head g), read by every warp
-    if (nr > 0 && has_d) {
+    if (nr > 0) {
 #pragma unroll
-        for (int g = 0; g < kFdGMax; ++g) {
-            if (g < G) {
-                *reinterpret_cast<float4*>(&sm.k[r0 + g][d0]) =
-                    make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        for (int pt = 0; pt < NP; ++pt) {
+            if (!has_d(pt)) continue;
+#pragma unroll
+            for (int g = 0; g < kFdGMax; ++g) {
+                if (g < GT) {
+                    *reinterpret_cast<float4*>(
+                        &sm.k[r0 + g][kFdPart * pt + d0]) =
+                        make_float4(acc[g][4 * pt], acc[g][4 * pt + 1],
+                                    acc[g][4 * pt + 2], acc[g][4 * pt + 3]);
+                }
             }
         }
     }
@@ -261,19 +326,31 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     // the chunk's partial: warp g adds head g's sums in warp order
     const int nw = (tc + kFdRows - 1) / kFdRows;
     const int g = warp;
-    if (g < G) {
+    if (g < GT) {
         const size_t prow = ((size_t)(b * H + h) * G + g) * NC + c;
-        if (has_d) {
-            float4 a = *reinterpret_cast<const float4*>(&sm.k[g][d0]);
+#pragma unroll
+        for (int pt = 0; pt < NP; ++pt) {
+            if (!has_d(pt)) continue;
+            const int d = kFdPart * pt + d0;
+            float4 a = *reinterpret_cast<const float4*>(&sm.k[g][d]);
             for (int w = 1; w < nw; ++w) {
-                const float* row = &sm.k[w * kFdRows + g][d0];
+                const float* row = &sm.k[w * kFdRows + g][d];
                 const float4 t = *reinterpret_cast<const float4*>(row);
                 a.x += t.x;
                 a.y += t.y;
                 a.z += t.z;
                 a.w += t.w;
             }
-            *reinterpret_cast<float4*>(part_acc + prow * D + d0) = a;
+            float* dst = part_acc + prow * D + d;
+            if constexpr (V) {
+                *reinterpret_cast<float4*>(dst) = a;
+            } else {
+                const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    if (d + i < D) dst[i] = av[i];
+                }
+            }
         }
         if (lane == 0) {
             float l = sm.l[0][g];
@@ -305,11 +382,11 @@ __device__ __forceinline__ void fd_load_group(FdGroup& gr, const float* ap,
     }
 }
 
-// One block per (head, kv head, batch), thread d: folds the lane's chunk
-// partials in chunk order and writes rnd(acc / l). The next group's loads
-// are in flight while a group folds.
-template <class Q>
-__global__ void __launch_bounds__(kFdDMax)
+// One block of DM threads per (head, kv head, batch), thread d: folds the
+// lane's chunk partials in chunk order and writes rnd(acc / l). The next
+// group's loads are in flight while a group folds.
+template <class Q, int DM>
+__global__ void __launch_bounds__(DM)
 flash_decode_combine_kernel(const float* __restrict__ part_acc,
                             const float* __restrict__ part_m,
                             const float* __restrict__ part_l,
@@ -358,37 +435,68 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
     if (has_d) out[head * D + d] = rnd(__fdiv_rn(acc, l));
 }
 
+// Both kernels of one instance: the chunk kernel once a tile of 8 heads,
+// then the combine over all G.
+template <class Q, int DL, bool V>
+cudaError_t fd_launch(const float* q, const float* k, const float* v,
+                      const int* lengths, float* out, float* acc, float* m,
+                      float* l, int B, int S, int H, int G, int D, int NC,
+                      float scale, const Q& rnd, cudaStream_t s) {
+    constexpr int smem = sizeof(FdSmem<32 * DL>);
+    static const cudaError_t attr =
+        allow_smem(flash_decode_chunk_kernel<Q, DL, V>, smem);
+    if (attr != cudaSuccess) return attr;
+    for (int g0 = 0; g0 < G; g0 += kFdGMax) {
+        const int gt = min(kFdGMax, G - g0);
+        const size_t r = (size_t)g0 * NC;   // the tile's first partial row
+        flash_decode_chunk_kernel<Q, DL, V>
+            <<<dim3(NC, H, B), kFdThreads, smem, s>>>(
+                q + (size_t)g0 * D, k, v, lengths, acc + r * D, m + r,
+                l + r, S, H, G, gt, D, NC, scale, rnd);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+    }
+    flash_decode_combine_kernel<Q, 32 * DL>
+        <<<dim3(G, H, B), 32 * DL, 0, s>>>(acc, m, l, lengths, out, S, H, G,
+                                           D, NC, rnd);
+    return cudaGetLastError();
+}
+
 // q [B, H, G, D], k/v [B, S, H, D], lengths int32 [B], out like q: f32,
-// contiguous, on the device; G <= 8, D <= 128 and D % 4 == 0, k and v
-// 16-byte aligned; partials: B·H·G·chunks·(D + 2) floats, 16-byte aligned,
-// for acc [rows][D], then m [rows], then l [rows], rows = B·H·G·chunks
-// (the wrappers allocate and check). Launches both kernels on
+// contiguous, on the device; G >= 1, D <= 256; partials: B·H·G·chunks·
+// (D + 2) floats, 16-byte aligned, for acc [rows][D], then m [rows], then
+// l [rows], rows = B·H·G·chunks (the wrappers allocate and check).
+// Launches the chunk kernel once a tile of 8 heads, then the combine, on
 // ``stream``; returns cudaGetLastError().
 template <class Q>
 cudaError_t flash_decode(const void* q, const void* k, const void* v,
                          const void* lengths, void* out, void* partials,
                          int B, int S, int H, int G, int D, float scale,
                          Q rnd, void* stream) {
+    if (G < 1 || D < 1 || D > 2 * kFdPart) return cudaErrorInvalidValue;
     const auto s = static_cast<cudaStream_t>(stream);
     const int NC = fd_chunks(S);
     const size_t rows = (size_t)B * H * G * NC;
     float* acc = static_cast<float*>(partials);
     float* m = acc + rows * D;
     float* l = m + rows;
-    static const cudaError_t attr =
-        allow_smem(flash_decode_chunk_kernel<Q>, sizeof(FdSmem));
-    if (attr != cudaSuccess) return attr;
-    flash_decode_chunk_kernel<Q><<<dim3(NC, H, B), kFdThreads, sizeof(FdSmem),
-                                   s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const int*>(lengths), acc,
-        m, l, S, H, G, D, NC, scale, rnd);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    flash_decode_combine_kernel<Q><<<dim3(G, H, B), kFdDMax, 0, s>>>(
-        acc, m, l, static_cast<const int*>(lengths), static_cast<float*>(out),
-        S, H, G, D, NC, rnd);
-    return cudaGetLastError();
+    const auto* qp = static_cast<const float*>(q);
+    const auto* kp = static_cast<const float*>(k);
+    const auto* vp = static_cast<const float*>(v);
+    const auto* lp = static_cast<const int*>(lengths);
+    auto* op = static_cast<float*>(out);
+    const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+    if (D <= kFdPart) {
+        return vec ? fd_launch<Q, 4, true>(qp, kp, vp, lp, op, acc, m, l, B,
+                                           S, H, G, D, NC, scale, rnd, s)
+                   : fd_launch<Q, 4, false>(qp, kp, vp, lp, op, acc, m, l, B,
+                                            S, H, G, D, NC, scale, rnd, s);
+    }
+    return vec ? fd_launch<Q, 8, true>(qp, kp, vp, lp, op, acc, m, l, B, S,
+                                       H, G, D, NC, scale, rnd, s)
+               : fd_launch<Q, 8, false>(qp, kp, vp, lp, op, acc, m, l, B, S,
+                                        H, G, D, NC, scale, rnd, s);
 }
 
 }  // namespace

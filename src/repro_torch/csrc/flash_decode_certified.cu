@@ -37,8 +37,8 @@ struct FormatRound {
 }  // namespace
 
 // q [B, H, G, D], k/v [B, S, H, D], lengths int32 [B], out like q: f32,
-// contiguous, on the device; G <= 8, D <= 128, D % 4 == 0; partials: the
-// chunk partials' scratch (flash_decode.cuh). Returns cudaGetLastError()
+// contiguous, on the device; G >= 1, D <= 256; partials: the chunk
+// partials' scratch (flash_decode.cuh). Returns cudaGetLastError()
 // after the launches.
 extern "C" int repro_flash_decode_certified_f32(
     const void* q, const void* k, const void* v, const void* lengths,

@@ -113,6 +113,25 @@ __device__ __forceinline__ void round_share(float* ws, float* xs, int pt,
     sh.template store<NT>(ws, xs, pt, xoff, xok);
 }
 
+// The epilogue's rounding of an output: q itself, or none where the
+// functor is wrapped in RawOut. A RawOut GEMM writes the f32 accumulator
+// unrounded (its operands are still rounded by q), for a caller that reads
+// the accumulator before rounding it in place with the same q; the bits it
+// ends with are those of the plain instance. The plain instances' code is
+// unchanged: round_out(q, v) is q(v) for them.
+template <class Q>
+struct RawOut : Q {};
+
+template <class Q>
+__device__ __forceinline__ float round_out(const Q& q, float v) {
+    return q(v);
+}
+
+template <class Q>
+__device__ __forceinline__ float round_out(const RawOut<Q>&, float v) {
+    return v;
+}
+
 // ---------------------------------------------------------------- decode
 
 constexpr int kDecBN = 32;      // columns per block (one per lane)
@@ -258,7 +277,9 @@ quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (n < N) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-            if (r < R) out[(size_t)(row0 + r) * N + n] = q(acc[r]);
+            if (r < R) {
+                out[(size_t)(row0 + r) * N + n] = round_out(q, acc[r]);
+            }
         }
     }
 }
@@ -411,7 +432,9 @@ quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < TM; ++j) {
             const int gn = n0 + (j / 4) * HN + tx * 4 + j % 4;
-            if (gn < N) out[(size_t)gm * N + gn] = q(acc[i][j]);
+            if (gn < N) {
+                out[(size_t)gm * N + gn] = round_out(q, acc[i][j]);
+            }
         }
     }
 }

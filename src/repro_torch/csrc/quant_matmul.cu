@@ -42,3 +42,24 @@ extern "C" int repro_quant_matmul_f32(const void* x, const void* w, void* out,
         quant_gemm(x, w, out, M, N, K, MantissaRound{repro_k_consts(k)},
                    stream));
 }
+
+// The same GEMM with its output unrounded: out = q_k(x) @ q_k(w), the f32
+// accumulator in the same order as repro_quant_matmul_f32's (RawOut in
+// quant_gemm.cuh). A violation monitor reads it, as the reference observes
+// its product before the final rounding, and repro_quantize_k_inplace_f32
+// then rounds it to the bits repro_quant_matmul_f32 writes.
+extern "C" int repro_quant_matmul_raw_f32(const void* x, const void* w,
+                                          void* out, int M, int N, int K,
+                                          int k, void* stream) {
+    return static_cast<int>(quant_gemm(
+        x, w, out, M, N, K, RawOut<MantissaRound>{{repro_k_consts(k)}},
+        stream));
+}
+
+// x[i] = q_k(x[i]) for n contiguous f32 values on the device, by the GEMM
+// epilogue's own functor. Returns cudaGetLastError() after the launch.
+extern "C" int repro_quantize_k_inplace_f32(void* x, long long n, int k,
+                                            void* stream) {
+    return static_cast<int>(repro_round_elementwise(
+        x, x, n, MantissaRound{repro_k_consts(k)}, stream));
+}

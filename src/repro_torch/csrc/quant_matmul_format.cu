@@ -38,16 +38,6 @@ QFmtConsts format_consts(int k, int emax, int emin, int has_subnormals,
         QFmt{k, emax, emin, has_subnormals != 0, saturating});
 }
 
-template <bool HS>
-__global__ void quantize_format_kernel(const float* __restrict__ x,
-                                       float* __restrict__ y, long long n,
-                                       FormatRound<HS> q) {
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         i < n; i += (long long)gridDim.x * blockDim.x) {
-        y[i] = q(x[i]);
-    }
-}
-
 }  // namespace
 
 // x [M, K], w [K, N], out [M, N]: f32, row-major, contiguous, on the device.
@@ -72,17 +62,9 @@ extern "C" int repro_quantize_format_f32(const void* x, void* y, long long n,
                                          void* stream) {
     const QFmtConsts c =
         format_consts(k, emax, emin, has_subnormals, saturating);
-    const long long blocks = n > 0 ? (n + 255) / 256 : 1;
-    const int grid = (int)(blocks < 4096 ? blocks : 4096);
-    const auto s = static_cast<cudaStream_t>(stream);
-    const auto* xp = static_cast<const float*>(x);
-    auto* yp = static_cast<float*>(y);
-    if (c.has_subnormals) {
-        quantize_format_kernel<<<grid, 256, 0, s>>>(xp, yp, n,
-                                                    FormatRound<true>{c});
-    } else {
-        quantize_format_kernel<<<grid, 256, 0, s>>>(xp, yp, n,
-                                                    FormatRound<false>{c});
-    }
-    return static_cast<int>(cudaGetLastError());
+    const cudaError_t rc =
+        c.has_subnormals
+            ? repro_round_elementwise(x, y, n, FormatRound<true>{c}, stream)
+            : repro_round_elementwise(x, y, n, FormatRound<false>{c}, stream);
+    return static_cast<int>(rc);
 }

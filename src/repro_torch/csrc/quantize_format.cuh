@@ -153,3 +153,30 @@ __device__ __forceinline__ float repro_quantize_to_format_t(
     y = a < c.min_norm && y != 0.0f ? sub : y;
     return isfinite(x) ? y : x;
 }
+
+// y[i] = q(x[i]) for n contiguous f32 values on the device, q a kernel's own
+// rounding functor (one with pin()); y may be x, to round in place. A
+// grid-stride loop of 256-thread blocks, at most 4,096 of them.
+template <class Q>
+__global__ void repro_round_elementwise_kernel(const float* x, float* y,
+                                               long long n, Q q) {
+    q.pin();
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         i < n; i += (long long)gridDim.x * blockDim.x) {
+        y[i] = q(x[i]);
+    }
+}
+
+// Launches repro_round_elementwise_kernel on ``stream``; returns
+// cudaGetLastError() after the launch (nothing is launched for n <= 0).
+template <class Q>
+cudaError_t repro_round_elementwise(const void* x, void* y, long long n, Q q,
+                                    void* stream) {
+    if (n <= 0) return cudaSuccess;
+    const long long blocks = (n + 255) / 256;
+    const int grid = (int)(blocks < 4096 ? blocks : 4096);
+    repro_round_elementwise_kernel<<<grid, 256, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), n, q);
+    return cudaGetLastError();
+}

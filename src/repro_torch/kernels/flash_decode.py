@@ -29,7 +29,8 @@ versions': before any final rounding the two differ by a few f32 ulps of
 max|v|; after it they are equal or an ulp at k apart. Within the kernels
 each output's order depends on its lane's length only, so a lane's bits do
 not depend on the batch, its place in it, the other lanes or the cache's
-capacity.
+capacity. They take any number G of query heads a kv head (in tiles of 8)
+and any head dim D ≤ :data:`FD_D_MAX`, as the Pallas kernels take any.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from repro_torch.kernels.quant_matmul import fmt_triple
 
 NEG = -1e30
 FD_CHUNK = 64      # cached positions a kernel block takes (flash_decode.cuh)
+FD_D_MAX = 256     # the largest head dim the kernels take
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -152,12 +154,9 @@ def _check_decode_args(q, k, v, lengths):
     if k.shape != (B, S, H, D) or v.shape != k.shape or S < 1:
         raise ValueError(f"cache shapes {tuple(k.shape)}/{tuple(v.shape)} "
                          f"do not fit q {tuple(q.shape)}")
-    if G > 8 or D > 128 or D % 4:
-        raise ValueError(f"kernel takes G <= 8, D <= 128 and D % 4 == 0, "
+    if G < 1 or not 1 <= D <= FD_D_MAX:
+        raise ValueError(f"kernel takes G >= 1 and 1 <= D <= {FD_D_MAX}, "
                          f"got G={G}, D={D}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k, v: the kernel's 16-byte copies need 16-byte "
-                         "aligned caches")
     if (lengths.dtype != torch.int32 or lengths.shape != (B,)
             or lengths.device != q.device or not lengths.is_contiguous()):
         raise ValueError("lengths: needs a contiguous int32 [B] tensor on "
@@ -177,9 +176,11 @@ def flash_decode_certified(q, k, v, lengths, fmt, *,
                            has_subnormals: bool = True,
                            saturating: bool = True) -> torch.Tensor:
     """The CUDA kernel. q f32[B, K, G, D], k/v f32[B, S, K, D] with S ≥ 1,
-    lengths int32[B], all contiguous on one card; G ≤ 8, D ≤ 128 and
-    D % 4 == 0, k and v 16-byte aligned. ``flash_decode_certified.launches``
-    counts calls (each launches the chunk and the combine kernel)."""
+    lengths int32[B], all contiguous on one card; any G ≥ 1 and
+    D ≤ :data:`FD_D_MAX` (16-byte copies where D % 4 == 0 and k and v are
+    16-byte aligned, 4-byte ones otherwise).
+    ``flash_decode_certified.launches`` counts calls (each launches the chunk
+    kernel once a tile of 8 query heads, then the combine kernel)."""
     B, S, H, G, D = _check_decode_args(q, k, v, lengths)
     kk, emax, emin = fmt_triple(fmt)
     out = torch.empty_like(q)
@@ -239,9 +240,9 @@ def _lib_plain():
 def flash_decode_attention(q, k, v, lengths) -> torch.Tensor:
     """The CUDA kernel of uncertified decode attention. q f32[B, K, G, D],
     k/v f32[B, S, K, D] with S ≥ 1, lengths int32[B], all contiguous on one
-    card; G ≤ 8, D ≤ 128 and D % 4 == 0 (Qwen2-7B needs G=7, D=128), k and
-    v 16-byte aligned. ``flash_decode_attention.launches`` counts calls
-    (each launches the chunk and the combine kernel)."""
+    card; any G ≥ 1 and D ≤ :data:`FD_D_MAX`, as
+    :func:`flash_decode_certified` (Qwen2-7B needs G=7, D=128).
+    ``flash_decode_attention.launches`` counts calls."""
     B, S, H, G, D = _check_decode_args(q, k, v, lengths)
     out = torch.empty_like(q)
     part = _partials(B, S, H, G, D, q.device)

@@ -167,15 +167,20 @@ def quant_matmul_format_dispatch(x: torch.Tensor, w: torch.Tensor, fmt, *,
     return out.reshape(*lead, w.shape[-1])
 
 
-def quant_matmul_ref(x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+def quant_matmul_ref(x: torch.Tensor, w: torch.Tensor, k: int,
+                     observe=None) -> torch.Tensor:
     """Plain version of :func:`quant_matmul` (the reference's
     ``ref.quant_matmul_ref``): operands and result RNE-rounded to ``k``
     mantissa bits by ``_quantize_normal``, the product by ``torch.matmul``
-    in f32."""
+    in f32. ``observe`` (None, or a callable) is handed the f32 product
+    before its final rounding."""
     k = int(k)
     xq = _quantize_normal(x.to(torch.float32), k)
     wq = _quantize_normal(w.to(torch.float32), k)
-    return _quantize_normal(torch.matmul(xq, wq), k)
+    acc = torch.matmul(xq, wq)
+    if observe is not None:
+        observe(acc)
+    return _quantize_normal(acc, k)
 
 
 def quant_matmul_seq_ref(x: torch.Tensor, w: torch.Tensor,
@@ -191,17 +196,28 @@ def quant_matmul_seq_ref(x: torch.Tensor, w: torch.Tensor,
 def _lib_k():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_typed", False):
-        lib.repro_quant_matmul_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
-        lib.repro_quant_matmul_f32.restype = _I
+        for fn in (lib.repro_quant_matmul_f32,
+                   lib.repro_quant_matmul_raw_f32):
+            fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+            fn.restype = _I
+        lib.repro_quantize_k_inplace_f32.argtypes = [
+            _P, ctypes.c_longlong, _I, _P]
+        lib.repro_quantize_k_inplace_f32.restype = _I
         lib._typed = True
     return lib
 
 
-def quant_matmul(x: torch.Tensor, w: torch.Tensor, *, k: int) -> torch.Tensor:
+def quant_matmul(x: torch.Tensor, w: torch.Tensor, *, k: int,
+                 raw: bool = False) -> torch.Tensor:
     """The CUDA kernel: x f32[M, K] @ w f32[K, N] → f32[M, N] at mantissa
     precision ``k`` ≥ 1 (k ≥ 24 rounds nothing), both on the card and
     contiguous. Launches on the current stream; raises on a refused launch.
-    ``quant_matmul.launches`` counts launches."""
+    ``quant_matmul.launches`` counts launches.
+
+    ``raw=True`` launches the instance whose epilogue leaves the f32
+    accumulator unrounded (the operands are rounded as always, and the sums
+    run in the same order): :func:`round_k_inplace` then gives the bits of
+    ``raw=False``."""
     _check_cuda_f32("x", x, 2)
     _check_cuda_f32("w", w, 2)
     M, K = x.shape
@@ -213,9 +229,10 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, *, k: int) -> torch.Tensor:
     if k < 1:
         raise ValueError(f"quant_matmul: k must be >= 1, got {k}")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    rc = _lib_k().repro_quant_matmul_f32(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, k,
-        _build.stream_ptr(x.device))
+    lib = _lib_k()
+    fn = lib.repro_quant_matmul_raw_f32 if raw else lib.repro_quant_matmul_f32
+    rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, k,
+            _build.stream_ptr(x.device))
     _build.check(rc, "quant_matmul")
     quant_matmul.launches += 1
     return out
@@ -224,15 +241,43 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, *, k: int) -> torch.Tensor:
 quant_matmul.launches = 0
 
 
-def quant_matmul_dynamic_k(x: torch.Tensor, w: torch.Tensor,
-                           k: int) -> torch.Tensor:
+def round_k_inplace(t: torch.Tensor, k: int) -> torch.Tensor:
+    """``t`` ← RNE rounding of its mantissa to ``k`` bits, in place, by the
+    GEMM epilogue's own device function (``t`` a contiguous f32 tensor on
+    the card); returns ``t``. What rounds a ``raw=True`` product of
+    :func:`quant_matmul` after a monitor has read it. Its plain version is
+    ``_quantize_normal(t, k)``; ``round_k_inplace.launches`` counts
+    launches."""
+    _check_cuda_f32("t", t, t.dim())
+    rc = _lib_k().repro_quantize_k_inplace_f32(
+        t.data_ptr(), t.numel(), int(k), _build.stream_ptr(t.device))
+    _build.check(rc, "quantize_k_inplace")
+    round_k_inplace.launches += 1
+    return t
+
+
+round_k_inplace.launches = 0
+
+
+def quant_matmul_dynamic_k(x: torch.Tensor, w: torch.Tensor, k: int,
+                           observe=None) -> torch.Tensor:
     """Serving dispatch of the k-bit GEMM (the reference's function of the
     same name). Tensors on the CPU take the plain version; tensors on the
     card launch the kernel (or raise). ``k`` is a Python int: the port's
     layer loop is unrolled, so a per-layer k is resolved before the call.
-    Batched ``x`` [..., K] is flattened to [M, K] and restored after."""
+    Batched ``x`` [..., K] is flattened to [M, K] and restored after.
+
+    ``observe`` (None, or a callable) is handed the f32 product before its
+    final rounding, as the reference's uniform-k backend observes it; the
+    product is then rounded in place, to the same bits as without
+    ``observe``. On the card that is one launch of the kernel's raw instance
+    and one of :func:`round_k_inplace`: no second GEMM."""
+    lead, K, N = x.shape[:-1], x.shape[-1], w.shape[-1]
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return quant_matmul_ref(x, w, k)
-    lead, K = x.shape[:-1], x.shape[-1]
-    out = quant_matmul(x.reshape(-1, K).contiguous(), w.contiguous(), k=k)
-    return out.reshape(*lead, w.shape[-1])
+        return quant_matmul_ref(x, w, k, observe)
+    x2, w = x.reshape(-1, K).contiguous(), w.contiguous()
+    if observe is None:
+        return quant_matmul(x2, w, k=k).reshape(*lead, N)
+    out = quant_matmul(x2, w, k=k, raw=True)
+    observe(out.reshape(*lead, N))
+    return round_k_inplace(out, k).reshape(*lead, N)

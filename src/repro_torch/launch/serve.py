@@ -140,10 +140,11 @@ class QuantJOps(TorchOps):
     kernel on the card.
 
     ``monitor`` (a :class:`ViolationMonitor`, default None) observes every
-    matmul product. The reference observes its product before the final
-    rounding; the port observes what kernel 3 returns, rounded to k (no
-    second GEMM): ``max_abs`` within one ulp at k plus the GEMM rule of the
-    reference's, which the monitor's slack of 1 + 2⁻¹⁰ absorbs."""
+    matmul product before its final rounding, as the reference does: the
+    f32 accumulator, which kernel 3's raw instance writes and the device
+    rounding then rounds in place (no second GEMM; the served bits are
+    those of the unmonitored path). With no monitor the kernel runs as
+    ever."""
 
     monitor = None
 
@@ -152,8 +153,12 @@ class QuantJOps(TorchOps):
         self.k = int(k)
 
     def matmul(self, a, b):
-        out = quant_matmul_dynamic_k(a, b, self.k)
-        _emit_health(self, out, self.k)
+        if self.monitor is None:
+            out = quant_matmul_dynamic_k(a, b, self.k)
+        else:
+            out = quant_matmul_dynamic_k(
+                a, b, self.k,
+                observe=lambda acc: _emit_health(self, acc, self.k))
         return out.to(self.compute_dtype)
 
 
@@ -165,7 +170,10 @@ class MixedQuantJOps(TorchOps):
     mapped scope run at ``default_k`` — the semantics a v2 certificate
     proved. The layer loop is unrolled, so each matmul's scope path resolves
     a Python int k (as the reference's unrolled baseline does), cached per
-    path."""
+    path. ``monitor`` observes every (rounded) matmul product, as in the
+    reference."""
+
+    monitor = None
 
     def __init__(self, layer_k: Dict[str, int], default_k: int,
                  compute_dtype=torch.float32):

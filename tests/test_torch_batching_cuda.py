@@ -264,10 +264,12 @@ def test_k_and_plain_step_every_op_lane_bits_at_full_width(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 2, 9, 64), (1, 2, 4, 130),
-                                   (1, 2, 4, 66)])
+@pytest.mark.parametrize("shape", [(1, 2, 9, 260), (1, 2, 4, 257),
+                                   (1, 2, 16, 512)])
 def test_card_decode_attention_raises_outside_kernel_limits(cuda_device,
                                                             shape):
+    """Kernel 4 takes any G and 1 <= D <= 256; beyond, the card's path
+    raises (no fallback to the composed attention)."""
     B, K, G, D = shape
     q = torch.zeros(shape, device=cuda_device)
     k = torch.zeros((B, 32, K, D), device=cuda_device)

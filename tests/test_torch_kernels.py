@@ -236,6 +236,48 @@ def test_flash_decode_split_ref_vs_jax_oracle_and_pallas(fmt, S, lens):
     assert_ulp_rule(np.asarray(pallas), got, f, pre)
 
 
+# beyond the serve's G = 7, D = 128: paligemma_3b's head dim 256 at G = 8
+# (B = 4, one kv head), a second tile of query heads (G = 16), hymba_1p5b's
+# G = 5 at D = 64, D = 96, and D % 4 != 0
+WIDE_SHAPES = [(4, 1, 8, 256, 96, [1, 40, 96, 0]),
+               (2, 1, 16, 64, 96, [65, 96]),
+               (2, 2, 5, 64, 64, [64, 3]),
+               (2, 1, 7, 96, 64, [0, 33]),
+               (2, 1, 3, 62, 64, [64, 20])]
+
+
+@pytest.mark.parametrize("fmt", [None, (8, 7, -6)])
+@pytest.mark.parametrize("B,H,G,D,S,lens", WIDE_SHAPES)
+def test_flash_decode_wide_shapes_plain_vs_jax_oracle_and_pallas(
+        fmt, B, H, G, D, S, lens):
+    """The kernels' plain versions (the one-pass ``flash_decode_ref`` /
+    ``flash_decode_quantized_ref`` and the split ``flash_decode_split_ref``)
+    at the head counts and dims the kernels now take, against the JAX
+    oracle and the Pallas kernels in interpret mode over several S-blocks."""
+    q, k, v = _attn_inputs(B, H, G, D, S, seed=G * D + len(str(fmt)))
+    lengths = np.asarray(lens, np.int32)
+    tq, tk, tv, tl = (torch.from_numpy(a) for a in (q, k, v, lengths))
+    jq, jk, jv, jl = (jnp.asarray(a) for a in (q, k, v, lengths))
+    if fmt is None:
+        f = (24, 127, -126)
+        plain = tfd.flash_decode_ref(tq, tk, tv, tl).numpy()
+        oracle = jref.flash_decode_ref(jq, jk, jv, jl)
+        pallas = jfd.flash_decode_attention(jq, jk, jv, jl, block_s=32,
+                                            interpret=True)
+    else:
+        f = fmt
+        plain = tfd.flash_decode_quantized_ref(tq, tk, tv, tl, fmt).numpy()
+        oracle = jfd.flash_decode_quantized_ref(jq, jk, jv, jl, fmt)
+        pallas = jfd.flash_decode_certified(jq, jk, jv, jl, fmt, block_s=32,
+                                            interpret=True)
+    split = tfd.flash_decode_split_ref(tq, tk, tv, tl, fmt).numpy()
+    pre = _attn_pre_tol(v, lengths, f)
+    for got in (plain, split):
+        assert got.shape == (B, H, G, D) and np.isfinite(got).all()
+        assert_ulp_rule(np.asarray(oracle), got, f, pre)
+        assert_ulp_rule(np.asarray(pallas), got, f, pre)
+
+
 @pytest.mark.parametrize("fmt", [None, (12, 15, -14)])
 def test_flash_decode_split_ref_never_reads_past_length(fmt):
     """NaN in the cache at and past every lane's length changes no bit."""

@@ -185,6 +185,54 @@ def test_quant_matmul_k_kernel_nonfinite_and_near_max(cuda_device, k):
                      tqm.quant_matmul_ref(x, w, k))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (4, 3584, 37888),
+                                   (512, 3584, 512), (37, 200, 70)])
+def test_quant_matmul_raw_is_the_accumulator_before_the_rounding(
+        cuda_device, k, M, K, N):
+    """The raw instance (a monitored uniform-k product) writes the f32
+    accumulator: at k <= 12, where every product is exact, bit for bit the
+    sequential sum of the rounded operands; rounded in place it gives the
+    plain instance's bits at every k, on the decode, wide-decode and
+    prefill configurations and on ragged unaligned shapes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(47)
+    x = torch.randn(M, K, device=cuda_device, generator=gen)
+    w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
+    tqm.quant_matmul.launches = 0
+    raw = tqm.quant_matmul(x, w, k=k, raw=True)
+    rounded = tqm.quant_matmul(x, w, k=k)
+    assert tqm.quant_matmul.launches == 2
+    if k <= 12:
+        cols = torch.arange(0, N, max(1, N // 64), device=cuda_device)
+        seq = tqm._seq_matmul(_quantize_normal(x, k),
+                              _quantize_normal(w[:, cols], k))
+        assert_same_bits(raw[:, cols], seq)
+    tqm.round_k_inplace.launches = 0
+    assert_same_bits(tqm.round_k_inplace(raw, k), rounded)
+    assert tqm.round_k_inplace.launches == 1
+
+
+@pytest.mark.cuda
+def test_quant_matmul_dynamic_k_observes_before_rounding(cuda_device):
+    """With ``observe`` the dispatch hands the unrounded product over and
+    returns the unobserved bits; one GEMM launch either way."""
+    gen = torch.Generator(device=cuda_device).manual_seed(53)
+    x = torch.randn(2, 3, 256, device=cuda_device, generator=gen)
+    w = torch.randn(256, 96, device=cuda_device, generator=gen)
+    seen = []
+    tqm.quant_matmul.launches = tqm.round_k_inplace.launches = 0
+    got = tqm.quant_matmul_dynamic_k(x, w, 8,
+                                     observe=lambda t: seen.append(t.clone()))
+    assert tqm.quant_matmul.launches == tqm.round_k_inplace.launches == 1
+    want = tqm.quant_matmul_dynamic_k(x, w, 8)
+    assert tqm.round_k_inplace.launches == 1
+    assert_same_bits(got, want)
+    assert seen[0].shape == (2, 3, 96)
+    assert_same_bits(_quantize_normal(seen[0], 8), want)
+    assert not torch.equal(seen[0], want)
+
+
 def _attended_vmax(v, lengths, rounded=None):
     """The n positions each lane attends (all S for a lane of length 0) and
     the largest |v| there, per (b, kv-head)."""
@@ -264,10 +312,13 @@ def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
     tfd.flash_decode_attention(q, kv, kv, lengths)
     tfd.flash_decode_ref(q, kv, kv, lengths)
     assert tfd.flash_decode_attention.launches == 1
-    with pytest.raises(ValueError):
-        tfd.flash_decode_attention(torch.randn(1, 1, 9, 64,
+    with pytest.raises(ValueError, match="D <= 256"):
+        tfd.flash_decode_attention(torch.randn(1, 1, 9, 260,
                                                device=cuda_device),
-                                   kv, kv, lengths)
+                                   torch.randn(1, 8, 1, 260,
+                                               device=cuda_device),
+                                   torch.randn(1, 8, 1, 260,
+                                               device=cuda_device), lengths)
     with pytest.raises(ValueError):
         tqm.quant_matmul(x, w, k=0)
 
@@ -285,7 +336,12 @@ def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
 # f64 split version.
 
 DECODE_KERNELS = [None] + FORMATS     # None: kernel 4 (uncertified)
-DECODE_GD = [(2, 64), (7, 128), (8, 128), (2, 128), (7, 64), (8, 64)]
+# beyond Qwen2-7B's (7, 128): a second tile of heads (16), paligemma_3b's
+# head dim 256 (G = 8), hymba_1p5b's (5, 64), D = 96 (lanes idle past D)
+# and D % 4 != 0 (4-byte copies)
+WIDE_GD = [(8, 256), (16, 64), (5, 64), (7, 96), (3, 62), (9, 190)]
+DECODE_GD = [(2, 64), (7, 128), (8, 128), (2, 128), (7, 64),
+             (8, 64)] + WIDE_GD
 
 
 def _decode(fmt, q, k, v, lengths):
@@ -350,7 +406,7 @@ def test_flash_decode_lane_bits_independent_of_batch_and_capacity(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", DECODE_KERNELS)
-@pytest.mark.parametrize("G,D", [(2, 64), (7, 128), (8, 128)])
+@pytest.mark.parametrize("G,D", [(2, 64), (7, 128), (8, 128)] + WIDE_GD)
 @pytest.mark.parametrize("S,lens", [
     (200, [63, 64, 65, 1]),
     (200, [0, 200, 128, 129]),
@@ -414,7 +470,7 @@ def _f64_rule_fails_a_dropped_chunk(fmt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", DECODE_KERNELS)
-@pytest.mark.parametrize("G,D", [(2, 64), (7, 128), (8, 128)])
+@pytest.mark.parametrize("G,D", [(2, 64), (7, 128), (8, 128)] + WIDE_GD)
 def test_flash_decode_poisoned_cache_past_lengths(cuda_device, fmt, G, D):
     gen = torch.Generator(device=cuda_device).manual_seed(37)
     lens = [1, 64, 65, 130]
@@ -431,16 +487,28 @@ def test_flash_decode_poisoned_cache_past_lengths(cuda_device, fmt, G, D):
 
 @pytest.mark.cuda
 def test_flash_decode_refuses_what_its_copies_cannot_take(cuda_device):
-    q = torch.randn(1, 1, 2, 62, device=cuda_device)
-    kv = torch.randn(1, 8, 1, 62, device=cuda_device)
-    lengths = torch.tensor([8], dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):                       # D % 4 != 0
-        tfd.flash_decode_attention(q, kv, kv, lengths)
-    q = torch.randn(1, 1, 2, 64, device=cuda_device)
-    buf = torch.randn(8 * 64 + 1, device=cuda_device)
-    kv = buf[1:].view(1, 8, 1, 64)                        # 4-byte aligned
-    with pytest.raises(ValueError):
-        tfd.flash_decode_certified(q, kv, kv, lengths, (12, 15, -14))
+    """D > 256 raises with the limit in its message; D % 4 != 0 and caches
+    only 4-byte aligned take the 4-byte copies and meet both rules, with
+    the bits of the same cache 16-byte aligned."""
+    lengths = torch.tensor([8, 70], dtype=torch.int32, device=cuda_device)
+    q = torch.randn(2, 1, 2, 257, device=cuda_device)
+    kv = torch.randn(2, 80, 1, 257, device=cuda_device)
+    for fmt in DECODE_KERNELS[:2]:
+        with pytest.raises(ValueError, match="D <= 256"):
+            _decode(fmt, q, kv, kv, lengths)
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    for fmt in DECODE_KERNELS:
+        q, k, v = _lanes(gen, 2, 1, 2, 62, 80, cuda_device)
+        _decode_vs_plain(fmt, q, k, v, lengths)           # D % 4 != 0
+        q, k, v = _lanes(gen, 2, 1, 2, 64, 80, cuda_device)
+        aligned = _decode_vs_plain(fmt, q, k, v, lengths)
+        bufs = [torch.empty(t.numel() + 1, device=cuda_device)
+                for t in (k, v)]
+        k4, v4 = (b[1:].view(t.shape) for b, t in zip(bufs, (k, v)))
+        k4.copy_(k)
+        v4.copy_(v)                                       # 4-byte aligned
+        assert k4.data_ptr() % 16 and v4.data_ptr() % 16
+        assert_same_bits(_decode_vs_plain(fmt, q, k4, v4, lengths), aligned)
 
 # --- kernels 5 and 6: the CAA analysis GEMMs --------------------------------
 #

@@ -14,9 +14,12 @@ and a uniform k. Held:
   replaced);
 * each margin agrees within two ulps at the scope's k, in log2 (one ulp at
   k plus the GEMM rule, whose sum-order part is below 2⁻¹⁶ relative at
-  these widths; on the uniform path the reference observes its product
-  before the final rounding and the port what kernel 3 returns, rounded —
-  half an ulp more);
+  these widths); on the uniform path both packages observe the product
+  before its final rounding, at k = 8, 10 and 12;
+* at k = 8 and 10 an envelope planted between a label's largest
+  unrounded product and its rounding to k (which the monitor's slack of
+  1 + 2⁻¹⁰ does not cover below k = 11) gives the reference's counts in
+  the port too: the port observes the unrounded product as well;
 * the monitored logits equal the unmonitored ones bit for bit;
 * a shrunk ``layer*/mlp`` envelope fires in both packages, with the same
   counts, and so do one layer's ``mlp`` weights scaled by 1000 (scaled
@@ -60,6 +63,8 @@ CASES = {
     "k_map": dict(k=16, layer_k={"layer*/attn": 12, "layer*/mlp": 10,
                                  "layer0/mlp": 14}),
     "uniform_k": dict(k=12),
+    "uniform_k8": dict(k=8),
+    "uniform_k10": dict(k=10),
 }
 
 
@@ -221,3 +226,54 @@ def test_monitored_serving_matches_the_reference(params, case):
         assert_same_monitoring(case, tsum, jsum)
     else:
         assert jsum["counters"]["obs.enclosure_violations"] > 0
+
+
+
+@pytest.mark.parametrize("k", [8, 10, 12])
+def test_uniform_k_envelope_between_unrounded_and_rounded(k):
+    """Both packages' ``QuantJOps`` under one envelope set, on products
+    whose rounding to k moves them across it: under ``layer*/attn``,
+    1 + 2^-(k+1) (rounded: 1) against an envelope whose slack-widened value
+    lies between the two; under ``layer*/mlp``, (2 - 2^-k)·2^127, above
+    the format's largest finite value (rounded: +inf). The reference
+    observes the products before their final rounding, and the port's
+    counts (violations, overflow, underflow, non-finite) equal its: two
+    violations, one overflow, nothing non-finite. Observing the rounded
+    products would have given one violation, no overflow and one
+    non-finite value. The served bits are the unmonitored ones."""
+    tiny = 2.0 ** -(k + 1)
+    mats = {"attn": ([[1.0, tiny]], [[1.0], [1.0]]),
+            "mlp": ([[1.5, 0.5 * (1.0 - 2.0 ** (1 - k))]],
+                    [[2.0 ** 127], [2.0 ** 127]])}
+    u, r = 1.0 + tiny, 1.0
+    slack = jobs.ViolationMonitor({}).slack
+    env = {"layer*/attn": {"max_abs": math.sqrt(u * r) / slack},
+           "layer*/mlp": {"max_abs": 1.0e38}}
+
+    def drive(bk, asarray):
+        outs = []
+        for sub, (x, w) in mats.items():
+            with bk.scope("layer*"), bk.scope(sub):
+                outs.append(bk.matmul(asarray(x), asarray(w)))
+        return outs
+
+    jm = jobs.ViolationMonitor(env)
+    jbk = jserve.QuantJOps(k)
+    jbk.monitor = jm
+    drive(jbk, lambda a: jnp.asarray(a, jnp.float32))
+    jax.effects_barrier()
+    tm = ViolationMonitor(env)
+    tbk = tserve.QuantJOps(k)
+    tbk.monitor = tm
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    outs = drive(tbk, f32)
+    assert tm.flush() == 2
+    assert tm.summary()["counters"] == jm.summary()["counters"]
+    c = tm.summary()["counters"]
+    assert (c["obs.enclosure_violations"], c["obs.overflow_events"],
+            c["obs.underflow_events"], c["obs.nonfinite_events"]) == (
+                2, 1, 0, 0)
+    plain = drive(tserve.QuantJOps(k), f32)
+    for a, b in zip(outs, plain):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert float(outs[0][0, 0]) == r and math.isinf(float(outs[1][0, 0]))
