@@ -80,7 +80,22 @@ sha256 of its logits and a profiler trace of its decode steps):
   and certified / correct counts equal on the card and on the CPU with the
   same weights), ``serve_custom_formats``, ``serve_certified
   --precision-k 12`` and ``serve_certified_lm``, each through its
-  ``main``, with its launches of kernels 1-4.
+  ``main``, with its launches of kernels 1-4;
+* ``zoo`` — the GQA model zoo: kernel 4 with Gemma-2's softcap and windows
+  of 16 and 4,096 against both plain versions at the serve cache and at
+  32K (timed there with window 4,096); Gemma-2 27B at full width cut to 8
+  layers served under the format map and at k = 12 (its decode attention
+  through kernel 4, one launch a layer a step, kernel 2 never), then at
+  batch 1 with a 4,224-token prompt so that the local layers' window bites,
+  each decode-attention call held against kernel 4's plain versions, then
+  through the batching engine (every request bit for bit alone) and the
+  library products' lane bits at its widths; Mixtral 8x22B at full width
+  cut to 2 layers at k = 12 and under the format map (router launches,
+  assignments dropped by capacity); Command-R 35B at full width cut to 4
+  layers under the format map (kernels 1 and 2); Llama-4 Maverick at SMOKE
+  on card and CPU (full width does not fit the card); and the four SMOKE
+  configs analysed (CAA forward, router records) and certified on card and
+  CPU with the same weights, decisions equal.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -727,8 +742,12 @@ def phase_quant_matmul_k(torch, qmm):
 FLASH_TOLERANCE = ("equal, or |Δ| ≤ one ulp (at k for the certified "
                    "kernel, of f32 for the plain one) + 2·(n + 16)·2⁻²⁴·"
                    "max|v| over the n positions a lane attends (all S for a "
-                   "lane of length 0); and against the f64 split version, "
-                   "one ulp + 8·√(n + 16)·2⁻²⁴·max|v|")
+                   "lane of length 0; the window's under a window); and "
+                   "against the f64 split version, one ulp + 8·√(n + 16)·"
+                   "2⁻²⁴·max|v|; with a softcap c, + 16·c·2⁻²⁴·max|v| and "
+                   "+ 8·c·2⁻²⁴·max|v|: tanhf within 2 ulps (CUDA C "
+                   "Programming Guide), a score off by Δ ≤ 4·c·2⁻²⁴ moves "
+                   "the output by ≤ 2Δ·max|v|")
 
 
 def attended(torch, lengths, S):
@@ -737,37 +756,52 @@ def attended(torch, lengths, S):
     return torch.where(lengths <= 0, S, lengths.clamp(max=S))
 
 
-def flash_vmax(torch, v, lengths, fmt=None):
+def first_attended(torch, lengths, S, window=0):
+    """The first position each lane attends under a sliding ``window`` (0:
+    none): max(0, n - window), 0 for a lane of length 0."""
+    if not window:
+        return torch.zeros_like(lengths)
+    n = attended(torch, lengths, S)
+    return torch.where(lengths <= 0, 0, (n - window).clamp(min=0))
+
+
+def flash_vmax(torch, v, lengths, fmt=None, window=0):
     """The n positions each lane attends, and the largest |v| there
     (rounded into ``fmt`` when given) per (b, kv-head)."""
     from repro_torch.core.quantize import quantize_to_format
 
     S = v.shape[1]
     n = attended(torch, lengths, S)
-    valid = torch.arange(S, device=v.device)[None, :] < n[:, None]
+    lo = first_attended(torch, lengths, S, window)
+    pos = torch.arange(S, device=v.device)[None, :]
+    valid = (pos < n[:, None]) & (pos >= lo[:, None])
     va = (v if fmt is None else quantize_to_format(v, *fmt)).abs()
-    return n, torch.where(valid[:, :, None, None], va, 0).amax(dim=(1, 3))
+    return n - lo, torch.where(valid[:, :, None, None], va,
+                               0).amax(dim=(1, 3))
 
 
-def flash_tol(torch, v, lengths, fmt=None):
+def flash_tol(torch, v, lengths, fmt=None, window=0, softcap=0.0):
     """Sums over the n attended positions in another order, plus expf: a
     few f32 ulps of the largest |v| attended (rounded into ``fmt`` when
-    given), 2·(n + 16)·2⁻²⁴·max|v|, per (b, kv-head)."""
-    n, vmax = flash_vmax(torch, v, lengths, fmt)
-    slack = 2.0 * (n.double() + 16)[:, None] * 2.0 ** -24
+    given), 2·(n + 16)·2⁻²⁴·max|v|, per (b, kv-head); with a softcap c,
+    + 16·c·2⁻²⁴·max|v| (two tanhs, each score within 4·c·2⁻²⁴ of exact)."""
+    n, vmax = flash_vmax(torch, v, lengths, fmt, window)
+    slack = (2.0 * (n.double() + 16)[:, None] + 16.0 * softcap) * 2.0 ** -24
     return (slack * vmax.double())[:, :, None, None]
 
 
-def flash_f64_tol(torch, v, lengths, fmt=None):
+def flash_f64_tol(torch, v, lengths, fmt=None, window=0, softcap=0.0):
     """A kernel against the f64 split version: the probabilistic bound on
     the rounding errors of its f32 sums, λ·√(n + 16)·2⁻²⁴·max|v|, λ = 8
     (Higham and Mary, SIAM J. Sci. Comput. 41(5), 2019: exceeded with
     probability below 2·exp(-λ²/2) ≈ 3e-14 an element). At 32K it is 45
     times tighter than :func:`flash_tol`, below what one chunk of 64
     positions moves an output, so a chunk dropped or folded with a wrong
-    weight fails it."""
-    n, vmax = flash_vmax(torch, v, lengths, fmt)
-    slack = 8.0 * (n.double() + 16).sqrt()[:, None] * 2.0 ** -24
+    weight fails it. With a softcap c, + 8·c·2⁻²⁴·max|v| (the kernel's
+    tanhf and its two products put a score within 4·c·2⁻²⁴ of exact)."""
+    n, vmax = flash_vmax(torch, v, lengths, fmt, window)
+    slack = (8.0 * (n.double() + 16).sqrt()[:, None]
+             + 8.0 * softcap) * 2.0 ** -24
     return (slack * vmax.double())[:, :, None, None]
 
 
@@ -825,6 +859,11 @@ FLASH_WIDE_CASES = {
     "g16_d64": (1024, [1, 255, 256, 1000], (2, 16, 64)),
     "g5_d64": (1024, [1000, 64, 65, 0], (5, 5, 64)),
     "g7_d96": (1024, [1, 255, 256, 1000], (4, 7, 96)),
+    # above 256, the wide instance (D in slices of 256): one dim past it
+    # (4-byte copies), 320 and 512 (two slices), G = 1, 8 and 16
+    "g1_d257": (1024, [1000, 64, 65, 0], (2, 1, 257)),
+    "g8_d320": (1024, [1, 255, 256, 1000], (1, 8, 320)),
+    "g16_d512": (2048, [2048, 1025, 64, 0], (1, 16, 512)),
 }
 
 
@@ -4347,6 +4386,581 @@ def phase_paper(torch, qmm, fd):
             for name in fns}
 
 
+# ---------------------------------------------------------------------------
+# the GQA model zoo: Gemma-2, Mixtral, Command-R and Llama-4 through the
+# port's entry points
+# ---------------------------------------------------------------------------
+
+# full width, depth cut for memory (f32 weights; embeddings and the LM head's
+# transposed copy included): Gemma-2 27B 8 layers (4 local, 4 global) ~27.5
+# GB, Mixtral 8x22B 2 layers ~22.4 GB, Command-R 35B 4 layers ~28 GB
+ZOO_LAYERS = {"gemma2_27b": 8, "mixtral_8x22b": 2, "command_r_35b": 4}
+ZOO_WINDOW_PROMPT = 4224          # past Gemma-2's 4,096-position local window
+ZOO_BATCH_REQUESTS, ZOO_BATCH_MAX_NEW = 4, 8
+ZOO_SOFTCAP = 50.0                # Gemma-2's attention softcap
+ZOO_FLASH_WINDOWS = (16, 4096)    # the SMOKE window, Gemma-2's / Mixtral's
+ZOO_FLASH_SHAPE = (16, 2, 128)    # Gemma-2's K, G, D
+ZOO_LONG = 32768
+ZOO_SMOKE = ("command_r_35b", "gemma2_27b", "mixtral_8x22b",
+             "llama4_maverick")
+ZOO_CERT = {"seq": 6, "batch": 2, "seed": 0, "k_max": 24}
+ZOO_CAA_U = 2.0 ** -11            # the zoo analysis's u (emulated k = 12)
+LLAMA4_FULL = ("not run at full width: one layer's 128 experts take 128·3·"
+               "5120·8192·4 B = 64.4 GB in f32 and the embeddings and LM "
+               "head another 12.4 GB (its transposed copy a further 4.1), "
+               "which leaves no room on an 80 GB card; SMOKE on card and "
+               "CPU instead")
+F32_FMT = (24, 127, -126)
+
+
+def zoo_expected(cfg, path, forwards, steps):
+    """Exact launches of ``forwards`` forwards (``steps`` of them decode
+    steps) of a zoo model on a serving path ("format", "k" or "plain"):
+    per layer 7 GEMMs (q, k, v, o, gate, up, down), or 5 for MoE (q, k, v,
+    o and the router: the experts are raw f32 products); one decode
+    attention a layer a step, kernel 2 on the format path of a plain-causal
+    model, else kernel 4 (a softcapped or windowed model decodes through
+    kernel 4 on every path, as the reference composes it unrounded)."""
+    gemms = (5 if cfg.family == "moe" else 7) * cfg.n_layers * forwards
+    windowed = (cfg.softcap_attn is not None or cfg.window is not None
+                or cfg.local_global_period is not None)
+    certified = path == "format" and not windowed
+    attn = cfg.n_layers * steps
+    return {"quant_matmul_format": gemms if path == "format" else 0,
+            "flash_decode_certified": attn if certified else 0,
+            "quant_matmul": gemms if path == "k" else 0,
+            "flash_decode_attention": 0 if certified else attn,
+            **IDLE_ON_SERVING, **row_order_launches(forwards, cfg.n_layers)}
+
+
+def run_zoo_serve(torch, serve, fns, arch, path, extra, batch=SERVE_BATCH,
+                  prompt=SERVE_PROMPT, steps=SERVE_STEPS):
+    """``serve.main`` on ``arch`` at full width with its ZOO_LAYERS depth,
+    every launch counter set to 0 just before and read just after; raises
+    unless the counts are :func:`zoo_expected`'s and the run served valid
+    tokens with finite logits. Returns (result, report)."""
+    layers = ZOO_LAYERS[arch]
+    argv = ["--arch", arch, "--size", "full", "--max-layers", str(layers),
+            "--batch", str(batch), "--prefill-len", str(prompt),
+            "--decode-steps", str(steps), "--device", "cuda", "--seed", "0",
+            *extra]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fns)
+    res = serve.main(argv)
+    launches = read_launches(fns)
+    cfg = res.cfg
+    want = dataclasses.replace(serve.configs.get(arch).FULL,
+                               n_layers=layers)
+    if cfg != want:
+        raise AssertionError(f"{arch}: served {cfg}")
+    expected = zoo_expected(cfg, path, 1 + steps, steps)
+    if launches != expected:
+        raise AssertionError(f"{arch} {path}: launch counts {launches} != "
+                             f"{expected}")
+    toks = res.tokens
+    if toks.shape != (batch, 1 + steps) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{arch}: bad tokens {toks.shape}")
+    for lg in [res.prefill_logits] + res.decode_logits:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{arch}: non-finite logits")
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    return res, dict(
+        config=f"{arch}.FULL", path=path, n_layers=layers,
+        full_layers=serve.configs.get(arch).FULL.n_layers,
+        d_model=cfg.d_model, params=n_params, param_gb=4 * n_params / 1e9,
+        batch=batch, prompt_tokens=prompt, decode_steps=steps,
+        launches=launches, prefill_s=res.timing["prefill_s"],
+        decode_ms_per_step=res.timing["decode_ms_per_step"],
+        decode_tokens_per_s=res.timing["decode_tokens_per_s"],
+        init_s=res.timing["init_s"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        sample_tokens=toks[0].tolist(), logits_sha256=logits_sha256(res))
+
+
+def check_flash_windowed(torch, fd, got, q, k, v, lengths, window, softcap,
+                         what):
+    """Kernel 4's output ``got`` with ``window`` and ``softcap`` against its
+    plain version and the f64 split version on the same inputs, under
+    FLASH_TOLERANCE; raises on disagreement or a non-finite output."""
+    want = fd.flash_decode_ref(q, k, v, lengths, window, softcap)
+    ok, st = compare(torch, got, want, F32_FMT,
+                     flash_tol(torch, v, lengths, None, window, softcap))
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_decode_attention {what}: {st}")
+    exact = fd.flash_decode_split_ref(q, k, v, lengths, None,
+                                      dtype=torch.float64, window=window,
+                                      softcap=softcap)
+    tol = flash_f64_tol(torch, v, lengths, None, window, softcap)
+    ok, st64 = compare(torch, got, exact, F32_FMT, tol)
+    if not ok:
+        raise AssertionError(f"flash_decode_attention {what} against the "
+                             f"f64 split version: {st64}")
+    return {**st, "f64_max_abs_err": st64["max_abs_err"],
+            "f64_max_tol": float(tol.max())}
+
+
+class WindowCheckSpy(KernelSpy):
+    """Stands in for kernel 4 while a path runs: launches it, then holds
+    its output against both plain versions on the same inputs at once (the
+    cache is written in place, so a call is checked when it is made), and
+    keeps a row per call."""
+
+    def __init__(self, torch, fd):
+        super().__init__(fd.flash_decode_attention, None, None)
+        self.torch, self.fd, self.rows = torch, fd, []
+
+    def __call__(self, q, k, v, lengths, window=0, softcap=0.0):
+        out = self.fn(q, k, v, lengths, window=window, softcap=softcap)
+        torch = self.torch
+        st = check_flash_windowed(torch, self.fd, out, q, k, v, lengths,
+                                  window, softcap,
+                                  f"call {len(self.rows)}")
+        lo = first_attended(torch, lengths, k.shape[1], window)
+        self.rows.append({"window": window, "softcap": softcap,
+                          "lengths": lengths.tolist(),
+                          "first_attended": lo.tolist(),
+                          "max_abs_err": st["max_abs_err"],
+                          "f64_max_abs_err": st["f64_max_abs_err"]})
+        return out
+
+
+def windowed_timing(torch, fd, q, k, v, lengths, window, softcap):
+    """Kernel 4 with a window and a softcap: device ms (profiler trace,
+    caches rotated past the L2), host ms, its plain version's ms, and SDPA
+    on the window's positions where no softcap is asked (SDPA has none:
+    null otherwise). The bound: bytes (q in, out, k and v over each lane's
+    attended positions, the window) or operations (4·G·D a position and
+    kv head)."""
+    B, H, G, D = q.shape
+    S = k.shape[1]
+    iters = flash_iters(S)
+    copies = cache_copies(torch, k, v)
+    kernel = lambda c: fd.flash_decode_attention(q, *c, lengths,
+                                                 window=window,
+                                                 softcap=softcap)
+    plain = lambda c: fd.flash_decode_ref(q, *c, lengths, window, softcap)
+    timing = {"ms": trace_ms(torch, kernel, copies, iters),
+              "host_ms": time_cold_ms(torch, kernel, copies, iters),
+              "plain_ms": trace_ms(torch, plain, copies, max(2, iters // 5)),
+              "cache_copies": len(copies), "library_ms": None}
+    n = attended(torch, lengths, S)
+    lo = first_attended(torch, lengths, S, window)
+    if not softcap and len(set(n.tolist())) == 1:
+        a, b = int(lo[0]), int(n[0])
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qs = q.reshape(B, H * G, 1, D)
+        tcopies = [tuple(t[:, a:b].permute(0, 2, 1, 3).contiguous()
+                         for t in c) for c in copies]
+        timing["library_ms"] = trace_ms(
+            torch, lambda c: sdpa(qs, *c, enable_gqa=True), tcopies, iters)
+        del tcopies
+    del copies
+    n_pos = int((n - lo).sum())
+    timing["bound_ms"], timing["bound_by"] = bound_ms(
+        4.0 * (2 * q.numel() + 2 * n_pos * H * D) + 4 * B,
+        4.0 * G * D * H * n_pos)
+    timing["attended_positions"] = (n - lo).tolist()
+    return timing
+
+
+def phase_flash_windowed(torch, fd):
+    """Kernel 4 with windows 16 and 4,096 and Gemma-2's softcap 50 at its
+    shape (K 16, G 2, D 128) against both plain versions, at the serve
+    cache (a lane of length 0 among them) and at a 32K cache; timed at 32K
+    with window 4,096, with the softcap (Gemma-2's local layers) and
+    without (Mixtral's layers, beside SDPA on the window). Run beside the
+    other kernel phases, before the serving paths: late in the run the
+    profiler was seen to return traces without device activity."""
+    H, G, D = ZOO_FLASH_SHAPE
+    B = SERVE_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases, worst = {}, 0.0
+    serve_S = SERVE_PROMPT + SERVE_STEPS + 1
+    for name, S, lens in (
+            ("serve", serve_S, [serve_S - 1, SERVE_PROMPT + 1, 17, 0]),
+            ("long", ZOO_LONG, [ZOO_LONG, ZOO_LONG - 1, 4097, 5000])):
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        # q scaled so that the softcap bends the scores
+        q = 8.0 * torch.randn(B, H, G, D, device="cuda", generator=gen)
+        k = torch.randn(B, S, H, D, device="cuda", generator=gen)
+        v = torch.randn(B, S, H, D, device="cuda", generator=gen)
+        for window in ZOO_FLASH_WINDOWS:
+            got = fd.flash_decode_attention(q, k, v, lengths, window=window,
+                                            softcap=ZOO_SOFTCAP)
+            st = check_flash_windowed(torch, fd, got, q, k, v, lengths,
+                                      window, ZOO_SOFTCAP,
+                                      f"{name} window {window}")
+            worst = max(worst, st["max_abs_err"])
+            cases[f"{name}_w{window}"] = {
+                "Smax": S, "lengths": lens, "window": window,
+                "softcap": ZOO_SOFTCAP, **st}
+        del q, k, v
+    lengths = torch.full((B,), ZOO_LONG, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, G, D, device="cuda", generator=gen)
+    k = torch.randn(B, ZOO_LONG, H, D, device="cuda", generator=gen)
+    v = torch.randn(B, ZOO_LONG, H, D, device="cuda", generator=gen)
+    timing = {f"softcap_{c:g}": windowed_timing(torch, fd, q, k, v, lengths,
+                                                4096, c)
+              for c in (ZOO_SOFTCAP, 0.0)}
+    del q, k, v
+    out = {"cases": cases, "max_abs_err": worst, "timing_32k_w4096": {
+        "Smax": ZOO_LONG, "lengths": [ZOO_LONG] * B, "window": 4096,
+        "shape": {"B": B, "K": H, "G": G, "D": D}, **timing}}
+    emit("flash_decode_windowed", tolerance=FLASH_TOLERANCE, **out)
+    return out
+
+
+def zoo_gemma(torch, serve, batching, fd, fns, T):
+    """Gemma-2 27B at full width, 8 layers: served under the format map and
+    at k = 12 (batch 4, 128-token prompts, 16 steps), then at batch 1 with
+    a 4,224-token prompt under the format map, every decode-attention call
+    held against kernel 4's plain versions; the batching engine at 4 lanes
+    under the format map, every request bit for bit alone; the library
+    products' lane bits at its widths."""
+    out = {}
+    for path, extra in (("format", ["--layer-format",
+                                    json.dumps(SERVE_FORMAT)]),
+                        ("k", ["--precision-k", str(SERVE_K)])):
+        free_device_memory(torch)
+        res, out[f"serve_{path}"] = run_zoo_serve(torch, serve, fns,
+                                                  "gemma2_27b", path, extra)
+        del res
+    free_device_memory(torch)
+    spy = WindowCheckSpy(torch, fd)
+    fd.flash_decode_attention = spy
+    try:
+        res, report = run_zoo_serve(
+            torch, serve, fns, "gemma2_27b", "format",
+            ["--layer-format", json.dumps(SERVE_FORMAT)], batch=1,
+            prompt=ZOO_WINDOW_PROMPT)
+    finally:
+        fd.flash_decode_attention = spy.fn
+    local = [r for r in spy.rows if r["window"]]
+    if (len(spy.rows) != ZOO_LAYERS["gemma2_27b"] * SERVE_STEPS
+            or len(local) != len(spy.rows) // 2
+            or min(r["first_attended"][0] for r in local) <= 0):
+        raise AssertionError("the windowed run's decode attention: "
+                             f"{len(spy.rows)} calls, {len(local)} local, "
+                             "or the window never bit")
+    out["windowed"] = dict(
+        report, note="decode timings include each call's check against "
+        "the plain versions", calls=len(spy.rows),
+        local_calls=len(local),
+        first_attended=[local[0]["first_attended"][0],
+                        local[-1]["first_attended"][0]],
+        max_abs_err=max(r["max_abs_err"] for r in spy.rows),
+        f64_max_abs_err=max(r["f64_max_abs_err"] for r in spy.rows),
+        sample_tokens=res.tokens[0].tolist())
+    del res, spy
+    free_device_memory(torch)
+
+    cfg = dataclasses.replace(serve.configs.get("gemma2_27b").FULL,
+                              n_layers=ZOO_LAYERS["gemma2_27b"])
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    sc = serve.ServeConfig(arch="gemma2_27b", batch=BATCH_ENGINE["n_lanes"],
+                           max_seq=BATCH_ENGINE["max_seq"],
+                           precision_layer_format=SERVE_FORMAT,
+                           device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    reqs = []
+    for i in range(ZOO_BATCH_REQUESTS):
+        P = int(torch.randint(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1, (1,),
+                              generator=gen))
+        reqs.append(batching.Request(
+            rid=i, prompt=torch.randint(0, cfg.vocab, (P,),
+                                        generator=gen).tolist(),
+            max_new_tokens=ZOO_BATCH_MAX_NEW,
+            arrival_step=BATCH_STRIDE * i))
+    engine, responses, launches, registry, wall = run_batching(
+        torch, batching, fns, cfg, sc, params, reqs, None, -1,
+        lambda eng, admitted: zoo_expected(cfg, "format",
+                                           admitted + eng.steps, eng.steps))
+    ref = reference_runs(batching, cfg, sc, params, reqs, -1)
+    rows = lane_bits(torch, responses, ref)
+    if not all(r["tokens_equal"] and r["logits_bitwise"] for r in rows):
+        raise AssertionError(f"gemma2_27b batching: a request's bits differ "
+                             f"from the request alone: {rows}")
+    out["batching"] = dict(batching_report(engine, responses, registry,
+                                           wall), launches=launches,
+                           lanes_vs_alone=rows)
+    del engine, responses, ref, params
+    free_device_memory(torch)
+    out["library_lane_bits"] = library_lane_bits(torch, cfg)
+    return out
+
+
+def zoo_mixtral(torch, serve, fns):
+    """Mixtral 8x22B at full width, 2 layers: lock-step serve at k = 12 and
+    under the format map, with the router's launches (its products of N =
+    8 among the kernel's) and the (token, expert) assignments each forward
+    dropped by capacity."""
+    from repro_torch.models import moe
+
+    out = {}
+    n_experts = serve.configs.get("mixtral_8x22b").FULL.n_experts
+    for path, name, extra in (
+            ("k", "quant_matmul_dynamic_k", ["--precision-k", str(SERVE_K)]),
+            ("format", "quant_matmul_format_dispatch",
+             ["--layer-format", json.dumps(SERVE_FORMAT)])):
+        free_device_memory(torch)
+        dispatch, routers = getattr(serve, name), []
+
+        def counted(a, b, *args, _d=dispatch, **kw):
+            if b.shape[-1] == n_experts:
+                routers.append(tuple(a.shape))
+            return _d(a, b, *args, **kw)
+
+        setattr(serve, name, counted)
+        moe.drop_log = []
+        try:
+            res, report = run_zoo_serve(torch, serve, fns, "mixtral_8x22b",
+                                        path, extra)
+            drops = moe.drop_log
+        finally:
+            setattr(serve, name, dispatch)
+            moe.drop_log = None
+        L = res.cfg.n_layers
+        per_forward = [sum(drops[i * L:(i + 1) * L])
+                       for i in range(len(drops) // L)]
+        if len(routers) != L * (1 + SERVE_STEPS) or len(per_forward) != \
+                1 + SERVE_STEPS:
+            raise AssertionError(f"mixtral {path}: {len(routers)} router "
+                                 f"products, {len(drops)} dispatches")
+        out[f"serve_{path}"] = dict(
+            report, router_launches=len(routers),
+            router_rows={"prefill": routers[0][0], "decode": routers[-1][0]},
+            dropped_by_capacity={"prefill": per_forward[0],
+                                 "decode_steps": per_forward[1:]},
+            window=res.cfg.window)
+        del res
+    return out
+
+
+def zoo_command_r(torch, serve, fns):
+    """Command-R 35B at full width, 4 layers, under the format map: kernels
+    1 and 2, as Qwen2-7B."""
+    free_device_memory(torch)
+    res, report = run_zoo_serve(torch, serve, fns, "command_r_35b", "format",
+                                ["--layer-format", json.dumps(SERVE_FORMAT)])
+    del res
+    return {"serve_format": report}
+
+
+def zoo_llama4(torch, serve, T, fns):
+    """Llama-4 Maverick at SMOKE under the format map, the same weights
+    (drawn on the CPU) on the card and on the CPU: a prefill of 32 tokens
+    at batch 4 and 16 greedy steps. Tokens equal, or each mismatch with
+    the CPU's top-1 logit gap at that step and any route flip (a token
+    whose top-1 expert differs, with the CPU's router margin)."""
+    cfg = serve.configs.get("llama4_maverick").SMOKE
+    host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, 32),
+                           generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = host if dev == "cpu" else _to_device(host, "cuda")
+        bk = serve.FormatQuantJOps(SERVE_FORMAT)
+        routes = []
+        top_k = bk.top_k_mask
+
+        def spy(scores, k, name="router", _f=top_k, _r=routes):
+            _r.append(scores.detach().double().cpu())
+            return _f(scores, k, name)
+
+        bk.top_k_mask = spy
+        cache = T.init_cache(cfg, SERVE_BATCH, 32 + SERVE_STEPS + 1,
+                             device=dev)
+        reset_launches(fns)
+        with torch.no_grad():
+            lg, cache = serve.prefill_step(bk, params, cfg, cache,
+                                           prompt.to(dev))
+            tok, toks, logits = torch.argmax(lg[:, -1], -1), [], [lg[:, -1]]
+            toks.append(tok)
+            for i in range(SERVE_STEPS):
+                tok, last, cache = serve.decode_step(bk, params, cfg, cache,
+                                                     tok[:, None], 32 + i)
+                toks.append(tok)
+                logits.append(last)
+        runs[dev] = (torch.stack(toks, 1).cpu(),
+                     torch.stack(logits, 1).double().cpu(), routes,
+                     read_launches(fns))
+    (ct, cl, cr, launches), (ht, hl, hr, _) = runs["cuda"], runs["cpu"]
+    expected = zoo_expected(cfg, "format", 1 + SERVE_STEPS, SERVE_STEPS)
+    if launches != expected:
+        raise AssertionError(f"llama4 SMOKE: launch counts {launches} != "
+                             f"{expected}")
+    flips = []
+    for i, (a, b) in enumerate(zip(cr, hr)):
+        for t in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten():
+            top2 = torch.topk(b[t], 2).values
+            flips.append({"router_call": i, "token": int(t),
+                          "cpu_margin": float(top2[0] - top2[1])})
+    mismatches = []
+    for b in range(SERVE_BATCH):
+        diff = torch.nonzero(ct[b] != ht[b]).flatten()
+        if len(diff):
+            s = int(diff[0])
+            top2 = torch.topk(hl[b, s], 2).values
+            mismatches.append({"lane": b, "first_step": s,
+                               "cpu_top1_gap": float(top2[0] - top2[1])})
+    if mismatches and not flips:
+        gaps = [m["cpu_top1_gap"] for m in mismatches]
+        if min(gaps) > 1e-3:
+            raise AssertionError(f"llama4 SMOKE: tokens differ with no "
+                                 f"route flip and wide gaps {mismatches}")
+    return {"config": "llama4_maverick.SMOKE", "full_width": LLAMA4_FULL,
+            "launches": launches, "tokens_equal": not mismatches,
+            "mismatches": mismatches, "route_flips": flips,
+            "router_calls": len(cr),
+            "max_abs_dlogit": float((cl - hl).abs().max()),
+            "sample_tokens": ct[0].tolist()}
+
+
+def zoo_analysis(torch, T, fns):
+    """The four zoo archs at SMOKE, the same weights (drawn on the CPU) on
+    the card and on the CPU: the CaaOps forward at emulated k = 12 on 16
+    tokens (trace records, router records) and ``certify_lm`` (uniform,
+    k_max 24); decisions equal: the certificates', and each route's
+    flip-safety at the analysis's u; the trace records' δ̄ and ε̄ within
+    CERT_LM_REL_TOL (their worst reported, and whether it is within 1e-9),
+    the router records' and the certificates' bounds reported. Then
+    ``python -m
+    repro_torch.launch.analyze --routers`` on the card for the MoE archs."""
+    import shutil
+
+    from repro_torch import certify as C
+    from repro_torch import configs
+    from repro_torch.certify.tokens import profile_tokens
+    from repro_torch.core import caa
+    from repro_torch.core.backend import CaaOps
+    from repro_torch.launch import analyze
+
+    root = ROOT / "build" / "chip_smoke_zoo"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    reset_launches(fns)
+    for arch in ZOO_SMOKE:
+        cfg = configs.get(arch).SMOKE
+        host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+        params = {"cuda": _to_device(host, "cuda"), "cpu": host}
+        toks = profile_tokens(1, 1, 16, cfg.vocab)
+        traces, certs, secs = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            bk = CaaOps(caa.CaaConfig(u_max=ZOO_CAA_U, emulate_k=12))
+            T.forward(bk, params[dev], cfg, toks.to(dev))
+            traces[dev] = bk.trace
+            certs[dev] = C.certify_lm(
+                arch, cfg, params[dev], **ZOO_CERT,
+                store=C.CertificateStore(str(root / arch / dev)))
+            secs[dev] = time.perf_counter() - t0
+        a, b = traces["cuda"], traces["cpu"]
+        if [(r.name, r.kind) for r in a] != [(r.name, r.kind) for r in b]:
+            raise AssertionError(f"{arch}: the traces' records differ")
+        worst, router_worst = 0.0, 0.0
+        for ra, rb in zip(a, b):
+            for x, y in ((ra.max_dbar, rb.max_dbar),
+                         (ra.max_ebar, rb.max_ebar)):
+                if not same_bound(x, y, CERT_LM_REL_TOL):
+                    raise AssertionError(f"{arch} {ra.name}: {x} on the "
+                                         f"card, {y} on the CPU")
+                if math.isfinite(x) and x != y:
+                    worst = max(worst, abs(x - y) / max(abs(x), abs(y)))
+            if ra.kind != "router":
+                continue
+            # a router record's margin is a difference of emulated values,
+            # which the card's and the CPU's k-bit products may put an ulp
+            # at k apart, and its flip-safe u divides it by the distance to
+            # the exact enclosure: what must agree is the decision, whether
+            # the route is flip-safe at the analysis's u
+            safe = [r.extra["flip_safe_if_u_le"] >= ZOO_CAA_U
+                    for r in (ra, rb)]
+            if safe[0] != safe[1]:
+                raise AssertionError(f"{arch} {ra.name}: flip-safe at u "
+                                     f"{ZOO_CAA_U} {safe[0]} on the card, "
+                                     f"{safe[1]} on the CPU")
+            for key in ra.extra:
+                x, y = ra.extra[key], rb.extra[key]
+                if x != y:
+                    router_worst = max(router_worst,
+                                       abs(x - y) / max(abs(x), abs(y)))
+        # a certificate's final bound is reported, not held: it is the
+        # distance from the emulated run's logits to their exact enclosure,
+        # and at the certified k (5 or 6 here, an ulp of 2^-4 or 2^-5) the
+        # card's and the CPU's k-bit products may round a value an ulp
+        # apart (Llama-4's SMOKE bound was 7 % apart, Command-R's 1e-6)
+        if cert_decisions(certs["cuda"]) != cert_decisions(certs["cpu"]):
+            raise AssertionError(f"certify {arch}: card decides "
+                                 f"{cert_decisions(certs['cuda'])}, CPU "
+                                 f"{cert_decisions(certs['cpu'])}")
+        cert_worst = max(
+            [0.0] + [abs(x - y) / max(abs(x), abs(y))
+                     for (x, _), (y, _) in zip(cert_bounds(certs["cuda"]),
+                                               cert_bounds(certs["cpu"]))
+                     if math.isfinite(x) and x != y])
+        routers = [{"name": r.name, **r.extra} for r in a
+                   if r.kind == "router"]
+        out[arch] = {"trace_records": len(a), "trace_worst_rel": worst,
+                     "router_worst_rel": router_worst,
+                     "within_1e-9": worst <= 1e-9,
+                     "routers": routers,
+                     "certificate": cert_summary(certs["cuda"]),
+                     "certificate_worst_rel": cert_worst,
+                     "seconds": secs}
+    out["launches"] = read_launches(fns)
+    for arch in ("mixtral_8x22b", "llama4_maverick"):
+        res = analyze.main(["--arch", arch, "--routers", "--device", "cuda",
+                            "--seq", "16"])
+        if len(res["routers"]) != configs.get(arch).SMOKE.n_layers:
+            raise AssertionError(f"analyze --routers {arch}: "
+                                 f"{len(res['routers'])} records")
+        out[arch]["analyze_cli_routers"] = [
+            {"name": r.name, **r.extra} for r in res["routers"]]
+    return out
+
+
+def phase_zoo(torch, serve, batching, qmm, fd, T):
+    """The GQA model zoo on the card (see the module docstring)."""
+    emit("free", before="zoo", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    parts, launches = {}, {name: 0 for name in fns}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        parts[name] = fn(*args)
+        parts[name]["seconds"] = time.perf_counter() - t0
+        emit(f"zoo_{name}", **parts[name])
+        free_device_memory(torch)
+
+    # every path sets the counters to 0 before it runs and reads them
+    # after; the phase's launches are the sum of its paths' own counts
+    run("gemma2_27b", zoo_gemma, torch, serve, batching, fd, fns, T)
+    run("mixtral_8x22b", zoo_mixtral, torch, serve, fns)
+    run("command_r_35b", zoo_command_r, torch, serve, fns)
+    run("llama4_maverick", zoo_llama4, torch, serve, T, fns)
+    run("analysis", zoo_analysis, torch, T, fns)
+    for counts in _launch_counts(parts):
+        for name, n in counts.items():
+            launches[name] += n
+    emit("zoo", launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches, parts
+
+
+def _launch_counts(report):
+    """Every run's launch counts in a phase's nested report."""
+    if not isinstance(report, dict):
+        return []
+    if isinstance(report.get("launches"), dict):
+        return [report["launches"]]
+    return [c for v in report.values() for c in _launch_counts(v)]
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4413,6 +5027,7 @@ def main() -> int:
     fcases, ferr = phase_flash_decode(torch, fd)
     krows, kerr = phase_quant_matmul_k(torch, qmm)
     acases, aerr = phase_flash_decode_attention(torch, fd)
+    windowed = phase_flash_windowed(torch, fd)
     rorows = phase_row_order(torch, serve.configs.get("qwen2_7b").FULL)
 
     by_path, timings = {}, {}
@@ -4473,6 +5088,8 @@ def main() -> int:
     del path_outs, operands
     free_device_memory(torch)
     by_path["paper"] = phase_paper(torch, qmm, fd)
+    by_path["zoo"], zoo_parts = phase_zoo(torch, serve, batching, qmm, fd,
+                                          T)
 
     qerr = max([qerr] + [r["max_abs_err"] for r in (
         fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"]
@@ -4483,9 +5100,12 @@ def main() -> int:
     kerr = max([kerr] + [r["max_abs_err"] for r in (
         k_path + mixed_path + prof_path["quant_matmul"]
         + batch_k_path["quant_matmul"])])
-    aerr = max([aerr] + [r["max_abs_err"] for r in (
-        prof_path["flash_decode_attention"] + k_attn_path + mixed_attn_path
-        + batch_k_path["flash_decode_attention"])])
+    aerr = max([aerr, windowed["max_abs_err"],
+                zoo_parts["gemma2_27b"]["windowed"]["max_abs_err"]]
+               + [r["max_abs_err"] for r in (
+                   prof_path["flash_decode_attention"] + k_attn_path
+                   + mixed_attn_path
+                   + batch_k_path["flash_decode_attention"])])
     launches = {name: {path: counts[name] for path, counts in by_path.items()}
                 for name in KERNELS}
     roofline = {}
@@ -4528,7 +5148,8 @@ def main() -> int:
             acases["serve_last"],
             f"the serve cache's shape: B=4 K=4 G=7 D=128 {serve_last}",
             other_cases={c: {key: acases[c][key] for key in FLASH_KEYS}
-                         for c in acases if c != "serve_last"}),
+                         for c in acases if c != "serve_last"},
+            windowed_32k=windowed["timing_32k_w4096"]),
     ]
     for name, replaces, path_rows, rows, err in (
             ("caa_matmul", "src/repro/kernels/caa_matmul.py:25", cpath,

@@ -194,6 +194,15 @@ class Backend:
         [B,K,G,D] context, or None for the composed einsum/softmax path."""
         return None
 
+    def windowed_decode_attention(self, q, k, v, lengths, window: int,
+                                  softcap: float):
+        """The single-token decode step of a layer with a sliding
+        ``window`` or a score ``softcap`` (0: none), which the reference
+        never offers to ``decode_attention`` and composes on every backend:
+        the [B,K,G,D] context of that composed attention, or None to
+        compose it here."""
+        return None
+
 
 class UnrolledLayerLoop:
     """Mixin: the per-layer ``layer_loop`` — a Python loop pushing a static
@@ -258,14 +267,25 @@ class TorchOps(UnrolledLayerLoop, Backend):
         """On the card, the single-token decode attention of f32 tensors
         runs through the fixed-order ``flash_decode_attention`` kernel
         (:mod:`repro_torch.kernels.flash_decode`): a lane's bits depend on
-        its own length only. Outside the kernel's limits (G ≤ 8, D ≤ 128,
-        D % 4 == 0, f32) it raises: it never composes on the card. On the
-        CPU it returns None, the composed einsum/softmax path of the
-        reference."""
+        its own length only. Outside the kernel's limits (f32, contiguous,
+        S ≥ 1) it raises: it never composes on the card. On the CPU it
+        returns None, the composed einsum/softmax path of the reference."""
         if not q.is_cuda:
             return None
         return flash_decode.flash_decode_attention(
             q.contiguous(), k, v, lengths)
+
+    def windowed_decode_attention(self, q, k, v, lengths, window: int,
+                                  softcap: float):
+        """On the card, the same kernel with the layer's ``window`` and
+        ``softcap``: the reference's composed f32 attention (no rounding on
+        any serving backend, as the reference rounds none there), in the
+        kernel's fixed order; it raises outside the kernel's limits. On the
+        CPU None: the composed path."""
+        if not q.is_cuda:
+            return None
+        return flash_decode.flash_decode_attention(
+            q.contiguous(), k, v, lengths, window=window, softcap=softcap)
 
     def einsum(self, subscripts, a, b):
         """On the card, the LM head ("bsd,vd->bsv" of f32 tensors) runs
@@ -287,11 +307,19 @@ class TorchOps(UnrolledLayerLoop, Backend):
             self._head_t = (key, row_order.transposed(table))
         return self._head_t[1]
 
+    def div(self, a, b): return a / b
+    def neg(self, a): return -a
     def tanh(self, a): return torch.tanh(a)
+    def sigmoid(self, a): return torch.sigmoid(a)
+    def exp(self, a): return torch.exp(a)
     def rsqrt(self, a): return torch.rsqrt(a)
     def square(self, a): return a * a
     def relu(self, a): return torch.relu(a)
     def silu(self, a): return F.silu(a)
+
+    def gelu(self, a):
+        """The tanh approximation, as ``jax.nn.gelu(approximate=True)``."""
+        return F.gelu(a, approximate="tanh")
 
     def softmax(self, a, dim: int = -1):
         """In f32, or in f64 for f64 inputs."""
@@ -308,10 +336,23 @@ class TorchOps(UnrolledLayerLoop, Backend):
             return row_order.row_mean_dispatch(a)
         return a.mean(dim=dim, keepdim=keepdim)
 
+    def sum(self, a, dim, keepdim=False):
+        return a.sum(dim=dim, keepdim=keepdim)
+
+    def max(self, a, dim, keepdim=False):
+        return a.amax(dim=dim, keepdim=keepdim)
+
     def maximum(self, a, b): return torch.maximum(a, b)
     def where(self, mask, a, b): return torch.where(mask, a, b)
 
+    def top_k_mask(self, scores, k: int, name: str = "router"):
+        """Exact 0/1 mask [..., E] of the ``k`` largest scores (``torch.
+        topk`` and a one-hot sum, as the reference's ``lax.top_k``)."""
+        _, idx = torch.topk(scores, k)
+        return F.one_hot(idx, scores.shape[-1]).to(scores.dtype).sum(-2)
+
     def reshape(self, a, shape): return a.reshape(shape)
+    def transpose(self, a, dims): return a.permute(dims)
     def broadcast_to(self, a, shape): return torch.broadcast_to(a, shape)
     def concat(self, parts, dim): return torch.cat(list(parts), dim=dim)
 
@@ -321,6 +362,7 @@ class TorchOps(UnrolledLayerLoop, Backend):
 
     def slice(self, a, slices): return a[slices]
     def shape_of(self, a): return tuple(a.shape)
+    def value_of(self, a): return a
 
 
 class CaaOps(UnrolledLayerLoop, Backend):

@@ -8,8 +8,13 @@
 // flash_decode_certified.cu with the rounding compiled out: the identity
 // functor below.
 //
-// What bounds it on an H100: reading k and v up to lengths[b] once, at
-// 3.35 TB/s (bytes). The attention body (split across the cache in chunks
+// It also takes a sliding window and a softcap on the scores (Gemma-2's
+// and Mixtral's decode, which the reference composes from einsums and a
+// softmax: this kernel computes that composed f32 attention, so that a
+// lane's bits depend on its own length only).
+//
+// What bounds it on an H100: reading k and v up to lengths[b] (within the
+// window) once, at 3.35 TB/s (bytes). The attention body (split across the cache in chunks
 // of 64 positions, combined in chunk order), its masking (a lane of length
 // 0 gives the mean of v over all S positions, as the reference does) and
 // its fixed summation order are in flash_decode.cuh.
@@ -24,15 +29,17 @@ struct NoRound {
 }  // namespace
 
 // q [B, H, G, D], k/v [B, S, H, D], lengths int32 [B], out like q: f32,
-// contiguous, on the device; G >= 1, D <= 256; partials: the chunk
-// partials' scratch (flash_decode.cuh). Returns cudaGetLastError()
-// after the launches.
+// contiguous, on the device; G >= 1, D >= 1; partials: the chunk
+// partials' scratch (flash_decode.cuh); window: a sliding window (0:
+// none), softcap: the scores' cap (0: none), inv_cap = f32(1 / softcap).
+// Returns cudaGetLastError() after the launches.
 extern "C" int repro_flash_decode_f32(const void* q, const void* k,
                                       const void* v, const void* lengths,
                                       void* out, void* partials, int B, int S,
                                       int H, int G, int D, float scale,
-                                      void* stream) {
+                                      int window, float softcap,
+                                      float inv_cap, void* stream) {
     return static_cast<int>(flash_decode(q, k, v, lengths, out, partials, B,
-                                         S, H, G, D, scale, NoRound{},
-                                         stream));
+                                         S, H, G, D, scale, window, softcap,
+                                         inv_cap, NoRound{}, stream));
 }

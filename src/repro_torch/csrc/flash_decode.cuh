@@ -65,13 +65,28 @@
 // Shapes. Any G: the query heads of a kv head run in tiles of 8 (one
 // launch of the chunk kernel a tile, each reading the tile's k and v; the
 // combine takes every head at once), and each head's sums run as they do
-// in a group of 8 or fewer. Any D <= 256: an instance for D <= 128 holds 4
+// in a group of 8 or fewer. Any D >= 1: an instance for D <= 128 holds 4
 // elements a lane (above), one for D <= 256 holds 8, as two 4-element
 // parts d = 4l.. and 128 + 4l.. (two 16-byte copies a row; a score's fmaf
-// chain runs over the first part's four, then the second's). Where D % 4
-// != 0, or k or v is not 16-byte aligned, an instance copies 4 bytes at a
-// time into the same layout, zero-filled past D. The wrappers refuse
-// D > 256.
+// chain runs over the first part's four, then the second's). Above 256 the
+// wide instance walks D in slices of 256 with that layout: a score is the
+// slices' butterfly sums added in slice order (the 8-element chain and
+// butterfly within a slice), and P.V runs slice by slice, each slice's
+// dims independent of the others' (the shared memory of one 64-row chunk
+// at D = 512 would not fit). The combine takes D in slices of 256 threads
+// (one block a slice); each dim folds as before. Where D % 4 != 0, or k or
+// v is not 16-byte aligned, an instance copies 4 bytes at a time into the
+// same layout, zero-filled past D.
+//
+// Sliding window and softcap (kernel 4 only; kernel 2 passes 0 for both,
+// and its instances run as they did). With window w > 0 a lane of length n
+// attends positions [max(0, n - w), n): chunks wholly below n - w are
+// neither launched into nor folded (the fold starts at the chunk that
+// holds n - w, still in chunk order), and the positions below n - w in
+// that chunk are not read and score -1e30 (weight 0). With cap > 0 a score
+// is cap * tanhf((x * scale) * inv_cap), inv_cap = f32(1 / cap) from the
+// host, before the online softmax: the reference's composed order
+// (bk.scale, then bk.softcap = scale(tanh(scale(a, 1/cap)), cap)).
 #pragma once
 
 #include <cstdint>
@@ -114,6 +129,19 @@ __device__ __forceinline__ int fd_attended(int len, int S) {
     return len <= 0 ? S : min(len, S);
 }
 
+// The first position a lane of n attended positions attends under a
+// sliding window (0: none); 0 for a lane of length <= 0.
+__device__ __forceinline__ int fd_first(int len, int n, int window) {
+    return window > 0 && len > 0 ? max(0, n - window) : 0;
+}
+
+// A score from its dot product x: x * scale, softcapped where cap > 0.
+__device__ __forceinline__ float fd_score(float x, float scale, float cap,
+                                          float inv_cap) {
+    const float s = x * scale;
+    return cap > 0.0f ? cap * tanhf(s * inv_cap) : s;
+}
+
 template <class Q>
 __device__ __forceinline__ float4 fd_load_round(const float* p, const Q& rnd) {
     const float4 x = *reinterpret_cast<const float4*>(p);
@@ -147,7 +175,8 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
                           float* __restrict__ part_acc,
                           float* __restrict__ part_m,
                           float* __restrict__ part_l, int S, int H, int G,
-                          int GT, int D, int NC, float scale, Q rnd) {
+                          int GT, int D, int NC, float scale, int window,
+                          float cap, float inv_cap, Q rnd) {
     constexpr int DM = 32 * DL, NP = DL / 4;
     extern __shared__ float4 fd_smem[];
     FdSmem<DM>& sm = *reinterpret_cast<FdSmem<DM>*>(fd_smem);
@@ -156,11 +185,14 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     const bool empty = len <= 0;
     const int t0 = c * kFdChunk;
     const int n = fd_attended(len, S);
-    if (t0 >= n) return;                     // past the lane's length
+    const int lo = fd_first(len, n, window);
+    // past the lane's length, or wholly below its window
+    if (t0 >= n || t0 + kFdChunk <= lo) return;
     const int tc = min(kFdChunk, n - t0);    // positions of this chunk
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int r0 = warp * kFdRows;           // the warp's rows
     const int nr = max(0, min(kFdRows, tc - r0));
+    const int jlo = min(nr, max(0, lo - t0 - r0));  // rows below the window
     const int d0 = 4 * lane;
     // the lane's parts within D
     auto has_d = [&](int pt) { return kFdPart * pt + d0 < D; };
@@ -172,7 +204,7 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     for (int pt = 0; pt < NP; ++pt) {
         const int d = kFdPart * pt + d0;
         if (has_d(pt) && !empty) {
-            for (int j = 0; j < nr; ++j) {
+            for (int j = jlo; j < nr; ++j) {
                 fd_copy_part<V>(&sm.k[r0 + j][d],
                                 k + (row0 + (size_t)j * H) * D + d, d, D);
             }
@@ -183,7 +215,7 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     for (int pt = 0; pt < NP; ++pt) {
         const int d = kFdPart * pt + d0;
         if (has_d(pt)) {
-            for (int j = 0; j < nr; ++j) {
+            for (int j = jlo; j < nr; ++j) {
                 fd_copy_part<V>(&sm.v[r0 + j][d],
                                 v + (row0 + (size_t)j * H) * D + d, d, D);
             }
@@ -212,7 +244,10 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
             }
         }
         cp_async_wait<1>();
-        for (int j = 0; j < nr; ++j) {
+        if (i4 == 0 && hl < GT) {
+            for (int j = 0; j < jlo; ++j) sm.s[hl][r0 + j] = kFdNeg;
+        }
+        for (int j = jlo; j < nr; ++j) {
             float x[kFdGMax];
 #pragma unroll
             for (int pt = 0; pt < NP; ++pt) {
@@ -242,7 +277,9 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
             x[0] += __shfl_xor_sync(kFdFull, x[1], 4);
             x[0] += __shfl_xor_sync(kFdFull, x[0], 2);
             x[0] += __shfl_xor_sync(kFdFull, x[0], 1);
-            if (i4 == 0 && hl < GT) sm.s[hl][r0 + j] = x[0] * scale;
+            if (i4 == 0 && hl < GT) {
+                sm.s[hl][r0 + j] = fd_score(x[0], scale, cap, inv_cap);
+            }
         }
     } else if (i4 == 0 && hl < GT) {
         for (int j = 0; j < nr; ++j) sm.s[hl][r0 + j] = kFdNeg;
@@ -285,7 +322,7 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
         for (int i = 0; i < DL; ++i) acc[g][i] = 0.0f;
     }
     cp_async_wait<0>();
-    for (int j = 0; j < nr; ++j) {
+    for (int j = jlo; j < nr; ++j) {
         const float4 pa = *reinterpret_cast<const float4*>(&sm.p[r0 + j][0]);
         const float4 pb = *reinterpret_cast<const float4*>(&sm.p[r0 + j][4]);
         const float pg[kFdGMax] = {pa.x, pa.y, pa.z, pa.w,
@@ -361,6 +398,259 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     }
 }
 
+// The wide instance, D > 256: the layout of the D <= 256 instance (two
+// 4-element parts a lane) over one slice of 256 dims at a time. Scores: for
+// each slice in order, the slice's k rows and q, the 8-element fmaf chain
+// and the butterfly, added to the sums of the slices before it. P.V: for
+// each slice in order, its v rows, the chain over the warp's rows and the
+// sum over the warps in warp order, written to the slice's dims of the
+// partial. v's first slice is copied while the scores run. Arguments as
+// flash_decode_chunk_kernel's.
+template <class Q, bool V>
+__global__ void __launch_bounds__(kFdThreads, 1)
+flash_decode_chunk_wide_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const int* __restrict__ lengths,
+                               float* __restrict__ part_acc,
+                               float* __restrict__ part_m,
+                               float* __restrict__ part_l, int S, int H,
+                               int G, int GT, int D, int NC, float scale,
+                               int window, float cap, float inv_cap, Q rnd) {
+    constexpr int DM = 2 * kFdPart, NP = 2;
+    extern __shared__ float4 fd_smem[];
+    FdSmem<DM>& sm = *reinterpret_cast<FdSmem<DM>*>(fd_smem);
+    const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const int len = lengths[b];
+    const bool empty = len <= 0;
+    const int t0 = c * kFdChunk;
+    const int n = fd_attended(len, S);
+    const int lo = fd_first(len, n, window);
+    if (t0 >= n || t0 + kFdChunk <= lo) return;
+    const int tc = min(kFdChunk, n - t0);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int r0 = warp * kFdRows;
+    const int nr = max(0, min(kFdRows, tc - r0));
+    const int jlo = min(nr, max(0, lo - t0 - r0));
+    const int d0 = 4 * lane;
+    const int hl = lane / 4, i4 = lane % 4;
+    const int NS = (D + DM - 1) / DM;
+    const size_t row0 = ((size_t)b * S + t0 + r0) * H + h;
+    const float* qb = q + (size_t)(b * H + h) * G * D;
+
+    // the warp's attended rows of one slice of k or v, as one group
+    auto copy_rows = [&](float (*dst)[DM], const float* src, int ds) {
+#pragma unroll
+        for (int pt = 0; pt < NP; ++pt) {
+            const int d = ds + kFdPart * pt + d0;
+            if (d < D) {
+                for (int j = jlo; j < nr; ++j) {
+                    fd_copy_part<V>(&dst[r0 + j][kFdPart * pt + d0],
+                                    src + (row0 + (size_t)j * H) * D + d, d,
+                                    D);
+                }
+            }
+        }
+        cp_async_commit();
+    };
+    if (!empty) {
+        copy_rows(sm.k, k, 0);
+    } else {
+        cp_async_commit();
+    }
+    copy_rows(sm.v, v, 0);
+
+    for (int sl = 0; sl < NS; ++sl) {
+        const int ds = sl * DM;
+        if (sl > 0) {
+            __syncthreads();           // every warp is done with the last q
+            if (!empty) copy_rows(sm.k, k, ds);
+        }
+        for (int e = threadIdx.x; e < kFdGMax * DM; e += kFdThreads) {
+            const int g = e / DM, d = e % DM;
+            sm.q[g][d] = g < GT && ds + d < D ? rnd(qb[g * D + ds + d])
+                                              : 0.0f;
+        }
+        __syncthreads();
+        if (empty) continue;
+        float4 qr[NP][kFdGMax];   // slot j: head j ^ hl
+#pragma unroll
+        for (int pt = 0; pt < NP; ++pt) {
+#pragma unroll
+            for (int j = 0; j < kFdGMax; ++j) {
+                qr[pt][j] = *reinterpret_cast<const float4*>(
+                    &sm.q[j ^ hl][kFdPart * pt + d0]);
+            }
+        }
+        if (sl == 0) {
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        for (int j = jlo; j < nr; ++j) {
+            float x[kFdGMax];
+#pragma unroll
+            for (int pt = 0; pt < NP; ++pt) {
+                const float4 kk =
+                    ds + kFdPart * pt + d0 < D
+                        ? fd_load_round(&sm.k[r0 + j][kFdPart * pt + d0], rnd)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+                for (int g = 0; g < kFdGMax; ++g) {
+                    const float4 qq = qr[pt][g];
+                    const float a = pt == 0 ? qq.x * kk.x
+                                            : fmaf(qq.x, kk.x, x[g]);
+                    x[g] = fmaf(qq.w, kk.w,
+                                fmaf(qq.z, kk.z, fmaf(qq.y, kk.y, a)));
+                }
+            }
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+                x[g] += __shfl_xor_sync(kFdFull, x[g + 4], 16);
+            }
+#pragma unroll
+            for (int g = 0; g < 2; ++g) {
+                x[g] += __shfl_xor_sync(kFdFull, x[g + 2], 8);
+            }
+            x[0] += __shfl_xor_sync(kFdFull, x[1], 4);
+            x[0] += __shfl_xor_sync(kFdFull, x[0], 2);
+            x[0] += __shfl_xor_sync(kFdFull, x[0], 1);
+            if (i4 == 0 && hl < GT) {
+                sm.s[hl][r0 + j] = sl == 0 ? x[0] : sm.s[hl][r0 + j] + x[0];
+            }
+        }
+    }
+    // the summed dot products become scores (each written and read by the
+    // same thread)
+    if (i4 == 0 && hl < GT) {
+        for (int j = 0; j < nr; ++j) {
+            sm.s[hl][r0 + j] =
+                empty || j < jlo
+                    ? kFdNeg
+                    : fd_score(sm.s[hl][r0 + j], scale, cap, inv_cap);
+        }
+    }
+    __syncthreads();
+
+    // the chunk's max, p and the warp's sum of p, as the D <= 256 instance
+    float mx = kFdNeg;
+    if (hl < GT) {
+        const int e = min(kFdChunk / 4 * (i4 + 1), tc);
+        for (int i = kFdChunk / 4 * i4; i < e; ++i) {
+            mx = fmaxf(mx, sm.s[hl][i]);
+        }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(kFdFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFdFull, mx, 2));
+#pragma unroll
+    for (int j = i4; j < kFdRows; j += 4) {
+        if (j < nr) {
+            sm.p[r0 + j][hl] = hl < GT ? expf(sm.s[hl][r0 + j] - mx) : 0.0f;
+        }
+    }
+    __syncwarp();
+    if (i4 == 0 && nr > 0) {
+        float l = sm.p[r0][hl];
+        for (int j = 1; j < nr; ++j) l += sm.p[r0 + j][hl];
+        sm.l[warp][hl] = l;
+        if (warp == 0) sm.m[hl] = mx;
+    }
+
+    const int nw = (tc + kFdRows - 1) / kFdRows;
+    const int g = warp;
+    const size_t prow = ((size_t)(b * H + h) * G + g) * NC + c;
+    for (int sl = 0; sl < NS; ++sl) {
+        const int ds = sl * DM;
+        if (sl > 0) {
+            __syncthreads();           // every warp has read the last sums
+            copy_rows(sm.v, v, ds);
+        }
+        float acc[kFdGMax][4 * NP];
+#pragma unroll
+        for (int gg = 0; gg < kFdGMax; ++gg) {
+#pragma unroll
+            for (int i = 0; i < 4 * NP; ++i) acc[gg][i] = 0.0f;
+        }
+        cp_async_wait<0>();
+        for (int j = jlo; j < nr; ++j) {
+            const float4 pa =
+                *reinterpret_cast<const float4*>(&sm.p[r0 + j][0]);
+            const float4 pb =
+                *reinterpret_cast<const float4*>(&sm.p[r0 + j][4]);
+            const float pg[kFdGMax] = {pa.x, pa.y, pa.z, pa.w,
+                                       pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+            for (int pt = 0; pt < NP; ++pt) {
+                const float4 vv =
+                    ds + kFdPart * pt + d0 < D
+                        ? fd_load_round(&sm.v[r0 + j][kFdPart * pt + d0], rnd)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+                for (int gg = 0; gg < kFdGMax; ++gg) {
+                    acc[gg][4 * pt] = fmaf(pg[gg], vv.x, acc[gg][4 * pt]);
+                    acc[gg][4 * pt + 1] =
+                        fmaf(pg[gg], vv.y, acc[gg][4 * pt + 1]);
+                    acc[gg][4 * pt + 2] =
+                        fmaf(pg[gg], vv.z, acc[gg][4 * pt + 2]);
+                    acc[gg][4 * pt + 3] =
+                        fmaf(pg[gg], vv.w, acc[gg][4 * pt + 3]);
+                }
+            }
+        }
+        // into the warp's own k rows (row r0 + g: head g)
+        if (nr > 0) {
+#pragma unroll
+            for (int pt = 0; pt < NP; ++pt) {
+                if (ds + kFdPart * pt + d0 >= D) continue;
+#pragma unroll
+                for (int gg = 0; gg < kFdGMax; ++gg) {
+                    if (gg < GT) {
+                        *reinterpret_cast<float4*>(
+                            &sm.k[r0 + gg][kFdPart * pt + d0]) =
+                            make_float4(acc[gg][4 * pt], acc[gg][4 * pt + 1],
+                                        acc[gg][4 * pt + 2],
+                                        acc[gg][4 * pt + 3]);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        if (g < GT) {
+#pragma unroll
+            for (int pt = 0; pt < NP; ++pt) {
+                const int d = ds + kFdPart * pt + d0;
+                if (d >= D) continue;
+                const int dl = kFdPart * pt + d0;
+                float4 a = *reinterpret_cast<const float4*>(&sm.k[g][dl]);
+                for (int w = 1; w < nw; ++w) {
+                    const float4 t = *reinterpret_cast<const float4*>(
+                        &sm.k[w * kFdRows + g][dl]);
+                    a.x += t.x;
+                    a.y += t.y;
+                    a.z += t.z;
+                    a.w += t.w;
+                }
+                float* dst = part_acc + prow * D + d;
+                if constexpr (V) {
+                    *reinterpret_cast<float4*>(dst) = a;
+                } else {
+                    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        if (d + i < D) dst[i] = av[i];
+                    }
+                }
+            }
+        }
+    }
+    if (g < GT && lane == 0) {
+        float l = sm.l[0][g];
+        for (int w = 1; w < nw; ++w) l += sm.l[w][g];
+        part_l[prow] = l;
+        part_m[prow] = sm.m[g];
+    }
+}
+
 // One group of 32 chunk partials from chunk c0 (none past nc): lane j's m
 // and l of chunk c0 + j, and thread d's acc of each.
 struct FdGroup {
@@ -383,29 +673,37 @@ __device__ __forceinline__ void fd_load_group(FdGroup& gr, const float* ap,
 }
 
 // One block of DM threads per (head, kv head, batch), thread d: folds the
-// lane's chunk partials in chunk order and writes rnd(acc / l). The next
+// lane's chunk partials in chunk order, from the chunk that holds the
+// window's first position (WIN; chunk 0 otherwise, whose partial then
+// loads while the lane's length does), and writes rnd(acc / l). WIDE: D in
+// slices of DM, one block a slice, blockIdx.x = slice * G + head. The next
 // group's loads are in flight while a group folds.
-template <class Q, int DM>
+template <class Q, int DM, bool WIN, bool WIDE>
 __global__ void __launch_bounds__(DM)
 flash_decode_combine_kernel(const float* __restrict__ part_acc,
                             const float* __restrict__ part_m,
                             const float* __restrict__ part_l,
                             const int* __restrict__ lengths,
                             float* __restrict__ out, int S, int H, int G,
-                            int D, int NC, Q rnd) {
-    const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int d = threadIdx.x, lane = d % 32;
+                            int D, int NC, int window, Q rnd) {
+    const int g = WIDE ? blockIdx.x % G : blockIdx.x;
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int d = WIDE ? blockIdx.x / G * DM + threadIdx.x : threadIdx.x;
+    const int lane = threadIdx.x % 32;
     const bool has_d = d < D;
-    const int nc = fd_chunks(fd_attended(lengths[b], S));
+    const int len = lengths[b];
+    const int n = fd_attended(len, S);
+    const int nc = fd_chunks(n);
+    const int c_lo = WIN ? fd_first(len, n, window) / kFdChunk : 0;
     const size_t head = (size_t)(b * H + h) * G + g;
     const float* pm = part_m + head * NC;
     const float* pl = part_l + head * NC;
     const float* ap = part_acc + head * NC * D + d;
-    float m = pm[0], l = pl[0];
-    float acc = has_d ? ap[0] : 0.0f;
+    float m = pm[c_lo], l = pl[c_lo];
+    float acc = has_d ? ap[(size_t)c_lo * D] : 0.0f;
     FdGroup cur;
-    fd_load_group(cur, ap, pm, pl, 1, nc, D, has_d, lane);
-    for (int c0 = 1; c0 < nc; c0 += 32) {
+    fd_load_group(cur, ap, pm, pl, c_lo + 1, nc, D, has_d, lane);
+    for (int c0 = c_lo + 1; c0 < nc; c0 += 32) {
         FdGroup next;
         fd_load_group(next, ap, pm, pl, c0 + 32, nc, D, has_d, lane);
         const int cnt = min(32, nc - c0);
@@ -435,45 +733,57 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
     if (has_d) out[head * D + d] = rnd(__fdiv_rn(acc, l));
 }
 
-// Both kernels of one instance: the chunk kernel once a tile of 8 heads,
-// then the combine over all G.
-template <class Q, int DL, bool V>
+// Both kernels of one instance: the chunk kernel (the wide one where
+// WIDE) once a tile of 8 heads, then the combine over all G and every
+// slice of 32 * DL dims.
+template <class Q, int DL, bool V, bool WIDE>
 cudaError_t fd_launch(const float* q, const float* k, const float* v,
                       const int* lengths, float* out, float* acc, float* m,
                       float* l, int B, int S, int H, int G, int D, int NC,
-                      float scale, const Q& rnd, cudaStream_t s) {
-    constexpr int smem = sizeof(FdSmem<32 * DL>);
-    static const cudaError_t attr =
-        allow_smem(flash_decode_chunk_kernel<Q, DL, V>, smem);
+                      float scale, int window, float cap, float inv_cap,
+                      const Q& rnd, cudaStream_t s) {
+    constexpr int DM = 32 * DL;
+    constexpr int smem = sizeof(FdSmem<DM>);
+    constexpr auto chunk = WIDE ? flash_decode_chunk_wide_kernel<Q, V>
+                                : flash_decode_chunk_kernel<Q, DL, V>;
+    static const cudaError_t attr = allow_smem(chunk, smem);
     if (attr != cudaSuccess) return attr;
     for (int g0 = 0; g0 < G; g0 += kFdGMax) {
         const int gt = min(kFdGMax, G - g0);
         const size_t r = (size_t)g0 * NC;   // the tile's first partial row
-        flash_decode_chunk_kernel<Q, DL, V>
-            <<<dim3(NC, H, B), kFdThreads, smem, s>>>(
-                q + (size_t)g0 * D, k, v, lengths, acc + r * D, m + r,
-                l + r, S, H, G, gt, D, NC, scale, rnd);
+        chunk<<<dim3(NC, H, B), kFdThreads, smem, s>>>(
+            q + (size_t)g0 * D, k, v, lengths, acc + r * D, m + r, l + r, S,
+            H, G, gt, D, NC, scale, window, cap, inv_cap, rnd);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return e;
     }
-    flash_decode_combine_kernel<Q, 32 * DL>
-        <<<dim3(G, H, B), 32 * DL, 0, s>>>(acc, m, l, lengths, out, S, H, G,
-                                           D, NC, rnd);
+    const dim3 grid(G * ((D + DM - 1) / DM), H, B);
+    if (window > 0) {
+        flash_decode_combine_kernel<Q, DM, true, WIDE>
+            <<<grid, DM, 0, s>>>(acc, m, l, lengths, out, S, H, G, D, NC,
+                                 window, rnd);
+    } else {
+        flash_decode_combine_kernel<Q, DM, false, WIDE>
+            <<<grid, DM, 0, s>>>(acc, m, l, lengths, out, S, H, G, D, NC,
+                                 window, rnd);
+    }
     return cudaGetLastError();
 }
 
 // q [B, H, G, D], k/v [B, S, H, D], lengths int32 [B], out like q: f32,
-// contiguous, on the device; G >= 1, D <= 256; partials: B·H·G·chunks·
+// contiguous, on the device; G >= 1, D >= 1; partials: B·H·G·chunks·
 // (D + 2) floats, 16-byte aligned, for acc [rows][D], then m [rows], then
-// l [rows], rows = B·H·G·chunks (the wrappers allocate and check).
-// Launches the chunk kernel once a tile of 8 heads, then the combine, on
+// l [rows], rows = B·H·G·chunks (the wrappers allocate and check); window
+// (0: none) and cap (0: none; inv_cap = f32(1 / cap)) as above. Launches
+// the chunk kernel once a tile of 8 heads, then the combine, on
 // ``stream``; returns cudaGetLastError().
 template <class Q>
 cudaError_t flash_decode(const void* q, const void* k, const void* v,
                          const void* lengths, void* out, void* partials,
                          int B, int S, int H, int G, int D, float scale,
-                         Q rnd, void* stream) {
-    if (G < 1 || D < 1 || D > 2 * kFdPart) return cudaErrorInvalidValue;
+                         int window, float cap, float inv_cap, Q rnd,
+                         void* stream) {
+    if (G < 1 || D < 1 || window < 0) return cudaErrorInvalidValue;
     const auto s = static_cast<cudaStream_t>(stream);
     const int NC = fd_chunks(S);
     const size_t rows = (size_t)B * H * G * NC;
@@ -487,16 +797,17 @@ cudaError_t flash_decode(const void* q, const void* k, const void* v,
     auto* op = static_cast<float*>(out);
     const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0
                      && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+#define FD_LAUNCH(DL, V, WIDE)                                            \
+    fd_launch<Q, DL, V, WIDE>(qp, kp, vp, lp, op, acc, m, l, B, S, H, G, D, \
+                              NC, scale, window, cap, inv_cap, rnd, s)
     if (D <= kFdPart) {
-        return vec ? fd_launch<Q, 4, true>(qp, kp, vp, lp, op, acc, m, l, B,
-                                           S, H, G, D, NC, scale, rnd, s)
-                   : fd_launch<Q, 4, false>(qp, kp, vp, lp, op, acc, m, l, B,
-                                            S, H, G, D, NC, scale, rnd, s);
+        return vec ? FD_LAUNCH(4, true, false) : FD_LAUNCH(4, false, false);
     }
-    return vec ? fd_launch<Q, 8, true>(qp, kp, vp, lp, op, acc, m, l, B, S,
-                                       H, G, D, NC, scale, rnd, s)
-               : fd_launch<Q, 8, false>(qp, kp, vp, lp, op, acc, m, l, B, S,
-                                        H, G, D, NC, scale, rnd, s);
+    if (D <= 2 * kFdPart) {
+        return vec ? FD_LAUNCH(8, true, false) : FD_LAUNCH(8, false, false);
+    }
+    return vec ? FD_LAUNCH(8, true, true) : FD_LAUNCH(8, false, true);
+#undef FD_LAUNCH
 }
 
 }  // namespace

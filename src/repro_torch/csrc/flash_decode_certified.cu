@@ -20,7 +20,8 @@
 // combined in chunk order), its masking (a lane of length 0 gives the mean
 // of the rounded v over all S positions, rounded, as the reference does)
 // and its fixed summation order are in flash_decode.cuh, shared with
-// flash_decode.cu.
+// flash_decode.cu. No window and no softcap here: the reference offers
+// the certified decode only a plain causal step.
 #include "flash_decode.cuh"
 #include "quantize_format.cuh"
 
@@ -37,7 +38,7 @@ struct FormatRound {
 }  // namespace
 
 // q [B, H, G, D], k/v [B, S, H, D], lengths int32 [B], out like q: f32,
-// contiguous, on the device; G >= 1, D <= 256; partials: the chunk
+// contiguous, on the device; G >= 1, D >= 1; partials: the chunk
 // partials' scratch (flash_decode.cuh). Returns cudaGetLastError()
 // after the launches.
 extern "C" int repro_flash_decode_certified_f32(
@@ -50,8 +51,10 @@ extern "C" int repro_flash_decode_certified_f32(
     const cudaError_t rc =
         c.has_subnormals
             ? flash_decode(q, k, v, lengths, out, partials, B, S, H, G, D,
-                           scale, FormatRound<true>{c}, stream)
+                           scale, 0, 0.0f, 0.0f, FormatRound<true>{c},
+                           stream)
             : flash_decode(q, k, v, lengths, out, partials, B, S, H, G, D,
-                           scale, FormatRound<false>{c}, stream);
+                           scale, 0, 0.0f, 0.0f, FormatRound<false>{c},
+                           stream);
     return static_cast<int>(rc);
 }

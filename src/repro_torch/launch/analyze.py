@@ -3,15 +3,18 @@
 The counterpart of the JAX package's ``python -m repro.launch.analyze``::
 
   PYTHONPATH=src python -m repro_torch.launch.analyze --arch qwen2_7b --k 12
+  PYTHONPATH=src python -m repro_torch.launch.analyze --arch mixtral_8x22b \
+      --k 10 --seq 16 --routers
 
 Runs the arch's SMOKE configuration under :class:`repro_torch.core.backend.
 CaaOps` with the target-format emulation and reports the per-layer trace,
-the rigorous actual error of the emulated run and the parametric bounds.
-The params are the port's seeded ``init_params`` (``torch.Generator`` seed
-0), the tokens the reference's draw for seed 1
-(:func:`repro_torch.certify.tokens.profile_tokens`). MoE is not ported,
-so there is no ``--routers``: such archs raise through
-``check_supported``. Runs on the card unless ``--device cpu`` is given.
+the rigorous actual error of the emulated run, the parametric bounds and,
+with ``--routers``, the MoE router decision margins (the route is fixed
+from the emulated values; it is flip-safe for every u below the record's
+``flip_safe_if_u_le``). The params are the port's seeded ``init_params``
+(``torch.Generator`` seed 0), the tokens the reference's draw for seed 1
+(:func:`repro_torch.certify.tokens.profile_tokens`). Runs on the card
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ def main(argv=None):
                     help="emulated mantissa bits (u = 2^{1-k})")
     ap.add_argument("--seq", type=int, default=16)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--routers", action="store_true",
+                    help="print MoE router flip-safety records")
     ap.add_argument("--trace", type=int, default=8,
                     help="how many trace records to print")
     ap.add_argument("--device", default="cuda",
@@ -67,8 +72,14 @@ def main(argv=None):
     print(f"\nper-layer trace ({len(bk.trace)} records, first {args.trace}):")
     for r in bk.trace[: args.trace]:
         print(f"  {r.name:30s} {r.kind:8s} |range|≤{r.out_mag:9.3g}")
+    routers = [r for r in bk.trace if r.kind == "router"]
+    if args.routers:
+        print(f"\nrouter records ({len(routers)}):")
+        for r in routers:
+            print(f"  {r.name}: min margin {r.extra['min_margin']:.4f}, "
+                  f"flip-safe for u ≤ {r.extra['flip_safe_if_u_le']:.3g}")
     return {"abs_u": float(a_abs.max()), "rel_u": float(fin.max()),
-            "dbar": d, "ebar": e, "trace": bk.trace}
+            "dbar": d, "ebar": e, "trace": bk.trace, "routers": routers}
 
 
 if __name__ == "__main__":

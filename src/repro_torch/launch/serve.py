@@ -15,8 +15,11 @@ The last two round operands and result to k mantissa bits through the
 :class:`repro_torch.core.backend.TorchOps`: on the card the fixed-order
 ``flash_decode_attention`` kernel (the reference composes einsums and a
 softmax, which the card's library products run in an order that depends on
-the batch), on the CPU the composed path. Prefill attention and the LM head
-stay unrounded true-f32 products in every backend.
+the batch), on the CPU the composed path. A model with a softcap or a
+sliding window (Gemma-2, Mixtral) decodes through that unrounded kernel on
+every backend, the format one included: the reference composes its decode
+attention, unrounded, everywhere. Prefill attention and the LM head stay
+unrounded true-f32 products in every backend.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card and without an explicit ``cpu`` they
@@ -34,6 +37,11 @@ of a device log each, read back once a step) and one sampled
 full-precision prefill; ``--metrics`` / ``--prom`` write the registry
 (latency histograms, tokens/s, the monitor's counters and margins) and
 ``--trace`` a JSONL trace for ``python -m repro_torch.obs report``.
+
+Every arch of :mod:`repro_torch.configs` serves through the same path
+(``--arch qwen2_7b|command_r_35b|gemma2_27b|mixtral_8x22b|
+llama4_maverick``); ``--max-layers`` cuts the depth of a full-width
+config to fit the card.
 
 CLI::
 
@@ -475,6 +483,9 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--arch", default="qwen2_7b")
     ap.add_argument("--size", choices=("smoke", "full"), default="smoke",
                     help="the arch's SMOKE or FULL (published) config")
+    ap.add_argument("--max-layers", type=int, default=None,
+                    help="cap the config's layer count (depth cut for "
+                         "memory; widths stay the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prefill-len", type=int, default=32)
     ap.add_argument("--decode-steps", type=int, default=16)
@@ -535,6 +546,9 @@ def main(argv=None) -> ServeResult:
     configure_precision()
     mod = configs.get(args.arch)
     cfg = mod.FULL if args.size == "full" else mod.SMOKE
+    if args.max_layers is not None:
+        cfg = dataclasses.replace(
+            cfg, n_layers=min(args.max_layers, cfg.n_layers))
 
     sc = ServeConfig(arch=args.arch, batch=args.batch,
                      max_seq=args.prefill_len + args.decode_steps + 1,

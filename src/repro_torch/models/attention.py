@@ -48,18 +48,27 @@ def _mask5(mask: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
-                  cos, sin, mask, qkv_bias: bool = False,
+                  cos, sin, mask, softcap: Optional[float] = None,
+                  window: int = 0, qkv_bias: bool = False,
                   cache: Optional[KVCache] = None,
-                  fused_decode: bool = False):
+                  fused_decode: bool = False,
+                  windowed_decode: bool = False):
     """Grouped-query attention. x: [B,S,d]. Returns (out, new_cache).
 
     With ``cache`` set, keys/values are written into the cache buffers in
     place at ``cache.index`` (0-d, or [B] per lane), and attention runs over
     the whole buffer under ``mask`` ([q, kv], or [B, q, kv] per lane).
-    ``fused_decode`` offers the S==1 step to ``bk.decode_attention`` (the
-    certificate-aware flash decode hook) with each lane's new length; a
-    backend returning None takes the composed path. The composed prefill
-    scores and probabilities are never rounded, as in the reference."""
+    ``softcap`` caps the scaled scores (cap·tanh(s/cap), Gemma-2) before
+    the mask. ``fused_decode`` (the caller's plain-causal S==1 step) offers
+    the step to ``bk.decode_attention`` (the certificate-aware flash decode
+    hook) with each lane's new length; a backend returning None takes the
+    composed path. ``windowed_decode`` (the S==1 step of a model with a
+    softcap or sliding windows, which the reference never offers to that
+    hook) offers it to ``bk.windowed_decode_attention`` with the layer's
+    ``window`` (0: none; ``mask`` carries the same rule) and ``softcap``:
+    on the card that composed attention, unrounded, in the decode kernel's
+    fixed order; on the CPU None, and it composes. The composed scores and
+    probabilities are never rounded, as in the reference."""
     B, S, _ = bk.shape_of(x)
     G = n_heads // n_kv_heads
 
@@ -83,13 +92,18 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
         _cache_write(cache.k, k, cache.index)
         _cache_write(cache.v, v, cache.index)
         new_cache = KVCache(cache.k, cache.v, cache.index + S)
-        if fused_decode and S == 1:
+        if S == 1 and (fused_decode or windowed_decode):
             lengths = new_cache.index.to(torch.int32)
             if lengths.dim() == 0:
                 lengths = lengths.expand(B)
             lengths = lengths.contiguous()
             q4 = bk.reshape(q, (B, n_kv_heads, G, d_head))
-            fused = bk.decode_attention(q4, cache.k, cache.v, lengths)
+            if windowed_decode:
+                fused = bk.windowed_decode_attention(
+                    q4, cache.k, cache.v, lengths, int(window or 0),
+                    float(softcap or 0.0))
+            else:
+                fused = bk.decode_attention(q4, cache.k, cache.v, lengths)
             if fused is not None:
                 out = bk.reshape(fused, (B, S, n_heads * d_head))
                 return bk.matmul(out, bk.param(p["wo"])), new_cache
@@ -99,6 +113,8 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
     q = bk.reshape(q, (B, S, n_kv_heads, G, d_head))
     scores = bk.einsum("bqkgd,bskd->bkgqs", q, k)
     scores = bk.scale(scores, d_head ** -0.5)
+    if softcap:
+        scores = bk.softcap(scores, softcap)
     neg = bk.const(L.NEG_BIG, scores)
     scores = bk.where(_mask5(mask), scores, neg)
     probs = bk.softmax(scores, dim=-1)

@@ -1,5 +1,5 @@
 """Backend-generic building blocks (PyTorch), the counterpart of the JAX
-package's ``repro.models.layers`` for the dense GQA family.
+package's ``repro.models.layers`` for the GQA families.
 
 Every function takes the arithmetic backend ``bk`` first; parameters arrive
 as tensors and are wrapped with ``bk.param``. The op order of each block is
@@ -55,12 +55,16 @@ def embed(bk, table, ids):
     return bk.take(bk.param(table), ids)
 
 
-def logits_head(bk, x, table):
+def logits_head(bk, x, table, softcap: Optional[float] = None):
     """Final projection through ``bk.einsum``: the certified backends do not
     round it, so it stays an f32 product — on the card the row-invariant
     ``f32_matmul`` kernel (``TorchOps.einsum``: one fmaf order per logit,
-    whatever the batch)."""
-    return bk.einsum("bsd,vd->bsv", x, bk.param(table))
+    whatever the batch). ``softcap``: Gemma-2's final cap·tanh(y/cap)
+    (``bk.softcap``) on the product."""
+    y = bk.einsum("bsd,vd->bsv", x, bk.param(table))
+    if softcap:
+        y = bk.softcap(y, softcap)
+    return y
 
 
 def mlp_gated(bk, x, w_gate, w_up, w_down, act: str = "silu"):
@@ -99,15 +103,21 @@ def apply_rope(bk, x, cos, sin):
     return bk.concat([r1, r2], dim=-1)
 
 
-def causal_mask(q_len: int, kv_len: int, q_offset: int = 0, *, device=None):
+def causal_mask(q_len: int, kv_len: int, q_offset: int = 0,
+                window: Optional[int] = None, *, device=None):
     """Boolean [q_len, kv_len]: True = attendable; queries sit at absolute
-    positions ``q_offset + arange(q_len)``."""
+    positions ``q_offset + arange(q_len)``. ``window`` gives sliding-window
+    masking: a query attends ``q_pos - window < k_pos <= q_pos``."""
     q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
     k_pos = torch.arange(kv_len, device=device)[None, :]
-    return k_pos <= q_pos
+    ok = k_pos <= q_pos
+    if window is not None:
+        ok = ok & (k_pos > q_pos - window)
+    return ok
 
 
-def lane_causal_mask(q_len: int, kv_len: int, q_offsets: torch.Tensor):
+def lane_causal_mask(q_len: int, kv_len: int, q_offsets: torch.Tensor,
+                     window: Optional[int] = None):
     """Per-lane boolean [B, q_len, kv_len] for the ragged decode path: lane
     b's queries sit at absolute positions ``q_offsets[b] + arange(q_len)``.
     Exact integer logic, the attendability rule of :func:`causal_mask`."""
@@ -115,4 +125,7 @@ def lane_causal_mask(q_len: int, kv_len: int, q_offsets: torch.Tensor):
     q_pos = (q_offsets[:, None, None]
              + torch.arange(q_len, device=dev)[None, :, None])
     k_pos = torch.arange(kv_len, device=dev)[None, None, :]
-    return k_pos <= q_pos
+    ok = k_pos <= q_pos
+    if window is not None:
+        ok = ok & (k_pos > q_pos - window)
+    return ok

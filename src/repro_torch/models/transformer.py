@@ -1,11 +1,15 @@
-"""LM backbone (PyTorch) for the dense GQA family: the counterpart of the
-JAX package's ``repro.models.transformer``.
+"""LM backbone (PyTorch) for the GQA families: the counterpart of the JAX
+package's ``repro.models.transformer``.
 
-Parameters keep the reference's stacked layout — a dict whose per-layer
-tensors carry a leading ``[L]`` axis — so both packages compute the same
-thing on the same numbers. Features of the other families (MoE, MLA, RWKV,
-hybrid, encoder-decoder, modality frontends, softcap, sliding windows) are
-not ported yet and raise ``NotImplementedError``.
+It covers the dense GQA models (Qwen2, Command-R), Gemma-2 (softcapped
+scores and logits, √d embedding scale, even layers local with a sliding
+window, odd ones global, tanh-GELU) and the MoE ones (Mixtral with a
+sliding window on every layer, Llama-4). Parameters keep the reference's
+stacked layout — a dict whose per-layer tensors carry a leading ``[L]``
+axis — so both packages compute the same thing on the same numbers. The
+other families' features (MLA, RWKV, hybrid, encoder-decoder, modality
+frontends, LayerNorm) are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,17 +73,13 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for anything outside the dense GQA family
-    with RMSNorm and a gated SiLU MLP."""
+    """Raise NotImplementedError for anything outside the GQA families with
+    RMSNorm (dense or MoE MLPs, softcaps, sliding windows, embedding
+    scale)."""
     unported = {
-        "moe": cfg.family == "moe" or cfg.n_experts is not None,
         "mla": cfg.mla, "rwkv": cfg.rwkv, "hybrid": cfg.hybrid,
         "enc_dec": cfg.enc_dec, "frontend": cfg.frontend is not None,
-        "softcap": (cfg.softcap_attn is not None
-                    or cfg.softcap_final is not None),
-        "window": (cfg.window is not None
-                   or cfg.local_global_period is not None),
-        "norm": cfg.norm != "rmsnorm", "embed_scale": cfg.embed_scale,
+        "layernorm": cfg.norm != "rmsnorm",
     }
     missing = sorted(k for k, v in unported.items() if v)
     if missing:
@@ -94,9 +95,14 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     layers = {
         "ln1": (n, d), "ln2": (n, d),
         "attn": {k: (n,) + s for k, s in attn.items()},
-        "mlp": {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
-                "w_down": (n, cfg.d_ff, d)},
     }
+    if cfg.family == "moe":
+        moe = M.moe_shapes(d, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts)
+        layers["moe"] = {k: (n,) + s for k, s in moe.items()}
+    else:
+        layers["mlp"] = {"w_gate": (n, d, cfg.d_ff),
+                         "w_up": (n, d, cfg.d_ff),
+                         "w_down": (n, cfg.d_ff, d)}
     shapes = {"embed": (cfg.vocab, d), "layers": layers,
               "final_norm": (d,)}
     if not cfg.tie_embeddings:
@@ -106,8 +112,9 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
 
 def _init_value(name: str, shape, generator, device):
     """One tensor, filled in place on ``device`` with the reference's
-    distributions: N(0, 1/fan_in) dense weights, N(0, 0.02²) embeddings,
-    ones for norm gains, zeros for biases."""
+    distributions: N(0, 1/fan_in) dense weights (the experts' too: fan_in
+    is the second-to-last axis), N(0, 0.02²) embeddings, ones for norm
+    gains, zeros for biases."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     if name in ("ln1", "ln2", "final_norm"):
         return t.fill_(1.0)
@@ -152,15 +159,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
 
 
 def analytic_params(cfg: ArchConfig, active: bool = False) -> int:
-    """Closed-form parameter count. ``active`` counts the parameters one
-    token runs through (the reference's MoE distinction; the dense family
-    the port supports runs through all of them)."""
-    del active
+    """Closed-form parameter count, the reference's. ``active`` counts the
+    parameters one token runs through: an MoE layer's router and its top-k
+    experts (the others' weights are not read for it)."""
     check_supported(cfg)
     d, dh = cfg.d_model, cfg.head_dim
     emb = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
     per_layer = d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh
-    per_layer += cfg.n_heads * dh * d + 3 * d * cfg.d_ff
+    per_layer += cfg.n_heads * dh * d
+    if cfg.family == "moe":
+        e = cfg.n_experts if not active else cfg.top_k
+        ff = cfg.moe_d_ff or cfg.d_ff
+        per_layer += d * cfg.n_experts + e * (2 * d * ff + ff * d)
+    else:
+        per_layer += 3 * d * cfg.d_ff
     return emb + cfg.n_layers * per_layer
 
 
@@ -177,11 +189,20 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
     or a [B] device tensor of per-lane offsets (the ragged path of
     continuous batching, which needs a cache): rope rows and the causal
     mask are then per lane. The scopes "embed", "layer{i}"/"attn"|"mlp" and
-    "head" are the keys certificates assign."""
+    "head" are the keys certificates assign.
+
+    Gemma-2's even layers are local (window ``local_global_period``), its
+    odd ones global; a ``window`` applies to every layer (Mixtral). The
+    loop is unrolled, so each layer's mask and window are chosen by a
+    Python int. As in the reference, a single-token step of a model with a
+    softcap or a window is not offered to ``bk.decode_attention``
+    (``fused_ok``); it goes to ``bk.windowed_decode_attention``."""
     check_supported(cfg)
     dev = tokens.device
     with bk.scope("embed"):
         x = L.embed(bk, params["embed"], tokens)
+        if cfg.embed_scale:
+            x = bk.scale(x, math.sqrt(cfg.d_model))
 
     B, Sq, _ = bk.shape_of(x)
     kv_len = cache["k"].shape[2] if cache is not None else Sq
@@ -201,13 +222,22 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
         cos_q, sin_q = cos_full[-Sq:], sin_full[-Sq:]
     else:
         cos_q, sin_q = cos_full[positions], sin_full[positions]
+    lgp = cfg.local_global_period
     if ragged:
-        mask = L.lane_causal_mask(Sq, kv_len, q_offset.to(torch.int64))
+        offs = q_offset.to(torch.int64)
+        gmask = L.lane_causal_mask(Sq, kv_len, offs, cfg.window)
+        lmask = L.lane_causal_mask(Sq, kv_len, offs, lgp) if lgp else None
     else:
-        mask = L.causal_mask(Sq, kv_len, q_offset, device=dev)
-    fused_ok = cache is not None and Sq == 1
+        gmask = L.causal_mask(Sq, kv_len, q_offset, cfg.window, device=dev)
+        lmask = (L.causal_mask(Sq, kv_len, q_offset, lgp, device=dev)
+                 if lgp else None)
+    step = cache is not None and Sq == 1
+    # the fused decode hook only sees the plain-causal S==1 step
+    fused_ok = (step and cfg.softcap_attn is None and cfg.window is None
+                and lgp is None)
 
     def layer_fn(p, x, i, aux):
+        local = lmask is not None and i % 2 == 0     # Gemma-2: even layers
         h = L.rmsnorm(bk, x, p["ln1"])
         kv = None if aux is None else A.KVCache(aux["k"], aux["v"],
                                                 aux["idx"])
@@ -215,14 +245,22 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
             out, new_kv = A.gqa_attention(
                 bk, h, p["attn"], n_heads=cfg.n_heads,
                 n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
-                cos=cos_q, sin=sin_q, mask=mask, qkv_bias=cfg.qkv_bias,
-                cache=kv, fused_decode=fused_ok)
+                cos=cos_q, sin=sin_q, mask=lmask if local else gmask,
+                softcap=cfg.softcap_attn,
+                window=lgp if local else (cfg.window or 0),
+                qkv_bias=cfg.qkv_bias, cache=kv, fused_decode=fused_ok,
+                windowed_decode=step and not fused_ok)
         x = bk.add(x, out)
         h2 = L.rmsnorm(bk, x, p["ln2"])
         with bk.scope("mlp"):
-            mlp_out = L.mlp_gated(bk, h2, p["mlp"]["w_gate"],
-                                  p["mlp"]["w_up"], p["mlp"]["w_down"],
-                                  cfg.act)
+            if cfg.family == "moe":
+                mlp_out = M.moe_mlp(bk, h2, p["moe"],
+                                    n_experts=cfg.n_experts,
+                                    top_k=cfg.top_k, act=cfg.act)
+            else:
+                mlp_out = L.mlp_gated(bk, h2, p["mlp"]["w_gate"],
+                                      p["mlp"]["w_up"], p["mlp"]["w_down"],
+                                      cfg.act)
         return bk.add(x, mlp_out)
 
     x = bk.layer_loop(layer_fn, params["layers"], x, cfg.n_layers,
@@ -235,6 +273,6 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
     with bk.scope("head"):
         x = L.rmsnorm(bk, x, params["final_norm"])
         head = params["embed"] if cfg.tie_embeddings else params["head"]
-        logits = L.logits_head(bk, x, head)
+        logits = L.logits_head(bk, x, head, cfg.softcap_final)
         logits = bk.record("logits", logits, kind="head")
     return logits, new_cache

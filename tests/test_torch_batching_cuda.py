@@ -268,15 +268,18 @@ def test_k_and_plain_step_every_op_lane_bits_at_full_width(cuda_device,
                                    (1, 2, 16, 512)])
 def test_card_decode_attention_raises_outside_kernel_limits(cuda_device,
                                                             shape):
-    """Kernel 4 takes any G and 1 <= D <= 256; beyond, the card's path
-    raises (no fallback to the composed attention)."""
+    """Kernel 4 takes any G and D (these head dims above 256 run through
+    its wide instance); outside its limits, an empty cache or f64, the
+    card's path raises (no fallback to the composed attention)."""
     B, K, G, D = shape
     q = torch.zeros(shape, device=cuda_device)
     k = torch.zeros((B, 32, K, D), device=cuda_device)
     lengths = torch.ones(B, dtype=torch.int32, device=cuda_device)
+    out = serve.TorchOps().decode_attention(q, k, k.clone(), lengths)
+    assert out.shape == shape and bool((out == 0).all())
     with pytest.raises(ValueError):
-        serve.TorchOps().decode_attention(q, k, k.clone(), lengths)
-    with pytest.raises(ValueError):           # f64 is outside them too
+        serve.TorchOps().decode_attention(q, k[:, :0], k[:, :0], lengths)
+    with pytest.raises(ValueError):           # f64 is outside them
         serve.TorchOps(torch.float64).decode_attention(
             q[..., :64].double(), k[..., :64].double(),
             k[..., :64].double(), lengths)

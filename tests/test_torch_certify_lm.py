@@ -174,7 +174,12 @@ def test_analyze_cli_on_the_cpu(capsys):
     assert math.isfinite(out["abs_u"]) and out["trace"]
     assert "certified actual |error|" in capsys.readouterr().out
     with pytest.raises(KeyError, match="not ported"):
-        main(["--device", "cpu", "--arch", "mixtral_8x22b"])
+        main(["--device", "cpu", "--arch", "rwkv6_1p6b"])
+    out = main(["--device", "cpu", "--arch", "mixtral_8x22b", "--k", "10",
+                "--seq", "4", "--routers"])
+    assert [r.name for r in out["routers"]] == ["layer0/mlp/router",
+                                                "layer1/mlp/router"]
+    assert "router records (2):" in capsys.readouterr().out
 
 
 def test_batching_cli_certifies_a_miss_and_serves_it(tmp_path):

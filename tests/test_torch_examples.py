@@ -117,10 +117,14 @@ def test_lm_precision_analysis(capsys):
     res = lm_precision_analysis.main(CPU)
     out = capsys.readouterr().out
     assert "=== qwen2_7b (reduced config), emulated k=12" in out
-    assert "not analysed: mixtral_8x22b, rwkv6_1p6b" in out
-    assert [r["arch"] for r in res["analysed"]] == ["qwen2_7b"]
-    assert res["waiting"] == ["mixtral_8x22b", "rwkv6_1p6b"]
-    assert math.isfinite(res["analysed"][0]["max_abs_u"])
+    assert "=== mixtral_8x22b (reduced config), emulated k=12" in out
+    assert "not analysed: rwkv6_1p6b" in out
+    assert [r["arch"] for r in res["analysed"]] == ["qwen2_7b",
+                                                    "mixtral_8x22b"]
+    assert res["waiting"] == ["rwkv6_1p6b"]
+    assert all(math.isfinite(r["max_abs_u"]) for r in res["analysed"])
+    assert [r["routers"] for r in res["analysed"]] == [0, 2]
+    assert "router layer0/mlp/router: min margin" in out
 
 
 def test_examples_run_on_the_card_unless_told_otherwise(monkeypatch):

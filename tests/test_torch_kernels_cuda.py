@@ -8,7 +8,13 @@ of the same terms differ by when they add in different orders
 (2·√K·2⁻²⁴·(|q(x)|@|q(w)|) for the GEMM, whose rounding errors have random
 signs; 2·(len + 16)·2⁻²⁴·max|v| for decode attention, whose exp and division
 also differ by ulps; against decode attention's f64 split version,
-8·√(len + 16)·2⁻²⁴·max|v|). On operands whose partial sums are all exact in
+8·√(len + 16)·2⁻²⁴·max|v|; with a softcap c, widened by the tanh's error
+carried through the softmax: a score off by Δ moves the output by at most
+2Δ·max|v|, and CUDA's tanhf is within 2 ulps (CUDA C Programming Guide,
+single-precision math table), so with the rounding of the two products
+around it Δ ≤ 4·c·2⁻²⁴ against the exact score: + 8·c·2⁻²⁴·max|v| against
+the f64 split version and + 16·c·2⁻²⁴·max|v| against the f32 plain one,
+whose own tanh errs too). On operands whose partial sums are all exact in
 f32 the GEMM must equal its plain version bit for bit. One test runs on the
 CPU: it shows that the f64 rule fails a decode that drops a chunk.
 
@@ -233,31 +239,39 @@ def test_quant_matmul_dynamic_k_observes_before_rounding(cuda_device):
     assert not torch.equal(seen[0], want)
 
 
-def _attended_vmax(v, lengths, rounded=None):
-    """The n positions each lane attends (all S for a lane of length 0) and
-    the largest |v| there, per (b, kv-head)."""
+def _attended_vmax(v, lengths, rounded=None, window=0):
+    """The n positions each lane attends (all S for a lane of length 0; the
+    last ``window`` of its length under a window) and the largest |v|
+    there, per (b, kv-head)."""
     S = v.shape[1]
     n = torch.where(lengths <= 0, S, lengths.clamp(max=S))
-    valid = torch.arange(S, device=v.device)[None, :] < n[:, None]
+    lo = torch.zeros_like(n)
+    if window:
+        lo = torch.where(lengths <= 0, 0, (n - window).clamp(min=0))
+    pos = torch.arange(S, device=v.device)[None, :]
+    valid = (pos < n[:, None]) & (pos >= lo[:, None])
     va = (v if rounded is None else rounded).abs()
-    return n.double(), torch.where(valid[:, :, None, None], va,
-                                   0).amax(dim=(1, 3)).double()
+    return (n - lo).double(), torch.where(valid[:, :, None, None], va,
+                                          0).amax(dim=(1, 3)).double()
 
 
-def _flash_slack(v, lengths, rounded=None):
-    """2·(n + 16)·2⁻²⁴·max|v| over the n positions a lane attends."""
-    n, vmax = _attended_vmax(v, lengths, rounded)
-    return (2.0 * (n + 16)[:, None] * 2.0 ** -24 * vmax)[:, :, None, None]
+def _flash_slack(v, lengths, rounded=None, window=0, softcap=0.0):
+    """2·(n + 16)·2⁻²⁴·max|v| over the n positions a lane attends, + the
+    softcap's 16·c·2⁻²⁴·max|v|."""
+    n, vmax = _attended_vmax(v, lengths, rounded, window)
+    slack = 2.0 * (n + 16)[:, None] + 16.0 * softcap
+    return (slack * 2.0 ** -24 * vmax)[:, :, None, None]
 
 
-def _f64_slack(v, lengths, rounded=None):
+def _f64_slack(v, lengths, rounded=None, window=0, softcap=0.0):
     """8·√(n + 16)·2⁻²⁴·max|v|: against the f64 split version, the
     probabilistic bound (λ = 8; Higham and Mary, SIAM J. Sci. Comput.
     41(5), 2019) on the f32 sums' rounding errors, as chip_smoke.py's
-    ``flash_f64_tol``: below what one 64-position chunk moves an output."""
-    n, vmax = _attended_vmax(v, lengths, rounded)
-    return (8.0 * (n + 16).sqrt()[:, None] * 2.0 ** -24
-            * vmax)[:, :, None, None]
+    ``flash_f64_tol``: below what one 64-position chunk moves an output;
+    + the softcap's 8·c·2⁻²⁴·max|v|."""
+    n, vmax = _attended_vmax(v, lengths, rounded, window)
+    slack = 8.0 * (n + 16).sqrt()[:, None] + 8.0 * softcap
+    return (slack * 2.0 ** -24 * vmax)[:, :, None, None]
 
 
 @pytest.mark.cuda
@@ -312,13 +326,12 @@ def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
     tfd.flash_decode_attention(q, kv, kv, lengths)
     tfd.flash_decode_ref(q, kv, kv, lengths)
     assert tfd.flash_decode_attention.launches == 1
-    with pytest.raises(ValueError, match="D <= 256"):
-        tfd.flash_decode_attention(torch.randn(1, 1, 9, 260,
-                                               device=cuda_device),
-                                   torch.randn(1, 8, 1, 260,
-                                               device=cuda_device),
-                                   torch.randn(1, 8, 1, 260,
-                                               device=cuda_device), lengths)
+    with pytest.raises(ValueError, match="float32"):
+        tfd.flash_decode_attention(q.double(), kv.double(), kv.double(),
+                                   lengths)
+    with pytest.raises(ValueError, match=">= 0"):
+        tfd.flash_decode_attention(q, kv, kv, lengths, window=-1)
+    assert tfd.flash_decode_attention.launches == 1
     with pytest.raises(ValueError):
         tqm.quant_matmul(x, w, k=0)
 
@@ -338,8 +351,10 @@ def test_new_kernels_count_their_launches_and_state_limits(cuda_device):
 DECODE_KERNELS = [None] + FORMATS     # None: kernel 4 (uncertified)
 # beyond Qwen2-7B's (7, 128): a second tile of heads (16), paligemma_3b's
 # head dim 256 (G = 8), hymba_1p5b's (5, 64), D = 96 (lanes idle past D)
-# and D % 4 != 0 (4-byte copies)
-WIDE_GD = [(8, 256), (16, 64), (5, 64), (7, 96), (3, 62), (9, 190)]
+# and D % 4 != 0 (4-byte copies); above 256 the wide instance (slices of
+# 256 dims): one dim past it (4-byte copies), 320 and 512 (two slices)
+WIDE_GD = [(8, 256), (16, 64), (5, 64), (7, 96), (3, 62), (9, 190),
+           (1, 257), (8, 320), (16, 512)]
 DECODE_GD = [(2, 64), (7, 128), (8, 128), (2, 128), (7, 64),
              (8, 64)] + WIDE_GD
 
@@ -487,19 +502,22 @@ def test_flash_decode_poisoned_cache_past_lengths(cuda_device, fmt, G, D):
 
 @pytest.mark.cuda
 def test_flash_decode_refuses_what_its_copies_cannot_take(cuda_device):
-    """D > 256 raises with the limit in its message; D % 4 != 0 and caches
-    only 4-byte aligned take the 4-byte copies and meet both rules, with
-    the bits of the same cache 16-byte aligned."""
+    """What the copies cannot take raises (an f64 cache; since the wide
+    instance, no head dim); D % 4 != 0, above 256 too, and caches only
+    4-byte aligned take the 4-byte copies and meet both rules, with the
+    bits of the same cache 16-byte aligned."""
     lengths = torch.tensor([8, 70], dtype=torch.int32, device=cuda_device)
-    q = torch.randn(2, 1, 2, 257, device=cuda_device)
-    kv = torch.randn(2, 80, 1, 257, device=cuda_device)
+    q = torch.randn(2, 1, 2, 64, device=cuda_device)
+    kv = torch.randn(2, 80, 1, 64, device=cuda_device)
     for fmt in DECODE_KERNELS[:2]:
-        with pytest.raises(ValueError, match="D <= 256"):
-            _decode(fmt, q, kv, kv, lengths)
+        with pytest.raises(ValueError, match="float32"):
+            _decode(fmt, q, kv.double(), kv.double(), lengths)
     gen = torch.Generator(device=cuda_device).manual_seed(41)
     for fmt in DECODE_KERNELS:
         q, k, v = _lanes(gen, 2, 1, 2, 62, 80, cuda_device)
         _decode_vs_plain(fmt, q, k, v, lengths)           # D % 4 != 0
+        q, k, v = _lanes(gen, 2, 1, 2, 257, 80, cuda_device)
+        _decode_vs_plain(fmt, q, k, v, lengths)           # wide, D % 4 != 0
         q, k, v = _lanes(gen, 2, 1, 2, 64, 80, cuda_device)
         aligned = _decode_vs_plain(fmt, q, k, v, lengths)
         bufs = [torch.empty(t.numel() + 1, device=cuda_device)
@@ -509,6 +527,86 @@ def test_flash_decode_refuses_what_its_copies_cannot_take(cuda_device):
         v4.copy_(v)                                       # 4-byte aligned
         assert k4.data_ptr() % 16 and v4.data_ptr() % 16
         assert_same_bits(_decode_vs_plain(fmt, q, k4, v4, lengths), aligned)
+
+# --- kernel 4 with a sliding window and a softcap ---------------------------
+#
+# Gemma-2's and Mixtral's decode (which the reference composes): a lane of
+# length n attends [max(0, n - window), n); a score s becomes
+# c·tanh(s·(1/c)). Against the plain version and the f64 split version
+# under the rules above (the window's n attended positions, the softcap's
+# widening), the lane's bits independent of the batch and the cache's
+# capacity, and a cache poisoned with NaN outside the window gives the
+# clean bits (the chunks below the window are not read).
+
+WINDOW_CAP = [(16, 0.0), (0, 50.0), (16, 50.0), (4096, 50.0), (1, 0.0),
+              (100, 30.0)]
+WINDOW_GD = [(7, 128), (2, 64), (8, 256), (3, 62), (16, 512)]
+
+
+def _windowed_vs_plain(q, k, v, lengths, window, softcap):
+    got = tfd.flash_decode_attention(q, k, v, lengths, window=window,
+                                     softcap=softcap)
+    assert bool(torch.isfinite(got).all())
+    want = tfd.flash_decode_ref(q, k, v, lengths, window, softcap)
+    assert_ulp_rule(got, want, (24, 127, -126),
+                    _flash_slack(v, lengths, None, window, softcap))
+    exact = tfd.flash_decode_split_ref(q, k, v, lengths, None,
+                                       dtype=torch.float64, window=window,
+                                       softcap=softcap)
+    assert_ulp_rule(got, exact, (24, 127, -126),
+                    _f64_slack(v, lengths, None, window, softcap))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,softcap", WINDOW_CAP)
+@pytest.mark.parametrize("G,D", WINDOW_GD)
+@pytest.mark.parametrize("S,lens", [
+    (200, [0, 1, 16, 17, 63, 64, 65, 200]),
+    (4224, [4224, 4097, 4160, 130]),
+])
+def test_windowed_softcapped_decode_vs_plain(cuda_device, window, softcap,
+                                             G, D, S, lens):
+    """Scores scaled so that the softcap bends them (q ×8 where it is on),
+    windows that start inside a chunk, at a chunk edge and above the
+    length."""
+    gen = torch.Generator(device=cuda_device).manual_seed(47)
+    q, k, v = _lanes(gen, len(lens), 2, G, D, S, cuda_device)
+    if softcap:
+        q = q * 8.0
+    _windowed_vs_plain(q, k, v, torch.tensor(lens, dtype=torch.int32,
+                                             device=cuda_device),
+                       window, softcap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,softcap", [(16, 50.0), (4096, 0.0),
+                                            (70, 30.0)])
+@pytest.mark.parametrize("G,D", [(7, 128), (2, 128), (16, 512)])
+def test_windowed_decode_lane_bits_and_unread_positions(cuda_device, window,
+                                                        softcap, G, D):
+    gen = torch.Generator(device=cuda_device).manual_seed(53)
+    H, S, L = 2, 4224, 4200
+    q1, k1, v1 = _lanes(gen, 1, H, G, D, S, cuda_device)
+    one = torch.tensor([L], dtype=torch.int32, device=cuda_device)
+    alone = _windowed_vs_plain(q1, k1, v1, one, window, softcap)
+    small = tfd.flash_decode_attention(q1, k1[:, :L].contiguous(),
+                                       v1[:, :L].contiguous(), one,
+                                       window=window, softcap=softcap)
+    assert_same_bits(small, alone)
+    q, k, v = _lanes(gen, 3, H, G, D, S, cuda_device)
+    q[1], k[1], v[1] = q1[0], k1[0], v1[0]
+    lens = torch.tensor([5, L, 0], dtype=torch.int32, device=cuda_device)
+    assert_same_bits(tfd.flash_decode_attention(
+        q, k, v, lens, window=window, softcap=softcap)[1:2], alone)
+    lo = max(0, L - window)
+    k1[:, :lo] = float("nan")
+    v1[:, :lo] = float("nan")
+    k1[:, L:] = float("nan")
+    v1[:, L:] = float("nan")
+    assert_same_bits(tfd.flash_decode_attention(
+        q1, k1, v1, one, window=window, softcap=softcap), alone)
+
 
 # --- kernels 5 and 6: the CAA analysis GEMMs --------------------------------
 #

@@ -313,10 +313,14 @@ def flash_rows(torch, cs, _build):
                 torch, lambda c: sdpa(qs, *c, enable_gqa=True), tcopies,
                 iters)
             del tcopies
-        n_pos = int(cs.attended(torch, lengths, S).sum())
+        # as chip_smoke.flash_timing: k below each lane's length (a lane
+        # of length 0 reads none and scores nothing), v over the positions
+        # it attends (all S for a lane of length 0)
+        n_k = int(lengths.clamp(min=0, max=S).sum())
+        n_v = int(cs.attended(torch, lengths, S).sum())
         row["bound_ms"], row["bound_by"] = cs.bound_ms(
-            4.0 * (2 * q.numel() + 2 * n_pos * H * D) + 4 * B,
-            4.0 * G * D * H * n_pos)
+            4.0 * (2 * q.numel() + (n_k + n_v) * H * D) + 4 * B,
+            2.0 * G * D * H * (n_k + n_v))
         rows.append(row)
         del q, k, v
     return rows, built
