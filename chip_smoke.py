@@ -79,8 +79,9 @@ sha256 of its logits and a profiler trace of its decode steps):
   and the examples ``quickstart`` (Digits at full width; its required k
   and certified / correct counts equal on the card and on the CPU with the
   same weights), ``serve_custom_formats``, ``serve_certified
-  --precision-k 12`` and ``serve_certified_lm``, each through its
-  ``main``, with its launches of kernels 1-4;
+  --precision-k 12``, ``serve_certified_lm`` and
+  ``lm_precision_analysis`` (Qwen2, Mixtral and RWKV6 at SMOKE), each
+  through its ``main``, with its launches of kernels 1-4;
 * ``zoo`` — the GQA model zoo: kernel 4 with Gemma-2's softcap and windows
   of 16 and 4,096 against both plain versions at the serve cache and at
   32K (timed there with window 4,096); Gemma-2 27B at full width cut to 8
@@ -95,7 +96,22 @@ sha256 of its logits and a profiler trace of its decode steps):
   layers under the format map (kernels 1 and 2); Llama-4 Maverick at SMOKE
   on card and CPU (full width does not fit the card); and the four SMOKE
   configs analysed (CAA forward, router records) and certified on card and
-  CPU with the same weights, decisions equal.
+  CPU with the same weights, decisions equal;
+* ``ssm`` — the recurrent families at full width and full depth: RWKV6
+  1.6B under a format map with a ``layer*`` key (its layers have no
+  sub-scope; the scope each product resolved to printed) and at k = 12,
+  then at batch 1 with a 4,096-token prompt on the plain backend, its last
+  decode logits held against one full forward of the 4,112 tokens; Hymba
+  1.5B under the format map and at k = 12 (kernel 4 once a layer a decode
+  step, kernel 2 never), at batch 1 with a 1,200-token prompt past its
+  window (every decode-attention call held against kernel 4's plain
+  versions), through the batching engine (prompts off the page grid,
+  every request bit for bit alone) and the lane bits of every op of a
+  decode step, its Mamba state and the Mamba step's library pieces;
+  kernels 1 and 3 and ``f32_matmul`` at the new shapes (N = 1, 16, 64)
+  on the inputs the serve runs gave them; both SMOKE configs analysed and
+  certified on card and CPU, and one CAA pass of each at full width on 2
+  layers with its recurrences' fixpoint bounds.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -2197,9 +2213,10 @@ def library_lane_bits(torch, cfg, device="cuda", lanes=4, S=256, P=83,
 
 # every TorchOps op the transformer runs (op_lane_bits, exact_maxima)
 LANE_OPS = ("param", "input", "const", "add", "sub", "mul", "scale",
-            "shift", "matmul", "einsum", "tanh", "rsqrt", "square", "relu",
-            "silu", "softmax", "mean", "maximum", "where", "reshape",
-            "broadcast_to", "concat", "take", "slice", "decode_attention")
+            "shift", "matmul", "einsum", "tanh", "exp", "log", "rsqrt",
+            "square", "relu", "silu", "softmax", "mean", "maximum", "where",
+            "reshape", "broadcast_to", "concat", "take", "slice",
+            "decode_attention", "windowed_decode_attention")
 
 
 def op_lane_bits(torch, serve, T, cfg, params, bk, lengths=(1, 17, 64, 65),
@@ -2207,10 +2224,12 @@ def op_lane_bits(torch, serve, T, cfg, params, bk, lengths=(1, 17, 64, 65),
     """Every backend op of one ragged decode step, each lane against the
     same lane run alone at B = 1: lane b sits at offset lengths[b] - 1 of a
     per-lane cache holding seeded values below it and NaN from lengths[b]
-    on. ``bk`` is the serving backend under test (its class is wrapped, so
-    every op it runs is recorded in order). Returns {"ops": n compared,
-    "differing": [(i, op, scope, max |Δ|), ...] (at most 12), "by_op":
-    {op: [compared, differing]}}."""
+    on (a recurrent state, Hymba's h_ssm, seeded whole). ``bk`` is the
+    serving backend under test (its class is wrapped, so every op it runs
+    is recorded in order). Returns {"ops": n compared, "differing": [(i,
+    op, scope, max |Δ|), ...] (at most 12), "by_op": {op: [compared,
+    differing]}}, and for a recurrent state the lanes whose state after
+    the step differs from the lane's alone ("state_differing")."""
     dev = params["embed"].device
     B = len(lengths)
     records = []
@@ -2234,16 +2253,20 @@ def op_lane_bits(torch, serve, T, cfg, params, bk, lengths=(1, 17, 64, 65),
     def cache_for(lanes):
         gen = torch.Generator(device=dev).manual_seed(seed)
         c = T.init_cache(cfg, B, smax, device=dev, per_lane_idx=True)
-        for name in ("k", "v"):
+        for name in c:
+            if name == "idx":
+                continue
             c[name].normal_(generator=gen)
-            for b, n in enumerate(lengths):
-                c[name][:, b, n:] = float("nan")
+            if name in ("k", "v"):
+                for b, n in enumerate(lengths):
+                    c[name][:, b, n:] = float("nan")
         if lanes is not None:
-            c = {name: c[name][:, lanes].clone() for name in ("k", "v")} | {
-                "idx": c["idx"][:, lanes].clone()}
+            c = {name: t[:, lanes].clone() for name, t in c.items()}
         return c
 
     tokens = torch.arange(B, device=dev) * 7 + 3
+
+    states = []
 
     def step(lanes):
         sel = list(range(B)) if lanes is None else lanes
@@ -2255,12 +2278,17 @@ def op_lane_bits(torch, serve, T, cfg, params, bk, lengths=(1, 17, 64, 65),
         with torch.no_grad():
             T.forward(rec, params, cfg, tokens[sel][:, None], cache=c,
                       q_offset=offs)
+        states.append(c.get("h_ssm"))
         return records[-1]
 
     batch = step(None)
     by_op, differing, n = {}, [], 0
+    state_differing = []
     for b in range(B):
         alone = step([b])
+        if states[0] is not None and not same_bits(
+                torch, states[0][:, b:b + 1], states[-1]):
+            state_differing.append(b)
         if [r[:2] for r in alone] != [r[:2] for r in batch]:
             raise AssertionError("a lane alone ran another op sequence")
         for i, ((name, scope, got), (_, _, want)) in enumerate(
@@ -2277,7 +2305,10 @@ def op_lane_bits(torch, serve, T, cfg, params, bk, lengths=(1, 17, 64, 65),
                     d = (got[b:b + 1][ok].double() - want[ok].double())
                     differing.append((i, name, scope, float(d.abs().max())
                                       if d.numel() else math.nan))
-    return {"ops": n, "differing": differing, "by_op": by_op}
+    out = {"ops": n, "differing": differing, "by_op": by_op}
+    if states[0] is not None:
+        out["state_differing"] = state_differing
+    return out
 
 
 def reference_runs(batching, cfg, sc, params, reqs, eos_id):
@@ -4288,8 +4319,8 @@ def phase_paper(torch, qmm, fd):
     ``serve_certified_lm`` certifies a layer map and its differential holds
     bit for bit."""
     from repro_torch.benchmarks import run as bench_run
-    from repro_torch.examples import (quickstart, serve_certified,
-                                      serve_certified_lm,
+    from repro_torch.examples import (lm_precision_analysis, quickstart,
+                                      serve_certified, serve_certified_lm,
                                       serve_custom_formats)
 
     t_phase = time.perf_counter()
@@ -4340,6 +4371,8 @@ def phase_paper(torch, qmm, fd):
          ["--device", "cuda", "--precision-k", "12"])
     step("serve_certified_lm", serve_certified_lm.main,
          ["--device", "cuda", "--certificates", str(out / "lm_store")])
+    step("lm_precision_analysis", lm_precision_analysis.main,
+         ["--device", "cuda"])
 
     rows = results["benchmarks.run"]
     table1 = {name: {"seconds": us / 1e6, "max_abs_u": d}
@@ -4364,6 +4397,7 @@ def phase_paper(torch, qmm, fd):
              "layer_k": results["serve_certified_lm"]["layer_k"],
              "differential_bitwise": results["serve_certified_lm"][
                  "differential_bitwise"]},
+         lm_precision_analysis=results["lm_precision_analysis"]["analysed"],
          phase_seconds=time.perf_counter() - t_phase)
     if differ:
         raise AssertionError(f"quickstart: card and CPU differ in {differ}")
@@ -4377,6 +4411,11 @@ def phase_paper(torch, qmm, fd):
         missing = [k for k in kernels if not steps[name].get(k)]
         if missing:
             raise AssertionError(f"paper {name}: no launch of {missing}")
+    analysed = results["lm_precision_analysis"]["analysed"]
+    if [r["arch"] for r in analysed] != ["qwen2_7b", "mixtral_8x22b",
+                                         "rwkv6_1p6b"] or not all(
+            math.isfinite(r["max_abs_u"]) for r in analysed):
+        raise AssertionError(f"lm_precision_analysis: {analysed}")
     lm = results["serve_certified_lm"]
     if not lm["layer_k"] or lm["differential_bitwise"] is not True:
         raise AssertionError(f"serve_certified_lm: no certified layer map "
@@ -4434,12 +4473,14 @@ def zoo_expected(cfg, path, forwards, steps):
 
 
 def run_zoo_serve(torch, serve, fns, arch, path, extra, batch=SERVE_BATCH,
-                  prompt=SERVE_PROMPT, steps=SERVE_STEPS):
-    """``serve.main`` on ``arch`` at full width with its ZOO_LAYERS depth,
-    every launch counter set to 0 just before and read just after; raises
-    unless the counts are :func:`zoo_expected`'s and the run served valid
-    tokens with finite logits. Returns (result, report)."""
-    layers = ZOO_LAYERS[arch]
+                  prompt=SERVE_PROMPT, steps=SERVE_STEPS, expected_of=None):
+    """``serve.main`` on ``arch`` at full width with its ZOO_LAYERS depth
+    (full depth for an arch not listed there), every launch counter set to
+    0 just before and read just after; raises unless the counts are
+    ``expected_of``'s (default :func:`zoo_expected`) and the run served
+    valid tokens with finite logits. Returns (result, report)."""
+    full = serve.configs.get(arch).FULL
+    layers = ZOO_LAYERS.get(arch, full.n_layers)
     argv = ["--arch", arch, "--size", "full", "--max-layers", str(layers),
             "--batch", str(batch), "--prefill-len", str(prompt),
             "--decode-steps", str(steps), "--device", "cuda", "--seed", "0",
@@ -4449,11 +4490,9 @@ def run_zoo_serve(torch, serve, fns, arch, path, extra, batch=SERVE_BATCH,
     res = serve.main(argv)
     launches = read_launches(fns)
     cfg = res.cfg
-    want = dataclasses.replace(serve.configs.get(arch).FULL,
-                               n_layers=layers)
-    if cfg != want:
+    if cfg != dataclasses.replace(full, n_layers=layers):
         raise AssertionError(f"{arch}: served {cfg}")
-    expected = zoo_expected(cfg, path, 1 + steps, steps)
+    expected = (expected_of or zoo_expected)(cfg, path, 1 + steps, steps)
     if launches != expected:
         raise AssertionError(f"{arch} {path}: launch counts {launches} != "
                              f"{expected}")
@@ -4467,7 +4506,7 @@ def run_zoo_serve(torch, serve, fns, arch, path, extra, batch=SERVE_BATCH,
     n_params = sum(t.numel() for t in _leaves(res.params))
     return res, dict(
         config=f"{arch}.FULL", path=path, n_layers=layers,
-        full_layers=serve.configs.get(arch).FULL.n_layers,
+        full_layers=full.n_layers,
         d_model=cfg.d_model, params=n_params, param_gb=4 * n_params / 1e9,
         batch=batch, prompt_tokens=prompt, decode_steps=steps,
         launches=launches, prefill_s=res.timing["prefill_s"],
@@ -4960,6 +4999,491 @@ def _launch_counts(report):
     return [c for v in report.values() for c in _launch_counts(v)]
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families: RWKV6 1.6B and Hymba 1.5B through the port's entry
+# points, at full width and full depth
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("rwkv6_1p6b", "hymba_1p5b")
+# SERVE_FORMAT's layer*/attn and layer*/mlp keys match no RWKV product (an
+# RWKV layer has no sub-scope) and not Hymba's Mamba heads, which run in
+# layer{i} itself: a layer* key gives them a format of their own
+SSM_FORMAT = {**SERVE_FORMAT, "layer*": {"k": 12, "emax": 15, "emin": -14}}
+SSM_RWKV_LONG = 4096              # 128 chunks of 32
+SSM_HYMBA_LONG = 1200             # past Hymba's 1,024-position window
+SSM_LONG_TOL = 1e-3               # decode vs full forward, × max |logit|
+SSM_NEW_N = (1, 16, 64)           # w_dt; w_B / w_C; RWKV's decay LoRA wA
+SSM_CAA_U = 2.0 ** -11            # the analysis's u (emulated k = 12)
+SSM_FULL_LAYERS = 2               # the full-width analysis pass's depth
+SSM_CAA_TOKENS = 8
+# the full-width pass at f32's own u: at k = 12 RWKV's decay exp(−exp(·))
+# already has no finite bound at full width (its argument's δ̄ of ~4.6e5 u
+# is an error of ~224 at u = 2^-11), so the recurrence would only pass ∞ on
+SSM_FULL_K = 24
+SSM_FIXPOINT_STEPS = (8, 4096, 500_000)
+
+
+def ssm_expected(cfg, path, forwards, steps):
+    """Exact launches of ``forwards`` forwards (``steps`` of them decode
+    steps) of RWKV6 or Hymba on a serving path ("format", "k" or "plain"):
+    RWKV 10 GEMMs a layer (time mix r, k, v, g, the decay LoRA's two, o;
+    channel mix k, v, r) and 3 rmsnorms (ln1, the time mix's ln_out, ln2);
+    Hymba 13 GEMMs (attention q, k, v, o; Mamba in, gate, dt, B, C, out;
+    MLP gate, up, down), 2 rmsnorms and its decode attention through kernel
+    4 on every path (windowed, as the reference composes it unrounded). The
+    plain path's GEMMs are ``f32_matmul``; every path's LM head is one."""
+    L = cfg.n_layers
+    gemms = (10 if cfg.rwkv else 13) * L * forwards
+    return {"quant_matmul_format": gemms if path == "format" else 0,
+            "flash_decode_certified": 0,
+            "quant_matmul": gemms if path == "k" else 0,
+            "flash_decode_attention": 0 if cfg.rwkv else L * steps,
+            **IDLE_ON_SERVING,
+            "row_mean": ((3 if cfg.rwkv else 2) * L + 1) * forwards,
+            "f32_matmul": forwards + (gemms if path == "plain" else 0)}
+
+
+@contextlib.contextmanager
+def resolved_formats(serve):
+    """Records, while a format-map path runs, the (k, emax, emin) each
+    scope path of a product resolved to: yields {path: triple}."""
+    seen = {}
+    cls = serve.FormatQuantJOps
+    orig = cls.format_for
+
+    def format_for(self, path):
+        got = orig(self, path)
+        seen.setdefault("/".join(path), list(got))
+        return got
+
+    cls.format_for = format_for
+    try:
+        yield seen
+    finally:
+        cls.format_for = orig
+
+
+class NewShapeSpy(KernelSpy):
+    """A KernelSpy on kernel 1 or 3 keeping copies of the inputs of the
+    first call of each (M, N) with N in SSM_NEW_N."""
+
+    def __init__(self, fn):
+        super().__init__(fn, None, None)
+
+    def __call__(self, *args, **kw):
+        x, w = args[0], args[1]
+        key = (x.shape[0], w.shape[1])
+        if w.shape[1] in SSM_NEW_N and key not in self.seen:
+            self.seen[key] = ((x.clone(), w.clone()) + args[2:], dict(kw))
+        return self.fn(*args, **kw)
+
+
+def ssm_format_and_k(torch, serve, qmm, fns, arch):
+    """``arch`` served under SSM_FORMAT and at k = 12, batch 4 × 128 × 16,
+    kernel 1 resp. 3 spied at the new shapes. Returns (reports by path,
+    the scope paths the format map's products resolved at, the spies)."""
+    out, spies = {}, []
+    for path, extra, kernel in (
+            ("format", ["--layer-format", json.dumps(SSM_FORMAT)],
+             "quant_matmul_format"),
+            ("k", ["--precision-k", str(SERVE_K)], "quant_matmul")):
+        free_device_memory(torch)
+        spy = NewShapeSpy(getattr(qmm, kernel))
+        spies.append((kernel, spy))
+        setattr(qmm, kernel, spy)
+        try:
+            with resolved_formats(serve) as seen:
+                res, out[f"serve_{path}"] = run_zoo_serve(
+                    torch, serve, fns, arch, path, extra,
+                    expected_of=ssm_expected)
+        finally:
+            setattr(qmm, kernel, spy.fn)
+        if path == "format":
+            scopes = seen
+        del res
+    out["serve_format"]["format_map"] = SSM_FORMAT
+    return out, scopes, spies
+
+
+def new_shape_checks(torch, qmm, spies):
+    """Kernels 1 and 3 on the inputs ``spies`` (pairs of kernel name and
+    :class:`NewShapeSpy`) kept from the serve runs, against their plain
+    versions (the GEMM rule), and ``f32_matmul`` on the same inputs bit
+    for bit against its fmaf chain; raises on disagreement. Returns the
+    rows."""
+    from repro_torch.kernels import row_order as ro
+
+    rows = []
+    for name, spy in spies:
+        for args, kw in spy.seen.values():
+            x, w = args[0], args[1]
+            if name == "quant_matmul_format":
+                _, st = check_gemm(torch, qmm, x, w, args[2],
+                                   (kw["has_subnormals"], kw["saturating"]))
+                rule = {"format": list(args[2])}
+            else:
+                _, st = check_gemm_k(torch, qmm, x, w, kw["k"])
+                rule = {"k": kw["k"]}
+            f32 = ro.f32_matmul(x, w)
+            bitwise = same_bits(torch, f32, ro.f32_matmul_seq_ref(x, w))
+            if not bitwise:
+                raise AssertionError(f"f32_matmul {tuple(x.shape)}@"
+                                     f"{tuple(w.shape)}: differs from its "
+                                     "fmaf chain")
+            rows.append({"kernel": name, "M": x.shape[0], "K": x.shape[1],
+                         "N": w.shape[1], **rule, **st,
+                         "f32_matmul_bitwise": bitwise})
+    return rows
+
+
+def ssm_rwkv(torch, serve, qmm, T, fns):
+    """RWKV6 1.6B at full width and depth: served under the format map
+    (its products at the map's layer* key) and at k = 12, batch 4 ×
+    128-token prompts × 16 steps, kernels 1 and 3 spied at the new shapes;
+    then at batch 1 with a 4,096-token prompt (128 chunks) and 16 steps on
+    the plain backend, the last decode logits held against one full
+    forward of the same 4,112 tokens."""
+    from repro_torch.core.backend import TorchOps
+
+    out, scopes, spies = ssm_format_and_k(torch, serve, qmm, fns,
+                                          "rwkv6_1p6b")
+    want = {f"layer{i}": list(FORMATS["k12_e15"])
+            for i in range(serve.configs.get("rwkv6_1p6b").FULL.n_layers)}
+    if scopes != want:
+        raise AssertionError(f"rwkv format map: products resolved at "
+                             f"{scopes}")
+    out["serve_format"]["resolved"] = scopes
+    free_device_memory(torch)
+    res, report = run_zoo_serve(torch, serve, fns, "rwkv6_1p6b", "plain", [],
+                                batch=1, prompt=SSM_RWKV_LONG,
+                                expected_of=ssm_expected)
+    seq = torch.cat([res.prompt, res.tokens[:, :SERVE_STEPS]], dim=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _ = T.forward(TorchOps(), res.params, res.cfg, seq)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    got, want = res.decode_logits[-1][0].double(), full[0, -1].double()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    top2 = torch.topk(want, 2).values
+    gap = float(top2[0] - top2[1])
+    argmax_ok = bool(got.argmax() == want.argmax()) or gap <= 2 * err
+    out["long"] = dict(report, full_forward_tokens=seq.shape[1],
+                       full_forward_s=full_s, max_abs_dlogit=err,
+                       max_abs_logit=scale, tolerance=SSM_LONG_TOL * scale,
+                       argmax_agrees=bool(got.argmax() == want.argmax()),
+                       top1_gap=gap)
+    if not err <= SSM_LONG_TOL * scale or not argmax_ok:
+        raise AssertionError(f"rwkv {SSM_RWKV_LONG}-token decode against "
+                             f"its full forward: {out['long']}")
+    del res, full, seq
+    return out, spies
+
+
+def mamba_lane_bits(torch, cfg, lanes=4, seed=7):
+    """Whether the library pieces of a Mamba decode step keep a lane's
+    bits at ``cfg``'s widths, on seeded inputs: the state update d·h + b,
+    the projection ``einsum('bdn,bn->bd')``, the softplus log(exp(x) + 1)
+    and the decay exp(−dt·A), each over ``lanes`` lanes against each lane
+    alone. Returns {op: {"bitwise", "max_abs_diff"}}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    din, N = cfg.mamba_expand * cfg.d_model, cfg.ssm_state
+    ops = {
+        "state_update": (lambda d, h, b: d * h + b,
+                         (rnd(lanes, 1, N).sigmoid(), rnd(lanes, din, N),
+                          rnd(lanes, din, N))),
+        "project": (lambda h, c: torch.einsum("bdn,bn->bd", h, c),
+                    (rnd(lanes, din, N), rnd(lanes, N))),
+        "softplus": (lambda x: torch.log(torch.exp(x) + 1.0),
+                     (rnd(lanes, 1, 1),)),
+        "decay": (lambda dt, a: torch.exp(-(dt * a)),
+                  (rnd(lanes, 1, 1, 1).abs(), rnd(1, 1, 1, N).exp())),
+    }
+    out = {}
+    for name, (fn, args) in ops.items():
+        got = fn(*args)
+        alone = torch.cat([fn(*(a[b:b + 1] if a.shape[0] == lanes else a
+                                for a in args)) for b in range(lanes)])
+        out[name] = {"bitwise": same_bits(torch, got, alone),
+                     "max_abs_diff": float((got.double() - alone.double())
+                                           .abs().max())}
+    return out
+
+
+def ssm_hymba(torch, serve, batching, qmm, fd, T, fns):
+    """Hymba 1.5B at full width and depth: served under the format map and
+    at k = 12 (batch 4 × 128 × 16; kernel 4 once a layer a decode step,
+    kernel 2 never), kernels 1 and 3 spied at the new shapes; at batch 1
+    with a 1,200-token prompt under the format map, every decode-attention
+    call held against kernel 4's plain versions (the window bites); the
+    batching engine at 4 lanes under the format map, prompts off the page
+    grid, every request bit for bit alone; the lane bits of a decode step's
+    every op and of the Mamba step's library pieces."""
+    out, scopes, spies = ssm_format_and_k(torch, serve, qmm, fns,
+                                          "hymba_1p5b")
+    # the attention, Mamba heads and MLP of the first two layers
+    out["serve_format"]["resolved"] = {
+        p: f for p, f in scopes.items()
+        if p.split("/")[0] in ("layer0", "layer1")}
+    free_device_memory(torch)
+    spy = WindowCheckSpy(torch, fd)
+    fd.flash_decode_attention = spy
+    try:
+        res, report = run_zoo_serve(
+            torch, serve, fns, "hymba_1p5b", "format",
+            ["--layer-format", json.dumps(SSM_FORMAT)], batch=1,
+            prompt=SSM_HYMBA_LONG, expected_of=ssm_expected)
+    finally:
+        fd.flash_decode_attention = spy.fn
+    window = res.cfg.window
+    if (len(spy.rows) != res.cfg.n_layers * SERVE_STEPS
+            or any(r["window"] != window for r in spy.rows)
+            or min(r["first_attended"][0] for r in spy.rows) <= 0):
+        raise AssertionError("hymba's windowed run: "
+                             f"{len(spy.rows)} calls, or the window never "
+                             "bit")
+    out["windowed"] = dict(
+        report, note="decode timings include each call's check against "
+        "the plain versions", calls=len(spy.rows), window=window,
+        first_attended=[spy.rows[0]["first_attended"][0],
+                        spy.rows[-1]["first_attended"][0]],
+        max_abs_err=max(r["max_abs_err"] for r in spy.rows),
+        f64_max_abs_err=max(r["f64_max_abs_err"] for r in spy.rows))
+    del res, spy
+    free_device_memory(torch)
+
+    cfg = serve.configs.get("hymba_1p5b").FULL
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    sc = serve.ServeConfig(arch="hymba_1p5b", batch=BATCH_ENGINE["n_lanes"],
+                           max_seq=BATCH_ENGINE["max_seq"],
+                           precision_layer_format=SSM_FORMAT, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    reqs = []
+    for i in range(ZOO_BATCH_REQUESTS):
+        P = int(torch.randint(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1, (1,),
+                              generator=gen))
+        P += P % BATCH_ENGINE["page_size"] == 0      # off the page grid
+        reqs.append(batching.Request(
+            rid=i, prompt=torch.randint(0, cfg.vocab, (P,),
+                                        generator=gen).tolist(),
+            max_new_tokens=ZOO_BATCH_MAX_NEW,
+            arrival_step=BATCH_STRIDE * i))
+    engine, responses, launches, registry, wall = run_batching(
+        torch, batching, fns, cfg, sc, params, reqs, None, -1,
+        lambda eng, admitted: ssm_expected(cfg, "format",
+                                           admitted + eng.steps, eng.steps))
+    ref = reference_runs(batching, cfg, sc, params, reqs, -1)
+    rows = lane_bits(torch, responses, ref)
+    if not all(r["tokens_equal"] and r["logits_bitwise"] for r in rows):
+        raise AssertionError(f"hymba batching: a request's bits differ "
+                             f"from the request alone: {rows}")
+    out["batching"] = dict(batching_report(engine, responses, registry,
+                                           wall), launches=launches,
+                           prompts=[len(r.prompt) for r in reqs],
+                           lanes_vs_alone=rows)
+    del engine, responses, ref
+    ops = op_lane_bits(torch, serve, T, cfg, params, serve._backend(sc))
+    out["step_op_lane_bits"] = ops
+    out["mamba_lane_bits"] = mamba_lane_bits(torch, cfg)
+    del params
+    free_device_memory(torch)
+    if ops["differing"] or ops.get("state_differing"):
+        raise AssertionError(f"hymba decode step: a lane's ops differ from "
+                             f"the lane alone: {ops}")
+    return out, spies
+
+
+class ScanSpy:
+    """Wraps a CAA backend's ``ssm_scan``: one record a recurrence (scope,
+    largest δ̄ of its decay, its drive and its bound); keeps the values of
+    the first recurrence's operands as ``first`` and the unwrapped rule as
+    ``rule``."""
+
+    def __init__(self, torch, bk):
+        self.rows, self.first = [], None
+        orig = self.rule = bk.ssm_scan
+
+        def scan(decay, drive, n_steps, time_axis=1):
+            if self.first is None:
+                self.first = (decay.val, drive.val)
+            out = orig(decay, drive, n_steps, time_axis)
+            mx = lambda t: float(torch.max(t))
+            self.rows.append({"scope": "/".join(bk.scope_path),
+                              "steps": n_steps,
+                              "decay_dbar": mx(decay.dbar),
+                              "drive_dbar": mx(drive.dbar),
+                              "dbar": mx(out.dbar),
+                              "mag": mx(out.exact.hi)})
+            return out
+
+        bk.ssm_scan = scan
+
+
+def ssm_analysis(torch, T, fns):
+    """Both SMOKE configs analysed (``CaaOps``, emulated k = 12, 16 tokens)
+    and certified (``certify_lm`` uniform, k_max 24) on the card and on the
+    CPU with the same weights: trace records and recurrence records (δ̄,
+    |h|) within 1e-9 relative, decisions equal. Then each arch at full
+    width, cut to 2 layers, through one ``CaaOps`` pass on 8 tokens at
+    f32's u (SSM_FULL_K): seconds, peak memory and each recurrence's
+    bound, which is finite wherever its operands' bounds are (at full width
+    with random weights they are not everywhere: RWKV's second layer and
+    Hymba's softplus already saturate, and the rule passes ∞ on); and the
+    rule on the first recurrence's own operands, each charged one rounding
+    (``caa.const_rounded``), over 8, 4,096 and 500,000 steps: finite, as
+    its contraction clamp promises."""
+    import shutil
+
+    from repro_torch import certify as C
+    from repro_torch import configs
+    from repro_torch.certify.tokens import profile_tokens
+    from repro_torch.core import caa
+    from repro_torch.core.backend import CaaOps
+
+    root = ROOT / "build" / "chip_smoke_ssm"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    reset_launches(fns)
+    for arch in SSM_ARCHS:
+        cfg = configs.get(arch).SMOKE
+        host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+        params = {"cuda": _to_device(host, "cuda"), "cpu": host}
+        toks = profile_tokens(1, 1, 16, cfg.vocab)
+        traces, scans, certs, secs = {}, {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            bk = CaaOps(caa.CaaConfig(u_max=SSM_CAA_U, emulate_k=12))
+            spy = ScanSpy(torch, bk)
+            T.forward(bk, params[dev], cfg, toks.to(dev))
+            traces[dev], scans[dev] = bk.trace, spy.rows
+            certs[dev] = C.certify_lm(
+                arch, cfg, params[dev], **ZOO_CERT,
+                store=C.CertificateStore(str(root / arch / dev)))
+            secs[dev] = time.perf_counter() - t0
+        worst = 0.0
+        pairs = [((ra.name, "dbar"), ra.max_dbar, rb.max_dbar)
+                 for ra, rb in zip(traces["cuda"], traces["cpu"])]
+        pairs += [((ra.name, "ebar"), ra.max_ebar, rb.max_ebar)
+                  for ra, rb in zip(traces["cuda"], traces["cpu"])]
+        pairs += [((ra["scope"], key), ra[key], rb[key])
+                  for ra, rb in zip(scans["cuda"], scans["cpu"])
+                  for key in ("dbar", "mag")]
+        if ([(r.name, r.kind) for r in traces["cuda"]]
+                != [(r.name, r.kind) for r in traces["cpu"]]
+                or len(scans["cuda"]) != len(scans["cpu"])
+                or len(scans["cuda"]) != cfg.n_layers):
+            raise AssertionError(f"{arch}: the records differ")
+        for what, x, y in pairs:
+            if not same_bound(x, y, CERT_REL_TOL):
+                raise AssertionError(f"{arch} {what}: {x} on the card, {y} "
+                                     "on the CPU")
+            if math.isfinite(x) and x != y:
+                worst = max(worst, abs(x - y) / max(abs(x), abs(y)))
+        if cert_decisions(certs["cuda"]) != cert_decisions(certs["cpu"]):
+            raise AssertionError(f"certify {arch}: card decides "
+                                 f"{cert_decisions(certs['cuda'])}, CPU "
+                                 f"{cert_decisions(certs['cpu'])}")
+        out[arch] = {"trace_records": len(traces["cuda"]),
+                     "recurrences": scans["cuda"], "worst_rel": worst,
+                     "certificate": cert_summary(certs["cuda"]),
+                     "seconds": secs}
+    out["launches"] = read_launches(fns)
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(configs.get(arch).FULL,
+                                  n_layers=SSM_FULL_LAYERS)
+        free_device_memory(torch)
+        params = T.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        toks = profile_tokens(1, 1, SSM_CAA_TOKENS, cfg.vocab).to("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        u = 2.0 ** (1 - SSM_FULL_K)
+        ccfg = caa.CaaConfig(u_max=u, emulate_k=SSM_FULL_K)
+        bk = CaaOps(ccfg)
+        spy = ScanSpy(torch, bk)
+        logits, _ = T.forward(bk, params, cfg, toks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        a_abs, _ = caa.actual_error_in_u(logits, u)
+        rows = spy.rows
+        bad = [r for r in rows if math.isfinite(r["decay_dbar"])
+               and math.isfinite(r["drive_dbar"])
+               and not math.isfinite(r["dbar"])]
+        dec, drv = spy.first
+        rule = {}
+        for n in SSM_FIXPOINT_STEPS:
+            h = spy.rule(caa.const_rounded(dec, ccfg),
+                         caa.const_rounded(drv, ccfg), n, 1)
+            rule[n] = {"dbar": float(torch.max(h.dbar)),
+                       "mag": float(torch.max(h.exact.hi))}
+        if (len(rows) != SSM_FULL_LAYERS or bad
+                or not all(math.isfinite(r["dbar"]) and math.isfinite(
+                    r["mag"]) for r in rule.values())):
+            raise AssertionError(f"{arch} full width: recurrence bounds "
+                                 f"{rows}, the rule on its operands {rule}")
+        finite = [r["dbar"] for r in rows if math.isfinite(r["dbar"])]
+        out[f"{arch}_full"] = {
+            "config": f"{arch}.FULL cut to {SSM_FULL_LAYERS} layers",
+            "tokens": SSM_CAA_TOKENS, "emulate_k": SSM_FULL_K,
+            "seconds": secs, "peak_gb": peak, "recurrences": rows,
+            "max_finite_recurrence_dbar": max(finite) if finite else None,
+            "rule_on_first_operands": {
+                "operand_shapes": [list(dec.shape), list(drv.shape)],
+                "by_steps": rule},
+            "logits_actual_abs_u": float(a_abs.max())}
+        del params, logits, bk, spy, dec, drv
+    return out
+
+
+def phase_ssm(torch, serve, batching, qmm, fd, T):
+    """The recurrent families on the card (see the module docstring)."""
+    emit("free", before="ssm", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    parts, launches, spies = {}, {name: 0 for name in fns}, []
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        if isinstance(got, tuple):
+            got, more = got
+            spies.extend(more)
+        parts[name] = got
+        parts[name]["seconds"] = time.perf_counter() - t0
+        emit(f"ssm_{name}", **parts[name])
+        free_device_memory(torch)
+
+    # every path sets the counters to 0 before it runs and reads them
+    # after; the phase's launches are the sum of its paths' own counts
+    run("rwkv6_1p6b", ssm_rwkv, torch, serve, qmm, T, fns)
+    run("hymba_1p5b", ssm_hymba, torch, serve, batching, qmm, fd, T, fns)
+    t0 = time.perf_counter()
+    rows = new_shape_checks(torch, qmm, spies)
+    seen = {(r["kernel"], r["M"], r["N"]) for r in rows}
+    want = {(k, M, N) for k in ("quant_matmul_format", "quant_matmul")
+            for M in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT)
+            for N in SSM_NEW_N}
+    if not want <= seen:
+        raise AssertionError(f"new GEMM shapes not all seen: {sorted(seen)}")
+    parts["new_shapes"] = {"rows": rows,
+                           "seconds": time.perf_counter() - t0}
+    emit("ssm_new_shapes", **parts["new_shapes"])
+    del spies
+    free_device_memory(torch)
+    run("analysis", ssm_analysis, torch, T, fns)
+    for counts in _launch_counts(parts):
+        for name, n in counts.items():
+            launches[name] += n
+    emit("ssm", launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches, parts
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -5090,18 +5614,23 @@ def main() -> int:
     by_path["paper"] = phase_paper(torch, qmm, fd)
     by_path["zoo"], zoo_parts = phase_zoo(torch, serve, batching, qmm, fd,
                                           T)
+    by_path["ssm"], ssm_parts = phase_ssm(torch, serve, batching, qmm, fd, T)
+    ssm_new = ssm_parts["new_shapes"]["rows"]
 
     qerr = max([qerr] + [r["max_abs_err"] for r in (
         fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"]
-        + batch_fmt_path["quant_matmul_format"])])
+        + batch_fmt_path["quant_matmul_format"]
+        + [r for r in ssm_new if r["kernel"] == "quant_matmul_format"])])
     ferr = max([ferr] + [r["max_abs_err"] for r in (
         fmt_path["flash_decode_certified"]
         + batch_fmt_path["flash_decode_certified"])])
     kerr = max([kerr] + [r["max_abs_err"] for r in (
         k_path + mixed_path + prof_path["quant_matmul"]
-        + batch_k_path["quant_matmul"])])
+        + batch_k_path["quant_matmul"]
+        + [r for r in ssm_new if r["kernel"] == "quant_matmul"])])
     aerr = max([aerr, windowed["max_abs_err"],
-                zoo_parts["gemma2_27b"]["windowed"]["max_abs_err"]]
+                zoo_parts["gemma2_27b"]["windowed"]["max_abs_err"],
+                ssm_parts["hymba_1p5b"]["windowed"]["max_abs_err"]]
                + [r["max_abs_err"] for r in (
                    prof_path["flash_decode_attention"] + k_attn_path
                    + mixed_attn_path

@@ -9,11 +9,12 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ["qwen2_7b", "command_r_35b", "gemma2_27b", "mixtral_8x22b",
-         "llama4_maverick"]
+         "llama4_maverick", "rwkv6_1p6b", "hymba_1p5b"]
 
 _ALIASES = {"qwen2-7b": "qwen2_7b", "command-r-35b": "command_r_35b",
             "gemma2-27b": "gemma2_27b", "mixtral-8x22b": "mixtral_8x22b",
-            "llama4-maverick-400b-a17b": "llama4_maverick"}
+            "llama4-maverick-400b-a17b": "llama4_maverick",
+            "rwkv6-1.6b": "rwkv6_1p6b", "hymba-1.5b": "hymba_1p5b"}
 
 
 def get(name: str):

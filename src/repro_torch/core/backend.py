@@ -176,8 +176,9 @@ class Backend:
         raise NotImplementedError
 
     def ssm_scan(self, decay, drive, n_steps: int, time_axis: int = 1):
-        """h_{t+1} = decay_t ⊙ h_t + drive_t over ``time_axis``."""
-        raise NotImplementedError("ssm_scan comes with the SSM models")
+        """h_{t+1} = decay_t ⊙ h_t + drive_t over ``time_axis`` from h_0 = 0;
+        every step's state, stacked along ``time_axis``."""
+        raise NotImplementedError
 
     def record(self, name: str, a, kind: str = "layer", **extra):
         """Trace hook; identity outside the analysis."""
@@ -312,6 +313,7 @@ class TorchOps(UnrolledLayerLoop, Backend):
     def tanh(self, a): return torch.tanh(a)
     def sigmoid(self, a): return torch.sigmoid(a)
     def exp(self, a): return torch.exp(a)
+    def log(self, a): return torch.log(a)
     def rsqrt(self, a): return torch.rsqrt(a)
     def square(self, a): return a * a
     def relu(self, a): return torch.relu(a)
@@ -363,6 +365,19 @@ class TorchOps(UnrolledLayerLoop, Backend):
     def slice(self, a, slices): return a[slices]
     def shape_of(self, a): return tuple(a.shape)
     def value_of(self, a): return a
+
+    def ssm_scan(self, decay, drive, n_steps: int, time_axis: int = 1):
+        """The sequential scan h ← d⊙h + b, a Python loop over time (the
+        reference's ``lax.scan``), from h_0 = 0; ``decay`` broadcasts
+        against ``drive``."""
+        dec = torch.movedim(decay, time_axis, 0)
+        drv = torch.movedim(drive, time_axis, 0)
+        h = torch.zeros_like(drv[0])
+        hs = []
+        for t in range(drv.shape[0]):
+            h = dec[t] * h + drv[t]
+            hs.append(h)
+        return torch.movedim(torch.stack(hs), 0, time_axis)
 
 
 class CaaOps(UnrolledLayerLoop, Backend):
@@ -485,6 +500,35 @@ class CaaOps(UnrolledLayerLoop, Backend):
 
     def clamp_range(self, a, lo, hi):
         return caa.clamp_exact(a, lo, hi)
+
+    def ssm_scan(self, decay: CaaTensor, drive: CaaTensor, n_steps: int,
+                 time_axis: int = 1):
+        """Closed-form fixpoint bound (:func:`caa.scan_affine_fixpoint`) of
+        the worst step over time, broadcast back over time — sound for
+        every step, since the bounds are monotone in t. The values come from
+        the true scan in f64."""
+        dec_w = caa.reduce_max(CaaTensor(
+            decay.val.abs(), iv.abs_(decay.exact), decay.dbar, decay.ebar),
+            axis=time_axis, keepdims=True)
+        bc = lambda t: torch.broadcast_to(t, drive.shape)
+        fix = caa.scan_affine_fixpoint(
+            dec_w,
+            CaaTensor(
+                torch.mean(drive.val, dim=time_axis, keepdim=True),
+                iv.Interval(
+                    torch.amin(bc(drive.exact.lo), dim=time_axis,
+                               keepdim=True),
+                    torch.amax(bc(drive.exact.hi), dim=time_axis,
+                               keepdim=True)),
+                torch.amax(bc(drive.dbar), dim=time_axis, keepdim=True),
+                torch.amax(bc(drive.ebar), dim=time_axis, keepdim=True)),
+            n_steps, self.cfg)
+        vals = TorchOps(torch.float64).ssm_scan(decay.val, drive.val,
+                                                n_steps, time_axis)
+        bv = lambda t: torch.broadcast_to(t, vals.shape)
+        return CaaTensor(vals, iv.Interval(bv(fix.exact.lo),
+                                           bv(fix.exact.hi)),
+                         bv(fix.dbar), bv(fix.ebar))
 
 
 # ---------------------------------------------------------------------------
@@ -1378,6 +1422,31 @@ class AffineRangeCaaOps(UnrolledLayerLoop, Backend):
 
     def record(self, name: str, a, kind: str = "layer", **extra):
         return a
+
+    def ssm_scan(self, decay, drive, n_steps: int, time_axis: int = 1):
+        """Interval fixpoint of h' = d⊙h + b under rounded arithmetic:
+        with w = max_t |d|, B = max_t |b| and per-step inflation
+        (1+u/2)²·(1+8γ₈) + 2η, |h| ≤ B'/(1−w') when the rounded decay
+        w' < 1 (∞ otherwise — still free of saturating γ forms). The
+        values come from the true scan in f64."""
+        D, V = self._lift(decay), self._lift(drive)
+        hu, eta = self._hu_eta()
+        w = torch.amax(torch.broadcast_to(iv.mag(D.exact), D.shape),
+                       dim=time_axis, keepdim=True)
+        Bm = torch.amax(torch.broadcast_to(iv.mag(V.exact), V.shape),
+                        dim=time_axis, keepdim=True)
+        slop = 1.0 + 8.0 * iv._gamma_f64(8)
+        infl = (1.0 + hu) ** 2 * slop
+        wr = iv._up(w * infl)
+        Br = iv._up(Bm * infl + 2.0 * eta)
+        H = torch.where(wr < 1.0, Br / torch.clamp(1.0 - wr, min=1e-300),
+                        _AFF_INF)
+        H = iv._up(H * slop)
+        vals = TorchOps(torch.float64).ssm_scan(D.val, V.val, n_steps,
+                                                time_axis)
+        I = iv.Interval(torch.broadcast_to(-H, vals.shape),
+                        torch.broadcast_to(H, vals.shape))
+        return self._out(self._refit(I, vals), I)
 
 
 def _canon_aff(t: AffTensor) -> AffTensor:

@@ -20,8 +20,6 @@ sound under f64 evaluation by an upward-slop multiplier (``_ru``) and
 ranges by the outward rounding of :mod:`repro_torch.core.interval`. The
 op order of every rule is the reference's, so on the CPU the bounds agree
 with the JAX package's to the last few ulps.
-
-Not here yet: ``scan_affine_fixpoint`` (comes with the SSM models).
 """
 from __future__ import annotations
 
@@ -727,6 +725,52 @@ def softmax(a: CaaTensor, axis: int = -1, cfg: CaaConfig = DEFAULT_CONFIG) -> Ca
     val = _emul(torch.softmax(a.val, dim=axis), cfg)
     # shift-sub + exp + (n−1)-sum + div: ≤ n+3 roundings feed one output
     return _finish(cfg, CaaTensor(val, exact, _ru(dbar), ebar), rounds=n + 3)
+
+
+# ---------------------------------------------------------------------------
+# recurrences (SSM layers) — beyond the paper, as in the reference
+# ---------------------------------------------------------------------------
+
+def scan_affine_fixpoint(decay: CaaTensor, drive: CaaTensor, n_steps: int,
+                         cfg: CaaConfig = DEFAULT_CONFIG,
+                         decay_le_one: bool = True) -> CaaTensor:
+    """Sound bound for h_T from h_{t+1} = decay ⊙ h_t + drive, h_0 = 0.
+
+    With m = sup|decay| (FP-inflated) and per-step absolute error δ_step
+    (one mul + one add at the current magnitude), the accumulated error is
+    ≤ δ_step·Σ m^t = δ_step·min(T, (1−m^T)/(1−m)) — geometric for
+    contraction (m<1), linear otherwise. Ranges get the same treatment.
+    This is the closed form of the CAA fold over the scan; the paper has no
+    recurrent layers, so the rule is the reference's own.
+    """
+    m = _ru(iv.mag(decay.exact) + _eff_dbar(decay) * cfg.u_max)
+    if decay_le_one:
+        # Decays of the form exp(−exp(·)) / exp(−dt·A) are ≤ 1 both ideally
+        # and as FP values (RNE of exp(negative) never exceeds 1), so the
+        # error-recurrence multiplier is soundly clamped — this keeps
+        # 500k-step bounds finite (linear worst case instead of blow-up).
+        m = torch.minimum(m, torch.ones_like(m))
+    mag_b = _ru(iv.mag(drive.exact) + _eff_dbar(drive) * cfg.u_max)
+    # Σ_{t<T} m^t, soundly (upper)
+    T = float(n_steps)
+    grow = torch.exp(torch.log(torch.clamp(m, min=1.0)) * T) \
+        / torch.clamp(m - 1.0, min=1e-300)
+    geo = torch.where(
+        m < 1.0,
+        torch.clamp(1.0 / torch.clamp(1.0 - m, min=1e-300), max=T),
+        _san(torch.where(m == 1.0, torch.full_like(m, T), grow)))
+    geo = _ru(geo)
+    mag_h = _ru(mag_b * geo)
+    # one-step error recurrence δ_{t+1} ≤ m·δ_t + c with
+    # c = δ_drive + mag_h·δ_decay + (½+½)·mag_h   (mul + add roundings)
+    # whose solution is δ_T ≤ c·Σ m^t = c·geo.
+    c = _ru(_eff_dbar(drive) + mag_h * _eff_dbar(decay) + 2 * cfg.half * mag_h
+            + 2 * float(cfg.round_abs))
+    dbar = _san(_ru(c * geo))
+    exact = Interval(-mag_h, mag_h)
+    # reference value: the steady-state fixpoint of the val fields
+    val = drive.val / torch.clamp(1.0 - decay.val.abs(), min=1e-6)
+    return _normalize(CaaTensor(val, exact, dbar, torch.full_like(val, _INF)))
 
 
 # ---------------------------------------------------------------------------

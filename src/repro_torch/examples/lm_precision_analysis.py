@@ -1,17 +1,17 @@
 """Rigorous precision analysis of a transformer LM (reduced config), on
 the port.
 
-Runs the CAA engine through a full GQA transformer (the same model code
-the port serves) and reports:
+Runs the CAA engine through a full LM (the same model code the port
+serves) and reports:
   * per-layer error growth (the trace),
   * Table-I-style actual-error of an emulated k-bit run,
   * MoE router decision margins (the routing-flip analogue of the paper's
-    top-1 analysis) for a model that has routers.
+    top-1 analysis) for a model that has routers,
+  * for RWKV6, its recurrence bounded by the fixpoint rule
+    (``caa.scan_affine_fixpoint``).
 
-The counterpart of the JAX package's ``examples/lm_precision_analysis.py``.
-``main`` analyses each arch of the reference's list that
-``repro_torch.configs`` registers; the others wait for their family's
-slice of the port and are named in one line.
+The counterpart of the JAX package's ``examples/lm_precision_analysis.py``;
+``main`` analyses the reference's three archs.
 
 Run:  python -m repro_torch.examples.lm_precision_analysis [--device cpu]
 """
@@ -65,13 +65,7 @@ def main(argv=None):
         prog="python -m repro_torch.examples.lm_precision_analysis")
     add_device_arg(ap)
     dev = ap.parse_args(argv).device
-    ported = [a for a in ARCHS if a in configs.ARCHS]
-    waiting = [a for a in ARCHS if a not in configs.ARCHS]
-    out = [analyse(a, dev=dev) for a in ported]
-    if waiting:
-        print(f"\nnot analysed: {', '.join(waiting)} (their model families "
-              "are not ported to repro_torch yet)")
-    return {"analysed": out, "waiting": waiting}
+    return {"analysed": [analyse(a, dev=dev) for a in ARCHS]}
 
 
 if __name__ == "__main__":

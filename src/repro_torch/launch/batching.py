@@ -17,8 +17,12 @@ of ``n_lanes`` lanes is joined and left by requests independently:
   padded to whole pages, straight into its lane's slice of the running
   ``[L, B, Smax, ...]`` cache (a view, written in place); the lane's index
   is then pinned to the true prompt length, so the pad positions are
-  overwritten by the first decode steps. The decode batch never drains to
-  let a request in.
+  overwritten by the first decode steps. A model with a recurrent state
+  beside its KV cache (Hymba's Mamba heads, ``h_ssm``) prefills at the
+  prompt's true length instead: pad tokens would run through the scan into
+  the state, which no mask undoes. The lane's state is zeroed first and
+  written whole by the prefill (idle lanes' decode steps advance it). The
+  decode batch never drains to let a request in.
 - **Lane recycling**: on EOS / max-new-tokens the lane's pages return to
   the pool and the lane is reusable at once. Stale cache contents are never
   scrubbed: the decode kernel reads nothing at or past a lane's length,
@@ -34,6 +38,9 @@ every per-lane row of the forward is independent of the batch: the port's
 GEMM and decode-attention kernels fix one summation order per element
 whatever the batch, the lane or the neighbours; the library products (the
 LM head, the composed attention) promise no such thing.
+
+A model without an indexed KV cache (RWKV: its whole context is a
+recurrent state) raises ``NotImplementedError``, as in the reference.
 
 The port runs on one GPU: no mesh. Entry points run on the card unless the
 caller asks for the CPU (``device="cpu"``); without a card they raise.
@@ -139,6 +146,10 @@ class ContinuousBatchingEngine:
         self.page_waits = 0
         self.cache = T.init_cache(arch_cfg, n_lanes, max_seq,
                                   device=self.device, per_lane_idx=True)
+        if "idx" not in self.cache:
+            raise NotImplementedError(
+                f"continuous batching needs an indexed KV cache (family "
+                f"{arch_cfg.family!r} has none)")
 
     # -- the two forwards ---------------------------------------------------
 
@@ -147,15 +158,21 @@ class ContinuousBatchingEngine:
         into lane ``lane`` of the running cache in place. Returns (first
         token, its logit row). Pad columns are causally masked, so the real
         rows are those of the unpadded prefill where the products keep a
-        row's bits; the lane's index is pinned to the true length."""
+        row's bits; the lane's index is pinned to the true length. A cache
+        with a recurrent state (``h_ssm``) is prefilled unpadded, from a
+        zeroed state: the lane's state is then the request's alone."""
         P = len(prompt)
-        p_pad = min(self.max_seq, self.page_size * self._pages_for(P))
+        recurrent = "h_ssm" in self.cache
+        p_pad = (P if recurrent else
+                 min(self.max_seq, self.page_size * self._pages_for(P)))
         toks = np.zeros((1, p_pad), np.int64)
         toks[0, :P] = np.asarray(prompt, np.int64)
         dev, L = self.device, self.arch_cfg.n_layers
         view = {"k": self.cache["k"][:, lane:lane + 1],
                 "v": self.cache["v"][:, lane:lane + 1],
                 "idx": torch.zeros((L, 1), dtype=torch.int32, device=dev)}
+        if recurrent:
+            view["h_ssm"] = self.cache["h_ssm"][:, lane:lane + 1].zero_()
         logits, _ = T.forward(self.bk, self.params, self.arch_cfg,
                               torch.from_numpy(toks).to(dev), cache=view,
                               q_offset=torch.zeros(1, dtype=torch.int32,

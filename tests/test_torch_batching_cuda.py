@@ -349,3 +349,76 @@ def test_library_products_lane_invariance(cuda_device, size):
     held = {k for k, v in got.items() if v["bitwise"]}
     assert held == set(LANE_INVARIANT[size]), (
         sorted(held ^ set(LANE_INVARIANT[size])))
+
+
+# Hymba (windowed attention beside Mamba heads): a lane's Mamba state is its
+# own; the engine prefills such a request unpadded into a zeroed state
+HYMBA = configs.get("hymba_1p5b").SMOKE
+HYMBA_FMT = {"": {"k": 11, "emax": 15, "emin": -14},
+             "layer*": {"k": 10, "emax": 15, "emin": -14},
+             "layer*/attn": {"k": 8, "emax": 15, "emin": -14}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["format", "k", "plain"])
+def test_hymba_engine_logits_bitwise_equal_reference_generate(cuda_device,
+                                                              case):
+    """Hymba SMOKE batched on the card, 4 lanes, prompts off the page grid
+    (lengths 5, 21, 30, 37 with pages of 16) and past the window of 16:
+    each request's tokens and logits bit for bit the request alone."""
+    dev = cuda_device
+    params = T.init_params(HYMBA, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    sc = serve.ServeConfig(arch="hymba_1p5b", device="cuda", max_seq=64, **{
+        "format": {"precision_layer_format": HYMBA_FMT},
+        "k": {"precision_k": 12}, "plain": {}}[case])
+    gen = torch.Generator().manual_seed(6)
+    reqs = [batching.Request(
+        rid=i, prompt=torch.randint(0, HYMBA.vocab, (n,),
+                                    generator=gen).tolist(),
+        max_new_tokens=8, arrival_step=i)
+        for i, n in enumerate((5, 21, 30, 37, 9, 17))]
+    eng = batching.ContinuousBatchingEngine(
+        HYMBA, sc, params, n_lanes=4, max_seq=64, page_size=16,
+        keep_logits=True)
+    responses = eng.run(reqs)
+    assert sorted(r["id"] for r in responses) == list(range(len(reqs)))
+    for r in responses:
+        req = reqs[r["id"]]
+        toks, rows = batching.reference_generate(
+            HYMBA, sc, params, req.prompt, req.max_new_tokens, max_seq=64,
+            return_logits=True)
+        assert r["tokens"] == toks
+        assert torch.equal(_bits(r["logits"]), _bits(rows)), r["id"]
+
+
+@pytest.mark.cuda
+def test_hymba_step_every_op_and_state_lane_bits(cuda_device):
+    """Every op of one ragged Hymba decode step on the format path (kernels
+    1 and 4, the Mamba step's library pieces among them) and the Mamba
+    state it leaves give each lane the bits it gives alone."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    params = T.init_params(HYMBA, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    got = chip_smoke.op_lane_bits(torch, serve, T, HYMBA, params,
+                                  serve.FormatQuantJOps(HYMBA_FMT))
+    assert got["ops"] > 0 and got["differing"] == [], got["differing"]
+    assert got["state_differing"] == []
+    assert {"windowed_decode_attention", "exp", "log", "input"} <= set(
+        got["by_op"])
+
+
+@pytest.mark.cuda
+def test_mamba_library_pieces_keep_lane_bits_at_full_width(cuda_device):
+    """The Mamba decode step's library pieces at Hymba 1.5B's widths (state
+    update, ``einsum("bdn,bn->bd")``, softplus, decay): each lane's bits
+    over 4 lanes are its bits alone (NVIDIA H100 80GB HBM3, torch 2.11 +
+    CUDA 12.8), so they stay library calls."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    got = chip_smoke.mamba_lane_bits(torch, configs.get("hymba_1p5b").FULL)
+    assert all(v["bitwise"] for v in got.values()), got
+

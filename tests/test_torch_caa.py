@@ -344,5 +344,6 @@ def test_backends_share_one_interface():
     for key in ("min_margin", "flip_safe_if_u_le"):
         np.testing.assert_allclose(rt.extra[key], rj.extra[key], rtol=1e-12)
     assert to.seen_scopes == jo.seen_scopes == ["block", "block/inner"]
-    with pytest.raises(NotImplementedError):
-        to.ssm_scan(tx, ty, 3)
+    # the recurrence rule (the fixpoint bound of the worst step over the
+    # 8 steps of axis 1), its values the f64 scan's
+    _check(jo.ssm_scan(jx, jy, 8), to.ssm_scan(tx, ty, 8), val_tol=1e-13)

@@ -174,7 +174,11 @@ def test_analyze_cli_on_the_cpu(capsys):
     assert math.isfinite(out["abs_u"]) and out["trace"]
     assert "certified actual |error|" in capsys.readouterr().out
     with pytest.raises(KeyError, match="not ported"):
-        main(["--device", "cpu", "--arch", "rwkv6_1p6b"])
+        main(["--device", "cpu", "--arch", "minicpm3_4b"])
+    out = main(["--device", "cpu", "--arch", "rwkv6_1p6b", "--k", "12",
+                "--seq", "4"])
+    assert math.isfinite(out["abs_u"])
+    assert [r.name for r in out["trace"]] == ["head/logits"]
     out = main(["--device", "cpu", "--arch", "mixtral_8x22b", "--k", "10",
                 "--seq", "4", "--routers"])
     assert [r.name for r in out["routers"]] == ["layer0/mlp/router",

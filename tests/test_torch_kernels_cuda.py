@@ -1001,3 +1001,43 @@ def test_row_order_kernels_refuse_what_they_cannot_take(cuda_device):
             tro.f32_matmul(bad, torch.randn(64, 8, device=cuda_device))
     with pytest.raises(ValueError):
         tro.f32_matmul(x, torch.randn(63, 8, device=cuda_device))
+
+
+# the recurrent families' new GEMM shapes: N = 1 (Hymba's w_dt), 16 (its
+# w_B / w_C) and 64 (RWKV6's decay LoRA wA), at decode and prefill rows
+SSM_SHAPES = [(M, K, N) for M in (4, 512) for K, N in (
+    (3200, 1), (3200, 16), (2048, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", SSM_SHAPES)
+def test_gemm_kernels_at_the_recurrent_families_shapes(cuda_device, M, K, N):
+    """Kernels 1 and 3 against their plain versions under the GEMM rule,
+    bit for bit on the coarse grid, a row alone equal to the same row in
+    the batch; ``f32_matmul`` bit for bit its fmaf chain."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.randn(M, K, device=cuda_device, generator=gen)
+    w = torch.randn(K, N, device=cuda_device, generator=gen) / np.sqrt(K)
+    fmt = (12, 15, -14)
+    got = tqm.quant_matmul_format(x, w, fmt)
+    q = lambda t: quantize_to_format(t, *fmt).abs().double()
+    assert_ulp_rule(got, tqm.quant_matmul_format_ref(x, w, fmt), fmt,
+                    2 * np.sqrt(K) * 2.0 ** -24 * (q(x) @ q(w)))
+    got_k = tqm.quant_matmul(x, w, k=12)
+    assert_ulp_rule(got_k, tqm.quant_matmul_ref(x, w, 12), (12, 127, -126),
+                    _k_pre_tol(x, w, 12))
+    for out, fn in ((got, lambda a: tqm.quant_matmul_format(a, w, fmt)),
+                    (got_k, lambda a: tqm.quant_matmul(a, w, k=12))):
+        alone = fn(x[M - 1:].contiguous())
+        assert torch.equal(alone.view(torch.int32),
+                           out[M - 1:].view(torch.int32))
+    xc = torch.randint(-3, 4, (M, K), device=cuda_device,
+                       generator=gen).float() * 2.0 ** -2
+    wc = torch.randint(-3, 4, (K, N), device=cuda_device,
+                       generator=gen).float() * 2.0 ** -3
+    assert_same_bits(tqm.quant_matmul_format(xc, wc, fmt),
+                     tqm.quant_matmul_format_ref(xc, wc, fmt))
+    assert_same_bits(tqm.quant_matmul(xc, wc, k=12),
+                     tqm.quant_matmul_ref(xc, wc, 12))
+    rows = x[:4].contiguous()
+    assert_same_bits(tro.f32_matmul(rows, w), tro.f32_matmul_seq_ref(rows, w))
