@@ -111,7 +111,21 @@ sha256 of its logits and a profiler trace of its decode steps):
   kernels 1 and 3 and ``f32_matmul`` at the new shapes (N = 1, 16, 64)
   on the inputs the serve runs gave them; both SMOKE configs analysed and
   certified on card and CPU, and one CAA pass of each at full width on 2
-  layers with its recurrences' fixpoint bounds.
+  layers with its recurrences' fixpoint bounds;
+* ``mla_encdec`` — the last three families at full width and full depth,
+  each under the format map plus a ``layer*`` key and at k = 12 (batch 4
+  × 128 × 16): MiniCPM3 4B (MLA: its two per-head weight products through
+  ``f32_matmul`` on block-diagonal tables, its decode attention through
+  kernel 4 as one kv head of keys [c | k_rope] at the latent scale, two
+  steps' calls held against the plain versions), then through the
+  batching engine (every request bit for bit alone), every op of a ragged
+  decode step against each lane alone and the library products' lane
+  bits; Whisper medium (24 + 24 layers, 1,500 frames encoded once, the
+  encoder states reused by every step; the last decode logits against a
+  full forward; the engine refuses it); PaliGemma 3B (256 patches + 128
+  tokens; the engine text-only, bit for bit alone); the three SMOKE
+  configs analysed and certified on card and CPU, and one CAA pass of
+  MiniCPM3 at full width on 2 layers.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -132,6 +146,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -880,7 +895,22 @@ FLASH_WIDE_CASES = {
     "g1_d257": (1024, [1000, 64, 65, 0], (2, 1, 257)),
     "g8_d320": (1024, [1, 255, 256, 1000], (1, 8, 320)),
     "g16_d512": (2048, [2048, 1025, 64, 0], (1, 16, 512)),
+    # the last three families' serve caches (128 + 16 tokens): Whisper's
+    # decoder self-attention, 16 kv heads of one query head; PaliGemma's one
+    # kv head of 8 query heads at D = 256, 256 patches more
+    "whisper": (SERVE_PROMPT + SERVE_STEPS + 1, [144, 129, 64, 1],
+                (16, 1, 64)),
+    "paligemma": (256 + SERVE_PROMPT + SERVE_STEPS + 1, [400, 385, 256, 1],
+                  (1, 8, 256)),
 }
+
+
+# (Smax, lengths, (K, G, D), scale): MiniCPM3's latent decode at the serve
+# cache (mla_attention through TorchOps.latent_decode_attention): one kv
+# head of its 40 query heads over keys [c | k_rope] of 256 + 32 that serve
+# as the values too, at the scale (d_nope + d_rope)^-½; kernel 4 only
+FLASH_LATENT_CASE = (SERVE_PROMPT + SERVE_STEPS + 1, [144, 129, 64, 1],
+                     (1, 40, 288), (64 + 32) ** -0.5)
 
 
 def flash_cases():
@@ -906,7 +936,8 @@ def flash_iters(S: int) -> int:
     return 10 if S > 4096 else 50
 
 
-def flash_timing(torch, kernel, plain, q, k, v, lengths):
+def flash_timing(torch, kernel, plain, q, k, v, lengths, scale=None,
+                 shared_kv=False):
     """Device ms of ``kernel`` and ``plain`` on the same inputs and of the
     SDPA yardstick, each from a profiler trace (:func:`trace_ms`) with the
     cache rotated through :func:`cache_copies`; ``host_ms``: the kernel
@@ -915,12 +946,17 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths):
     positions below each lane's length, v over the attended ones) or
     operations (2·G·D a position and kv head for the scores, the same for
     P·V): a lane of length 0 reads no k and computes no score, its weights
-    are all exp(0)."""
+    are all exp(0). With ``shared_kv`` the keys serve as the values (k is
+    v, as in MLA's latent decode): read once, they count once; ``scale``
+    (None: D^-½) is the yardstick's.
+    """
     B, H, G, D = q.shape
     S = k.shape[1]
     lens = lengths.tolist()
     iters = flash_iters(S)
     copies = cache_copies(torch, k, v)
+    if shared_kv:
+        copies = [(ck, ck) for ck, _ in copies]
     timing = {
         "ms": trace_ms(torch, lambda c: kernel(q, *c, lengths), copies,
                        iters),
@@ -942,12 +978,13 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths):
                for c in copies]
     del copies
     timing["library_ms"] = trace_ms(
-        torch, lambda c: sdpa(qs, *c, attn_mask=mask, enable_gqa=True),
-        tcopies, iters)
+        torch, lambda c: sdpa(qs, *c, attn_mask=mask, enable_gqa=True,
+                              scale=scale), tcopies, iters)
     del tcopies
     n_k = int(lengths.clamp(min=0, max=S).sum())
     n_v = int(attended(torch, lengths, S).sum())
-    n_bytes = 4.0 * (2 * q.numel() + (n_k + n_v) * H * D) + 4 * B
+    n_read = n_v if shared_kv else n_k + n_v    # attended ⊇ below length
+    n_bytes = 4.0 * (2 * q.numel() + n_read * H * D) + 4 * B
     timing["bound_ms"], timing["bound_by"] = bound_ms(
         n_bytes, 2.0 * G * D * H * (n_k + n_v))
     return timing
@@ -1016,6 +1053,22 @@ def phase_flash_decode_attention(torch, fd):
                        "shape": {"B": B, "K": H, "G": G, "D": D}, **st,
                        **timing}
         del q, k, v
+    S, lens, (H, G, D), scale = FLASH_LATENT_CASE
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, G, D, device="cuda", generator=gen)
+    kv = torch.randn(B, S, H, D, device="cuda", generator=gen)
+    st = check_flash_windowed(
+        torch, fd, fd.flash_decode_attention(q, kv, kv, lengths, scale=scale),
+        q, kv, kv, lengths, 0, 0.0, "minicpm3_latent", scale=scale)
+    worst = max(worst, st["max_abs_err"])
+    timing = flash_timing(
+        torch, lambda *a: fd.flash_decode_attention(*a, scale=scale),
+        lambda *a: fd.flash_decode_ref(*a, 0, 0.0, scale), q, kv, kv,
+        lengths, scale=scale, shared_kv=True)
+    cases["minicpm3_latent"] = {
+        "Smax": S, "lengths": lens, "shape": {"B": B, "K": H, "G": G, "D": D},
+        "scale": scale, **st, **timing}
+    del q, kv
     emit("flash_decode_attention", tolerance=FLASH_TOLERANCE,
          max_abs_err=worst, cases=cases)
     return cases, worst
@@ -2211,12 +2264,76 @@ def library_lane_bits(torch, cfg, device="cuda", lanes=4, S=256, P=83,
     return out
 
 
+def mla_lane_bits(torch, cfg, device="cuda", lanes=4, S=256, P=83,
+                  page=16, seed=9):
+    """Whether the library products of MLA's absorbed attention keep a
+    lane's bits at ``cfg``'s widths (MiniCPM3: H 40, kv_rank 256, d_nope
+    64, d_rope 32, d_v 64), on seeded inputs laid out as the model lays
+    them (W_uk and W_uv strided slices of the reshaped wkv_b): the five
+    einsums and the softmax, each over ``lanes`` lanes against each lane
+    alone (decode over an S-position latent cache), and over a prompt of
+    ``P`` rows padded to whole pages against the unpadded one (prefill).
+    Returns {product: {"bitwise": bool, "max_abs_diff": float}}."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device=device, generator=gen)
+    H, R = cfg.n_heads, cfg.kv_rank
+    dn, dr, dv = cfg.d_nope, cfg.d_rope, cfg.d_v
+    wkv_b = rnd(R, H * (dn + dv)).reshape(R, H, dn + dv) * R ** -0.5
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+    p_pad = page * -(-P // page)
+    out = {}
+
+    def record(name, got, want):
+        out[name] = {"bitwise": same_bits(torch, got, want),
+                     "max_abs_diff": float((got.double() - want.double())
+                                           .abs().max())}
+
+    ops = {
+        "q_lat": (lambda q: torch.einsum("bqhd,rhd->bqhr", q, w_uk),
+                  lambda b, q: (b, q, H, dn)),
+        "s_nope": (lambda q, c: torch.einsum("bqhr,bsr->bhqs", q, c),
+                   lambda b, q: (b, q, H, R)),
+        "s_rope": (lambda q, k: torch.einsum("bqhd,bsd->bhqs", q, k),
+                   lambda b, q: (b, q, H, dr)),
+        "out_lat": (lambda p, c: torch.einsum("bhqs,bsr->bqhr", p, c),
+                    lambda b, q: (b, H, q, S)),
+        "out": (lambda o: torch.einsum("bqhr,rhd->bqhd", o, w_uv),
+                lambda b, q: (b, q, H, R)),
+        "softmax": (lambda s: torch.softmax(s, dim=-1),
+                    lambda b, q: (b, H, q, S)),
+    }
+    cache = {"s_nope": (lanes, S, R), "s_rope": (lanes, S, dr),
+             "out_lat": (lanes, S, R)}
+    # the query axis of each op's first operand, for the prefill rows
+    q_axis = {"q_lat": 1, "s_nope": 1, "s_rope": 1, "out_lat": 2, "out": 1,
+              "softmax": 2}
+    for name, (fn, shape) in ops.items():
+        x = rnd(*shape(lanes, 1))
+        if name == "out_lat":
+            x = x.softmax(-1)
+        rest = (rnd(*cache[name]),) if name in cache else ()
+        got = fn(x, *rest)
+        alone = torch.cat([fn(x[b:b + 1], *(r[b:b + 1] for r in rest))
+                           for b in range(lanes)])
+        record(f"{name}_decode", got, alone)
+        xp = rnd(*shape(1, p_pad))
+        if name == "out_lat":
+            xp = xp.softmax(-1)
+        rest1 = tuple(r[:1] for r in rest)
+        ax = q_axis[name]
+        out_ax = {"s_nope": 2, "s_rope": 2, "softmax": 2}.get(name, 1)
+        full = fn(xp, *rest1).narrow(out_ax, 0, P)
+        record(f"{name}_prefill", full, fn(xp.narrow(ax, 0, P), *rest1))
+    return out
+
+
 # every TorchOps op the transformer runs (op_lane_bits, exact_maxima)
 LANE_OPS = ("param", "input", "const", "add", "sub", "mul", "scale",
             "shift", "matmul", "einsum", "tanh", "exp", "log", "rsqrt",
             "square", "relu", "silu", "softmax", "mean", "maximum", "where",
             "reshape", "broadcast_to", "concat", "take", "slice",
-            "decode_attention", "windowed_decode_attention")
+            "decode_attention", "windowed_decode_attention",
+            "latent_decode_attention", "per_head_matmul")
 
 
 def op_lane_bits(torch, serve, T, cfg, params, bk, lengths=(1, 17, 64, 65),
@@ -4511,6 +4628,9 @@ def run_zoo_serve(torch, serve, fns, arch, path, extra, batch=SERVE_BATCH,
         batch=batch, prompt_tokens=prompt, decode_steps=steps,
         launches=launches, prefill_s=res.timing["prefill_s"],
         decode_ms_per_step=res.timing["decode_ms_per_step"],
+        decode_step_ms_first=res.timing["decode_step_ms"][0],
+        decode_step_ms_median=statistics.median(
+            res.timing["decode_step_ms"]),
         decode_tokens_per_s=res.timing["decode_tokens_per_s"],
         init_s=res.timing["init_s"],
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -4518,18 +4638,18 @@ def run_zoo_serve(torch, serve, fns, arch, path, extra, batch=SERVE_BATCH,
 
 
 def check_flash_windowed(torch, fd, got, q, k, v, lengths, window, softcap,
-                         what):
-    """Kernel 4's output ``got`` with ``window`` and ``softcap`` against its
-    plain version and the f64 split version on the same inputs, under
-    FLASH_TOLERANCE; raises on disagreement or a non-finite output."""
-    want = fd.flash_decode_ref(q, k, v, lengths, window, softcap)
+                         what, scale=0.0):
+    """Kernel 4's output ``got`` with ``window``, ``softcap`` and ``scale``
+    (0: D^-½) against its plain version and the f64 split version on the
+    same inputs, under FLASH_TOLERANCE; raises on disagreement or a non-finite output."""
+    want = fd.flash_decode_ref(q, k, v, lengths, window, softcap, scale)
     ok, st = compare(torch, got, want, F32_FMT,
                      flash_tol(torch, v, lengths, None, window, softcap))
     if not ok or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"flash_decode_attention {what}: {st}")
     exact = fd.flash_decode_split_ref(q, k, v, lengths, None,
                                       dtype=torch.float64, window=window,
-                                      softcap=softcap)
+                                      softcap=softcap, scale=scale)
     tol = flash_f64_tol(torch, v, lengths, None, window, softcap)
     ok, st64 = compare(torch, got, exact, F32_FMT, tol)
     if not ok:
@@ -5063,18 +5183,27 @@ def resolved_formats(serve):
         cls.format_for = orig
 
 
-class NewShapeSpy(KernelSpy):
-    """A KernelSpy on kernel 1 or 3 keeping copies of the inputs of the
-    first call of each (M, N) with N in SSM_NEW_N."""
+def ssm_new_shape(x, w):
+    """The key of a kernel-1 or 3 call at one of SSM_NEW_N, else None."""
+    return (x.shape[0], w.shape[1]) if w.shape[1] in SSM_NEW_N else None
 
-    def __init__(self, fn):
+
+class NewShapeSpy(KernelSpy):
+    """A KernelSpy on a GEMM wrapper (kernel 1 or 3, ``f32_matmul``)
+    keeping the inputs of the first call of each key that ``key_of(x, w)``
+    gives (None: not kept): x copied, w copied unless ``copy_w`` is False
+    (a table nothing writes, kept by reference)."""
+
+    def __init__(self, fn, key_of=ssm_new_shape, copy_w=True):
         super().__init__(fn, None, None)
+        self.key_of, self.copy_w = key_of, copy_w
 
     def __call__(self, *args, **kw):
         x, w = args[0], args[1]
-        key = (x.shape[0], w.shape[1])
-        if w.shape[1] in SSM_NEW_N and key not in self.seen:
-            self.seen[key] = ((x.clone(), w.clone()) + args[2:], dict(kw))
+        key = self.key_of(x, w)
+        if key is not None and key not in self.seen:
+            self.seen[key] = ((x.clone(), w.clone() if self.copy_w else w)
+                              + args[2:], dict(kw))
         return self.fn(*args, **kw)
 
 
@@ -5105,12 +5234,13 @@ def ssm_format_and_k(torch, serve, qmm, fns, arch):
     return out, scopes, spies
 
 
-def new_shape_checks(torch, qmm, spies):
+def new_shape_checks(torch, qmm, spies, f32_rows=None):
     """Kernels 1 and 3 on the inputs ``spies`` (pairs of kernel name and
     :class:`NewShapeSpy`) kept from the serve runs, against their plain
-    versions (the GEMM rule), and ``f32_matmul`` on the same inputs bit
-    for bit against its fmaf chain; raises on disagreement. Returns the
-    rows."""
+    versions (the GEMM rule), and ``f32_matmul`` on the same inputs (and on
+    those its own spy kept) bit for bit against its fmaf chain, on the
+    first ``f32_rows`` rows (default all: a row's bits depend on K alone,
+    the instance on M); raises on disagreement. Returns the rows."""
     from repro_torch.kernels import row_order as ro
 
     rows = []
@@ -5121,18 +5251,23 @@ def new_shape_checks(torch, qmm, spies):
                 _, st = check_gemm(torch, qmm, x, w, args[2],
                                    (kw["has_subnormals"], kw["saturating"]))
                 rule = {"format": list(args[2])}
-            else:
+            elif name == "quant_matmul":
                 _, st = check_gemm_k(torch, qmm, x, w, kw["k"])
                 rule = {"k": kw["k"]}
-            f32 = ro.f32_matmul(x, w)
-            bitwise = same_bits(torch, f32, ro.f32_matmul_seq_ref(x, w))
+            else:
+                st, rule = {}, {}
+            n = x.shape[0] if f32_rows is None else min(f32_rows, x.shape[0])
+            f32 = ro.f32_matmul(x, w)[:n]
+            bitwise = same_bits(torch, f32, ro.f32_matmul_seq_ref(x[:n], w))
+            del f32
             if not bitwise:
                 raise AssertionError(f"f32_matmul {tuple(x.shape)}@"
                                      f"{tuple(w.shape)}: differs from its "
                                      "fmaf chain")
             rows.append({"kernel": name, "M": x.shape[0], "K": x.shape[1],
                          "N": w.shape[1], **rule, **st,
-                         "f32_matmul_bitwise": bitwise})
+                         "f32_matmul_bitwise": bitwise,
+                         "f32_matmul_rows_checked": n})
     return rows
 
 
@@ -5213,6 +5348,24 @@ def mamba_lane_bits(torch, cfg, lanes=4, seed=7):
     return out
 
 
+def engine_requests(torch, batching, vocab, seed=3):
+    """ZOO_BATCH_REQUESTS requests of BATCH_PROMPT tokens, off the page
+    grid (a recurrent state's unpadded prefill, a pad's masked rows), one
+    every BATCH_STRIDE steps."""
+    gen = torch.Generator().manual_seed(seed)
+    reqs = []
+    for i in range(ZOO_BATCH_REQUESTS):
+        P = int(torch.randint(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1, (1,),
+                              generator=gen))
+        P += P % BATCH_ENGINE["page_size"] == 0      # off the page grid
+        reqs.append(batching.Request(
+            rid=i, prompt=torch.randint(0, vocab, (P,),
+                                        generator=gen).tolist(),
+            max_new_tokens=ZOO_BATCH_MAX_NEW,
+            arrival_step=BATCH_STRIDE * i))
+    return reqs
+
+
 def ssm_hymba(torch, serve, batching, qmm, fd, T, fns):
     """Hymba 1.5B at full width and depth: served under the format map and
     at k = 12 (batch 4 × 128 × 16; kernel 4 once a layer a decode step,
@@ -5261,17 +5414,7 @@ def ssm_hymba(torch, serve, batching, qmm, fd, T, fns):
     sc = serve.ServeConfig(arch="hymba_1p5b", batch=BATCH_ENGINE["n_lanes"],
                            max_seq=BATCH_ENGINE["max_seq"],
                            precision_layer_format=SSM_FORMAT, device="cuda")
-    gen = torch.Generator().manual_seed(3)
-    reqs = []
-    for i in range(ZOO_BATCH_REQUESTS):
-        P = int(torch.randint(BATCH_PROMPT[0], BATCH_PROMPT[1] + 1, (1,),
-                              generator=gen))
-        P += P % BATCH_ENGINE["page_size"] == 0      # off the page grid
-        reqs.append(batching.Request(
-            rid=i, prompt=torch.randint(0, cfg.vocab, (P,),
-                                        generator=gen).tolist(),
-            max_new_tokens=ZOO_BATCH_MAX_NEW,
-            arrival_step=BATCH_STRIDE * i))
+    reqs = engine_requests(torch, batching, cfg.vocab)
     engine, responses, launches, registry, wall = run_batching(
         torch, batching, fns, cfg, sc, params, reqs, None, -1,
         lambda eng, admitted: ssm_expected(cfg, "format",
@@ -5485,6 +5628,430 @@ def phase_ssm(torch, serve, batching, qmm, fd, T):
     return launches, parts
 
 
+# ---------------------------------------------------------------------------
+# the last three families: MiniCPM3 4B (MLA), Whisper medium (encoder-
+# decoder) and PaliGemma 3B (vision prefix) through the port's entry points,
+# at full width and full depth
+# ---------------------------------------------------------------------------
+
+MLA_ENCDEC_ARCHS = ("minicpm3_4b", "whisper_medium", "paligemma_3b")
+# SSM_FORMAT's layer* key reaches the products with no sub-scope: Whisper's
+# encoder layers and its cross-attention run in layer{i} itself
+MLA_FORMAT = SSM_FORMAT
+MLA_CHECK_STEPS = (0, SERVE_STEPS - 1)   # decode steps whose latent calls
+#                                          are held to kernel 4's plain ones
+MLA_FULL_LAYERS = 2               # the full-width analysis pass's depth
+MLA_CAA_TOKENS = 8
+MLA_FULL_K = 24                   # as SSM_FULL_K
+MLA_CERT = {"minicpm3_4b": {}, "whisper_medium": {"mixed": True},
+            "paligemma_3b": {"mixed": True}}
+# the GEMM shapes kernels 1 and 3 meet first in this phase: MiniCPM3's kv
+# latent and rope key (N 288), q latent (768) and q up-projection (40 ×
+# 96); PaliGemma's patch projection (K 1,152, SigLIP's width); Whisper's
+# encoder and cross k / v at its rows (batch × 1,500 frames)
+MLA_NEW_N = (288, 768, 3840)
+MLA_PATCH_K = 1152
+MLA_ENCODER_M = SERVE_BATCH * 1500
+MLA_F32_ROWS = 16        # rows of a kept product held to the fmaf chain
+
+
+def mla_new_shape(x, w):
+    """The key (M, K, N) of a kernel-1 or 3 call at one of the phase's new
+    shapes, else None."""
+    M, K, N = x.shape[0], x.shape[1], w.shape[1]
+    if N in MLA_NEW_N or K == MLA_PATCH_K or M == MLA_ENCODER_M:
+        return (M, K, N)
+    return None
+
+
+@contextlib.contextmanager
+def spying(module, name, spy):
+    """``spy`` stands in for ``module.name`` while the block runs."""
+    setattr(module, name, spy)
+    try:
+        yield spy
+    finally:
+        setattr(module, name, spy.fn)
+
+
+def mla_serves(torch, serve, qmm, fns, arch, fd_spy=None, fd=None):
+    """``arch`` served through ``serve.main`` under MLA_FORMAT and at k =
+    12 (batch 4 × 128 × 16, full width and depth), kernels 1 and 3 spied
+    at the phase's new shapes and ``f32_matmul`` at every shape (the LM
+    head, MiniCPM3's block-diagonal tables), ``fd_spy`` standing in for
+    kernel 4 on the k path; then every kept input held to its plain
+    version (:func:`new_shape_checks`). Returns (reports by path with
+    ``new_shapes``, the k path's result)."""
+    from repro_torch.kernels import row_order as ro
+
+    out, res = {}, None
+    f32 = NewShapeSpy(ro.f32_matmul, lambda x, w: (
+        x.shape[0], x.shape[1], w.shape[1]), copy_w=False)
+    spies = [("f32_matmul", f32)]
+    for path, extra, kernel in (
+            ("format", ["--layer-format", json.dumps(MLA_FORMAT)],
+             "quant_matmul_format"),
+            ("k", ["--precision-k", str(SERVE_K)], "quant_matmul")):
+        del res
+        free_device_memory(torch)
+        spy = NewShapeSpy(getattr(qmm, kernel), mla_new_shape)
+        spies.append((kernel, spy))
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(spying(qmm, kernel, spy))
+            stack.enter_context(spying(ro, "f32_matmul", f32))
+            if path == "k" and fd_spy is not None:
+                stack.enter_context(spying(fd, "flash_decode_attention",
+                                           fd_spy))
+            res, out[f"serve_{path}"] = run_zoo_serve(
+                torch, serve, fns, arch, path, extra,
+                expected_of=mla_encdec_expected)
+    out["serve_format"]["format_map"] = MLA_FORMAT
+    out["new_shapes"] = {"rows": new_shape_checks(torch, qmm, spies,
+                                                  MLA_F32_ROWS)}
+    del spies, f32, spy
+    return out, res
+
+
+def mla_encdec_expected(cfg, path, forwards, steps, stub=None):
+    """Exact launches of ``forwards`` forwards (``steps`` of them decode
+    steps; ``stub`` of them carry the modality stub's inputs, default the
+    prefills ``forwards - steps``) of MiniCPM3, Whisper or PaliGemma on a
+    serving path ("format", "k" or "plain"). MiniCPM3: 7 GEMMs a layer (q
+    down and up, the latent down, o; gate, up, down), 4 rmsnorms (ln1, the
+    q and kv latent norms, ln2), 2 ``f32_matmul`` a layer of a decode step
+    (the per-head weight products into and out of the latent space; a
+    prefill's are library products), its decode
+    attention through kernel 4 on every path (the reference composes MLA
+    unrounded). Whisper: 11 GEMMs a decoder layer (self-attention q, k, v,
+    o; cross-attention q, k, v, o; the MLP's 3), 3 LayerNorms of 2 means
+    (ln1, ln1 again before the cross-attention, ln2) and the final rmsnorm;
+    an encode (one a prefill) the frame projection and 7 GEMMs and 2
+    LayerNorms an encoder layer, then its rmsnorm. PaliGemma: 7 GEMMs and 2
+    rmsnorms a layer, the patch projection once a prefill. Whisper's and
+    PaliGemma's decode attention through kernel 2 on the format path, else
+    kernel 4; every forward's LM head one ``f32_matmul`` (the plain path's
+    GEMMs too)."""
+    stub = forwards - steps if stub is None else stub
+    L = cfg.n_layers
+    f32 = forwards
+    if cfg.mla:
+        gemms, means = 7 * L * forwards, (4 * L + 1) * forwards
+        f32 += 2 * L * steps
+    elif cfg.enc_dec:
+        Le = cfg.n_enc_layers
+        gemms = 11 * L * forwards + (7 * Le + 1) * stub
+        means = (6 * L + 1) * forwards + (4 * Le + 1) * stub
+    else:
+        gemms, means = 7 * L * forwards + stub, (2 * L + 1) * forwards
+    attn = L * steps
+    certified = path == "format" and not cfg.mla
+    return {"quant_matmul_format": gemms if path == "format" else 0,
+            "flash_decode_certified": attn if certified else 0,
+            "quant_matmul": gemms if path == "k" else 0,
+            "flash_decode_attention": 0 if certified else attn,
+            **IDLE_ON_SERVING, "row_mean": means,
+            "f32_matmul": f32 + (gemms if path == "plain" else 0)}
+
+
+class LatentCheckSpy(KernelSpy):
+    """Stands in for kernel 4 while MiniCPM3's k path runs: launches it,
+    then holds the calls of the MLA_CHECK_STEPS decode steps (every layer's
+    latent attention: one kv head of keys [c | k_rope], the scale (d_nope +
+    d_rope)^-½) against both plain versions at that scale, a row a checked
+    call."""
+
+    def __init__(self, torch, fd, n_layers):
+        super().__init__(fd.flash_decode_attention, None, None)
+        self.torch, self.fd, self.n_layers = torch, fd, n_layers
+        self.rows, self.calls = [], 0
+
+    def __call__(self, q, k, v, lengths, window=0, softcap=0.0, scale=0.0):
+        out = self.fn(q, k, v, lengths, window=window, softcap=softcap,
+                      scale=scale)
+        step = self.calls // self.n_layers
+        self.calls += 1
+        if step in MLA_CHECK_STEPS:
+            st = check_flash_windowed(self.torch, self.fd, out, q, k, v,
+                                      lengths, window, softcap,
+                                      f"latent call {self.calls - 1}",
+                                      scale=scale)
+            self.rows.append({"step": step, "shape": list(q.shape),
+                              "Smax": k.shape[1], "scale": scale,
+                              "lengths": lengths.tolist(),
+                              "max_abs_err": st["max_abs_err"],
+                              "f64_max_abs_err": st["f64_max_abs_err"]})
+        return out
+
+
+def engine_alone(torch, serve, batching, fns, cfg, arch, params):
+    """The batching engine at 4 lanes under MLA_FORMAT (PaliGemma's
+    text-only: requests carry no patches, as in the reference's engine),
+    every launch counted, every request's tokens and logits against the
+    request alone; raises unless all are bit for bit. Returns the
+    report."""
+    sc = serve.ServeConfig(arch=arch, batch=BATCH_ENGINE["n_lanes"],
+                           max_seq=BATCH_ENGINE["max_seq"],
+                           precision_layer_format=MLA_FORMAT, device="cuda")
+    reqs = engine_requests(torch, batching, cfg.vocab)
+    engine, responses, launches, registry, wall = run_batching(
+        torch, batching, fns, cfg, sc, params, reqs, None, -1,
+        lambda eng, admitted: mla_encdec_expected(
+            cfg, "format", admitted + eng.steps, eng.steps, stub=0))
+    ref = reference_runs(batching, cfg, sc, params, reqs, -1)
+    rows = lane_bits(torch, responses, ref)
+    if not all(r["tokens_equal"] and r["logits_bitwise"] for r in rows):
+        raise AssertionError(f"{arch} batching: a request's bits differ "
+                             f"from the request alone: {rows}")
+    return dict(batching_report(engine, responses, registry, wall),
+                launches=launches, prompts=[len(r.prompt) for r in reqs],
+                lanes_vs_alone=rows), sc
+
+
+def mla_minicpm3(torch, serve, batching, qmm, fd, T, fns):
+    """MiniCPM3 4B at full width and depth: served under the format map
+    and at k = 12 (batch 4 × 128 × 16, :func:`mla_serves`), the k path's
+    latent decode attention held against kernel 4's plain versions at two
+    steps, its last decode logits against a full forward
+    (:func:`decode_vs_full`); the batching engine under the format map,
+    every request bit for bit alone; every op of a ragged decode step
+    against each lane alone;
+    and the library products of the absorbed attention, lane by lane (the
+    measurement that routes them)."""
+    spy = LatentCheckSpy(torch, fd,
+                         serve.configs.get("minicpm3_4b").FULL.n_layers)
+    out, res = mla_serves(torch, serve, qmm, fns, "minicpm3_4b", spy, fd)
+    out["decode_vs_full"] = decode_vs_full(torch, serve, T, res)
+    cfg, params = res.cfg, res.params          # the same seed-0 weights
+    del res
+    if len(spy.rows) != cfg.n_layers * len(MLA_CHECK_STEPS):
+        raise AssertionError(f"minicpm3 latent calls checked: "
+                             f"{len(spy.rows)}")
+    out["serve_k"].update(
+        note="decode timings include the checks of two steps' latent calls",
+        latent_calls_checked=len(spy.rows),
+        latent_shape=spy.rows[0]["shape"], latent_scale=spy.rows[0]["scale"],
+        max_abs_err=max(r["max_abs_err"] for r in spy.rows),
+        f64_max_abs_err=max(r["f64_max_abs_err"] for r in spy.rows))
+    del spy
+    free_device_memory(torch)
+    out["batching"], sc = engine_alone(torch, serve, batching, fns, cfg,
+                                       "minicpm3_4b", params)
+    free_device_memory(torch)
+    ops = op_lane_bits(torch, serve, T, cfg, params, serve._backend(sc))
+    out["step_op_lane_bits"] = ops
+    out["library_lane_bits"] = mla_lane_bits(torch, cfg)
+    del params
+    free_device_memory(torch)
+    if ops["differing"]:
+        raise AssertionError(f"minicpm3 decode step: a lane's ops differ "
+                             f"from the lane alone: {ops}")
+    return out
+
+
+def decode_vs_full(torch, serve, T, res):
+    """A k-path serve's last decode logits against one full forward (no
+    cache) of the same tokens and the stub's inputs on the same backend:
+    within SSM_LONG_TOL · max |logit|, the argmax equal unless the top two
+    lie within twice the difference (the decode's attention runs in a
+    kernel's order, the full forward's composed, and a k = 12 rounding
+    that flips moves a logit further); raises otherwise. Returns the
+    report."""
+    seq = torch.cat([res.prompt, res.tokens[:, :SERVE_STEPS]], dim=1)
+    bk = serve._backend(serve.ServeConfig(precision_k=SERVE_K,
+                                          device="cuda"))
+    stub = {}
+    if res.frontend is not None:
+        stub = {"enc_embeds" if res.cfg.frontend == "audio"
+                else "frontend_embeds": res.frontend}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _ = T.forward(bk, res.params, res.cfg, seq, **stub)
+    torch.cuda.synchronize()
+    got, want = res.decode_logits[-1].double(), full[:, -1].double()
+    del full
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+    report = dict(
+        path="k", full_forward_tokens=seq.shape[1],
+        stub_positions=0 if res.frontend is None else res.frontend.shape[1],
+        full_forward_s=time.perf_counter() - t0, max_abs_dlogit=err,
+        max_abs_logit=scale, tolerance=SSM_LONG_TOL * scale,
+        argmax_agrees=agree, top1_gap=gap)
+    if not err <= SSM_LONG_TOL * scale or not (agree or gap <= 2 * err):
+        raise AssertionError(f"{res.cfg.name} decode against its full "
+                             f"forward: {report}")
+    return report
+
+
+def mla_whisper(torch, serve, batching, qmm, T, fns):
+    """Whisper medium at full width and depth (24 encoder and 24 decoder
+    layers, 1,500 frames): served under the format map and at k = 12
+    (batch 4 × 128 × 16, :func:`mla_serves`; the frames encoded once, the
+    encoder states reused by every step); the k path's last decode logits
+    held against one full forward of the same tokens and frames
+    (:func:`decode_vs_full`); the batching engine refuses it (no encoder
+    input)."""
+    out, res = mla_serves(torch, serve, qmm, fns, "whisper_medium")
+    out["decode_vs_full"] = decode_vs_full(torch, serve, T, res)
+    cfg, params = res.cfg, res.params
+    del res
+    sc = serve.ServeConfig(arch="whisper_medium", batch=4, device="cuda")
+    try:
+        batching.ContinuousBatchingEngine(cfg, sc, params, device="cuda",
+                                          **BATCH_ENGINE)
+    except NotImplementedError as e:
+        out["batching"] = {"raises": "NotImplementedError", "reason": str(e)}
+    else:
+        raise AssertionError("whisper: the batching engine did not refuse "
+                             "an encoder-decoder model")
+    del params
+    return out
+
+
+def mla_paligemma(torch, serve, batching, qmm, T, fns):
+    """PaliGemma 3B at full width and depth: served under the format map
+    and at k = 12 (batch 4, 256 patches + 128 tokens, 16 steps,
+    :func:`mla_serves`), its last decode logits against a full forward
+    over the patches and tokens (:func:`decode_vs_full`); then the batching
+    engine text-only under the format map, every request bit for bit
+    alone."""
+    out, res = mla_serves(torch, serve, qmm, fns, "paligemma_3b")
+    out["serve_k"]["cache_positions"] = res.config.max_seq
+    out["decode_vs_full"] = decode_vs_full(torch, serve, T, res)
+    cfg, params = res.cfg, res.params
+    del res
+    free_device_memory(torch)
+    out["batching"], _ = engine_alone(torch, serve, batching, fns, cfg,
+                                      "paligemma_3b", params)
+    del params
+    return out
+
+
+def mla_analysis(torch, T, fns):
+    """The three SMOKE configs analysed (``CaaOps`` at emulated k = 12 on
+    ``certify_lm``'s profile and the stub's inputs it draws) and certified
+    (MiniCPM3 uniform; Whisper and PaliGemma through the stacked pipeline,
+    the one that passes the stub's inputs) on the card and on the CPU with
+    the same weights: trace records within 1e-9 relative, decisions equal.
+    Then MiniCPM3 at full width cut to 2 layers through one ``CaaOps``
+    pass on 8 tokens at f32's u: seconds, peak memory, the logits' bound."""
+    import shutil
+
+    from repro_torch import certify as C
+    from repro_torch import configs
+    from repro_torch.certify.lm import frontend_kwargs
+    from repro_torch.certify.tokens import profile_tokens
+    from repro_torch.core import caa
+    from repro_torch.core.backend import CaaOps
+
+    root = ROOT / "build" / "chip_smoke_mla_encdec"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    reset_launches(fns)
+    for arch in MLA_ENCDEC_ARCHS:
+        cfg = configs.get(arch).SMOKE
+        host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+        params = {"cuda": _to_device(host, "cuda"), "cpu": host}
+        b = ZOO_CERT["batch"]
+        toks = profile_tokens(1, b, ZOO_CERT["seq"], cfg.vocab)
+        traces, certs, secs = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            bk = CaaOps(caa.CaaConfig(u_max=ZOO_CAA_U, emulate_k=12))
+            T.forward(bk, params[dev], cfg, toks.to(dev),
+                      **frontend_kwargs(cfg, b, 0, dev))
+            traces[dev] = bk.trace
+            certs[dev] = C.certify_lm(
+                arch, cfg, params[dev], **ZOO_CERT, **MLA_CERT[arch],
+                store=C.CertificateStore(str(root / arch / dev)))
+            secs[dev] = time.perf_counter() - t0
+        worst = 0.0
+        if ([(r.name, r.kind) for r in traces["cuda"]]
+                != [(r.name, r.kind) for r in traces["cpu"]]):
+            raise AssertionError(f"{arch}: the records differ")
+        for ra, rb in zip(traces["cuda"], traces["cpu"]):
+            for f in ("max_dbar", "max_ebar"):
+                x, y = getattr(ra, f), getattr(rb, f)
+                if not same_bound(x, y, CERT_REL_TOL):
+                    raise AssertionError(f"{arch} {ra.name} {f}: {x} on the "
+                                         f"card, {y} on the CPU")
+                if math.isfinite(x) and x != y:
+                    worst = max(worst, abs(x - y) / max(abs(x), abs(y)))
+        if cert_decisions(certs["cuda"]) != cert_decisions(certs["cpu"]):
+            raise AssertionError(f"certify {arch}: card decides "
+                                 f"{cert_decisions(certs['cuda'])}, CPU "
+                                 f"{cert_decisions(certs['cpu'])}")
+        out[arch] = {"trace_records": len(traces["cuda"]), "worst_rel": worst,
+                     "certify": {"uniform": not MLA_CERT[arch], **MLA_CERT[
+                         arch]},
+                     "certificate": cert_summary(certs["cuda"]),
+                     "seconds": secs}
+    out["launches"] = read_launches(fns)
+    cfg = dataclasses.replace(configs.get("minicpm3_4b").FULL,
+                              n_layers=MLA_FULL_LAYERS)
+    free_device_memory(torch)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    toks = profile_tokens(1, 1, MLA_CAA_TOKENS, cfg.vocab).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    u = 2.0 ** (1 - MLA_FULL_K)
+    bk = CaaOps(caa.CaaConfig(u_max=u, emulate_k=MLA_FULL_K))
+    logits, _ = T.forward(bk, params, cfg, toks)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    a_abs, _ = caa.actual_error_in_u(logits, u)
+    d, e = caa.worst(logits)
+    probs = [r for r in bk.trace if r.kind == "softmax"]
+    out["minicpm3_4b_full"] = {
+        "config": f"minicpm3_4b.FULL cut to {MLA_FULL_LAYERS} layers",
+        "tokens": MLA_CAA_TOKENS, "emulate_k": MLA_FULL_K, "seconds": secs,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "logits_dbar": d, "logits_ebar": e,
+        "logits_actual_abs_u": float(a_abs.max()),
+        "attn_probs_dbar": [r.max_dbar for r in probs]}
+    if len(probs) != MLA_FULL_LAYERS or not math.isfinite(
+            float(a_abs.max())):
+        raise AssertionError(f"minicpm3 full width: {out['minicpm3_4b_full']}")
+    del params, logits, bk
+    return out
+
+
+def phase_mla_encdec(torch, serve, batching, qmm, fd, T):
+    """The last three families on the card (see the module docstring)."""
+    emit("free", before="mla_encdec", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    parts, launches = {}, {name: 0 for name in fns}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        parts[name] = fn(*args)
+        parts[name]["seconds"] = time.perf_counter() - t0
+        emit(f"mla_encdec_{name}", **parts[name])
+        free_device_memory(torch)
+
+    # every path sets the counters to 0 before it runs and reads them
+    # after; the phase's launches are the sum of its paths' own counts
+    run("minicpm3_4b", mla_minicpm3, torch, serve, batching, qmm, fd, T,
+        fns)
+    run("whisper_medium", mla_whisper, torch, serve, batching, qmm, T, fns)
+    run("paligemma_3b", mla_paligemma, torch, serve, batching, qmm, T, fns)
+    run("analysis", mla_analysis, torch, T, fns)
+    for counts in _launch_counts(parts):
+        for name, n in counts.items():
+            launches[name] += n
+    emit("mla_encdec", launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches, parts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5615,7 +6182,11 @@ def main() -> int:
     by_path["zoo"], zoo_parts = phase_zoo(torch, serve, batching, qmm, fd,
                                           T)
     by_path["ssm"], ssm_parts = phase_ssm(torch, serve, batching, qmm, fd, T)
-    ssm_new = ssm_parts["new_shapes"]["rows"]
+    by_path["mla_encdec"], mla_parts = phase_mla_encdec(
+        torch, serve, batching, qmm, fd, T)
+    ssm_new = ssm_parts["new_shapes"]["rows"] + [
+        r for arch in MLA_ENCDEC_ARCHS
+        for r in mla_parts[arch]["new_shapes"]["rows"]]
 
     qerr = max([qerr] + [r["max_abs_err"] for r in (
         fmt_path["quant_matmul_format"] + prof_path["quant_matmul_format"]
@@ -5630,7 +6201,8 @@ def main() -> int:
         + [r for r in ssm_new if r["kernel"] == "quant_matmul"])])
     aerr = max([aerr, windowed["max_abs_err"],
                 zoo_parts["gemma2_27b"]["windowed"]["max_abs_err"],
-                ssm_parts["hymba_1p5b"]["windowed"]["max_abs_err"]]
+                ssm_parts["hymba_1p5b"]["windowed"]["max_abs_err"],
+                mla_parts["minicpm3_4b"]["serve_k"]["max_abs_err"]]
                + [r["max_abs_err"] for r in (
                    prof_path["flash_decode_attention"] + k_attn_path
                    + mixed_attn_path

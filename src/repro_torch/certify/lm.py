@@ -96,14 +96,21 @@ class StageClock:
         return _Block()
 
 
-def _frontend_kwargs(arch_cfg, batch: int, seed: int) -> Dict:
-    """Extra forward inputs of a modality frontend: none of the ported
-    archs has one, and the rest raise through ``check_supported``."""
+def frontend_kwargs(arch_cfg, batch: int, seed: int, device) -> Dict:
+    """Extra forward inputs of a modality frontend: the audio stub's frames
+    (``enc_embeds``) or the vision stub's patches (``frontend_embeds``)
+    drawn from ``np.random.RandomState(seed)``
+    (:func:`repro_torch.models.transformer.frontend_inputs`) as the
+    reference draws them, so both packages analyse the same numbers; none
+    for a text-only arch."""
     from repro_torch.models import transformer as T
 
-    del batch, seed
-    T.check_supported(arch_cfg)
-    return {}
+    x = T.frontend_inputs(arch_cfg, batch, np.random.RandomState(seed),
+                          device)
+    if x is None:
+        return {}
+    key = "enc_embeds" if arch_cfg.frontend == "audio" else "frontend_embeds"
+    return {key: x}
 
 
 def _lm_forward_adapter(arch_cfg, tokens, fw_kwargs):
@@ -221,7 +228,7 @@ def certify_lm_stacked(
     arch_cfg, params = _lm_setup(arch_name, arch_cfg, params, device)
     dev = params_device(params)
     digest = params_digest(params)
-    fw_kwargs = _frontend_kwargs(arch_cfg, batch, seed)
+    fw_kwargs = frontend_kwargs(arch_cfg, batch, seed, dev)
     key, request = serving_request(
         arch_name, arch_cfg, digest, seq=seq, batch=batch, seed=seed,
         k_min=k_min, k_max=k_max, mixed=mixed, formats=formats,

@@ -328,7 +328,6 @@ def _lm_setup(arch_name: str, arch_cfg, params, device):
 
     if arch_cfg is None:
         arch_cfg = configs.get(arch_name).SMOKE
-    T.check_supported(arch_cfg)
     if params is None:
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():

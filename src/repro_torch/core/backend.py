@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -39,6 +40,34 @@ from repro_torch.core.scopes import STACK_SCOPE, resolve_scope_value
 from repro_torch.kernels import flash_decode, row_order
 
 _HEAD = "bsd,vd->bsv"     # the LM head's einsum (models/layers.logits_head)
+# MLA's per-head weight products (models/attention.mla_attention): into the
+# latent space through W_uk, out of it through W_uv
+_INTO, _OUT_OF = "bqhd,rhd->bqhr", "bqhr,rhd->bqhd"
+
+# block-diagonal tables of per-head weights, by the id of the tensor that
+# owns their storage: each lives as long as that tensor, for every backend
+_PER_HEAD_TABLES: Dict[int, Dict[tuple, tuple]] = {}
+
+
+def per_head_table(w: torch.Tensor, into: bool) -> torch.Tensor:
+    """The block-diagonal table (:func:`repro_torch.kernels.row_order.
+    block_diagonal`) of ``w`` [R, H, d], a view of a parameter: head h's
+    block is w[:, h, :]ᵀ [d, R] ``into`` the latent space, else w[:, h, :]
+    [R, d]. Made once per view and kept while the parameter lives, shared
+    by every backend (105 MB a table at MiniCPM3's width, 13 GB for its 62
+    layers' two); made anew if the parameter was written in place."""
+    owner = w if w._base is None else w._base
+    tables = _PER_HEAD_TABLES.get(id(owner))
+    if tables is None:
+        tables = _PER_HEAD_TABLES[id(owner)] = {}
+        weakref.finalize(owner, _PER_HEAD_TABLES.pop, id(owner), None)
+    key = (into, w.storage_offset(), tuple(w.shape), tuple(w.stride()))
+    got = tables.get(key)
+    if got is None or got[0] != owner._version:
+        tables.pop(key, None)            # free the old table first
+        got = tables[key] = (owner._version, row_order.block_diagonal(
+            w.permute(1, 2, 0) if into else w.permute(1, 0, 2)))
+    return got[1]
 
 
 def _tree_index(tree, i):
@@ -204,6 +233,23 @@ class Backend:
         compose it here."""
         return None
 
+    def latent_decode_attention(self, q_lat, q_rope, c, k_rope, lengths,
+                                scale: float):
+        """MLA's single-token absorbed attention, which the reference
+        composes on every backend: q_lat [B,1,H,R] against the latent cache
+        c [B,Smax,R], q_rope [B,1,H,Dr] against the rope keys k_rope
+        [B,Smax,Dr], scores (q_lat·c + q_rope·k_rope)·scale over a lane's
+        first ``lengths`` positions, softmax, the mix of c: [B,1,H,R], or
+        None to compose it here."""
+        return None
+
+    def per_head_matmul(self, x, w, into: bool):
+        """MLA's per-head weight products, which the reference writes as
+        einsums: x [B,S,H,d] against w [R,H,d] into the latent space
+        ([B,S,H,R]), or x [B,S,H,R] against w [R,H,d] out of it
+        ([B,S,H,d])."""
+        return self.einsum(_INTO if into else _OUT_OF, x, w)
+
 
 class UnrolledLayerLoop:
     """Mixin: the per-layer ``layer_loop`` — a Python loop pushing a static
@@ -299,6 +345,41 @@ class TorchOps(UnrolledLayerLoop, Backend):
                 and a.dtype == b.dtype == torch.float32):
             return row_order.lm_head_dispatch(a, self._table_t(b))
         return torch.einsum(subscripts, a, b).to(self.compute_dtype)
+
+    def per_head_matmul(self, x, w, into: bool):
+        """On the card, a single-token step's (S = 1, f32) runs through the
+        fixed-order ``f32_matmul`` kernel as one product of the heads side
+        by side against the block-diagonal table of their weights
+        (:func:`per_head_table`), bit for bit each head's own chain: the
+        library product's bits depend on the batch there. Longer steps
+        (the library product keeps a row's bits) and everything on the CPU
+        compose the einsum."""
+        if x.is_cuda and x.dtype == w.dtype == torch.float32 \
+                and x.shape[1] == 1:
+            B, S, H, n = x.shape
+            out = row_order.matmul_dispatch(x.reshape(B, S, H * n),
+                                            per_head_table(w, into))
+            return out.reshape(B, S, H, -1)
+        return super().per_head_matmul(x, w, into)
+
+    def latent_decode_attention(self, q_lat, q_rope, c, k_rope, lengths,
+                                scale: float):
+        """On the card, MLA's absorbed decode attention through the
+        fixed-order ``flash_decode_attention`` kernel as one kv head with G
+        = H query heads: keys [c | k_rope] (R + Dr wide, one copy of the
+        cache a step), queries [q_lat | q_rope], the given ``scale``; the
+        kernel's values are the same keys and the first R entries of its
+        context are the mix of c. Unrounded, as the reference composes it
+        on every backend; a lane's bits depend on its own length only. On
+        the CPU (or in f64) None: the composed path."""
+        if not q_lat.is_cuda or q_lat.dtype != torch.float32:
+            return None
+        B, _, H, R = q_lat.shape
+        q = torch.cat([q_lat, q_rope], dim=-1).reshape(B, 1, H, -1)
+        kv = torch.cat([c, k_rope], dim=-1)[:, :, None, :]
+        out = flash_decode.flash_decode_attention(q, kv, kv, lengths,
+                                                  scale=scale)
+        return out[..., :R].reshape(B, 1, H, R)
 
     def _table_t(self, table):
         key = (table.data_ptr(), tuple(table.shape), table.device,

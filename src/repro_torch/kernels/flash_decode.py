@@ -43,6 +43,10 @@ and any head dim D, as the Pallas kernels take any (D > 256 in slices of
 n - 1); ``softcap`` c > 0: a score s becomes c·tanh(s·(1/c)) after the
 scale, before the softmax (the reference's ``bk.softcap``). 0 means none
 for both. A lane of length 0 still attends all S positions uniformly.
+``scale`` (kernel 4 and the plain versions): the scores' factor, D^-½
+when 0 (what every GQA caller passes); MLA's absorbed decode runs as one
+kv head of keys [c | k_rope] with the scale (d_nope + d_rope)^-½
+(``TorchOps.latent_decode_attention``).
 """
 from __future__ import annotations
 
@@ -114,7 +118,8 @@ def flash_decode_split_ref(q, k, v, lengths, fmt=None, *,
                            saturating: bool = True,
                            dtype: torch.dtype = torch.float32,
                            window: int = 0,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0,
+                           scale: float = 0.0) -> torch.Tensor:
     """Plain version of the kernels' split algorithm: chunk partials over
     FD_CHUNK positions from position 0 (m_c = max(-1e30, max s), l_c = Σ p,
     acc_c = Σ p·v̂ with p = exp(s - m_c) over the chunk's attended
@@ -150,7 +155,7 @@ def flash_decode_split_ref(q, k, v, lengths, fmt=None, *,
     # what the kernels never read is zero here, so it cannot reach the sums
     kq = torch.where(real[:, :, None, None], qf(pad(k)), 0.0)
     vq = torch.where(real[:, :, None, None], qf(pad(v)), 0.0)
-    s = torch.einsum("bhgd,bshd->bhgs", qf(q), kq) * D ** -0.5
+    s = torch.einsum("bhgd,bshd->bhgs", qf(q), kq) * (scale or D ** -0.5)
     s = _softcap(s, softcap)
     s = torch.where((lengths <= 0)[:, None, None, None], NEG, s)
     s = s.reshape(B, H, G, nc_max, FD_CHUNK)
@@ -262,14 +267,16 @@ def certified_decode_attention(q, k, v, lengths, fmt, *,
 
 
 def flash_decode_ref(q, k, v, lengths, window: int = 0,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, scale: float = 0.0
+                     ) -> torch.Tensor:
     """Plain version of :func:`flash_decode_attention` (the reference's
     ``ref.flash_decode_ref``, with the reference's composed window mask and
-    softcap): q [B, K, G, D], k/v [B, S, K, D], lengths [B]; scaled scores,
-    softcapped, masked, softmax in f32, returns [B, K, G, D]."""
+    softcap): q [B, K, G, D], k/v [B, S, K, D], lengths [B]; scores scaled
+    by ``scale`` (0: D^-½), softcapped, masked, softmax in f32, returns
+    [B, K, G, D]."""
     _check_window_softcap(window, softcap)
     D, S = q.shape[-1], k.shape[1]
-    s = torch.einsum("bkgd,bskd->bkgs", q, k) * D ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", q, k) * (scale or D ** -0.5)
     s = _softcap(s, softcap)
     valid = _attended_mask(lengths, S, window, q.device)        # [B, S]
     s = torch.where(valid[:, None, None, :], s, NEG)
@@ -290,12 +297,14 @@ def _lib_plain():
 
 
 def flash_decode_attention(q, k, v, lengths, window: int = 0,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0,
+                           scale: float = 0.0) -> torch.Tensor:
     """The CUDA kernel of uncertified decode attention. q f32[B, K, G, D],
     k/v f32[B, S, K, D] with S ≥ 1, lengths int32[B], all contiguous on one
     card; any G ≥ 1 and D ≥ 1, as :func:`flash_decode_certified` (Qwen2-7B
-    needs G=7, D=128); ``window`` and ``softcap`` as in the module's
-    docstring (0: none). ``flash_decode_attention.launches`` counts calls."""
+    needs G=7, D=128); ``window``, ``softcap`` and ``scale`` as in the
+    module's docstring (0: none, none, D^-½).
+    ``flash_decode_attention.launches`` counts calls."""
     B, S, H, G, D = _check_decode_args(q, k, v, lengths)
     _check_window_softcap(window, softcap)
     out = torch.empty_like(q)
@@ -303,8 +312,8 @@ def flash_decode_attention(q, k, v, lengths, window: int = 0,
     cap = float(softcap)
     rc = _lib_plain().repro_flash_decode_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr(), B, S, H, G, D, D ** -0.5,
-        int(window), cap, 1.0 / cap if cap else 0.0,
+        out.data_ptr(), part.data_ptr(), B, S, H, G, D,
+        float(scale) or D ** -0.5, int(window), cap, 1.0 / cap if cap else 0.0,
         _build.stream_ptr(q.device))
     _build.check(rc, "flash_decode_attention")
     flash_decode_attention.launches += 1

@@ -24,6 +24,12 @@ version for tensors on the CPU, the kernel for tensors on the card, or an
 exception — no fallback. Against ``torch.mean`` / ``torch.einsum`` both
 differ only by summation order (a few f32 ulps of the sum of magnitudes).
 
+MLA's two per-head weight products of a single-token step (into the
+latent space and out of it, ``TorchOps.per_head_matmul``) also run
+through :func:`f32_matmul`, on a :func:`block_diagonal` table of the
+heads' weights: at MiniCPM3's widths the library product's bits depend on
+the batch there.
+
 These are port-only kernels: the JAX package has no Pallas kernel for
 either (XLA computes both), so they replace no TPU kernel.
 """
@@ -170,6 +176,19 @@ def transposed(table: torch.Tensor) -> torch.Tensor:
     """A contiguous ``[D, V]`` copy of an embedding table ``[V, D]``: the
     layout the GEMM body reads w in (2.18 GB at Qwen2-7B's width)."""
     return table.t().contiguous()
+
+
+def block_diagonal(blocks: torch.Tensor) -> torch.Tensor:
+    """The ``[H·n_in, H·n_out]`` block-diagonal matrix of ``blocks`` [H,
+    n_in, n_out], zeros off the blocks. ``x [..., H·n_in] @`` it through
+    :func:`f32_matmul` is every head's own product in one launch, bit for
+    bit head by head: a zero weight adds an exact ±0 to the fmaf chain, so
+    each output is its head's n_in-long chain from +0 (finite x)."""
+    H, n_in, n_out = blocks.shape
+    bd = blocks.new_zeros((H, n_in, H, n_out))
+    heads = torch.arange(H, device=blocks.device)
+    bd[heads, :, heads, :] = blocks
+    return bd.reshape(H * n_in, H * n_out)
 
 
 def matmul_dispatch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

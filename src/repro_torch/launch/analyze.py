@@ -13,8 +13,10 @@ with ``--routers``, the MoE router decision margins (the route is fixed
 from the emulated values; it is flip-safe for every u below the record's
 ``flip_safe_if_u_le``). The params are the port's seeded ``init_params``
 (``torch.Generator`` seed 0), the tokens the reference's draw for seed 1
-(:func:`repro_torch.certify.tokens.profile_tokens`). Runs on the card
-unless ``--device cpu`` is given.
+(:func:`repro_torch.certify.tokens.profile_tokens`), and a modality
+frontend's inputs (Whisper's frames, PaliGemma's patches) the reference's
+draw from ``np.random.RandomState(0)``. Runs on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.certify.lm import frontend_kwargs
 from repro_torch.certify.tokens import profile_tokens
 from repro_torch.core import caa
 from repro_torch.core.backend import CaaOps
@@ -50,14 +53,14 @@ def main(argv=None):
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to analyse on the CPU")
     cfg = configs.get(args.arch).SMOKE
-    T.check_supported(cfg)
     params = T.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     ccfg = caa.CaaConfig(u_max=2.0 ** (1 - args.k), emulate_k=args.k)
     bk = CaaOps(ccfg)
     tokens = profile_tokens(1, args.batch, args.seq, cfg.vocab, dev)
+    kwargs = frontend_kwargs(cfg, args.batch, 0, dev)
 
-    logits, _ = T.forward(bk, params, cfg, tokens)
+    logits, _ = T.forward(bk, params, cfg, tokens, **kwargs)
     a_abs, a_rel = caa.actual_error_in_u(logits, ccfg.u_max)
     d, e = caa.worst(logits)
 

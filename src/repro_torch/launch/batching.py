@@ -40,7 +40,12 @@ whatever the batch, the lane or the neighbours; the library products (the
 LM head, the composed attention) promise no such thing.
 
 A model without an indexed KV cache (RWKV: its whole context is a
-recurrent state) raises ``NotImplementedError``, as in the reference.
+recurrent state) raises ``NotImplementedError``, as in the reference. So
+does an encoder-decoder model (Whisper): a request carries tokens only, as
+in the reference's engine, whose forward then has no encoder input. A
+vision model (PaliGemma) is served text-only, without its patch prefix, as
+the reference's engine serves it; MiniCPM3's latent cache has an index, so
+the engine serves it.
 
 The port runs on one GPU: no mesh. Entry points run on the card unless the
 caller asks for the CPU (``device="cpu"``); without a card they raise.
@@ -101,6 +106,15 @@ def _device_of(params) -> torch.device:
     return params["embed"].device
 
 
+def _check_servable(arch_cfg) -> None:
+    """An encoder-decoder model raises: requests carry no encoder input."""
+    if arch_cfg.enc_dec:
+        raise NotImplementedError(
+            f"{arch_cfg.name}: continuous batching serves tokens only, and "
+            "an encoder-decoder model needs its encoder input (the "
+            "reference's engine passes none either)")
+
+
 class ContinuousBatchingEngine:
     """Decode scheduler: admission queue → lanes → recycled lanes.
 
@@ -123,6 +137,7 @@ class ContinuousBatchingEngine:
         dev, on = serve.resolve_device(device), _device_of(params)
         if on.type != dev.type or dev.index not in (None, on.index):
             raise ValueError(f"params live on {on}, the engine on {dev}")
+        _check_servable(arch_cfg)
         self.device = on
         self.arch_cfg, self.sc, self.params = arch_cfg, sc, params
         self.n_lanes, self.max_seq = n_lanes, max_seq
@@ -340,6 +355,7 @@ def reference_generate(arch_cfg, sc: serve.ServeConfig, params,
     equal the engine's (the cache width is part of the masked-softmax
     shape). Returns the tokens, or (tokens, logit rows [n, V]) with
     ``return_logits``."""
+    _check_servable(arch_cfg)
     bk = make_backend(sc, unrolled=True)
     dev = _device_of(params)
     cache = T.init_cache(arch_cfg, 1, max_seq, device=dev, per_lane_idx=True)

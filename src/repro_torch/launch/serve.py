@@ -40,8 +40,13 @@ full-precision prefill; ``--metrics`` / ``--prom`` write the registry
 
 Every arch of :mod:`repro_torch.configs` serves through the same path
 (``--arch qwen2_7b|command_r_35b|gemma2_27b|mixtral_8x22b|
-llama4_maverick``); ``--max-layers`` cuts the depth of a full-width
-config to fit the card.
+llama4_maverick|rwkv6_1p6b|hymba_1p5b|minicpm3_4b|whisper_medium|
+paligemma_3b``); ``--max-layers`` cuts the depth of a full-width config to
+fit the card. A modality stub's inputs are drawn from ``--seed`` after the
+prompt, as the reference's CLI draws them: PaliGemma's patches are
+prepended at prefill (its decode positions follow them), and Whisper's
+frames are encoded once at prefill, the encoder states reused by every
+decode step.
 
 CLI::
 
@@ -383,19 +388,44 @@ def add_certificate_flags(ap: argparse.ArgumentParser) -> None:
                          "--certify-mixed/--certify-formats)")
 
 
-def prefill_step(bk, params, cfg, cache, tokens):
-    """Prefill ``tokens`` [B, S] into an empty cache. Returns (last-position
-    logits [B, 1, V], cache)."""
+def prefix_len(cfg) -> int:
+    """Positions a vision prefix takes before the prompt (its patches sit
+    in the cache after the prefill); 0 for other archs."""
+    return cfg.frontend_seq if cfg.frontend == "vision" else 0
+
+
+def encode_step(bk, params, cfg, frontend):
+    """An encoder-decoder model's encoder states [B, Se, d] of the audio
+    frames ``frontend``, computed once for a prefill and every decode step
+    after it (as the reference's ``_fwd_kwargs`` intends); None for other
+    archs."""
+    if not cfg.enc_dec:
+        return None
+    return bk.value_of(T.encode(bk, params, cfg, frontend))
+
+
+def prefill_step(bk, params, cfg, cache, tokens, frontend=None,
+                 enc_out=None):
+    """Prefill ``tokens`` [B, S] into an empty cache — after a vision
+    prefix ``frontend`` (its patches, projected and prepended), or
+    attending to the encoder states ``enc_out`` (:func:`encode_step`).
+    Returns (last-position logits [B, 1, V], cache)."""
+    kw = {"enc_out": enc_out} if cfg.enc_dec else {}
+    if cfg.frontend == "vision" and frontend is not None:
+        kw["frontend_embeds"] = frontend
     logits, cache = T.forward(bk, params, cfg, tokens, cache=cache,
-                              q_offset=0)
+                              q_offset=0, **kw)
     return logits[:, -1:, :], cache
 
 
-def decode_step(bk, params, cfg, cache, tokens, pos: int):
-    """One token per sequence at absolute position ``pos``. Returns
-    (next tokens [B], logits [B, V], cache)."""
+def decode_step(bk, params, cfg, cache, tokens, pos: int, enc_out=None):
+    """One token per sequence at absolute position ``pos`` (a vision
+    prefix's positions included); an encoder-decoder model attends to the
+    prefill's ``enc_out``. Returns (next tokens [B], logits [B, V],
+    cache)."""
+    kw = {"enc_out": enc_out} if cfg.enc_dec else {}
     logits, cache = T.forward(bk, params, cfg, tokens, cache=cache,
-                              q_offset=pos)
+                              q_offset=pos, **kw)
     last = logits[:, -1, :]
     return torch.argmax(last, dim=-1), last, cache
 
@@ -426,6 +456,7 @@ class ServeResult:
     config: ServeConfig
     registry: Optional[obs.MetricsRegistry] = None
     monitor: Optional[ViolationMonitor] = None
+    frontend: Optional[torch.Tensor] = None   # the stub's frames / patches
 
 
 def _sync(dev):
@@ -550,8 +581,10 @@ def main(argv=None) -> ServeResult:
         cfg = dataclasses.replace(
             cfg, n_layers=min(args.max_layers, cfg.n_layers))
 
+    prefix = prefix_len(cfg)
     sc = ServeConfig(arch=args.arch, batch=args.batch,
-                     max_seq=args.prefill_len + args.decode_steps + 1,
+                     max_seq=args.prefill_len + args.decode_steps + 1
+                     + prefix,
                      prefill_len=args.prefill_len,
                      precision_k=args.precision_k,
                      precision_layer_format=(json.loads(args.layer_format)
@@ -570,6 +603,8 @@ def main(argv=None) -> ServeResult:
     rng = np.random.RandomState(args.seed)
     prompt = torch.from_numpy(
         rng.randint(0, cfg.vocab, (sc.batch, sc.prefill_len))).to(dev)
+    # the stub's inputs, drawn after the prompt as the reference draws them
+    frontend = T.frontend_inputs(cfg, sc.batch, rng, dev)
     _sync(dev)
     t_init = time.perf_counter() - t0
     if sc.certificates is not None:
@@ -598,7 +633,9 @@ def main(argv=None) -> ServeResult:
         t0 = time.perf_counter()
         with obs.span("serve.prefill", arch=args.arch, batch=sc.batch,
                       prefill_len=sc.prefill_len):
-            logits, cache = prefill_step(bk, params, cfg, cache, prompt)
+            enc_out = encode_step(bk, params, cfg, frontend)
+            logits, cache = prefill_step(bk, params, cfg, cache, prompt,
+                                         frontend, enc_out)
             tok = torch.argmax(logits[:, -1, :], dim=-1)
             if monitor is not None:
                 monitor.flush()
@@ -611,7 +648,8 @@ def main(argv=None) -> ServeResult:
             with obs.span("serve.decode", step=i):
                 tok, last, cache = decode_step(bk, params, cfg, cache,
                                                tok[:, None],
-                                               sc.prefill_len + i)
+                                               prefix + sc.prefill_len + i,
+                                               enc_out)
                 if monitor is not None:
                     monitor.flush()
                 _sync(dev)
@@ -620,7 +658,7 @@ def main(argv=None) -> ServeResult:
             out_toks.append(tok)
             decode_logits.append(last)
         wall = time.perf_counter() - t0
-        if monitor is not None:
+        if monitor is not None and not cfg.frontend and not cfg.enc_dec:
             sample_error(monitor, certset, params, cfg, prompt, logits,
                          sc.max_seq)
     toks = torch.stack(out_toks, dim=1)
@@ -630,6 +668,7 @@ def main(argv=None) -> ServeResult:
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_ms_per_step": 1e3 * t_decode / max(args.decode_steps, 1),
+        "decode_step_ms": [1e3 * s for s in step_s],
         "decode_tokens_per_s": (sc.batch * args.decode_steps / t_decode
                                 if t_decode > 0 else float("nan")),
         "prefill_tokens_per_s": sc.batch * sc.prefill_len / t_prefill,
@@ -659,7 +698,8 @@ def main(argv=None) -> ServeResult:
     return ServeResult(tokens=toks, prompt=prompt, prefill_logits=logits,
                        decode_logits=decode_logits, responses=responses,
                        timing=timing, params=params, cfg=cfg, config=sc,
-                       registry=registry, monitor=monitor)
+                       registry=registry, monitor=monitor,
+                       frontend=frontend)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
-"""Grouped-query attention with a KV cache (PyTorch), the counterpart of
-``gqa_attention`` in the JAX package's ``repro.models.attention``.
+"""Attention with a KV cache (PyTorch), the counterpart of the JAX
+package's ``repro.models.attention``: grouped-query attention
+(:func:`gqa_attention`) and multi-head latent attention
+(:func:`mla_attention`, MiniCPM3).
 
 Unlike the reference, whose arrays are immutable, the port writes new keys
 and values INTO the cache buffers in place (``index_copy_`` along the
@@ -17,8 +19,8 @@ from repro_torch.models import layers as L
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor      # [B, Smax, K, Dh]
-    v: torch.Tensor      # [B, Smax, K, Dh]
+    k: torch.Tensor      # [B, Smax, K, Dh]  (MLA: the latent c [B, Smax, R])
+    v: torch.Tensor      # [B, Smax, K, Dh]  (MLA: the rope key [B, Smax, Dr])
     index: torch.Tensor  # int32 tokens already present: 0-d (all lanes), or
     #                      [B] when lanes advance independently (continuous
     #                      batching)
@@ -143,3 +145,106 @@ def gqa_shapes(d: int, n_heads: int, n_kv_heads: int, d_head: int,
         shapes.update(bq=(n_heads * d_head,), bk=(n_kv_heads * d_head,),
                       bv=(n_kv_heads * d_head,))
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention (MiniCPM3 / DeepSeek style)
+# ---------------------------------------------------------------------------
+
+def mla_attention(bk, x, p, *, n_heads: int, q_rank: int, kv_rank: int,
+                  d_nope: int, d_rope: int, d_v: int, cos, sin, mask,
+                  cache: Optional[KVCache] = None):
+    """MLA: queries through a low-rank down/up projection, keys and values
+    through one compressed latent ``c`` [B, S, kv_rank] shared by every
+    head, plus one shared rope key [B, S, d_rope]. With ``cache`` set, c
+    is written into ``cache.k`` and the rope key into ``cache.v`` in place
+    at ``cache.index``, and attention runs over the whole buffers under
+    ``mask`` ([q, kv], or [B, q, kv] per lane).
+
+    Every step (prefill and decode) takes the reference's absorbed form:
+    q_nope is carried into the latent space through W_uk, the scores are
+    (q_lat·c + q_rope·k_rope)·(d_nope + d_rope)^-½, and the context is
+    the probabilities' mix of c carried out through W_uv. These products
+    are unrounded f32 on every serving backend, as the reference composes
+    them (it never offers MLA to the fused decode hook). The two per-head
+    weight products go through ``bk.per_head_matmul`` (the reference's
+    einsums; on the card a single-token step's through the fixed-order
+    ``f32_matmul``), and a single-token step with a cache offers the
+    attention between them to ``bk.latent_decode_attention`` (on the card
+    the fixed-order decode kernel; None composes it here). Under the analysis
+    the latent mix is clamped to c's hull over the positions (the
+    convex-combination fact)."""
+    B, S, _ = bk.shape_of(x)
+    H = n_heads
+
+    qc = bk.matmul(x, bk.param(p["wq_a"]))                  # [B,S,q_rank]
+    qc = L.rmsnorm(bk, qc, p["q_norm"])
+    q = bk.matmul(qc, bk.param(p["wq_b"]))                  # [B,S,H*(dn+dr)]
+    q = bk.reshape(q, (B, S, H, d_nope + d_rope))
+    q_nope = bk.slice(q, (Ellipsis, slice(0, d_nope)))
+    q_rope = bk.slice(q, (Ellipsis, slice(d_nope, d_nope + d_rope)))
+    q_rope = L.apply_rope(bk, q_rope, cos, sin)
+
+    ckv = bk.matmul(x, bk.param(p["wkv_a"]))                # [B,S,R+dr]
+    c = bk.slice(ckv, (Ellipsis, slice(0, kv_rank)))
+    k_rope = bk.slice(ckv, (Ellipsis, slice(kv_rank, kv_rank + d_rope)))
+    c = L.rmsnorm(bk, c, p["kv_norm"])
+    k_rope = L.apply_rope(bk, bk.reshape(k_rope, (B, S, 1, d_rope)), cos,
+                          sin)
+    k_rope = bk.reshape(k_rope, (B, S, d_rope))
+
+    new_cache = None
+    if cache is not None:
+        _cache_write(cache.k, bk.value_of(c), cache.index)
+        _cache_write(cache.v, bk.value_of(k_rope), cache.index)
+        new_cache = KVCache(cache.k, cache.v, cache.index + S)
+        c = bk.input(cache.k)
+        k_rope = bk.input(cache.v)
+
+    # wkv_b packs [R, H*(dn+dv)]: W_uk = [..., :dn], W_uv = [..., dn:]
+    wkv_b = bk.reshape(bk.param(p["wkv_b"]), (kv_rank, H, d_nope + d_v))
+    w_uk = bk.slice(wkv_b, (Ellipsis, slice(0, d_nope)))
+    w_uv = bk.slice(wkv_b, (Ellipsis, slice(d_nope, d_nope + d_v)))
+    q_lat = bk.per_head_matmul(q_nope, w_uk, into=True)     # [B,S,H,R]
+    scale = (d_nope + d_rope) ** -0.5
+    out_lat = None
+    if cache is not None and S == 1:
+        lengths = new_cache.index.to(torch.int32)
+        if lengths.dim() == 0:
+            lengths = lengths.expand(B)
+        out_lat = bk.latent_decode_attention(
+            q_lat, q_rope, cache.k, cache.v, lengths.contiguous(), scale)
+    if out_lat is None:
+        s_nope = bk.einsum("bqhr,bsr->bhqs", q_lat, c)
+        s_rope = bk.einsum("bqhd,bsd->bhqs", q_rope, k_rope)
+        scores = bk.scale(bk.add(s_nope, s_rope), scale)
+        neg = bk.const(L.NEG_BIG, scores)
+        mb = (mask[:, None, :, :] if mask.dim() == 3
+              else mask[None, None, :, :])
+        scores = bk.where(mb, scores, neg)
+        probs = bk.softmax(scores, dim=-1)
+        probs = bk.record("attn_probs", probs, kind="softmax")
+        out_lat = bk.einsum("bhqs,bsr->bqhr", probs, c)      # [B,S,H,R]
+        if bk.is_analysis:
+            clo = torch.amin(c.exact.lo, dim=1)[:, None, None, :]
+            chi = torch.amax(c.exact.hi, dim=1)[:, None, None, :]
+            out_lat = bk.clamp_range(out_lat, clo, chi)
+    out = bk.per_head_matmul(out_lat, w_uv, into=False)     # [B,S,H,dv]
+    out = bk.reshape(out, (B, S, H * d_v))
+    return bk.matmul(out, bk.param(p["wo"])), new_cache
+
+
+def mla_shapes(d: int, n_heads: int, q_rank: int, kv_rank: int,
+               d_nope: int, d_rope: int, d_v: int):
+    """Parameter shapes of one MLA block (the reference's ``init_mla``):
+    dense weights, and the q / kv latent norms' gains ``q_norm`` and
+    ``kv_norm`` (ones)."""
+    return {
+        "wq_a": (d, q_rank),
+        "wq_b": (q_rank, n_heads * (d_nope + d_rope)),
+        "wkv_a": (d, kv_rank + d_rope),
+        "wkv_b": (kv_rank, n_heads * (d_nope + d_v)),
+        "wo": (n_heads * d_v, d),
+        "q_norm": (q_rank,),
+        "kv_norm": (kv_rank,),
+    }

@@ -1,5 +1,5 @@
 """Backend-generic building blocks (PyTorch), the counterpart of the JAX
-package's ``repro.models.layers`` for the GQA families.
+package's ``repro.models.layers``.
 
 Every function takes the arithmetic backend ``bk`` first; parameters arrive
 as tensors and are wrapped with ``bk.param``. The op order of each block is
@@ -45,9 +45,33 @@ def rmsnorm(bk, x, gamma, eps: float = 1e-6):
     y = bk.mul(bk.mul(x, inv), g)
     if not bk.is_analysis:
         return y
-    n = bk.shape_of(x)[-1]
-    bound = (math.sqrt(n) * 1.0000001) * gamma.to(torch.float64).abs()
+    bound = groupless_norm_bound(bk.shape_of(x)[-1]) * gamma.to(
+        torch.float64).abs()
     return bk.clamp_range(y, -bound, bound)
+
+
+def groupless_norm_bound(n: int) -> float:
+    """The norms' global range fact |x_i − μ|/σ ≤ √n (and |x_i|/rms ≤ √n),
+    with the reference's 1e-7 relative slack."""
+    return math.sqrt(n) * 1.0000001
+
+
+def layernorm(bk, x, gamma, beta, eps: float = 1e-5):
+    """(x − μ) * rsqrt(mean((x − μ)², -1) + eps) * γ + β, both means
+    through ``bk.mean`` (on the card the fixed-order ``row_mean`` kernel,
+    as in :func:`rmsnorm`). The analysis gets the same global-insight
+    clamp as the rmsnorm's: |(x − μ)/σ| ≤ √n, so y ∈ β ± √n·|γ|."""
+    mu = bk.mean(x, dim=-1, keepdim=True)
+    xc = bk.sub(x, mu)
+    var = bk.mean(bk.square(xc), dim=-1, keepdim=True)
+    inv = bk.rsqrt(bk.shift(var, eps))
+    y = bk.add(bk.mul(bk.mul(xc, inv), bk.param(gamma)), bk.param(beta))
+    if not bk.is_analysis:
+        return y
+    bound = groupless_norm_bound(bk.shape_of(x)[-1]) * gamma.to(
+        torch.float64).abs()
+    b64 = beta.to(torch.float64)
+    return bk.clamp_range(y, b64 - bound, b64 + bound)
 
 
 def embed(bk, table, ids):
@@ -73,6 +97,14 @@ def mlp_gated(bk, x, w_gate, w_up, w_down, act: str = "silu"):
     u = bk.matmul(x, bk.param(w_up))
     a = getattr(bk, act)(g)
     return bk.matmul(bk.mul(a, u), bk.param(w_down))
+
+
+def mlp_plain(bk, x, w_in, b_in, w_out, b_out, act: str = "gelu"):
+    """Two-layer MLP with biases: act(x@W_in + b_in)@W_out + b_out (the
+    reference defines it; no registered model calls it)."""
+    h = bk.add(bk.matmul(x, bk.param(w_in)), bk.param(b_in))
+    h = getattr(bk, act)(h)
+    return bk.add(bk.matmul(h, bk.param(w_out)), bk.param(b_out))
 
 
 def rope_tables(positions: torch.Tensor, d_head: int,

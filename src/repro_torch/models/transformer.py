@@ -1,16 +1,18 @@
 """LM backbone (PyTorch): the counterpart of the JAX package's
-``repro.models.transformer`` for the GQA and recurrent families.
+``repro.models.transformer``, for all ten of its architectures.
 
 It covers the dense GQA models (Qwen2, Command-R), Gemma-2 (softcapped
 scores and logits, √d embedding scale, even layers local with a sliding
 window, odd ones global, tanh-GELU), the MoE ones (Mixtral with a sliding
 window on every layer, Llama-4), RWKV6 (attention-free: time mix and
-channel mix, an O(1) recurrent state) and Hymba (windowed GQA attention
-beside Mamba heads, averaged). Parameters keep the reference's stacked
-layout — a dict whose per-layer tensors carry a leading ``[L]`` axis — so
-both packages compute the same thing on the same numbers. The other
-families' features (MLA, encoder-decoder, modality frontends, LayerNorm)
-are not ported yet and raise ``NotImplementedError``.
+channel mix, an O(1) recurrent state), Hymba (windowed GQA attention
+beside Mamba heads, averaged), MiniCPM3 (multi-head latent attention over
+a compressed latent cache), Whisper (LayerNorm, an encoder over the audio
+stub's frames and cross-attention in every decoder layer) and PaliGemma
+(the vision stub's patches projected and prepended to the text).
+Parameters keep the reference's stacked layout — a dict whose per-layer
+tensors carry a leading ``[L]`` axis — so both packages compute the same
+thing on the same numbers.
 """
 from __future__ import annotations
 
@@ -74,30 +76,21 @@ class ArchConfig:
         return self.d_head if self.d_head else self.d_model // self.n_heads
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for anything outside the GQA families with
-    RMSNorm (dense or MoE MLPs, softcaps, sliding windows, embedding
-    scale), RWKV and the attention + Mamba hybrid."""
-    unported = {
-        "mla": cfg.mla, "enc_dec": cfg.enc_dec,
-        "frontend": cfg.frontend is not None,
-        "layernorm": cfg.norm != "rmsnorm",
-    }
-    missing = sorted(k for k, v in unported.items() if v)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch")
-
-
-def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
-    """The parameter tree's shapes (stacked ``[L, ...]`` per-layer)."""
-    check_supported(cfg)
-    d, dh, n = cfg.d_model, cfg.head_dim, cfg.n_layers
+def _layer_shapes(cfg: ArchConfig, n: int) -> Dict[str, Any]:
+    """One stack of ``n`` layers' shapes (stacked ``[n, ...]``)."""
+    d, dh = cfg.d_model, cfg.head_dim
     stack = lambda shapes: {k: (n,) + s for k, s in shapes.items()}
     layers = {"ln1": (n, d), "ln2": (n, d)}
+    if cfg.norm == "layernorm":
+        layers.update(ln1_b=(n, d), ln2_b=(n, d))
     if cfg.rwkv:
         layers["tmix"] = stack(SSM.rwkv_tmix_shapes(d, cfg.n_heads))
         layers["cmix"] = stack(SSM.rwkv_cmix_shapes(d, cfg.d_ff))
+        return layers
+    if cfg.mla:
+        layers["attn"] = stack(A.mla_shapes(
+            d, cfg.n_heads, cfg.q_rank, cfg.kv_rank, cfg.d_nope,
+            cfg.d_rope, cfg.d_v))
     else:
         layers["attn"] = stack(A.gqa_shapes(d, cfg.n_heads, cfg.n_kv_heads,
                                             dh, cfg.qkv_bias))
@@ -107,14 +100,34 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     if cfg.family == "moe":
         layers["moe"] = stack(M.moe_shapes(d, cfg.moe_d_ff or cfg.d_ff,
                                            cfg.n_experts))
-    elif not cfg.rwkv:
+    else:
         layers["mlp"] = {"w_gate": (n, d, cfg.d_ff),
                          "w_up": (n, d, cfg.d_ff),
                          "w_down": (n, cfg.d_ff, d)}
-    shapes = {"embed": (cfg.vocab, d), "layers": layers,
+    return layers
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameter tree's shapes (stacked ``[L, ...]`` per-layer). An
+    encoder-decoder model adds the encoder's dense layers ``enc_layers``
+    (no MLA, RWKV or Mamba, as the reference builds them), ``enc_norm``
+    and per decoder layer a ``cross`` GQA block; a modality frontend its
+    ``frontend_proj`` [frontend_dim, d]."""
+    d = cfg.d_model
+    shapes = {"embed": (cfg.vocab, d),
+              "layers": _layer_shapes(cfg, cfg.n_layers),
               "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["head"] = (cfg.vocab, d)
+    if cfg.enc_dec:
+        enc = dataclasses.replace(cfg, rwkv=False, hybrid=False, mla=False,
+                                  family="dense")
+        shapes["enc_layers"] = _layer_shapes(enc, cfg.n_enc_layers)
+        shapes["enc_norm"] = (d,)
+        shapes["cross"] = {k: (cfg.n_layers,) + s for k, s in A.gqa_shapes(
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim).items()}
+    if cfg.frontend:
+        shapes["frontend_proj"] = (cfg.frontend_dim, d)
     return shapes
 
 
@@ -125,16 +138,18 @@ def _init_value(path, shape, generator, device):
     """One tensor at ``path`` (its keys in the tree), filled in place on
     ``device`` with the reference's distributions: N(0, 1/fan_in) dense
     weights (the experts' too: fan_in is the second-to-last axis), N(0,
-    0.02²) embeddings, ones for norm gains, zeros for biases; the leaves of
+    0.02²) embeddings, ones for norm gains (MLA's latent norms and the
+    encoder's too), zeros for biases (LayerNorm's ``ln*_b`` too); the leaves of
     the ``tmix``, ``cmix`` and ``mamba`` blocks (whose names collide with
     attention's) as :func:`repro_torch.models.ssm.init_leaf` draws them."""
     name = path[-1]
     if len(path) > 1 and path[-2] in _SSM_BLOCKS:
         return SSM.init_leaf(name, shape, generator=generator, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    if name in ("ln1", "ln2", "final_norm"):
+    if name in ("ln1", "ln2", "final_norm", "enc_norm", "q_norm",
+                "kv_norm"):
         return t.fill_(1.0)
-    if name in ("bq", "bk", "bv"):
+    if name in ("bq", "bk", "bv", "ln1_b", "ln2_b"):
         return t.zero_()
     std = 0.02 if name in ("embed", "head") else 1.0 / math.sqrt(shape[-2])
     return t.normal_(0.0, std, generator=generator)
@@ -160,42 +175,53 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device, dtype=torch.float32,
                per_lane_idx: bool = False) -> Dict[str, torch.Tensor]:
     """Stacked per-layer decode cache: k/v [L, B, Smax, K, Dh], idx [L].
-    RWKV: its O(1) state instead, S [L, B, H, C, C] and the token-shift
-    rows x_tm / x_cm [L, B, d], no idx. A hybrid model: also the Mamba
-    state h_ssm [L, B, d_inner, N].
+    MLA: the compressed latent instead, k = c [L, B, Smax, kv_rank] and v =
+    the rope key [L, B, Smax, d_rope]. RWKV: its O(1) state, S [L, B, H,
+    C, C] and the token-shift rows x_tm / x_cm [L, B, d], no idx. A hybrid
+    model: also the Mamba state h_ssm [L, B, d_inner, N].
 
     ``per_lane_idx=True`` gives each batch lane its own write index (idx
     [L, B]): the continuous-batching engine's cache, where lanes prefill
     and decode at independent positions."""
-    check_supported(cfg)
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     Lh, d = cfg.n_layers, cfg.d_model
     if cfg.rwkv:
         C = d // cfg.n_heads
         return {"S": zeros(Lh, batch, cfg.n_heads, C, C),
                 "x_tm": zeros(Lh, batch, d), "x_cm": zeros(Lh, batch, d)}
+    idx = torch.zeros((Lh, batch) if per_lane_idx else (Lh,),
+                      dtype=torch.int32, device=device)
+    if cfg.mla:
+        return {"k": zeros(Lh, batch, max_seq, cfg.kv_rank),
+                "v": zeros(Lh, batch, max_seq, cfg.d_rope), "idx": idx}
     shape = (Lh, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    idx = (Lh, batch) if per_lane_idx else (Lh,)
-    out = {"k": zeros(*shape), "v": zeros(*shape),
-           "idx": torch.zeros(idx, dtype=torch.int32, device=device)}
+    out = {"k": zeros(*shape), "v": zeros(*shape), "idx": idx}
     if cfg.hybrid:
         out["h_ssm"] = zeros(Lh, batch, cfg.mamba_expand * d, cfg.ssm_state)
     return out
 
 
 def analytic_params(cfg: ArchConfig, active: bool = False) -> int:
-    """Closed-form parameter count, the reference's. ``active`` counts the
+    """Closed-form parameter count, the reference's (norms, biases and the
+    frontend projection are not counted, as there). ``active`` counts the
     parameters one token runs through: an MoE layer's router and its top-k
     experts (the others' weights are not read for it)."""
-    check_supported(cfg)
     d, dh = cfg.d_model, cfg.head_dim
     emb = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
     if cfg.rwkv:
         per_layer = 5 * d * d + d * 64 + 64 * d
         per_layer += d * cfg.d_ff + cfg.d_ff * d + d * d
         return emb + cfg.n_layers * per_layer
-    per_layer = d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh
-    per_layer += cfg.n_heads * dh * d
+    if cfg.mla:
+        H = cfg.n_heads
+        per_layer = d * cfg.q_rank + cfg.q_rank * H * (cfg.d_nope
+                                                       + cfg.d_rope)
+        per_layer += d * (cfg.kv_rank + cfg.d_rope)
+        per_layer += cfg.kv_rank * H * (cfg.d_nope + cfg.d_v)
+        per_layer += H * cfg.d_v * d
+    else:
+        per_layer = d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh
+        per_layer += cfg.n_heads * dh * d
     if cfg.hybrid:
         di = cfg.mamba_expand * d
         per_layer += 2 * d * di + di * (2 * cfg.ssm_state + 1) + di * d
@@ -205,16 +231,53 @@ def analytic_params(cfg: ArchConfig, active: bool = False) -> int:
         per_layer += d * cfg.n_experts + e * (2 * d * ff + ff * d)
     else:
         per_layer += 3 * d * cfg.d_ff
-    return emb + cfg.n_layers * per_layer
+    n = emb + cfg.n_layers * per_layer
+    if cfg.enc_dec:
+        n += cfg.n_enc_layers * (4 * d * dh * cfg.n_heads + 3 * d * cfg.d_ff)
+        n += cfg.n_layers * 4 * d * dh * cfg.n_heads
+    return n
 
 
-def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            cache: Optional[Dict[str, torch.Tensor]] = None,
+def _norm(bk, x, p, cfg: ArchConfig, which: str):
+    """The layer's ``which`` norm (``ln1`` / ``ln2``): LayerNorm with its
+    bias ``which + "_b"``, or RMSNorm."""
+    if cfg.norm == "layernorm":
+        return L.layernorm(bk, x, p[which], p[which + "_b"])
+    return L.rmsnorm(bk, x, p[which])
+
+
+def _mlp_or_moe(bk, x, p, cfg: ArchConfig):
+    if cfg.family == "moe":
+        return M.moe_mlp(bk, x, p["moe"], n_experts=cfg.n_experts,
+                         top_k=cfg.top_k, act=cfg.act)
+    return L.mlp_gated(bk, x, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                       p["mlp"]["w_down"], cfg.act)
+
+
+def _rope_dim(cfg: ArchConfig) -> int:
+    return cfg.d_rope if cfg.mla else cfg.head_dim
+
+
+def frontend_inputs(cfg: ArchConfig, batch: int, rng, device):
+    """The modality stub's inputs, [batch, frontend_seq, frontend_dim] f32
+    drawn from ``rng`` (a ``np.random.RandomState``) as the reference draws
+    them (Whisper's audio frames, ``enc_embeds``; PaliGemma's vision
+    patches, ``frontend_embeds``), or None for a text-only arch."""
+    if not cfg.frontend:
+        return None
+    x = rng.randn(batch, cfg.frontend_seq, cfg.frontend_dim)
+    return torch.from_numpy(x.astype("float32")).to(device)
+
+
+def forward(bk, params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
+            *, embeds=None, frontend_embeds=None, enc_embeds=None,
+            enc_out=None, cache: Optional[Dict[str, torch.Tensor]] = None,
             q_offset: Union[int, torch.Tensor] = 0
             ) -> Tuple[torch.Tensor, Any]:
-    """Returns (logits [B, S, V], new_cache). ``tokens``: [B, S] int.
+    """Returns (logits [B, S, V], new_cache). ``tokens``: [B, S] int (or
+    ``embeds`` [B, S, d] in their place).
 
-    With a cache, the S new tokens sit at absolute positions
+    With a cache, the S new positions sit at absolute positions
     ``q_offset + arange(S)``, their keys and values (and a recurrent
     model's state) are written into the cache in place, and the returned
     cache shares its storage with the one passed in. ``q_offset`` is one
@@ -222,23 +285,37 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
     offsets (the ragged path of continuous batching, which needs a cache):
     rope rows and the causal mask are then per lane. The scopes "embed",
     "layer{i}"/"attn"|"mlp" and "head" are the keys certificates assign;
-    an RWKV layer has no sub-scope, and Hymba's Mamba heads run in
-    "layer{i}" itself.
+    an RWKV layer has no sub-scope, and Hymba's Mamba heads and Whisper's
+    cross-attention run in "layer{i}" itself.
+
+    ``frontend_embeds`` [B, P, frontend_dim] (the vision stub's patches)
+    are projected through ``frontend_proj`` and prepended to the text
+    inside the "embed" scope: the sequence is then P + S long, and a cache
+    holds the patches' keys after the prefill (decode passes no patches).
+    An encoder-decoder model attends to ``enc_out`` [B, Se, d] in every
+    decoder layer; without it, :func:`encode` runs first on
+    ``enc_embeds`` [B, Se, frontend_dim] (the audio stub's frames). Serving
+    encodes once at prefill and passes ``enc_out`` to every decode step.
 
     Gemma-2's even layers are local (window ``local_global_period``), its
     odd ones global; a ``window`` applies to every layer (Mixtral, Hymba).
     The loop is unrolled, so each layer's mask and window are chosen by a
     Python int. As in the reference, a single-token step of a model with a
     softcap or a window is not offered to ``bk.decode_attention``
-    (``fused_ok``); it goes to ``bk.windowed_decode_attention``. RWKV has
-    no attention, rope or mask: its state carries the context, and a cached
+    (``fused_ok``); it goes to ``bk.windowed_decode_attention``. MLA never
+    reaches either hook: it composes its absorbed form. RWKV has no
+    attention, rope or mask: its state carries the context, and a cached
     step starts from the state the cache holds."""
-    check_supported(cfg)
-    dev = tokens.device
     with bk.scope("embed"):
-        x = L.embed(bk, params["embed"], tokens)
+        x = L.embed(bk, params["embed"], tokens) if embeds is None \
+            else embeds
         if cfg.embed_scale:
             x = bk.scale(x, math.sqrt(cfg.d_model))
+        if frontend_embeds is not None:
+            fr = bk.matmul(bk.input(frontend_embeds),
+                           bk.param(params["frontend_proj"]))
+            x = bk.concat([fr, x], dim=1)
+    dev = bk.value_of(x).device
 
     B, Sq, _ = bk.shape_of(x)
     ragged = isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1
@@ -247,15 +324,17 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
     step = cache is not None and Sq == 1
     lgp = cfg.local_global_period
     # the fused decode hook only sees the plain-causal S==1 step
-    fused_ok = (step and cfg.softcap_attn is None and cfg.window is None
-                and lgp is None)
+    fused_ok = (step and not cfg.mla and cfg.softcap_attn is None
+                and cfg.window is None and lgp is None)
     if not cfg.rwkv:
         cos_q, sin_q, gmask, lmask = _rope_and_masks(
             cfg, Sq, cache["k"].shape[2] if cache is not None else Sq,
             q_offset, ragged, cache is not None, dev)
+    if cfg.enc_dec and enc_out is None:
+        enc_out = encode(bk, params, cfg, enc_embeds)
 
     def rwkv_layer(p, x, aux):
-        h = L.rmsnorm(bk, x, p["ln1"])
+        h = _norm(bk, x, p, cfg, "ln1")
         state = None
         if aux is not None:
             state = SSM.RwkvState(aux["S"],
@@ -263,7 +342,7 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
         out, new_state = SSM.rwkv_tmix(bk, h, p["tmix"],
                                        n_heads=cfg.n_heads, state=state)
         x = bk.add(x, out)
-        h2 = L.rmsnorm(bk, x, p["ln2"])
+        h2 = _norm(bk, x, p, cfg, "ln2")
         x = bk.add(x, SSM.rwkv_cmix(bk, h2, p["cmix"],
                                     None if aux is None else aux["x_cm"]))
         if aux is not None:
@@ -276,18 +355,26 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
         if cfg.rwkv:
             return rwkv_layer(p, x, aux)
         local = lmask is not None and i % 2 == 0     # Gemma-2: even layers
-        h = L.rmsnorm(bk, x, p["ln1"])
+        mask = lmask if local else gmask
+        h = _norm(bk, x, p, cfg, "ln1")
         kv = None if aux is None else A.KVCache(aux["k"], aux["v"],
                                                 aux["idx"])
         with bk.scope("attn"):
-            out, new_kv = A.gqa_attention(
-                bk, h, p["attn"], n_heads=cfg.n_heads,
-                n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
-                cos=cos_q, sin=sin_q, mask=lmask if local else gmask,
-                softcap=cfg.softcap_attn,
-                window=lgp if local else (cfg.window or 0),
-                qkv_bias=cfg.qkv_bias, cache=kv, fused_decode=fused_ok,
-                windowed_decode=step and not fused_ok)
+            if cfg.mla:
+                out, _ = A.mla_attention(
+                    bk, h, p["attn"], n_heads=cfg.n_heads, q_rank=cfg.q_rank,
+                    kv_rank=cfg.kv_rank, d_nope=cfg.d_nope,
+                    d_rope=cfg.d_rope, d_v=cfg.d_v, cos=cos_q, sin=sin_q,
+                    mask=mask, cache=kv)
+            else:
+                out, _ = A.gqa_attention(
+                    bk, h, p["attn"], n_heads=cfg.n_heads,
+                    n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
+                    cos=cos_q, sin=sin_q, mask=mask,
+                    softcap=cfg.softcap_attn,
+                    window=lgp if local else (cfg.window or 0),
+                    qkv_bias=cfg.qkv_bias, cache=kv, fused_decode=fused_ok,
+                    windowed_decode=step and not fused_ok)
         if cfg.hybrid:
             # the Mamba heads beside the attention, averaged with it
             m_out, h_fin = SSM.mamba_lite(
@@ -297,20 +384,18 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
             if aux is not None:
                 aux["h_ssm"].copy_(h_fin)
         x = bk.add(x, out)
-        h2 = L.rmsnorm(bk, x, p["ln2"])
+        if cfg.enc_dec:
+            hc = _norm(bk, x, p, cfg, "ln1")
+            x = bk.add(x, _cross_attention(bk, hc, enc_out, p["cross"], cfg))
+        h2 = _norm(bk, x, p, cfg, "ln2")
         with bk.scope("mlp"):
-            if cfg.family == "moe":
-                mlp_out = M.moe_mlp(bk, h2, p["moe"],
-                                    n_experts=cfg.n_experts,
-                                    top_k=cfg.top_k, act=cfg.act)
-            else:
-                mlp_out = L.mlp_gated(bk, h2, p["mlp"]["w_gate"],
-                                      p["mlp"]["w_up"], p["mlp"]["w_down"],
-                                      cfg.act)
+            mlp_out = _mlp_or_moe(bk, h2, p, cfg)
         return bk.add(x, mlp_out)
 
-    x = bk.layer_loop(layer_fn, params["layers"], x, cfg.n_layers,
-                      aux=cache)
+    lp = params["layers"]
+    if cfg.enc_dec:
+        lp = dict(lp, cross=params["cross"])
+    x = bk.layer_loop(layer_fn, lp, x, cfg.n_layers, aux=cache)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache)
@@ -323,6 +408,67 @@ def forward(bk, params, cfg: ArchConfig, tokens: torch.Tensor, *,
         logits = L.logits_head(bk, x, head, cfg.softcap_final)
         logits = bk.record("logits", logits, kind="head")
     return logits, new_cache
+
+
+def _cross_attention(bk, x, enc_out, p, cfg: ArchConfig):
+    """Decoder-to-encoder attention (Whisper): queries from the decoder's
+    ``x`` [B, Sq, d], keys and values projected from ``enc_out`` [B, Se,
+    d] on every call, as the reference does; no rope and no mask (every
+    frame is visible). Under the analysis the context is clamped to the
+    values' hull over the frames (the convex-combination fact)."""
+    B, Sq, _ = bk.shape_of(x)
+    Se = bk.shape_of(enc_out)[1]
+    q = bk.matmul(x, bk.param(p["wq"]))
+    k = bk.matmul(enc_out, bk.param(p["wk"]))
+    v = bk.matmul(enc_out, bk.param(p["wv"]))
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // K
+    q = bk.reshape(q, (B, Sq, K, G, dh))
+    k = bk.reshape(k, (B, Se, K, dh))
+    v = bk.reshape(v, (B, Se, K, dh))
+    scores = bk.scale(bk.einsum("bqkgd,bskd->bkgqs", q, k), dh ** -0.5)
+    probs = bk.softmax(scores, dim=-1)
+    out = bk.einsum("bkgqs,bskd->bqkgd", probs, v)
+    if bk.is_analysis:
+        vlo = torch.amin(v.exact.lo, dim=1)[:, None, :, None, :]
+        vhi = torch.amax(v.exact.hi, dim=1)[:, None, :, None, :]
+        out = bk.clamp_range(out, vlo, vhi)
+    out = bk.reshape(out, (B, Sq, H * dh))
+    return bk.matmul(out, bk.param(p["wo"]))
+
+
+def encode(bk, params, cfg: ArchConfig, enc_embeds):
+    """Whisper's encoder stack over the audio stub's frame embeddings
+    ``enc_embeds`` [B, Se, frontend_dim]: projected through
+    ``frontend_proj``, then bidirectional GQA attention (rope over the
+    frames, no mask) and the MLP in each of the ``n_enc_layers`` dense
+    layers, ending in an RMSNorm (``enc_norm``), as the reference does. Its
+    layers run under the same ``layer{i}`` scopes as the decoder's (without
+    "attn" / "mlp" sub-scopes), as in the reference, so that certificates
+    cross between the packages. Without frames it raises ValueError, as the
+    reference does (``certify_lm``'s uniform probe passes none)."""
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name}: the encoder needs the audio stub's "
+                         "frames (enc_embeds), or pass its states (enc_out)")
+    x = bk.matmul(bk.input(enc_embeds), bk.param(params["frontend_proj"]))
+    Se = bk.shape_of(x)[1]
+    dev = bk.value_of(x).device
+    cos, sin = L.rope_tables(torch.arange(Se, device=dev), cfg.head_dim,
+                             cfg.rope_theta)
+    mask = torch.ones((Se, Se), dtype=torch.bool, device=dev)
+
+    def layer_fn(p, x, i, aux):
+        h = _norm(bk, x, p, cfg, "ln1")
+        out, _ = A.gqa_attention(
+            bk, h, p["attn"], n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim, cos=cos,
+            sin=sin, mask=mask)
+        x = bk.add(x, out)
+        h2 = _norm(bk, x, p, cfg, "ln2")
+        return bk.add(x, _mlp_or_moe(bk, h2, p, cfg))
+
+    x = bk.layer_loop(layer_fn, params["enc_layers"], x, cfg.n_enc_layers)
+    return L.rmsnorm(bk, x, params["enc_norm"])
 
 
 def _rope_and_masks(cfg: ArchConfig, Sq: int, kv_len: int, q_offset,
@@ -338,7 +484,7 @@ def _rope_and_masks(cfg: ArchConfig, Sq: int, kv_len: int, q_offset,
         positions = torch.arange(Sq, device=dev) + q_offset
     rope_positions = (torch.arange(kv_len, device=dev) if cached
                       else positions)
-    cos_full, sin_full = L.rope_tables(rope_positions, cfg.head_dim,
+    cos_full, sin_full = L.rope_tables(rope_positions, _rope_dim(cfg),
                                        cfg.rope_theta)
     if cached:
         cos_q, sin_q = cos_full[positions], sin_full[positions]

@@ -134,11 +134,31 @@ def test_lm_layer_flops_equal_reference(size):
 
 
 def test_unported_frontend_raises(nano):
+    """Once a modality frontend was refused here; now the stacked pipeline
+    draws the stub's inputs as the reference does (audio frames as
+    ``enc_embeds``, vision patches as ``frontend_embeds``, f32 from
+    ``np.random.RandomState(seed)``; none for text), and the nano LM with a
+    vision stub certifies with its patches prepended."""
+    from repro.certify.lm import _frontend_kwargs as jfront
+    from repro_torch.certify.lm import frontend_kwargs as tfront
+
     _, _, tcfg, tp = nano
-    audio = dataclasses.replace(tcfg, frontend="audio", frontend_seq=4,
-                                frontend_dim=8)
-    with pytest.raises(NotImplementedError):
-        tcertify.certify_lm("qwen2_7b", audio, tp, mixed=True, k_max=24)
+    for kind in ("audio", "vision", None):
+        cfg = dataclasses.replace(tcfg, frontend=kind, frontend_seq=4,
+                                  frontend_dim=8)
+        want, got = jfront(cfg, 2, 3), tfront(cfg, 2, 3, "cpu")
+        assert set(want) == set(got)
+        for key in want:
+            assert np.array_equal(got[key].numpy(), want[key])
+    vision = dataclasses.replace(tcfg, frontend="vision", frontend_seq=4,
+                                 frontend_dim=8)
+    import torch
+
+    params = dict(tp, frontend_proj=torch.randn(
+        8, tcfg.d_model, generator=torch.Generator().manual_seed(0)))
+    cs = tcertify.certify_lm("qwen2_7b", vision, params, mixed=True,
+                             k_max=24, device="cpu")
+    assert len(cs.certificates) == 1
 
 
 def test_certify_cli_on_the_cpu(tmp_path, monkeypatch):
@@ -173,8 +193,11 @@ def test_analyze_cli_on_the_cpu(capsys):
     out = main(["--device", "cpu", "--k", "12", "--seq", "4"])
     assert math.isfinite(out["abs_u"]) and out["trace"]
     assert "certified actual |error|" in capsys.readouterr().out
-    with pytest.raises(KeyError, match="not ported"):
-        main(["--device", "cpu", "--arch", "minicpm3_4b"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        main(["--device", "cpu", "--arch", "not_an_arch"])
+    out = main(["--device", "cpu", "--arch", "minicpm3_4b", "--k", "12",
+                "--seq", "4"])
+    assert math.isfinite(out["abs_u"])
     out = main(["--device", "cpu", "--arch", "rwkv6_1p6b", "--k", "12",
                 "--seq", "4"])
     assert math.isfinite(out["abs_u"])

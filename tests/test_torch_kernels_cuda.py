@@ -1041,3 +1041,76 @@ def test_gemm_kernels_at_the_recurrent_families_shapes(cuda_device, M, K, N):
                      tqm.quant_matmul_ref(xc, wc, 12))
     rows = x[:4].contiguous()
     assert_same_bits(tro.f32_matmul(rows, w), tro.f32_matmul_seq_ref(rows, w))
+
+
+# the last three families' decode attention at their serve shapes (batch 4,
+# ``serve.main``'s cache at 128 + 16 tokens): Whisper's decoder self-
+# attention (16 kv heads of one query head, D 64), PaliGemma's (one kv head
+# of 8 query heads, D 256, the cache 256 patches longer) — chip_smoke.py's
+# FLASH_WIDE_CASES rows ``whisper`` and ``paligemma``
+FAMILY_SHAPES = [(16, 1, 64, 145, [144, 129, 64, 1]),
+                 (1, 8, 256, 401, [400, 385, 256, 1])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", DECODE_KERNELS)
+@pytest.mark.parametrize("H,G,D,S,lens", FAMILY_SHAPES)
+def test_flash_decode_at_the_new_families_serve_shapes(cuda_device, fmt, H,
+                                                       G, D, S, lens):
+    gen = torch.Generator(device=cuda_device).manual_seed(53)
+    q, k, v = _lanes(gen, len(lens), H, G, D, S, cuda_device)
+    _decode_vs_plain(fmt, q, k, v, torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_mla_routes_keep_a_lanes_bits(cuda_device):
+    """MiniCPM3's absorbed decode on the card: kernel 4 with an explicit
+    scale as one kv head (G 40, keys [c | k_rope] of 288, scale 96^-½)
+    against its plain versions at that scale, and ``TorchOps``' two routes
+    (the latent attention, the per-head weight products through
+    ``f32_matmul`` on block-diagonal tables) each lane alone bit for bit as
+    in the batch; each head's share of a block-diagonal product bit for bit
+    its own fmaf chain (``f32_matmul_seq_ref``)."""
+    from repro_torch.core.backend import TorchOps
+
+    gen = torch.Generator(device=cuda_device).manual_seed(59)
+    rnd = lambda *s: torch.randn(*s, device=cuda_device, generator=gen)
+    B, S, H, R, dr, dn = 4, 145, 40, 256, 32, 64
+    scale = (dn + dr) ** -0.5
+    lens = torch.tensor([144, 129, 64, 1], dtype=torch.int32,
+                        device=cuda_device)
+    q = rnd(B, 1, H, R + dr)
+    kv = rnd(B, S, 1, R + dr)
+    got = tfd.flash_decode_attention(q, kv, kv, lens, scale=scale)
+    want = tfd.flash_decode_ref(q, kv, kv, lens, scale=scale)
+    assert_ulp_rule(got, want, (24, 127, -126), _flash_slack(kv, lens))
+    exact = tfd.flash_decode_split_ref(q, kv, kv, lens, None,
+                                       dtype=torch.float64, scale=scale)
+    assert_ulp_rule(got, exact, (24, 127, -126), _f64_slack(kv, lens, None))
+    bk = TorchOps()
+    q_lat, q_rope = rnd(B, 1, H, R), rnd(B, 1, H, dr)
+    c, k_rope = rnd(B, S, R), rnd(B, S, dr)
+    wkv_b = rnd(R, H * (dn + 64)).reshape(R, H, dn + 64) * R ** -0.5
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+    q_nope = rnd(B, 1, H, dn)
+    batched = (bk.latent_decode_attention(q_lat, q_rope, c, k_rope, lens,
+                                          scale),
+               bk.per_head_matmul(q_nope, w_uk, into=True),
+               bk.per_head_matmul(q_lat, w_uv, into=False))
+    for b in range(B):
+        alone = (bk.latent_decode_attention(
+            q_lat[b:b + 1], q_rope[b:b + 1], c[b:b + 1], k_rope[b:b + 1],
+            lens[b:b + 1], scale),
+            bk.per_head_matmul(q_nope[b:b + 1], w_uk, into=True),
+            bk.per_head_matmul(q_lat[b:b + 1], w_uv, into=False))
+        for x, y in zip(batched, alone):
+            assert_same_bits(x[b:b + 1], y)
+    # each head's product bit for bit its own fmaf chain (the plain
+    # version), into the latent space and out of it
+    for got, x, w, into in ((batched[1], q_nope, w_uk, True),
+                            (batched[2], q_lat, w_uv, False)):
+        for h in range(H):
+            blk = w[:, h, :].t() if into else w[:, h, :]
+            assert_same_bits(got[:, 0, h], tro.f32_matmul_seq_ref(
+                x[:, 0, h].contiguous(), blk.contiguous()))

@@ -193,14 +193,30 @@ def test_init_params_on_device_from_generator():
 
 
 def test_unported_configs_raise():
+    """Once the last three families were refused here (MLA, the
+    encoder-decoder, the modality frontends); now every arch of the
+    reference's registry resolves in the port, by id and by alias, its
+    SMOKE and FULL configs field for field the reference's, and builds its
+    decode cache; only a name the reference does not know raises."""
+    import dataclasses
+
+    from repro.configs import _ALIASES as jaliases
+
+    assert sorted(tconfigs.ARCHS) == sorted(jconfigs.ARCHS)
+    for alias, arch in jaliases.items():
+        assert tconfigs.get(alias) is tconfigs.get(arch)
+    for arch in jconfigs.ARCHS:
+        for size in ("SMOKE", "FULL"):
+            jc = getattr(jconfigs.get(arch), size)
+            tc = getattr(tconfigs.get(arch), size)
+            assert dataclasses.asdict(jc) == dataclasses.asdict(tc), arch
     for arch in ("minicpm3_4b", "whisper_medium", "paligemma_3b"):
-        jc = jconfigs.get(arch).SMOKE
-        import dataclasses
-        tc = TT.ArchConfig(**dataclasses.asdict(jc))
-        with pytest.raises(NotImplementedError):
-            TT.init_cache(tc, 1, 4, device="cpu")
+        tc = tconfigs.get(arch).SMOKE
+        cache = TT.init_cache(tc, 1, 4, device="cpu")
+        want = ((tc.kv_rank,) if tc.mla else (tc.n_kv_heads, tc.head_dim))
+        assert cache["k"].shape == (tc.n_layers, 1, 4) + want
     with pytest.raises(KeyError):
-        tconfigs.get("minicpm3_4b")
+        tconfigs.get("not_an_arch")
 
 
 def test_main_without_cuda_raises_unless_cpu_requested(monkeypatch):

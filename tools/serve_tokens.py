@@ -12,7 +12,11 @@ the sha256 of the logits as ``chip_smoke.py`` takes it, every lane's
 tokens, and every lane's top-1 logit gap (largest minus second largest
 logit) at each token, so that two trees' tokens can be compared and a token
 that differs be weighed by how near its choice was to a tie, with the run's
-decode ms a step (host clock). ``--precision-k K`` serves the uniform-k
+decode ms a step (host clock; with a tree that records them, every step's
+ms too). ``--arch A`` serves another arch at full width and depth under
+the format map ``chip_smoke.py`` serves it with (a ``layer*`` key added
+for the recurrent and the last three families), ``--decode-steps N`` that
+many steps. ``--precision-k K`` serves the uniform-k
 path (``serve_k``'s: kernel 3 and the k backends' decode attention) in
 place of the format map. ``--batching`` then serves the ``batching``
 phase's 8 requests through the continuous-batching engine on the same
@@ -40,6 +44,8 @@ def main() -> int:
                     help="also serve the batching phase's requests")
     ap.add_argument("--precision-k", type=int, default=None,
                     help="serve a uniform k in place of the format map")
+    ap.add_argument("--arch", default="qwen2_7b")
+    ap.add_argument("--decode-steps", type=int, default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
@@ -52,10 +58,14 @@ def main() -> int:
     import repro_torch
     from repro_torch.launch import serve
 
+    fmt = (cs.MLA_FORMAT if args.arch in cs.MLA_ENCDEC_ARCHS + cs.SSM_ARCHS
+           else cs.SERVE_FORMAT)
     precision = (["--precision-k", str(args.precision_k)]
                  if args.precision_k is not None else
-                 ["--layer-format", json.dumps(cs.SERVE_FORMAT)])
-    res = serve.main(cs.serve_argv(*precision))
+                 ["--layer-format", json.dumps(fmt)])
+    steps = (["--decode-steps", str(args.decode_steps)]
+             if args.decode_steps is not None else [])
+    res = serve.main(cs.serve_argv("--arch", args.arch, *precision, *steps))
     digest, gaps = hashlib.sha256(), []
     for lg in [res.prefill_logits] + res.decode_logits:
         digest.update(lg.detach().float().cpu().numpy().tobytes())
@@ -66,18 +76,18 @@ def main() -> int:
         "nvidia_smi": cs.nvidia_smi_line(), "logits_sha256": digest.hexdigest(),
         "decode_ms_per_step": res.timing["decode_ms_per_step"],
         "prefill_s": res.timing["prefill_s"],
+        "decode_step_ms": res.timing.get("decode_step_ms"),
         "tokens": res.tokens.tolist(),
         "top1_gap": [list(lane) for lane in zip(*gaps)]}
     if args.batching:
         from repro_torch.launch import batching
 
-        sc = serve.ServeConfig(arch="qwen2_7b",
+        sc = serve.ServeConfig(arch=args.arch,
                                batch=cs.BATCH_ENGINE["n_lanes"],
                                max_seq=cs.BATCH_ENGINE["max_seq"],
                                **({"precision_k": args.precision_k}
                                   if args.precision_k is not None else
-                                  {"precision_layer_format":
-                                   cs.SERVE_FORMAT}))
+                                  {"precision_layer_format": fmt}))
         reqs, _ = cs.batching_requests(torch, batching, res.cfg.vocab)
         engine = batching.ContinuousBatchingEngine(
             res.cfg, sc, res.params, device="cuda", **cs.BATCH_ENGINE)
