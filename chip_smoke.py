@@ -125,7 +125,19 @@ sha256 of its logits and a profiler trace of its decode steps):
   full forward; the engine refuses it); PaliGemma 3B (256 patches + 128
   tokens; the engine text-only, bit for bit alone); the three SMOKE
   configs analysed and certified on card and CPU, and one CAA pass of
-  MiniCPM3 at full width on 2 layers.
+  MiniCPM3 at full width on 2 layers;
+* ``train`` — training (``launch/train.py``): every arch's SMOKE loss and
+  gradients on the card, with each layer rematerialised and without (bit
+  for bit), against the CPU port's on the same params and batch (loss
+  within 1e-5 relative, each gradient leaf within 1e-4 of its max |g|);
+  three steps of SMOKE Qwen2-7B with 8-bit moments and three with
+  error-feedback compression, card against CPU; Qwen2-7B at full width
+  through ``train.main`` (2 layers, seq 512 × batch 4, 6 steps with a
+  checkpoint every 3, then resumed from step 3: losses and final params
+  bit for bit the uninterrupted run's; step ms, tokens/s, peak memory,
+  checkpoint bytes, save and restore seconds), then 8 layers for 3 steps.
+  No hand-written kernel may launch on any of its runs: under autograd
+  the model's kernel routes compose library ops.
 
 Each phase prints one JSON object on a line of its own; a phase that fails
 raises and the script exits non-zero. The last three lines are the kernels'
@@ -308,6 +320,10 @@ def compare(torch, got, want, fmt, pre_tol):
 
 
 def phase_env(torch, serve):
+    # before the first cuBLAS call: cuBLAS reads it once, and the train
+    # phase's deterministic mode refuses a GEMM without it (on an H100 it
+    # is PyTorch's default workspace, 8 × 4 MiB)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     serve.configure_precision()
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
@@ -315,7 +331,8 @@ def phase_env(torch, serve):
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=nvidia_smi_line(),
-         tf32=False, float32_matmul_precision="highest")
+         tf32=False, float32_matmul_precision="highest",
+         cublas_workspace_config=os.environ["CUBLAS_WORKSPACE_CONFIG"])
 
 
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
@@ -6052,6 +6069,208 @@ def phase_mla_encdec(torch, serve, batching, qmm, fd, T):
     return launches, parts
 
 
+TRAIN_SMOKE = {"seq": 16, "global_batch": 2}
+TRAIN_MODE_STEPS = 3
+TRAIN_FULL = ["--size", "full", "--seq", "512", "--global-batch", "4",
+              "--device", "cuda"]
+TRAIN_LOSS_REL = 1e-5             # card against CPU, as the CPU tests hold
+TRAIN_GRAD_REL = 1e-4             # a leaf, of its max |g|
+# leaves whose gradient is zero analytically (Llama-4's router under
+# top-1: the renormalised gate is p / p), held to the tree's max |g|
+TRAIN_ZERO_GRAD = {"llama4_maverick": {("layers", "moe", "w_router")}}
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def grads_card_vs_cpu(torch, arch, card, cpu):
+    """(loss, grads) on the card against the CPU port's: the loss within
+    TRAIN_LOSS_REL relative, each leaf within TRAIN_GRAD_REL of its max
+    |g| (TRAIN_ZERO_GRAD's leaves of the tree's); returns the worst
+    leaf's error over its scale."""
+    from repro_torch.optim.optimizer import tree_paths
+
+    (cl, cg), (hl, hg) = card, cpu
+    if abs(float(cl) - float(hl)) > TRAIN_LOSS_REL * abs(float(hl)):
+        raise AssertionError(f"train {arch}: loss {float(cl)} on the card, "
+                             f"{float(hl)} on the CPU")
+    hg = dict(tree_paths(hg))
+    tree_max = max(float(g.abs().max()) for g in hg.values())
+    worst = 0.0
+    for path, g in tree_paths(cg):
+        want = hg[path]
+        scale = float(want.abs().max())
+        if path in TRAIN_ZERO_GRAD.get(arch, ()):
+            scale = tree_max
+        err = float((g.cpu() - want).abs().max())
+        if not (torch.isfinite(g).all() and err <= TRAIN_GRAD_REL * scale):
+            raise AssertionError(f"train {arch}: grad {'/'.join(path)} "
+                                 f"{err} against scale {scale}")
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def train_smoke_grads(torch, train, T, configs):
+    """Phase (a): every arch's SMOKE loss and grads on the card, remat on
+    and off (bit for bit), against the CPU port's on the same params and
+    batch."""
+    from repro_torch.data import pipeline
+    from repro_torch.optim.optimizer import tree_paths
+
+    out = {}
+    for arch in configs.ARCHS:
+        cfg = configs.get(arch).SMOKE
+        params = T.init_params(cfg, generator=torch.Generator().manual_seed(
+            0), device="cpu")
+        batch = train.batch_for(cfg, pipeline.DataConfig(
+            vocab=cfg.vocab, seq=TRAIN_SMOKE["seq"],
+            global_batch=TRAIN_SMOKE["global_batch"]), 0, "cpu")
+        runs = {}
+        for where, remat in (("card", True), ("card_plain", False),
+                             ("cpu", True)):
+            dev = "cpu" if where == "cpu" else "cuda"
+            tc = train.TrainConfig(remat=remat, **TRAIN_SMOKE)
+            t0 = time.perf_counter()
+            with train.deterministic():
+                runs[where] = train.loss_and_grads(
+                    train.make_loss_fn(cfg, tc), _tree_to(params, dev),
+                    _tree_to(batch, dev))
+            runs[where + "_s"] = time.perf_counter() - t0
+        a, b = (dict(tree_paths(runs[k][1])) for k in ("card", "card_plain"))
+        remat_bitwise = torch.equal(runs["card"][0], runs["card_plain"][0]) \
+            and all(torch.equal(g, b[p]) for p, g in a.items())
+        if not remat_bitwise:
+            raise AssertionError(f"train {arch}: remat changed the card's "
+                                 "grads")
+        out[arch] = {"loss_card": float(runs["card"][0]),
+                     "loss_cpu": float(runs["cpu"][0]),
+                     "worst_grad_rel": grads_card_vs_cpu(
+                         torch, arch, runs["card"], runs["cpu"]),
+                     "remat_bitwise": remat_bitwise,
+                     "card_s": runs["card_s"], "cpu_s": runs["cpu_s"]}
+    return out
+
+
+def train_modes(torch, train, T, configs):
+    """Phase (b): three steps of SMOKE Qwen2-7B with 8-bit moments and
+    three with error-feedback compression, card against CPU (the losses;
+    params after Adam are not held, as in the CPU tests)."""
+    from repro_torch.data import pipeline
+    from repro_torch.optim import optimizer as opt
+
+    cfg = configs.get("qwen2_7b").SMOKE
+    out = {}
+    for mode in ("quantized_moments", "grad_compression"):
+        tc = train.TrainConfig(steps=TRAIN_MODE_STEPS, **{mode: True},
+                               **TRAIN_SMOKE)
+        adam = opt.AdamWConfig(quantized_moments=tc.quantized_moments,
+                               total_steps=tc.steps)
+        dc = pipeline.DataConfig(vocab=cfg.vocab, seq=tc.seq,
+                                 global_batch=tc.global_batch)
+        params = T.init_params(cfg, generator=torch.Generator().manual_seed(
+            0), device="cpu")
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            step_fn, _ = train.build_train_step(cfg, tc, dev, adam)
+            state = train.init_state(_tree_to(params, dev), tc, adam)
+            losses[dev] = [float(step_fn(state, train.batch_for(
+                cfg, dc, i, dev))[1]) for i in range(tc.steps)]
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            if abs(a - b) > TRAIN_LOSS_REL * abs(b):
+                raise AssertionError(f"train {mode}: losses {losses}")
+        out[mode] = losses
+    return out
+
+
+def train_report(res, tokens):
+    return {"losses": {str(k): v for k, v in res.losses.items()},
+            "first_step_ms": 1e3 * res.step_s[0],
+            "step_ms": 1e3 * statistics.median(res.step_s[1:]),
+            "tokens_per_s": res.tokens_per_s, "tokens_per_step": tokens,
+            "peak_gb": res.peak_gb}
+
+
+def train_full(torch, train, T, configs):
+    """Phases (c) and (d): Qwen2-7B at full width through ``train.main``:
+    2 layers, 6 steps with a checkpoint every 3, then again resumed from
+    step 3 (losses and final params bit for bit the uninterrupted run's);
+    then 8 layers for 3 steps."""
+    import shutil
+
+    cfg = dataclasses.replace(configs.get("qwen2_7b").FULL, n_layers=2)
+    n_params = T.analytic_params(cfg)
+    ck_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck_dir.mkdir(parents=True)
+    need = 2 * 3 * 4 * n_params                 # two of (param, m, v)
+    free = shutil.disk_usage(ck_dir).free
+    if free < need * 1.05:
+        raise AssertionError(f"train: the two checkpoints need {need:,} "
+                             f"bytes; {ck_dir} has {free:,} free")
+    argv = TRAIN_FULL + ["--max-layers", "2", "--steps", "6",
+                         "--checkpoint-dir", str(ck_dir)]
+    tokens = 4 * 512
+    try:
+        a = train.main(argv + ["--checkpoint-every", "3"])
+        want_params = a.state["params"]
+        a_report = train_report(a, tokens)
+        a_report["checkpoints"] = a.checkpoints
+        del a
+        free_device_memory(torch)
+        # the resumed run writes no checkpoint of its own
+        b = train.main(argv + ["--checkpoint-every", "1000", "--resume", "3"])
+        same_losses = all(b.losses[i] == float(a_report["losses"][str(i)])
+                          for i in (3, 4, 5))
+        from repro_torch.optim.optimizer import tree_paths
+        got = dict(tree_paths(b.state["params"]))
+        same_params = all(torch.equal(t, got[p])
+                          for p, t in tree_paths(want_params))
+        b_report = {"losses": {str(k): v for k, v in b.losses.items()},
+                    "restore_s": b.restore_s, "peak_gb": b.peak_gb,
+                    "same_losses": same_losses, "same_params": same_params}
+        del b, want_params, got
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    if not (same_losses and same_params):
+        raise AssertionError(f"train: the resumed run differs: {b_report}")
+    free_device_memory(torch)
+    d = train.main(TRAIN_FULL + ["--max-layers", "8", "--steps", "3"])
+    d_report = train_report(d, tokens)
+    del d
+    free_device_memory(torch)
+    return {"params_2_layers": n_params,
+            "params_8_layers": T.analytic_params(
+                dataclasses.replace(cfg, n_layers=8)),
+            "layers2": a_report, "layers2_resumed": b_report,
+            "layers8": d_report}
+
+
+def phase_train(torch, qmm, fd, T):
+    """Training on the card (see the module docstring): no hand-written
+    kernel may launch on any of its runs."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    emit("free", before="train", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    reset_launches(fns)
+    parts = {}
+    for name, fn in (("smoke_grads", train_smoke_grads),
+                     ("modes", train_modes), ("full", train_full)):
+        t0 = time.perf_counter()
+        parts[name] = fn(torch, train, T, configs)
+        parts[name + "_s"] = time.perf_counter() - t0
+    launches = read_launches(fns)
+    if any(launches.values()):
+        raise AssertionError(f"train launched kernels: {launches}")
+    emit("train", card=nvidia_smi_line(), launches=launches,
+         seconds=time.perf_counter() - t_phase, **parts)
+    return launches, parts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6110,8 +6329,11 @@ def main() -> int:
     from repro_torch.launch import batching, serve
     from repro_torch.models import transformer as T
 
+    t_main = time.perf_counter()
+    marks = []
     phase_env(torch, serve)
     phase_build(_build)
+    marks.append(("build", time.perf_counter()))
     phase_rounding(torch, quantize, qmm)
     phase_gemm_order(torch, qmm)
     qrows, qerr = phase_quant_matmul(torch, qmm)
@@ -6120,6 +6342,7 @@ def main() -> int:
     acases, aerr = phase_flash_decode_attention(torch, fd)
     windowed = phase_flash_windowed(torch, fd)
     rorows = phase_row_order(torch, serve.configs.get("qwen2_7b").FULL)
+    marks.append(("kernels", time.perf_counter()))
 
     by_path, timings = {}, {}
     by_path["serve"], fmt_path, timings["serve"] = phase_serve(
@@ -6145,6 +6368,7 @@ def main() -> int:
     (by_path["batching"], batch_fmt_path, batch_k_path,
      batch_timing) = phase_batching(torch, serve, batching, qmm, fd, T)
     by_path["profile"], prows, prof_path = phase_profile(torch, obs, qmm, fd)
+    marks.append(("serve_batching_profile", time.perf_counter()))
     emit("decode_trace", steps=TRACE_STEPS, note="one decode step of each "
          "full-width serve path: host-clock median, and the device split "
          "(medians over traced steps)",
@@ -6164,7 +6388,9 @@ def main() -> int:
 
     phase_interval_libm(torch, iv)
     by_path["ranges"] = phase_ranges(torch, qmm, fd)
+    marks.append(("interval_libm_ranges", time.perf_counter()))
     by_path["certify"] = phase_certify(torch, serve, batching, qmm, fd, T)
+    marks.append(("certify", time.perf_counter()))
     seen = phase_analyze(torch)
     operands = analysis_operands(torch, seen)
     del seen
@@ -6178,12 +6404,21 @@ def main() -> int:
                                           operands, path_outs)
     del path_outs, operands
     free_device_memory(torch)
+    marks.append(("analyze_caa_interval", time.perf_counter()))
     by_path["paper"] = phase_paper(torch, qmm, fd)
+    marks.append(("paper", time.perf_counter()))
     by_path["zoo"], zoo_parts = phase_zoo(torch, serve, batching, qmm, fd,
                                           T)
+    marks.append(("zoo", time.perf_counter()))
     by_path["ssm"], ssm_parts = phase_ssm(torch, serve, batching, qmm, fd, T)
+    marks.append(("ssm", time.perf_counter()))
     by_path["mla_encdec"], mla_parts = phase_mla_encdec(
         torch, serve, batching, qmm, fd, T)
+    marks.append(("mla_encdec", time.perf_counter()))
+    by_path["train"], _ = phase_train(torch, qmm, fd, T)
+    marks.append(("train", time.perf_counter()))
+    emit("timeline", note="host seconds from the start of main to the end "
+         "of each phase group", **{name: t - t_main for name, t in marks})
     ssm_new = ssm_parts["new_shapes"]["rows"] + [
         r for arch in MLA_ENCDEC_ARCHS
         for r in mla_parts[arch]["new_shapes"]["rows"]]

@@ -70,6 +70,18 @@ def per_head_table(w: torch.Tensor, into: bool) -> torch.Tensor:
     return got[1]
 
 
+def kernel_route_ok(*operands) -> bool:
+    """Whether a card kernel may compute an op on ``operands``: only when no
+    gradient is being recorded through it. The port's kernels have no
+    backward, so under autograd (``torch.is_grad_enabled()`` and some
+    operand ``requires_grad``) every route composes library ops instead,
+    which keeps the graph whole. Serving's tensors never require grad, so
+    its routes are unchanged. A kernel that fails to build or launch still
+    raises: this is no fallback."""
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in operands))
+
+
 def _tree_index(tree, i):
     if tree is None:
         return None
@@ -302,11 +314,10 @@ class TorchOps(UnrolledLayerLoop, Backend):
         element whatever the row count, so a lane's bits do not depend on
         its batch. The weights are read where they lie (a contiguous
         ``[K, N]`` slice of the stacked params), no copy. Under autograd
-        (the kernel has no backward), for other dtypes and on the CPU it is
+        (:func:`kernel_route_ok`), for other dtypes and on the CPU it is
         ``torch.matmul``."""
         if (a.is_cuda and a.dtype == b.dtype == torch.float32
-                and b.dim() == 2 and not (torch.is_grad_enabled() and (
-                    a.requires_grad or b.requires_grad))):
+                and b.dim() == 2 and kernel_route_ok(a, b)):
             return row_order.matmul_dispatch(a, b)
         return torch.matmul(a, b).to(self.compute_dtype)
 
@@ -315,9 +326,10 @@ class TorchOps(UnrolledLayerLoop, Backend):
         runs through the fixed-order ``flash_decode_attention`` kernel
         (:mod:`repro_torch.kernels.flash_decode`): a lane's bits depend on
         its own length only. Outside the kernel's limits (f32, contiguous,
-        S ≥ 1) it raises: it never composes on the card. On the CPU it
+        S ≥ 1) it raises: it never composes on the card, except under
+        autograd (:func:`kernel_route_ok`). There, and on the CPU, it
         returns None, the composed einsum/softmax path of the reference."""
-        if not q.is_cuda:
+        if not q.is_cuda or not kernel_route_ok(q, k, v):
             return None
         return flash_decode.flash_decode_attention(
             q.contiguous(), k, v, lengths)
@@ -328,8 +340,8 @@ class TorchOps(UnrolledLayerLoop, Backend):
         ``softcap``: the reference's composed f32 attention (no rounding on
         any serving backend, as the reference rounds none there), in the
         kernel's fixed order; it raises outside the kernel's limits. On the
-        CPU None: the composed path."""
-        if not q.is_cuda:
+        CPU and under autograd None: the composed path."""
+        if not q.is_cuda or not kernel_route_ok(q, k, v):
             return None
         return flash_decode.flash_decode_attention(
             q.contiguous(), k, v, lengths, window=window, softcap=softcap)
@@ -339,10 +351,12 @@ class TorchOps(UnrolledLayerLoop, Backend):
         through the fixed-order ``f32_matmul`` kernel
         (:mod:`repro_torch.kernels.row_order`), so a lane's logits do not
         depend on its batch; it reads a transposed copy of the table, made
-        once per table and kept while the backend lives. Everything else,
-        and everything on the CPU, is ``torch.einsum``."""
+        once per table and kept while the backend lives. Under autograd
+        (:func:`kernel_route_ok`: no copy of the table either), everything
+        else and everything on the CPU is ``torch.einsum``."""
         if (subscripts == _HEAD and a.is_cuda
-                and a.dtype == b.dtype == torch.float32):
+                and a.dtype == b.dtype == torch.float32
+                and kernel_route_ok(a, b)):
             return row_order.lm_head_dispatch(a, self._table_t(b))
         return torch.einsum(subscripts, a, b).to(self.compute_dtype)
 
@@ -352,10 +366,11 @@ class TorchOps(UnrolledLayerLoop, Backend):
         by side against the block-diagonal table of their weights
         (:func:`per_head_table`), bit for bit each head's own chain: the
         library product's bits depend on the batch there. Longer steps
-        (the library product keeps a row's bits) and everything on the CPU
-        compose the einsum."""
+        (the library product keeps a row's bits), steps under autograd
+        (:func:`kernel_route_ok`) and everything on the CPU compose the
+        einsum."""
         if x.is_cuda and x.dtype == w.dtype == torch.float32 \
-                and x.shape[1] == 1:
+                and x.shape[1] == 1 and kernel_route_ok(x, w):
             B, S, H, n = x.shape
             out = row_order.matmul_dispatch(x.reshape(B, S, H * n),
                                             per_head_table(w, into))
@@ -371,8 +386,9 @@ class TorchOps(UnrolledLayerLoop, Backend):
         kernel's values are the same keys and the first R entries of its
         context are the mix of c. Unrounded, as the reference composes it
         on every backend; a lane's bits depend on its own length only. On
-        the CPU (or in f64) None: the composed path."""
-        if not q_lat.is_cuda or q_lat.dtype != torch.float32:
+        the CPU (or in f64, or under autograd) None: the composed path."""
+        if (not q_lat.is_cuda or q_lat.dtype != torch.float32
+                or not kernel_route_ok(q_lat, q_rope, c, k_rope)):
             return None
         B, _, H, R = q_lat.shape
         q = torch.cat([q_lat, q_rope], dim=-1).reshape(B, 1, H, -1)
@@ -412,10 +428,11 @@ class TorchOps(UnrolledLayerLoop, Backend):
     def mean(self, a, dim, keepdim=False):
         """On the card, the mean over the last dim with keepdim of an f32
         tensor (the rmsnorm's) runs through the fixed-order ``row_mean``
-        kernel (:mod:`repro_torch.kernels.row_order`); everything else is
+        kernel (:mod:`repro_torch.kernels.row_order`); under autograd
+        (:func:`kernel_route_ok`) and everywhere else it is
         ``Tensor.mean``."""
         if (a.is_cuda and a.dtype == torch.float32 and keepdim
-                and dim in (-1, a.dim() - 1)):
+                and dim in (-1, a.dim() - 1) and kernel_route_ok(a)):
             return row_order.row_mean_dispatch(a)
         return a.mean(dim=dim, keepdim=keepdim)
 

@@ -500,3 +500,22 @@ def _rope_and_masks(cfg: ArchConfig, Sq: int, kv_len: int, q_offset,
         lmask = (L.causal_mask(Sq, kv_len, q_offset, lgp, device=dev)
                  if lgp else None)
     return cos_q, sin_q, gmask, lmask
+
+
+def next_token_loss(bk, params, cfg: ArchConfig, tokens, targets,
+                    frontend_embeds=None, enc_embeds=None):
+    """Mean next-token cross-entropy of ``forward``'s logits against
+    ``targets`` [B, S]: in f32, logsumexp minus the target's logit. With a
+    vision prefix the loss is taken on the text positions only (the
+    suffix). The target's logit is gathered; the reference picks it with a
+    one-hot einsum, which adds zeros to the same number."""
+    logits, _ = forward(bk, params, cfg, tokens,
+                        frontend_embeds=frontend_embeds,
+                        enc_embeds=enc_embeds)
+    logits = bk.value_of(logits)
+    if frontend_embeds is not None:
+        logits = logits[:, -targets.shape[1]:]
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets.to(torch.int64)[..., None])[..., 0]
+    return (lse - picked).mean()

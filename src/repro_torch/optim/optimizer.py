@@ -1,0 +1,210 @@
+"""AdamW with optional 8-bit quantised moments (blockwise) — the
+counterpart of the JAX package's ``repro.optim.optimizer``.
+
+Plain functions on nested dicts of tensors (the reference's pytrees): the
+same state (:class:`OptState`, the reference's field names), the same
+schedule and the same per-element arithmetic in f32, op for op, so that on
+the same gradients both packages take the same steps. The 8-bit mode packs
+m and √v into int8 with one f32 scale a block of 128 (√v halves the
+dynamic range int8 must span, so small second moments survive);
+``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+``update(..., inplace=True)`` writes the new parameters and moments into
+the tensors it was given, one leaf at a time (the reference's buffer
+donation): the train step's peak memory is then one leaf's temporaries
+above parameters, gradients and moments.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, NamedTuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    quantized_moments: bool = False   # 8-bit blockwise m/v
+    block: int = 128
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor  # int32 scalar: updates applied so far
+    m: Any
+    v: Any
+    m_scale: Any        # per-block scales when quantized, else None
+    v_scale: Any
+
+
+# -- nested-dict trees --------------------------------------------------------
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts (``rest`` of the same
+    structure), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_paths(tree, path=()):
+    """(key path, leaf) pairs in the reference's order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_set(tree: Dict, path, value):
+    """Put ``value`` at the key ``path`` of nested dicts, making them."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+# -- 8-bit blockwise codec ---------------------------------------------------
+
+def _q8(x: torch.Tensor, block: int):
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, block)
+    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _dq8(q: torch.Tensor, scale: torch.Tensor, shape, block: int):
+    flat = (q.to(torch.float32) * scale).reshape(-1)
+    return flat[:math.prod(shape)].reshape(shape)
+
+
+# -- init / update ------------------------------------------------------------
+
+def init(params, cfg: AdamWConfig) -> OptState:
+    dev = next(tree_paths(params))[1].device
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+
+    if cfg.quantized_moments:
+        def q(p):
+            return _q8(zeros(p), cfg.block)[0]
+
+        def s(p):
+            return _q8(zeros(p), cfg.block)[1]
+
+        return OptState(step, tree_map(q, params), tree_map(q, params),
+                        tree_map(s, params), tree_map(s, params))
+    return OptState(step, tree_map(zeros, params), tree_map(zeros, params),
+                    None, None)
+
+
+def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warm-up, then cosine decay to ``min_lr_frac``; f32 as the
+    reference computes it (``step`` an int or an int32 tensor)."""
+    step = torch.as_tensor(step, dtype=torch.int32)
+    warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps).float()
+                       / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's. CUDA's ``sqrtf``
+    is; PyTorch's CPU one is only faithful (one ulp off on some inputs),
+    so on the CPU the root is taken in f64 and rounded once to f32: a
+    faithful f64 root is closer to the exact one than any f32 rounding
+    boundary of a root of an f32 number."""
+    if x.is_cuda or x.dtype != torch.float32:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def global_norm(tree) -> torch.Tensor:
+    total = 0
+    for _, leaf in tree_paths(tree):
+        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    return sqrt_rn(total)
+
+
+def _adam_leaf(cfg, p, g, m, v, lr, bc1, bc2):
+    """One leaf's moments and parameter, in the reference's op order."""
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * g * g
+    u = (m / bc1) / (sqrt_rn(v / bc2) + cfg.eps)
+    pf = p.to(torch.float32)
+    newp = pf - lr * (u + cfg.weight_decay * pf)
+    return newp.to(p.dtype), m, v
+
+
+def update(params, grads, state: OptState, cfg: AdamWConfig,
+           inplace: bool = False):
+    """One AdamW step; returns (new_params, new_state). With ``inplace``
+    the returned trees are ``params`` and ``state``'s own tensors, written
+    leaf by leaf."""
+    step = state.step + 1
+    # the step's scalars on the host, so that every device takes the same
+    stepf = step.cpu().to(torch.float32)
+    lr, bc1, bc2 = (t.to(step.device) for t in (
+        schedule(cfg, step.cpu()),
+        1 - torch.pow(torch.tensor(cfg.b1), stepf),
+        1 - torch.pow(torch.tensor(cfg.b2), stepf)))
+
+    gnorm = global_norm(grads)
+    clip = torch.clamp(
+        torch.tensor(cfg.grad_clip, dtype=torch.float32,
+                     device=gnorm.device) / (gnorm + 1e-9), max=1.0)
+
+    quant = cfg.quantized_moments
+    trees = {"p": params, "m": state.m, "v": state.v, "ms": state.m_scale,
+             "vs": state.v_scale}
+    new = {name: {} for name in trees}
+    for path, p in tree_paths(params):
+        g = _get(grads, path).to(torch.float32) * clip
+        if quant:
+            m = _dq8(_get(state.m, path), _get(state.m_scale, path),
+                     p.shape, cfg.block)
+            sv = _dq8(_get(state.v, path), _get(state.v_scale, path),
+                      p.shape, cfg.block)
+            newp, m, v = _adam_leaf(cfg, p, g, m, sv * sv, lr, bc1, bc2)
+            out = dict(zip(("p", "m", "ms"), (newp, *_q8(m, cfg.block))))
+            out["v"], out["vs"] = _q8(sqrt_rn(v), cfg.block)
+        else:
+            newp, m, v = _adam_leaf(cfg, p, g, _get(state.m, path),
+                                    _get(state.v, path), lr, bc1, bc2)
+            out = {"p": newp, "m": m, "v": v}
+        for name, t in out.items():
+            tree_set(new[name], path,
+                 _get(trees[name], path).copy_(t) if inplace else t)
+        del g, out
+    if inplace:
+        state.step.copy_(step)
+        return params, state
+    if quant:
+        return new["p"], OptState(step, new["m"], new["v"], new["ms"],
+                                  new["vs"])
+    return new["p"], OptState(step, new["m"], new["v"], None, None)
