@@ -137,10 +137,33 @@ sha256 of its logits and a profiler trace of its decode steps):
   bit for bit the uninterrupted run's; step ms, tokens/s, peak memory,
   checkpoint bytes, save and restore seconds), then 8 layers for 3 steps.
   No hand-written kernel may launch on any of its runs: under autograd
-  the model's kernel routes compose library ops.
+  the model's kernel routes compose library ops;
+* ``mesh`` — the device mesh (``launch/mesh.py``, ``parallel/sharding.py``;
+  a process here has one card, so the mesh is 1 × 1): the batching
+  engine on ``make_serving_mesh()`` with ``batching``'s requests, format
+  map and k = 12, every request's tokens, logit sha256 and the launch
+  counts equal to ``batching``'s; kernels 1 and 3 on each column shard of
+  layer 0's seven projections (M = 4 and 512) and ``f32_matmul`` on each
+  vocab shard of the LM head, kernels 2 and 4 on each KV-head shard of
+  the serve cache, for "model" = 2, 4, 8, bit for bit the same columns or
+  heads of the whole call; and Qwen2-7B at full width cut to 2 layers, 3
+  steps of ``build_train_step`` on the mesh with ``param_sharding`` fsdp
+  and tp, losses bit for bit ``train``'s.
 
-Each phase prints one JSON object on a line of its own; a phase that fails
-raises and the script exits non-zero. The last three lines are the kernels'
+The CPU halves of the card-against-CPU checks (``ranges``' maps, the SMOKE
+analyses of ``zoo``, ``ssm`` and ``mla_encdec``, ``certify``'s Digits and
+nano certificates, ``analyze``'s Table I) run in one spawned process with
+CPU_SIDE_THREADS torch threads and no card, queued as soon as their inputs
+exist, while the card works; a phase compares where it always did, and a
+CPU half that failed fails it there. The ``paper`` phase (with its
+quickstart's CPU half) runs in a second spawned process on the card while
+this one runs ``zoo``, ``ssm`` and ``mla_encdec``: it needs nothing of
+them, its models are small, and it counts its own launches; the run waits
+for it before ``train`` and fails if it failed.
+
+Each phase prints one JSON object on a line of its own, then a ``seconds``
+line with its host seconds; a phase that fails raises and the script exits
+non-zero. The last three lines are the kernels'
 summary (``{"kernels": [...]}``), the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -195,8 +218,124 @@ KERNELS = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
            "row_mean", "f32_matmul", "numeric_health", "round_k_inplace")
 
 
+# While two processes share the card (``paper`` beside ``zoo``, ``ssm`` and
+# ``mla_encdec``), every line either prints carries this note as
+# "contended": its timings were taken on a shared card and host.
+CONTENDED = {"note": None}
+
+
 def emit(phase: str, **fields) -> None:
+    if CONTENDED["note"]:
+        fields.setdefault("contended", CONTENDED["note"])
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the CPU halves of the card-against-CPU checks, in a second process
+# ---------------------------------------------------------------------------
+
+CPU_SIDE_THREADS = 2    # the CPU process's torch threads: the card phases'
+#                         host work keeps the other cores to itself
+CPU_SIDE_ROOT = ROOT / "build" / "chip_smoke_cpu_side"
+PAPER_THREADS = 4       # the paper process's: its CPU halves run inline there
+
+
+def _side_init(src: str, threads: int, card: bool) -> None:
+    if not card:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""   # it never uses a card
+    sys.path.insert(0, src)
+    import torch
+
+    torch.set_num_threads(threads)
+    torch.set_num_interop_threads(1)
+
+
+class _Done:
+    """A finished job's stand-in for a future (no CPU process running)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def result(self):
+        return self.value
+
+    def done(self):
+        return True
+
+
+class SideProcess:
+    """One worker process beside the main one (spawned, ``threads`` torch
+    threads). ``CPU`` (no card) computes the CPU halves of the
+    card-against-CPU checks while the card works: ``ranges``' maps and the
+    SMOKE analyses and certificates of ``zoo``, ``ssm`` and ``mla_encdec``
+    (queued when the run starts), Digits' and the nano's CPU certificates,
+    ``analyze``'s CPU Table I and ``quickstart``'s CPU analysis (queued as
+    soon as their weights exist). ``PAPER`` (the card) runs the ``paper``
+    phase while the main process runs ``zoo``, ``ssm`` and ``mla_encdec``:
+    it needs nothing of them, its models are small, and it counts its own
+    launches. A phase takes the result where it compares; a job that
+    failed raises there, so the phase fails as before. Without a process
+    (``start`` not called: a rehearsal that imports this script) a job
+    runs where it is submitted."""
+
+    def __init__(self, card: bool):
+        self.card, self.pool = card, None
+
+    def start(self, threads: int = CPU_SIDE_THREADS):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_side_init,
+            initargs=(str(ROOT / "src"), threads, self.card))
+        return self
+
+    def submit(self, fn, *args):
+        if self.pool is None:
+            return _Done(fn(*args))
+        return self.pool.submit(fn, *args)
+
+    def close(self):
+        """Stop the process, jobs still queued or running included."""
+        if self.pool is None:
+            return
+        procs = list((self.pool._processes or {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=10)
+        self.pool = None
+
+
+CPU = SideProcess(card=False)
+PAPER = SideProcess(card=True)
+CPU_JOBS = {}           # (phase, arch) → future of a job queued at the start
+
+
+def queue_smoke_sides() -> None:
+    """Queue the CPU halves whose inputs come from seeds on the CPU: the
+    SMOKE analyses of ``zoo``, ``ssm`` and ``mla_encdec``, and ``ranges``'
+    maps."""
+    for kind, fn, archs in (("zoo", zoo_smoke_side, ZOO_SMOKE),
+                            ("ssm", ssm_smoke_side, SSM_ARCHS),
+                            ("mla", mla_smoke_side, MLA_ENCDEC_ARCHS)):
+        for arch in archs:
+            CPU_JOBS[(kind, arch)] = CPU.submit(fn, arch, "cpu",
+                                                CPU_SIDE_ROOT / kind)
+    CPU_JOBS[("ranges", None)] = CPU.submit(ranges_cpu_side)
+
+
+def cpu_job(kind: str, arch: str):
+    """The queued CPU half of ``kind``'s check of ``arch`` (queued now when
+    it was not)."""
+    job = CPU_JOBS.pop((kind, arch), None)
+    if job is None:
+        fn = {"zoo": zoo_smoke_side, "ssm": ssm_smoke_side,
+              "mla": mla_smoke_side}[kind]
+        job = CPU.submit(fn, arch, "cpu", CPU_SIDE_ROOT / kind)
+    return job
 
 
 def nvidia_smi_line() -> str:
@@ -1312,22 +1451,26 @@ def step_split(prof, names=False):
 
 
 def decode_trace(torch, serve, T, res, monitor=None, names=False):
-    """Decode steps of a served run's own weights, backend and prompt from
-    a fresh cache: TRACE_STEPS timed by the host clock (each ends in a
-    synchronize; their median), then TRACE_STEPS + 1 under torch.profiler
-    split by :func:`step_split` (medians over the steps; with ``names``,
-    the whole trace's activities counted by name too). With a violation
-    ``monitor``, every step ends in its ``flush()`` as the serving loop's
-    steps do."""
+    """Decode steps of a served run's own backend, params as ``serve.main``
+    placed them on its mesh, and prompt, from a fresh cache: TRACE_STEPS
+    timed by the host clock (each ends in a synchronize; their median),
+    then TRACE_STEPS + 1 under torch.profiler split by :func:`step_split`
+    (medians over the steps; with ``names``, the whole trace's activities
+    counted by name too). With a violation ``monitor`` (or without one
+    after a monitored run) a backend of the run's class is built on the
+    run's mesh with that monitor; every step then ends in its ``flush()``
+    as the serving loop's steps do."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    bk = serve._backend(res.config, monitor)
+    bk = res.backend
+    if getattr(bk, "monitor", None) is not monitor:
+        bk = serve._backend(res.config, monitor, mesh=bk.mesh)
     cache = T.init_cache(res.cfg, res.prompt.shape[0],
                          SERVE_PROMPT + SERVE_STEPS + 1,
                          device=res.prompt.device)
     state = {"pos": SERVE_PROMPT}
     with torch.no_grad():
-        logits, state["cache"] = serve.prefill_step(bk, res.params, res.cfg,
+        logits, state["cache"] = serve.prefill_step(bk, res.placed, res.cfg,
                                                     cache, res.prompt)
         state["tok"] = torch.argmax(logits[:, -1, :], dim=-1)
         if monitor is not None:
@@ -1335,7 +1478,7 @@ def decode_trace(torch, serve, T, res, monitor=None, names=False):
 
         def step():
             state["tok"], _, state["cache"] = serve.decode_step(
-                bk, res.params, res.cfg, state["cache"],
+                bk, res.placed, res.cfg, state["cache"],
                 state["tok"][:, None], state["pos"])
             if monitor is not None:
                 monitor.flush()
@@ -2629,6 +2772,9 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
 
     ref = reference_runs(batching, cfg, sc, params, reqs, eos_id)
     fmt_bits = lane_bits(torch, responses, ref)
+    handoff = {"sc": sc, "certset": certset, "eos_id": eos_id,
+               "format": {"launches": launches,
+                          "requests": served_digests(responses)}}
     del ref, responses, engine
     # every op of one ragged decode step, each lane against itself alone
     fmt_ops = op_lane_bits(torch, serve, T, cfg, params,
@@ -2680,6 +2826,8 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
     del k_in
     ref_k = reference_runs(batching, cfg, sc_k, params, k_reqs, -1)
     k_bits = lane_bits(torch, responses_k, ref_k)
+    handoff.update(sc_k=sc_k, k={"launches": launches_k,
+                                 "requests": served_digests(responses_k)})
     del ref_k, responses_k, engine_k
     k_ops = op_lane_bits(torch, serve, T, cfg, params,
                          serve.QuantJOps(SERVE_K),
@@ -2724,7 +2872,15 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
             raise AssertionError(f"{path} path: ops of a ragged step give a "
                                  f"lane other bits than alone: "
                                  f"{ops['differing']}")
-    return launches_all, main_path, k_path, fmt_report | {"k": k_report}
+    return (launches_all, main_path, k_path, fmt_report | {"k": k_report},
+            handoff)
+
+
+def served_digests(responses):
+    """{request id: (tokens, sha256 of its logit rows)} of an engine run."""
+    return {r["id"]: (list(r["tokens"]), hashlib.sha256(
+        r["logits"].detach().float().cpu().numpy().tobytes()).hexdigest())
+        for r in responses}
 
 
 class KernelSpy:
@@ -3025,6 +3181,61 @@ def run_ranges(torch, A, forward, params, x, cfg, fmts, dflt, n_layers,
     return got
 
 
+def ranges_models(torch):
+    """The models ``ranges`` holds card against CPU: {name: (forward on a
+    device, params on the CPU, input on a device, layers)}, all seeded on
+    the CPU."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import caa
+    from repro_torch.data import synthetic_digits
+    from repro_torch.models import paper_models as PM
+    from repro_torch.models import transformer as T
+
+    smoke = configs.get("qwen2_7b").SMOKE
+    sp = T.init_params(smoke, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    stoks = torch.randint(0, smoke.vocab, (1, RANGES_TOKENS),
+                          generator=torch.Generator().manual_seed(1))
+    models = {"qwen2_7b.SMOKE": (
+        lambda dev: lm_forward(T, smoke, stoks.to(dev)), sp,
+        lambda dev: caa.make(torch.zeros((1, 1), dtype=torch.float64,
+                                         device=dev)), smoke.n_layers)}
+    imgs, _ = synthetic_digits.make_dataset(4, seed=0)
+    img = torch.from_numpy(imgs[0].astype(np.float64)).reshape(1, 784)
+    models["digits 784-700-256-10"] = (
+        lambda dev: PM.digits_forward,
+        PM.init_digits(torch.Generator().manual_seed(0), device="cpu"),
+        lambda dev: caa.from_range((img - 0.01).to(dev),
+                                   (img + 0.01).to(dev)), 0)
+    models["convnet 28x28 c1 16 c2 32"] = (
+        lambda dev: PM.convnet_forward,
+        PM.init_convnet(torch.Generator().manual_seed(1), device="cpu"),
+        lambda dev: caa.make(img.reshape(1, 28, 28, 1).to(dev)), 0)
+    return models
+
+
+def ranges_cpu_side():
+    """The CPU's half of ``ranges``' card-against-CPU check: every driver
+    over :func:`ranges_models` on the CPU. Returns {name: maps}."""
+    import torch
+
+    from repro_torch.core import analyze as A
+    from repro_torch.core import caa
+    from repro_torch.core import formats as F
+
+    ccfg = caa.CaaConfig(u_max=RANGES_UMAX)
+    fmts = {k: F.custom(v) for k, v in RANGES_FMTS.items()}
+    dflt = F.custom(RANGES_FMT_DEFAULT)
+    out = {}
+    with torch.no_grad():
+        for name, (fwd, p, xin, L) in ranges_models(torch).items():
+            out[name] = run_ranges(torch, A, fwd("cpu"), p, xin("cpu"),
+                                   ccfg, fmts, dflt, L)
+    return out
+
+
 def phase_ranges(torch, qmm, fd, cfg=None, dev="cuda"):
     """The range, affine and stacked CAA passes through the port's drivers
     at Qwen2-7B's full width (qwen2_7b.FULL, depth cut to 2 layers, f32
@@ -3039,14 +3250,10 @@ def phase_ranges(torch, qmm, fd, cfg=None, dev="cuda"):
     the Digits and ConvNet models at full width."""
     import dataclasses
 
-    import numpy as np
-
     from repro_torch import configs
     from repro_torch.core import analyze as A
     from repro_torch.core import caa
     from repro_torch.core import formats as F
-    from repro_torch.data import synthetic_digits
-    from repro_torch.models import paper_models as PM
     from repro_torch.models import transformer as T
 
     emit("free", before="ranges", allocated_gb=free_device_memory(torch))
@@ -3110,37 +3317,18 @@ def phase_ranges(torch, qmm, fd, cfg=None, dev="cuda"):
             "stacked_vs_eager_worst_rel": gates}
     free_device_memory(torch)
 
-    # the card against the CPU port on the same seeded inputs
+    # the card against the CPU port on the same seeded inputs (the CPU's
+    # maps come from the CPU process)
     cpu_vs_card = {}
-    smoke = configs.get("qwen2_7b").SMOKE
-    sp = T.init_params(smoke, generator=torch.Generator().manual_seed(0),
-                       device="cpu")
-    stoks = torch.randint(0, smoke.vocab, (1, RANGES_TOKENS),
-                          generator=torch.Generator().manual_seed(1))
-    models = {"qwen2_7b.SMOKE": (
-        lambda dev: lm_forward(T, smoke, stoks.to(dev)), sp,
-        lambda dev: caa.make(torch.zeros((1, 1), dtype=torch.float64,
-                                         device=dev)), smoke.n_layers)}
-    imgs, _ = synthetic_digits.make_dataset(4, seed=0)
-    img = torch.from_numpy(imgs[0].astype(np.float64)).reshape(1, 784)
-    models["digits 784-700-256-10"] = (
-        lambda dev: PM.digits_forward,
-        PM.init_digits(torch.Generator().manual_seed(0), device="cpu"),
-        lambda dev: caa.from_range((img - 0.01).to(dev),
-                                   (img + 0.01).to(dev)), 0)
-    models["convnet 28x28 c1 16 c2 32"] = (
-        lambda dev: PM.convnet_forward,
-        PM.init_convnet(torch.Generator().manual_seed(1), device="cpu"),
-        lambda dev: caa.make(img.reshape(1, 28, 28, 1).to(dev)), 0)
+    job = CPU_JOBS.pop(("ranges", None), None) or CPU.submit(ranges_cpu_side)
     on = lambda p, dev: {k: (v.to(dev) if torch.is_tensor(v) else
                              (on(v, dev) if isinstance(v, dict) else v))
                          for k, v in p.items()}
-    for name, (fwd, p, xin, L) in models.items():
-        card = run_ranges(torch, A, fwd(dev), on(p, dev), xin(dev), ccfg,
-                          fmts, dflt, L)
-        with torch.no_grad():
-            cpu = run_ranges(torch, A, fwd("cpu"), p, xin("cpu"), ccfg, fmts,
-                             dflt, L)
+    cards = {name: run_ranges(torch, A, fwd(dev), on(p, dev), xin(dev), ccfg,
+                              fmts, dflt, L)
+             for name, (fwd, p, xin, L) in ranges_models(torch).items()}
+    for name, cpu in job.result().items():
+        card = cards[name]
         cpu_vs_card[name] = {m: same_range_maps(card[m], cpu[m],
                                                 f"{name} {m} card vs CPU")
                              for m in card}
@@ -3486,16 +3674,17 @@ def phase_analyze(torch):
     conv = PM.init_convnet(torch.Generator().manual_seed(1), device="cuda")
     pend = PM.init_pendulum(torch.Generator().manual_seed(2), device="cuda")
 
+    on_cpu = lambda p: {k: (v.cpu() if torch.is_tensor(v) else v)
+                        for k, v in p.items()}
+    cpu = CPU.submit(table1_cpu_side, on_cpu(digits), on_cpu(conv),
+                     on_cpu(pend), imgs, labels)
     spy = MatmulSpy(caa.matmul)
     caa.matmul = spy
     try:
         card = table1(torch, m, "cuda", digits, conv, pend, imgs, labels)
     finally:
         caa.matmul = spy.fn
-    on_cpu = lambda p: {k: (v.cpu() if torch.is_tensor(v) else v)
-                        for k, v in p.items()}
-    cpu = table1(torch, m, "cpu", on_cpu(digits), on_cpu(conv),
-                 on_cpu(pend), imgs, labels)
+    cpu = cpu.result()
     bounds, differing, faults = compare_table1(card, cpu, theory)
     for tbl in (card, cpu):
         for key in ("certs", "margins", "pred", "pred_margins"):
@@ -3520,6 +3709,20 @@ def phase_analyze(torch):
     if not wanted <= set(spy.seen):
         raise AssertionError(f"dense operands seen {sorted(spy.seen)}")
     return {key: spy.seen[key] for key in sorted(wanted)}
+
+
+def table1_cpu_side(digits, conv, pend, imgs, labels):
+    """``analyze``'s Table-I flow on the CPU with the card-trained weights
+    (the CPU's half of the phase)."""
+    import torch
+
+    from repro_torch.core import analyze, caa, precision
+    from repro_torch.core.backend import CaaOps, TorchOps
+    from repro_torch.models import paper_models as PM
+
+    m = {"caa": caa, "analyze": analyze, "precision": precision, "PM": PM,
+         "CaaOps": CaaOps, "TorchOps": TorchOps}
+    return table1(torch, m, "cpu", digits, conv, pend, imgs, labels)
 
 
 def f32_outward(torch, t, up: bool):
@@ -4147,17 +4350,13 @@ def certify_digits(torch, C, PM, TorchOps, qmm, serve, fns, store):
         his.append(np.clip(m + 0.02, 0.0, 1.0))
     common = dict(p_star=CERT_P_STAR, model_id="digits/h700x256",
                   k_max=CERT_DIGITS_K_MAX)
+    cpu = CPU.submit(digits_cpu_side, on_cpu, los, his)
     report, card = {}, {}
     for name, kw in CERT_DIGITS_RUNS.items():
         cs, secs, peak = timed_certify(
             torch, C.certify, PM.digits_forward, params, los, his,
             store=store if name == "formats" else None, **common, **kw)
-        t0 = time.perf_counter()
-        cpu = C.certify(PM.digits_forward, on_cpu, los, his, **common, **kw)
-        cpu_s = time.perf_counter() - t0
-        worst = card_vs_cpu(f"digits {name}", cs, cpu)
-        report[name] = {**cert_summary(cs, secs, peak), "cpu_seconds": cpu_s,
-                        "worst_rel_bound_vs_cpu": worst,
+        report[name] = {**cert_summary(cs, secs, peak),
                         "required_k_all": [c.required_k
                                            for c in cs.certificates]}
         card[name] = cs
@@ -4204,7 +4403,35 @@ def certify_digits(torch, C, PM, TorchOps, qmm, serve, fns, store):
     return {"train": {"steps": 400, "accuracy": acc, "seconds": train_s},
             "runs": report, "served_format": sm, "serve_rows": 64,
             "serve_launches": launches, "serve_bitwise_vs_plain": True,
-            "store_hit_lookup_s": hit.meta.get("lookup_seconds")}, launches
+            "store_hit_lookup_s": hit.meta.get("lookup_seconds")}, \
+        launches, (cpu, card)
+
+
+def digits_cpu_side(params, los, his):
+    """The CPU's half of ``certify_digits``: the three certifications with
+    the card-trained weights. Returns {run: (certificate set, seconds)}."""
+    from repro_torch import certify as C
+    from repro_torch.models import paper_models as PM
+
+    common = dict(p_star=CERT_P_STAR, model_id="digits/h700x256",
+                  k_max=CERT_DIGITS_K_MAX)
+    out = {}
+    for name, kw in CERT_DIGITS_RUNS.items():
+        t0 = time.perf_counter()
+        cs = C.certify(PM.digits_forward, params, los, his, **common, **kw)
+        out[name] = (cs, time.perf_counter() - t0)
+    return out
+
+
+def digits_vs_cpu(report, pending) -> None:
+    """Hold each of ``certify_digits``' card certifications against the
+    CPU's (decisions equal, bounds within CERT_REL_TOL) and add the CPU's
+    seconds and the worst bound difference to ``report``'s runs."""
+    job, card = pending
+    for name, (cpu, cpu_s) in job.result().items():
+        worst = card_vs_cpu(f"digits {name}", card[name], cpu)
+        report["runs"][name].update(cpu_seconds=cpu_s,
+                                    worst_rel_bound_vs_cpu=worst)
 
 
 def certify_qwen(torch, C, T, batching, fns, qmm, fd, root):
@@ -4280,11 +4507,10 @@ def certify_nano(torch, C, T, TorchOps, serve, batching, fns, qmm, fd,
         raise AssertionError(f"nano LM did not overfit its profile: {loss}")
     params = _to_device(host, "cuda")
     store = CertificateStore(str(root))
+    cpu_half = CPU.submit(nano_cpu_side, cfg, host)
     cs, secs, peak = timed_certify(torch, C.certify_lm, "qwen2_7b", cfg,
                                    params, store=store, **CERT_NANO)
-    t0 = time.perf_counter()
-    cpu = C.certify_lm("qwen2_7b", cfg, host, **CERT_NANO)
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = cpu_half.result()
     worst = card_vs_cpu("nano", cs, cpu, rel=CERT_LM_REL_TOL,
                         rel_ebar=math.inf)
     if cs.serving_k is None:
@@ -4350,6 +4576,16 @@ def certify_nano(torch, C, T, TorchOps, serve, batching, fns, qmm, fd,
             "monitored": monitored}, launches_all
 
 
+def nano_cpu_side(cfg, host):
+    """The CPU's half of ``certify_nano``'s certification, on the host
+    weights. Returns (certificate set, seconds)."""
+    from repro_torch import certify as C
+
+    t0 = time.perf_counter()
+    cs = C.certify_lm("qwen2_7b", cfg, host, **CERT_NANO)
+    return cs, time.perf_counter() - t0
+
+
 def nano_monitored(torch, T, serve, cfg, cs, params, host, steps=3):
     """The nano's card-certified v3 set served under a violation monitor
     on its own certification profile (prefill, then ``steps`` greedy
@@ -4407,13 +4643,11 @@ def phase_certify(torch, serve, batching, qmm, fd, T):
     root = ROOT / "build" / "chip_smoke_certify"
     shutil.rmtree(root, ignore_errors=True)
     digits_store = CertificateStore(str(root / "digits"))
-    digits, l_digits = certify_digits(torch, C, PM, TorchOps, qmm, serve,
-                                      fns, digits_store)
+    digits, l_digits, digits_cpu = certify_digits(
+        torch, C, PM, TorchOps, qmm, serve, fns, digits_store)
     evicted = C.CertificateStore(str(root / "digits")).gc(max_entries=0)
     if evicted != 1 or len(digits_store) != 0:
         raise AssertionError(f"gc --max-entries 0 evicted {evicted}")
-    emit("certify_digits", **digits, gc_evicted=evicted,
-         rel_tol=CERT_REL_TOL)
     free_device_memory(torch)
     qwen, l_qwen = certify_qwen(torch, C, T, batching, fns, qmm, fd,
                                 root / "qwen2_7b")
@@ -4422,6 +4656,10 @@ def phase_certify(torch, serve, batching, qmm, fd, T):
     nano, l_nano = certify_nano(torch, C, T, TorchOps, serve, batching, fns,
                                 qmm, fd, root / "nano")
     emit("certify_nano", **nano)
+    # Digits' CPU certifications ran beside Qwen2-7B's and the nano's
+    digits_vs_cpu(digits, digits_cpu)
+    emit("certify_digits", **digits, gc_evicted=evicted,
+         rel_tol=CERT_REL_TOL)
     launches = {name: l_digits[name] + l_qwen[name] + l_nano[name]
                 for name in fns}
     emit("certify", launches=launches, by_part={
@@ -4436,6 +4674,37 @@ def phase_certify(torch, serve, batching, qmm, fd, T):
 
 PAPER_KERNELS = ("quant_matmul_format", "flash_decode_certified",
                  "quant_matmul", "flash_decode_attention")
+
+
+def paper_side():
+    """``phase_paper`` in the card process ``PAPER``: the precision setting
+    of ``phase_env`` (the environment is the parent's), then the phase and
+    its ``seconds`` line. Returns its launches."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.launch import serve
+
+    serve.configure_precision()
+    CONTENDED["note"] = ("zoo, ssm and mla_encdec ran on the card in the "
+                         "main process meanwhile")
+    t0 = time.perf_counter()
+    launches = phase_paper(torch, qmm, fd)
+    emit("seconds", of="paper", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def quickstart_cpu_side(params):
+    """``quickstart``'s analysis on the CPU with the card-trained weights.
+    Returns (its result, seconds)."""
+    from repro_torch.data import synthetic_digits
+    from repro_torch.examples import quickstart
+
+    imgs, _ = synthetic_digits.make_dataset(800, seed=0)
+    t0 = time.perf_counter()
+    out = quickstart.analyse(params, imgs)
+    return out, time.perf_counter() - t0
 
 
 def phase_paper(torch, qmm, fd):
@@ -4488,17 +4757,10 @@ def phase_paper(torch, qmm, fd):
             os.environ["REPRO_TORCH_BENCH_DIR"] = prev
     step("quickstart", quickstart.main, ["--device", "cuda"])
     card = results["quickstart"]
-    from repro_torch.data import synthetic_digits
-
-    imgs, _ = synthetic_digits.make_dataset(800, seed=0)
-    t0 = time.perf_counter()
-    cpu = quickstart.analyse({k: v.cpu() for k, v in card["params"].items()},
-                             imgs)
-    cpu_s = time.perf_counter() - t0
-    differ = sorted(key for key in ("required_k", "n_cert", "n_ok")
-                    if card[key] != cpu[key])
-    per_input = {key: sum(a != b for a, b in zip(card[key], cpu[key]))
-                 for key in ("certs", "pred")}
+    # the CPU's analysis with the card-trained weights runs beside the
+    # remaining examples
+    cpu_half = CPU.submit(quickstart_cpu_side, {
+        k: v.cpu() for k, v in card["params"].items()})
     step("serve_custom_formats", serve_custom_formats.main,
          ["--device", "cuda"])
     step("serve_certified", serve_certified.main,
@@ -4507,6 +4769,11 @@ def phase_paper(torch, qmm, fd):
          ["--device", "cuda", "--certificates", str(out / "lm_store")])
     step("lm_precision_analysis", lm_precision_analysis.main,
          ["--device", "cuda"])
+    cpu, cpu_s = cpu_half.result()
+    differ = sorted(key for key in ("required_k", "n_cert", "n_ok")
+                    if card[key] != cpu[key])
+    per_input = {key: sum(a != b for a, b in zip(card[key], cpu[key]))
+                 for key in ("certs", "pred")}
 
     rows = results["benchmarks.run"]
     table1 = {name: {"seconds": us / 1e6, "max_abs_u": d}
@@ -5007,11 +5274,7 @@ def zoo_analysis(torch, T, fns):
     repro_torch.launch.analyze --routers`` on the card for the MoE archs."""
     import shutil
 
-    from repro_torch import certify as C
     from repro_torch import configs
-    from repro_torch.certify.tokens import profile_tokens
-    from repro_torch.core import caa
-    from repro_torch.core.backend import CaaOps
     from repro_torch.launch import analyze
 
     root = ROOT / "build" / "chip_smoke_zoo"
@@ -5019,21 +5282,11 @@ def zoo_analysis(torch, T, fns):
     out = {}
     reset_launches(fns)
     for arch in ZOO_SMOKE:
-        cfg = configs.get(arch).SMOKE
-        host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
-                             device="cpu")
-        params = {"cuda": _to_device(host, "cuda"), "cpu": host}
-        toks = profile_tokens(1, 1, 16, cfg.vocab)
+        cpu = cpu_job("zoo", arch)
         traces, certs, secs = {}, {}, {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            bk = CaaOps(caa.CaaConfig(u_max=ZOO_CAA_U, emulate_k=12))
-            T.forward(bk, params[dev], cfg, toks.to(dev))
-            traces[dev] = bk.trace
-            certs[dev] = C.certify_lm(
-                arch, cfg, params[dev], **ZOO_CERT,
-                store=C.CertificateStore(str(root / arch / dev)))
-            secs[dev] = time.perf_counter() - t0
+        traces["cuda"], certs["cuda"], secs["cuda"] = zoo_smoke_side(
+            arch, "cuda", root)
+        traces["cpu"], certs["cpu"], secs["cpu"] = cpu.result()
         a, b = traces["cuda"], traces["cpu"]
         if [(r.name, r.kind) for r in a] != [(r.name, r.kind) for r in b]:
             raise AssertionError(f"{arch}: the traces' records differ")
@@ -5097,6 +5350,33 @@ def zoo_analysis(torch, T, fns):
         out[arch]["analyze_cli_routers"] = [
             {"name": r.name, **r.extra} for r in res["routers"]]
     return out
+
+
+def zoo_smoke_side(arch, dev, root):
+    """One device's half of ``zoo_analysis``'s SMOKE check of ``arch``: the
+    CaaOps forward at emulated k = 12 on 16 tokens and ``certify_lm``
+    (uniform, k_max 24) on the seed-0 weights drawn on the CPU. Returns
+    (trace, certificates, seconds)."""
+    import torch
+
+    from repro_torch import certify as C
+    from repro_torch import configs
+    from repro_torch.certify.tokens import profile_tokens
+    from repro_torch.core import caa
+    from repro_torch.core.backend import CaaOps
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get(arch).SMOKE
+    host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    params = host if dev == "cpu" else _to_device(host, dev)
+    toks = profile_tokens(1, 1, 16, cfg.vocab)
+    t0 = time.perf_counter()
+    bk = CaaOps(caa.CaaConfig(u_max=ZOO_CAA_U, emulate_k=12))
+    T.forward(bk, params, cfg, toks.to(dev))
+    certs = C.certify_lm(arch, cfg, params, **ZOO_CERT,
+                         store=C.CertificateStore(str(root / arch / dev)))
+    return bk.trace, certs, time.perf_counter() - t0
 
 
 def phase_zoo(torch, serve, batching, qmm, fd, T):
@@ -5498,7 +5778,6 @@ def ssm_analysis(torch, T, fns):
     its contraction clamp promises."""
     import shutil
 
-    from repro_torch import certify as C
     from repro_torch import configs
     from repro_torch.certify.tokens import profile_tokens
     from repro_torch.core import caa
@@ -5510,21 +5789,12 @@ def ssm_analysis(torch, T, fns):
     reset_launches(fns)
     for arch in SSM_ARCHS:
         cfg = configs.get(arch).SMOKE
-        host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
-                             device="cpu")
-        params = {"cuda": _to_device(host, "cuda"), "cpu": host}
-        toks = profile_tokens(1, 1, 16, cfg.vocab)
+        cpu = cpu_job("ssm", arch)
         traces, scans, certs, secs = {}, {}, {}, {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            bk = CaaOps(caa.CaaConfig(u_max=SSM_CAA_U, emulate_k=12))
-            spy = ScanSpy(torch, bk)
-            T.forward(bk, params[dev], cfg, toks.to(dev))
-            traces[dev], scans[dev] = bk.trace, spy.rows
-            certs[dev] = C.certify_lm(
-                arch, cfg, params[dev], **ZOO_CERT,
-                store=C.CertificateStore(str(root / arch / dev)))
-            secs[dev] = time.perf_counter() - t0
+        (traces["cuda"], scans["cuda"], certs["cuda"],
+         secs["cuda"]) = ssm_smoke_side(arch, "cuda", root)
+        traces["cpu"], scans["cpu"], certs["cpu"], secs["cpu"] = \
+            cpu.result()
         worst = 0.0
         pairs = [((ra.name, "dbar"), ra.max_dbar, rb.max_dbar)
                  for ra, rb in zip(traces["cuda"], traces["cpu"])]
@@ -5600,6 +5870,34 @@ def ssm_analysis(torch, T, fns):
             "logits_actual_abs_u": float(a_abs.max())}
         del params, logits, bk, spy, dec, drv
     return out
+
+
+def ssm_smoke_side(arch, dev, root):
+    """One device's half of ``ssm_analysis``'s SMOKE check of ``arch``: the
+    CaaOps forward at emulated k = 12 on 16 tokens (its recurrences
+    recorded) and ``certify_lm`` (uniform, k_max 24). Returns (trace,
+    recurrence rows, certificates, seconds)."""
+    import torch
+
+    from repro_torch import certify as C
+    from repro_torch import configs
+    from repro_torch.certify.tokens import profile_tokens
+    from repro_torch.core import caa
+    from repro_torch.core.backend import CaaOps
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get(arch).SMOKE
+    host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    params = host if dev == "cpu" else _to_device(host, dev)
+    toks = profile_tokens(1, 1, 16, cfg.vocab)
+    t0 = time.perf_counter()
+    bk = CaaOps(caa.CaaConfig(u_max=SSM_CAA_U, emulate_k=12))
+    spy = ScanSpy(torch, bk)
+    T.forward(bk, params, cfg, toks.to(dev))
+    certs = C.certify_lm(arch, cfg, params, **ZOO_CERT,
+                         store=C.CertificateStore(str(root / arch / dev)))
+    return bk.trace, spy.rows, certs, time.perf_counter() - t0
 
 
 def phase_ssm(torch, serve, batching, qmm, fd, T):
@@ -5958,9 +6256,7 @@ def mla_analysis(torch, T, fns):
     pass on 8 tokens at f32's u: seconds, peak memory, the logits' bound."""
     import shutil
 
-    from repro_torch import certify as C
     from repro_torch import configs
-    from repro_torch.certify.lm import frontend_kwargs
     from repro_torch.certify.tokens import profile_tokens
     from repro_torch.core import caa
     from repro_torch.core.backend import CaaOps
@@ -5970,23 +6266,11 @@ def mla_analysis(torch, T, fns):
     out = {}
     reset_launches(fns)
     for arch in MLA_ENCDEC_ARCHS:
-        cfg = configs.get(arch).SMOKE
-        host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
-                             device="cpu")
-        params = {"cuda": _to_device(host, "cuda"), "cpu": host}
-        b = ZOO_CERT["batch"]
-        toks = profile_tokens(1, b, ZOO_CERT["seq"], cfg.vocab)
+        cpu = cpu_job("mla", arch)
         traces, certs, secs = {}, {}, {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            bk = CaaOps(caa.CaaConfig(u_max=ZOO_CAA_U, emulate_k=12))
-            T.forward(bk, params[dev], cfg, toks.to(dev),
-                      **frontend_kwargs(cfg, b, 0, dev))
-            traces[dev] = bk.trace
-            certs[dev] = C.certify_lm(
-                arch, cfg, params[dev], **ZOO_CERT, **MLA_CERT[arch],
-                store=C.CertificateStore(str(root / arch / dev)))
-            secs[dev] = time.perf_counter() - t0
+        traces["cuda"], certs["cuda"], secs["cuda"] = mla_smoke_side(
+            arch, "cuda", root)
+        traces["cpu"], certs["cpu"], secs["cpu"] = cpu.result()
         worst = 0.0
         if ([(r.name, r.kind) for r in traces["cuda"]]
                 != [(r.name, r.kind) for r in traces["cpu"]]):
@@ -6038,6 +6322,36 @@ def mla_analysis(torch, T, fns):
         raise AssertionError(f"minicpm3 full width: {out['minicpm3_4b_full']}")
     del params, logits, bk
     return out
+
+
+def mla_smoke_side(arch, dev, root):
+    """One device's half of ``mla_analysis``'s SMOKE check of ``arch``: the
+    CaaOps forward at emulated k = 12 on ``certify_lm``'s profile and the
+    stub's inputs, and ``certify_lm`` (MLA_CERT's pipeline). Returns
+    (trace, certificates, seconds)."""
+    import torch
+
+    from repro_torch import certify as C
+    from repro_torch import configs
+    from repro_torch.certify.lm import frontend_kwargs
+    from repro_torch.certify.tokens import profile_tokens
+    from repro_torch.core import caa
+    from repro_torch.core.backend import CaaOps
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get(arch).SMOKE
+    host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    params = host if dev == "cpu" else _to_device(host, dev)
+    b = ZOO_CERT["batch"]
+    toks = profile_tokens(1, b, ZOO_CERT["seq"], cfg.vocab)
+    t0 = time.perf_counter()
+    bk = CaaOps(caa.CaaConfig(u_max=ZOO_CAA_U, emulate_k=12))
+    T.forward(bk, params, cfg, toks.to(dev),
+              **frontend_kwargs(cfg, b, 0, dev))
+    certs = C.certify_lm(arch, cfg, params, **ZOO_CERT, **MLA_CERT[arch],
+                         store=C.CertificateStore(str(root / arch / dev)))
+    return bk.trace, certs, time.perf_counter() - t0
 
 
 def phase_mla_encdec(torch, serve, batching, qmm, fd, T):
@@ -6271,6 +6585,207 @@ def phase_train(torch, qmm, fd, T):
     return launches, parts
 
 
+# ---------------------------------------------------------------------------
+# the device mesh: the engine and training on the card's 1 × 1 mesh, and the
+# column and head shards of a wider mesh, kernel by kernel
+# ---------------------------------------------------------------------------
+
+MESH_SPLITS = (2, 4, 8)            # "model" sizes the shard checks split
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_MODES = ("fsdp", "tp")
+MESH_PROJ = {"wq": "attn", "wk": "attn", "wv": "attn", "wo": "attn",
+             "w_gate": "mlp", "w_up": "mlp", "w_down": "mlp"}
+
+
+def mesh_engine(torch, batching, fns, cfg, params, mesh, handoff):
+    """The continuous-batching engine on ``mesh`` with ``batching``'s
+    requests, the format map then k = 12: every request's tokens and logit
+    sha256 and the launch counts must equal ``batching``'s."""
+    reqs, too_long = batching_requests(torch, batching, cfg.vocab)
+    out = {}
+    for path, sc, certset, eos_id, run in (
+            ("format", handoff["sc"], handoff["certset"], handoff["eos_id"],
+             reqs + [too_long]),
+            ("k", handoff["sc_k"], None, -1, reqs[:BATCH_K_REQUESTS])):
+        engine = batching.ContinuousBatchingEngine(
+            cfg, sc, params, certset=certset, eos_id=eos_id, device="cuda",
+            keep_logits=True, mesh=mesh, **BATCH_ENGINE)
+        torch.cuda.synchronize()
+        reset_launches(fns)
+        t0 = time.perf_counter()
+        responses = engine.run(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(fns)
+        got, want = served_digests(responses), handoff[path]
+        equal = sorted(rid for rid, w in want["requests"].items()
+                       if got.get(rid) == w)
+        out[path] = {"launches": launches,
+                     "launches_equal_batching": launches == want["launches"],
+                     "requests": sorted(got),
+                     "equal_to_batching": equal, "steps": engine.steps,
+                     "wall_s": wall, "decode_ms_per_step":
+                         1e3 * engine.decode_s / max(engine.steps, 1)}
+        del engine, responses
+        if launches != want["launches"] or sorted(got) != equal \
+                or sorted(got) != sorted(want["requests"]):
+            raise AssertionError(f"mesh engine, {path}: {out[path]} against "
+                                 f"batching's launches {want['launches']}")
+    return out
+
+
+def mesh_shards(torch, qmm, fd, params):
+    """What column and head parallelism rely on, on the card: for "model"
+    sizes MESH_SPLITS, kernels 1 and 3 on each column shard of layer 0's
+    seven projections at M = 4 and 512 and ``f32_matmul`` on each vocab
+    shard of the LM head (the route ``TorchOps.einsum`` takes, through a
+    transposed table) give the same columns of the whole product bit for
+    bit; kernels 2 and 4 on each KV-head shard of the serve cache give the
+    same heads of the whole call bit for bit (a split that does not divide
+    the heads is not made, as the lane rule makes none)."""
+    from repro_torch.kernels import row_order as ro
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fmt = FORMATS["k12_e15"]
+    kernels = {"quant_matmul_format": lambda x, w: qmm.quant_matmul_format(
+                   x, w, fmt, has_subnormals=True, saturating=True),
+               "quant_matmul": lambda x, w: qmm.quant_matmul(x, w,
+                                                             k=SERVE_K)}
+    rows, bad = [], []
+
+    def shards(what, whole, part, n, m, dim):
+        step = n // m
+        ok = all(same_bits(torch, part(r * step, (r + 1) * step),
+                           whole.narrow(dim, r * step, step))
+                 for r in range(m))
+        rows.append({"what": what, "model": m, "bitwise": ok})
+        if not ok:
+            bad.append(rows[-1])
+
+    layer = params["layers"]
+    for M in (SERVE_BATCH, 512):
+        for name, sub in MESH_PROJ.items():
+            w = layer[sub][name][0]
+            x = torch.randn(M, w.shape[0], generator=gen, device="cuda")
+            for kname, fn in kernels.items():
+                whole = fn(x, w)
+                for m in MESH_SPLITS:
+                    shards(f"{kname} {name} M={M}", whole,
+                           lambda a, b: fn(x, w[:, a:b].contiguous()),
+                           w.shape[1], m, 1)
+    table = params["head"]
+    x = torch.randn(SERVE_BATCH, 1, table.shape[1], generator=gen,
+                    device="cuda")
+    whole = ro.lm_head_dispatch(x, ro.transposed(table))
+    for m in MESH_SPLITS:
+        shards("f32_matmul head", whole,
+               lambda a, b: ro.lm_head_dispatch(x, ro.transposed(table[a:b])),
+               table.shape[0], m, 2)
+    del whole
+    S, lengths = FLASH_CASES["serve_last"]
+    B, K, G, D = SERVE_BATCH, 4, 7, 128
+    q = torch.randn(B, K, G, D, generator=gen, device="cuda")
+    k = torch.randn(B, S, K, D, generator=gen, device="cuda")
+    v = torch.randn(B, S, K, D, generator=gen, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    flash = {"flash_decode_certified": lambda q, k, v:
+             fd.flash_decode_certified(q, k, v, lens, fmt,
+                                       has_subnormals=True, saturating=True),
+             "flash_decode_attention": lambda q, k, v:
+             fd.flash_decode_attention(q, k, v, lens)}
+    for kname, fn in flash.items():
+        whole = fn(q, k, v)
+        for m in MESH_SPLITS:
+            if K % m:
+                rows.append({"what": f"{kname} serve cache", "model": m,
+                             "bitwise": None, "note": f"{K} kv heads: not "
+                             "split"})
+                continue
+            shards(f"{kname} serve cache", whole,
+                   lambda a, b: fn(q[:, a:b].contiguous(),
+                                   k[:, :, a:b].contiguous(),
+                                   v[:, :, a:b].contiguous()), K, m, 1)
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"mesh shards differ from the whole: {bad}")
+    return rows
+
+
+def mesh_train(torch, T, mesh, want_losses):
+    """Qwen2-7B at full width cut to 2 layers, MESH_TRAIN_STEPS steps of
+    ``build_train_step`` on ``mesh`` with each ``param_sharding``, the
+    ``train`` phase's run's config, seed and stream: the losses must equal
+    that run's bit for bit."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import optimizer as opt
+
+    cfg = dataclasses.replace(configs.get("qwen2_7b").FULL, n_layers=2)
+    dev = torch.device("cuda")
+    steps = 6                              # the train phase's schedule
+    dc = pipeline.DataConfig(vocab=cfg.vocab, seq=512, global_batch=4,
+                             seed=0)
+    out = {}
+    for mode in MESH_TRAIN_MODES:
+        tc = train.TrainConfig(arch="qwen2_7b", smoke=False, seq=512,
+                               global_batch=4, steps=steps,
+                               param_sharding=mode)
+        step_fn, init_fn = train.build_train_step(
+            cfg, tc, dev, opt.AdamWConfig(total_steps=steps), mesh=mesh)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        losses, t0 = [], time.perf_counter()
+        for step in range(MESH_TRAIN_STEPS):
+            state, loss = step_fn(state, train.batch_for(cfg, dc, step, dev))
+            losses.append(float(loss))
+        out[mode] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                     "equal_to_train": losses == want_losses}
+        del state, step_fn, init_fn
+        free_device_memory(torch)
+        if losses != want_losses:
+            raise AssertionError(f"mesh train {mode}: losses {losses}, the "
+                                 f"train phase's {want_losses}")
+    return out
+
+
+def phase_mesh(torch, batching, qmm, fd, T, handoff, train_losses):
+    """The device mesh on the card, whose process has one device: the
+    engine on the 1 × 1 serving mesh (``batching``'s requests and results,
+    bit for bit), the per-shard bits a wider mesh relies on, and training on
+    the 1 × 1 mesh under each ``param_sharding`` (``train``'s losses bit
+    for bit). Returns the engine runs' launches (the path's)."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshlib
+
+    emit("free", before="mesh", allocated_gb=free_device_memory(torch))
+    t_phase = time.perf_counter()
+    fns = kernel_fns(qmm, fd)
+    mesh = meshlib.make_serving_mesh(device="cuda")
+    shape = meshlib.mesh_shape(mesh)
+    if shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"the card's serving mesh is {shape}")
+    cfg = configs.get("qwen2_7b").FULL
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    engine = mesh_engine(torch, batching, fns, cfg, params, mesh, handoff)
+    shards = mesh_shards(torch, qmm, fd, params)
+    del params
+    free_device_memory(torch)
+    reset_launches(fns)
+    trained = mesh_train(torch, T, mesh, train_losses)
+    train_launches = read_launches(fns)
+    if any(train_launches.values()):
+        raise AssertionError(f"mesh train launched kernels: "
+                             f"{train_launches}")
+    launches = {name: engine["format"]["launches"][name]
+                + engine["k"]["launches"][name] for name in fns}
+    emit("mesh", card=nvidia_smi_line(), mesh=shape, engine=engine,
+         shards={"checked": len(shards), "rows": shards}, train=trained,
+         train_launches=train_launches, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6309,6 +6824,28 @@ def gemm_layer_timing(rows, M):
 
 
 def main() -> int:
+    """Runs the smoke; the CPU process stops with it, however it ends."""
+    try:
+        return _main()
+    finally:
+        CPU.close()
+        PAPER.close()
+
+
+class PhaseClock:
+    """Prints one ``seconds`` line a phase: the host seconds since the
+    previous phase ended."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        emit("seconds", of=name, seconds=now - self.last)
+        self.last = now
+
+
+def _main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
               file=sys.stderr)
@@ -6331,33 +6868,52 @@ def main() -> int:
 
     t_main = time.perf_counter()
     marks = []
+    clock = PhaseClock()
     phase_env(torch, serve)
     phase_build(_build)
     marks.append(("build", time.perf_counter()))
+    clock("env_build")
+    # the CPU halves of the card-against-CPU checks run in their own process
+    import shutil
+
+    shutil.rmtree(CPU_SIDE_ROOT, ignore_errors=True)
+    CPU.start()
+    queue_smoke_sides()
     phase_rounding(torch, quantize, qmm)
+    clock("rounding")
     phase_gemm_order(torch, qmm)
+    clock("gemm_order")
     qrows, qerr = phase_quant_matmul(torch, qmm)
+    clock("quant_matmul_format")
     fcases, ferr = phase_flash_decode(torch, fd)
+    clock("flash_decode_certified")
     krows, kerr = phase_quant_matmul_k(torch, qmm)
+    clock("quant_matmul")
     acases, aerr = phase_flash_decode_attention(torch, fd)
+    clock("flash_decode_attention")
     windowed = phase_flash_windowed(torch, fd)
+    clock("flash_decode_windowed")
     rorows = phase_row_order(torch, serve.configs.get("qwen2_7b").FULL)
+    clock("row_order")
     marks.append(("kernels", time.perf_counter()))
 
     by_path, timings = {}, {}
     by_path["serve"], fmt_path, timings["serve"] = phase_serve(
         torch, serve, qmm, fd, T)
+    clock("serve")
     (by_path["serve_k"], k_path, k_attn_path,
      timings["serve_k"]) = phase_serve_k(
         torch, serve, qmm, fd, T, "serve_k",
         ["--precision-k", str(SERVE_K)],
         {f"layer{i}": uniform_ks(SERVE_K, SERVE_K) for i in range(2)})
+    clock("serve_k")
     (by_path["serve_monitor"], product_layer,
      timings["serve_monitor"]) = phase_serve_monitor(
         torch, serve, qmm, fd, T, {
             "serve": timings["serve"]["logits_sha256"],
             "serve_k": timings["serve_k"]["logits_sha256"],
             "serve_decode_ms": timings["serve"]["decode_ms_per_step"]})
+    clock("serve_monitor")
     v2_set = write_v2_set(spec)
     (by_path["serve_mixed"], mixed_path, mixed_attn_path,
      timings["serve_mixed"]) = (
@@ -6365,9 +6921,13 @@ def main() -> int:
                       ["--certificate-set", str(v2_set)],
                       {"layer0": uniform_ks(12, 14),
                        "layer1": uniform_ks(12, 10)}))
+    clock("serve_mixed")
     (by_path["batching"], batch_fmt_path, batch_k_path,
-     batch_timing) = phase_batching(torch, serve, batching, qmm, fd, T)
+     batch_timing, handoff) = phase_batching(torch, serve, batching, qmm,
+                                             fd, T)
+    clock("batching")
     by_path["profile"], prows, prof_path = phase_profile(torch, obs, qmm, fd)
+    clock("profile")
     marks.append(("serve_batching_profile", time.perf_counter()))
     emit("decode_trace", steps=TRACE_STEPS, note="one decode step of each "
          "full-width serve path: host-clock median, and the device split "
@@ -6386,37 +6946,69 @@ def main() -> int:
              for path, t in (("format", batch_timing),
                              ("k", batch_timing["k"]))})
 
+    clock("decode_trace_end_to_end")
     phase_interval_libm(torch, iv)
+    clock("interval_libm")
     by_path["ranges"] = phase_ranges(torch, qmm, fd)
+    clock("ranges")
     marks.append(("interval_libm_ranges", time.perf_counter()))
     by_path["certify"] = phase_certify(torch, serve, batching, qmm, fd, T)
+    clock("certify")
     marks.append(("certify", time.perf_counter()))
     seen = phase_analyze(torch)
+    clock("analyze")
     operands = analysis_operands(torch, seen)
     del seen
     by_path["analysis_ops"], path_outs = phase_analysis_ops(
         torch, kops, qmm, fd, operands)
     free_device_memory(torch)
+    clock("analysis_ops")
     phase_interval_gemm_order(torch, operands)
+    clock("interval_gemm_order")
     cpath, crows, cerr = phase_caa_kernel(torch, "caa_matmul", kops,
                                           operands, path_outs)
+    clock("caa_matmul")
     ipath, irows, ierr = phase_caa_kernel(torch, "interval_matmul", kops,
                                           operands, path_outs)
     del path_outs, operands
     free_device_memory(torch)
+    clock("interval_matmul")
     marks.append(("analyze_caa_interval", time.perf_counter()))
-    by_path["paper"] = phase_paper(torch, qmm, fd)
-    marks.append(("paper", time.perf_counter()))
+    # ``paper`` runs in its own process on the card beside the next three;
+    # a phase's lines are marked contended until one ends after it finished
+    paper = PAPER.start(PAPER_THREADS).submit(paper_side)
+    CONTENDED["note"] = ("the paper phase ran on the card in a second "
+                         "process meanwhile")
+
+    def phase_ended(name):
+        clock(name)
+        marks.append((name, time.perf_counter()))
+        if paper.done():
+            CONTENDED["note"] = None
+
     by_path["zoo"], zoo_parts = phase_zoo(torch, serve, batching, qmm, fd,
                                           T)
-    marks.append(("zoo", time.perf_counter()))
+    phase_ended("zoo")
     by_path["ssm"], ssm_parts = phase_ssm(torch, serve, batching, qmm, fd, T)
-    marks.append(("ssm", time.perf_counter()))
+    phase_ended("ssm")
     by_path["mla_encdec"], mla_parts = phase_mla_encdec(
         torch, serve, batching, qmm, fd, T)
-    marks.append(("mla_encdec", time.perf_counter()))
-    by_path["train"], _ = phase_train(torch, qmm, fd, T)
+    phase_ended("mla_encdec")
+    by_path["paper"] = paper.result()
+    CONTENDED["note"] = None
+    PAPER.close()
+    clock("paper_wait")
+    marks.append(("paper", time.perf_counter()))
+    by_path["train"], train_parts = phase_train(torch, qmm, fd, T)
     marks.append(("train", time.perf_counter()))
+    clock("train")
+    train_losses = [train_parts["full"]["layers2"]["losses"][str(i)]
+                    for i in range(MESH_TRAIN_STEPS)]
+    by_path["mesh"] = phase_mesh(torch, batching, qmm, fd, T, handoff,
+                                 train_losses)
+    del handoff
+    marks.append(("mesh", time.perf_counter()))
+    clock("mesh")
     emit("timeline", note="host seconds from the start of main to the end "
          "of each phase group", **{name: t - t_main for name, t in marks})
     ssm_new = ssm_parts["new_shapes"]["rows"] + [

@@ -82,12 +82,14 @@ def kernel_route_ok(*operands) -> bool:
                 and any(t.requires_grad for t in operands))
 
 
-def _tree_index(tree, i):
+def _tree_index(tree, i, leaf=None):
+    """Layer ``i`` of a tree of layer-stacked tensors: ``leaf(t, i)`` of
+    each (``t[i]`` by default)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _tree_index(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: _tree_index(v, i, leaf) for k, v in tree.items()}
+    return tree[i] if leaf is None else leaf(tree, i)
 
 
 @dataclasses.dataclass
@@ -230,6 +232,34 @@ class Backend:
         analysis; a sound enclosure intersection under CaaOps)."""
         return a
 
+    def layer_params(self, tree, i: int):
+        """Layer ``i`` of the layer-stacked ``tree`` (parameters or a
+        cache) for the layer loop: views along the leading ``[L]`` axis."""
+        return _tree_index(tree, i)
+
+    def shard_hint(self, a, kind: str):
+        """Where the reference pins an activation's placement on its mesh
+        (``act_batch``: the residual stream, batch over the DP axes and
+        replicated over "model"; ``q_seq``: training's queries): the
+        identity. The port's callers lay the batch out themselves (each
+        rank runs its own DP block), and a mesh backend's products hand back
+        whole columns, so an activation is already where the hint would put
+        it."""
+        return a
+
+    def kv_local(self, new, buf):
+        """The part of new keys or values [B, S, K, Dh] that the cache
+        buffer ``buf`` [B, Smax, K', Dh] holds: all of them here; a mesh
+        backend keeps its own KV heads when the cache's heads are split
+        over "model"."""
+        return new
+
+    def kv_whole(self, buf, n_heads: int):
+        """The cache buffer with all ``n_heads`` KV heads, for the composed
+        attention: ``buf`` itself here; a mesh backend gathers a head-split
+        cache over "model"."""
+        return buf
+
     def decode_attention(self, q, k, v, lengths):
         """Fused single-token decode attention hook: q [B,K,G,D] against
         the cache k/v [B,Smax,K,D] with valid ``lengths`` [B]. Return the
@@ -271,8 +301,9 @@ class UnrolledLayerLoop:
     def layer_loop(self, fn, stacked_params, x, n_layers: int, aux=None):
         for i in range(n_layers):
             with self.scope(f"layer{i}"):
-                x = fn(_tree_index(stacked_params, i), x, i,
-                       _tree_index(aux, i))
+                x = fn(self.layer_params(stacked_params, i), x, i,
+                       self.layer_params(aux, i))
+            x = self.shard_hint(x, "act_batch")
         return x
 
 
@@ -476,6 +507,214 @@ class TorchOps(UnrolledLayerLoop, Backend):
             h = dec[t] * h + drv[t]
             hs.append(h)
         return torch.movedim(torch.stack(hs), 0, time_axis)
+
+
+# -- a backend on a device mesh -----------------------------------------------
+
+_DTENSOR = None
+
+
+def _dtensor_type():
+    global _DTENSOR
+    if _DTENSOR is None:
+        from torch.distributed.tensor import DTensor
+
+        _DTENSOR = DTensor
+    return _DTENSOR
+
+
+def _is_dtensor(t) -> bool:
+    return type(t) is not torch.Tensor and isinstance(t, _dtensor_type())
+
+
+def _whole(t):
+    """A DTensor's whole tensor (:func:`repro_torch.parallel.sharding.full`);
+    any other value as it is."""
+    if not _is_dtensor(t):
+        return t
+    from repro_torch.parallel.sharding import full
+
+    return full(t)
+
+
+class MeshOps:
+    """Mixin put before a serving backend's class (:class:`MeshTorchOps`,
+    ``serve.MeshQuantJOps``, ...): the backend on a ``DeviceMesh`` whose
+    parameters are DTensors placed by :mod:`repro_torch.parallel.sharding`.
+
+    The port's kernels have no DTensor rules, so they run on this rank's
+    blocks (``to_local()``) with explicit collectives around them, and
+    DTensors are resolved in :meth:`param` (and :meth:`layer_params`, which
+    indexes a stacked one):
+
+    * a parameter whole on every rank (no axis of size > 1 splits it) is
+      read where it lies;
+    * a parameter split only over "model", on a product's OUTPUT dim (the
+      serving rules' column parallelism: a weight's last dim, the vocab dim
+      of the LM head's table), stays a DTensor until its product, which
+      computes this rank's columns through the backend's own route
+      (kernels 1 and 3, ``f32_matmul`` for the head) and gathers the exact
+      columns over "model": each column's bits are those of the whole
+      product, as a kernel keeps one order per output element. The port's
+      models hand such a weight to no op but a product (:meth:`matmul`,
+      :meth:`einsum`), ``take`` (a tied embedding) and ``reshape`` (MLA's
+      ``wkv_b``), which gather it whole; any other op refuses a DTensor;
+    * a parameter split on any other dim (the greedy FSDP / TP rules) is
+      gathered whole at each use;
+    * single-token decode attention on a cache whose KV heads are split
+      over "model" runs the backend's kernel (2 or 4) on this rank's heads
+      and gathers the heads; the composed attention reads the whole cache
+      (:meth:`kv_whole`).
+
+    No serving op reduces across ranks. A collective over an axis of size 1
+    is skipped, so on a 1 × 1 mesh every op is the meshless one. Layer
+    views of the stacked parameters are made once and kept, with the
+    tensors they view, while the backend lives."""
+
+    def __init__(self, *args, mesh, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.mesh = mesh
+        self._layer_views: Dict[int, tuple] = {}   # id → (stacked, {i: view})
+
+    def _model_axis(self):
+        names = self.mesh.mesh_dim_names
+        return names.index("model") if "model" in names else None
+
+    def model_rank(self) -> int:
+        i = self._model_axis()
+        return 0 if i is None else self.mesh.get_coordinate()[i]
+
+    def gather(self, t, dim: int, axis: str = "model"):
+        """All-gather ``t`` along ``dim`` over mesh ``axis`` (rank order);
+        ``t`` itself where the axis has size 1."""
+        names = self.mesh.mesh_dim_names
+        if axis not in names or self.mesh.shape[names.index(axis)] <= 1:
+            return t
+        import torch.distributed as dist
+
+        group = self.mesh.get_group(axis)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    def _split(self, w):
+        """The (axis, dim) pairs that split a DTensor over axes of size
+        > 1."""
+        return [(self.mesh.mesh_dim_names[i], p.dim)
+                for i, p in enumerate(w.placements)
+                if p.is_shard() and self.mesh.shape[i] > 1]
+
+    def _column_dim(self, w):
+        """The dim a DTensor is split on when only "model" splits it, once;
+        None otherwise."""
+        split = self._split(w)
+        if len(split) == 1 and split[0][0] == "model":
+            return split[0][1]
+        return None
+
+    def layer_params(self, tree, i: int):
+        return _tree_index(tree, i, self._layer_of)
+
+    def _layer_of(self, t, i: int):
+        """Layer ``i`` of a stacked tensor (its layer dim is never split):
+        this rank's block of it where no axis splits it, else a DTensor of
+        that block (a view: in-place updates of ``t`` show through)."""
+        if not _is_dtensor(t):
+            return t[i]
+        held = self._layer_views.get(id(t))
+        if held is None:
+            held = self._layer_views[id(t)] = (t, {})
+        views = held[1]
+        got = views.get(i)
+        if got is None:
+            loc = t.to_local()[i]
+            if self._split(t):
+                from torch.distributed.tensor import Shard
+
+                pl = [Shard(p.dim - 1) if p.is_shard() else p
+                      for p in t.placements]
+                loc = _dtensor_type().from_local(
+                    loc, t.device_mesh, pl, run_check=False,
+                    shape=t.shape[1:], stride=_contiguous(t.shape[1:]))
+            got = views[i] = loc
+        return got
+
+    def param(self, w, exact: Optional[bool] = None):
+        if _is_dtensor(w):
+            if not self._split(w):
+                w = w.to_local()
+            elif (self._column_dim(w) is not None
+                  and w.dtype == self.compute_dtype):
+                return w
+            else:
+                w = _whole(w)
+        return super().param(w, exact)
+
+    def matmul(self, a, b):
+        if _is_dtensor(b):
+            if self._column_dim(b) == b.dim() - 1:
+                return self.gather(super().matmul(a, b.to_local()), -1)
+            b = _whole(b)
+        return super().matmul(a, b)
+
+    def einsum(self, subscripts, a, b):
+        if _is_dtensor(b):
+            if subscripts == _HEAD and self._column_dim(b) == 0:
+                return self.gather(super().einsum(subscripts, a,
+                                                  b.to_local()), -1)
+            b = _whole(b)
+        return super().einsum(subscripts, a, b)
+
+    def take(self, a, idx, dim: int = 0):
+        return super().take(_whole(a), idx, dim)
+
+    def reshape(self, a, shape):
+        return super().reshape(_whole(a), shape)
+
+    def value_of(self, a):
+        return super().value_of(_whole(a))
+
+    def kv_local(self, new, buf):
+        held = buf.shape[2]
+        if held == new.shape[2]:
+            return new
+        r = self.model_rank()
+        return new[:, :, r * held:(r + 1) * held]
+
+    def kv_whole(self, buf, n_heads: int):
+        if buf.shape[2] == n_heads:
+            return buf
+        return self.gather(buf, 2)
+
+    def _local_heads(self, fn, q, k, v, lengths, *extra):
+        held = k.shape[2]
+        if held == q.shape[1]:
+            return fn(q, k, v, lengths, *extra)
+        r = self.model_rank()
+        out = fn(q[:, r * held:(r + 1) * held].contiguous(), k, v, lengths,
+                 *extra)
+        return None if out is None else self.gather(out, 1)
+
+    def decode_attention(self, q, k, v, lengths):
+        return self._local_heads(super().decode_attention, q, k, v, lengths)
+
+    def windowed_decode_attention(self, q, k, v, lengths, window: int,
+                                  softcap: float):
+        return self._local_heads(super().windowed_decode_attention, q, k, v,
+                                 lengths, window, softcap)
+
+
+def _contiguous(shape):
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+class MeshTorchOps(MeshOps, TorchOps):
+    """TorchOps on a device mesh (:class:`MeshOps`)."""
 
 
 class CaaOps(UnrolledLayerLoop, Backend):

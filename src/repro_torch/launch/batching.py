@@ -47,13 +47,27 @@ vision model (PaliGemma) is served text-only, without its patch prefix, as
 the reference's engine serves it; MiniCPM3's latent cache has an index, so
 the engine serves it.
 
-The port runs on one GPU: no mesh. Entry points run on the card unless the
-caller asks for the CPU (``device="cpu"``); without a card they raise.
+Mesh execution: with a ("data", "model") mesh from
+:func:`repro_torch.launch.mesh.make_serving_mesh`, the params are placed
+under the bitwise-safe serving rules (column parallel over "model",
+:func:`repro_torch.parallel.sharding.shard_params_serving`) and the cache
+under the lane rules (lanes over "data", KV heads over "model" where they
+divide). Each "data" rank decodes its own lanes and prefills the requests
+admitted to them; the lane's first logit row is broadcast to the other
+"data" ranks and a step's logits are gathered, so every rank keeps the same
+schedule. Every collective moves exact values (a gather of columns, heads
+or lanes); nothing reduces across ranks, so a lane's bits are its bits on
+one device wherever the products keep a column's and a row's bits (the
+port's kernels on the card). On the card a process has one device, so its
+mesh is 1 × 1; multi-rank meshes run on the CPU with gloo. Entry points run
+on the card unless the caller asks for the CPU (``device="cpu"``); without
+a card they raise.
 
 CLI::
 
     python -m repro_torch.launch.batching --size full --check-ref \\
         [--precision-k 12 | --certificates STORE_DIR --certify-formats]
+    python -m repro_torch.launch.batching ... --data N --model M   # ranks
 """
 from __future__ import annotations
 
@@ -68,8 +82,10 @@ import numpy as np
 import torch
 
 from repro_torch import configs, obs
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding
 
 log = obs.get_logger("batching")
 
@@ -93,13 +109,14 @@ class _Lane:
     logits: List[torch.Tensor] = dataclasses.field(default_factory=list)
 
 
-def make_backend(sc: serve.ServeConfig, *, unrolled: bool = False):
+def make_backend(sc: serve.ServeConfig, *, mesh=None,
+                 unrolled: bool = False):
     """The serving backend for a ServeConfig, in the reference's precedence
-    (format map, per-layer k map, uniform k, plain). ``unrolled`` is the
-    reference's signature: the port's layer loop is always the unrolled
-    per-layer loop, so it changes nothing."""
+    (format map, per-layer k map, uniform k, plain), on ``mesh`` when
+    given. ``unrolled`` is the reference's signature: the port's layer loop
+    is always the unrolled per-layer loop, so it changes nothing."""
     del unrolled
-    return serve._backend(sc)
+    return serve._backend(sc, mesh=mesh)
 
 
 def _device_of(params) -> torch.device:
@@ -130,7 +147,8 @@ class ContinuousBatchingEngine:
                  n_lanes: int = 4, max_seq: int = 64, page_size: int = 16,
                  queue_depth: int = 8, total_pages: Optional[int] = None,
                  eos_id: int = -1, registry=None, certset=None,
-                 device: str = "cuda", keep_logits: bool = False):
+                 device: str = "cuda", keep_logits: bool = False,
+                 mesh=None):
         if max_seq % page_size:
             raise ValueError(f"max_seq {max_seq} must be a whole number of "
                              f"pages (page_size {page_size})")
@@ -150,7 +168,8 @@ class ContinuousBatchingEngine:
         self.registry = registry
         self.certset = certset
         self.keep_logits = keep_logits
-        self.bk = make_backend(sc)
+        self.mesh = mesh
+        self.bk = make_backend(sc, mesh=mesh)
 
         self.queue: Deque[Request] = collections.deque()
         self.lanes: List[Optional[_Lane]] = [None] * n_lanes
@@ -165,6 +184,19 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 f"continuous batching needs an indexed KV cache (family "
                 f"{arch_cfg.family!r} has none)")
+        # this rank's lanes: [lane0, lane0 + rows); all of them off a mesh
+        self.lane0, self.rows, self._lane_axis = 0, n_lanes, None
+        if mesh is not None:
+            self.params = sharding.place(
+                params, sharding.shard_params_serving(params, mesh), mesh)
+            self.cache = sharding.local(sharding.place(
+                self.cache, sharding.shard_cache_serving(self.cache, mesh),
+                mesh))
+            if sharding.lane_batch_sharding(mesh, n_lanes):
+                d = meshlib.axis_size(mesh, "data")
+                r = mesh.get_coordinate()[mesh.mesh_dim_names.index("data")]
+                self.rows, self.lane0 = n_lanes // d, r * (n_lanes // d)
+                self._lane_axis = "data"
 
     # -- the two forwards ---------------------------------------------------
 
@@ -183,31 +215,52 @@ class ContinuousBatchingEngine:
         toks = np.zeros((1, p_pad), np.int64)
         toks[0, :P] = np.asarray(prompt, np.int64)
         dev, L = self.device, self.arch_cfg.n_layers
-        view = {"k": self.cache["k"][:, lane:lane + 1],
-                "v": self.cache["v"][:, lane:lane + 1],
-                "idx": torch.zeros((L, 1), dtype=torch.int32, device=dev)}
-        if recurrent:
-            view["h_ssm"] = self.cache["h_ssm"][:, lane:lane + 1].zero_()
-        logits, _ = T.forward(self.bk, self.params, self.arch_cfg,
-                              torch.from_numpy(toks).to(dev), cache=view,
-                              q_offset=torch.zeros(1, dtype=torch.int32,
-                                                   device=dev))
-        self.cache["idx"][:, lane] = P
-        row = logits[0, P - 1]
+        owner = lane - self.lane0
+        if 0 <= owner < self.rows:
+            at = slice(owner, owner + 1)
+            view = {"k": self.cache["k"][:, at], "v": self.cache["v"][:, at],
+                    "idx": torch.zeros((L, 1), dtype=torch.int32,
+                                       device=dev)}
+            if recurrent:
+                view["h_ssm"] = self.cache["h_ssm"][:, at].zero_()
+            logits, _ = T.forward(self.bk, self.params, self.arch_cfg,
+                                  torch.from_numpy(toks).to(dev), cache=view,
+                                  q_offset=torch.zeros(1, dtype=torch.int32,
+                                                       device=dev))
+            self.cache["idx"][:, owner] = P
+            row = logits[0, P - 1]
+        else:
+            row = torch.empty(self.arch_cfg.vocab, dtype=torch.float32,
+                              device=dev)
+        if self._lane_axis:
+            row = self._from_lane_owner(row, lane // self.rows)
         return int(torch.argmax(row)), row
+
+    def _from_lane_owner(self, row, owner: int):
+        """The "data" rank ``owner``'s ``row``, broadcast to the others."""
+        import torch.distributed as dist
+
+        group = self.mesh.get_group(self._lane_axis)
+        dist.broadcast(row, src=dist.get_global_rank(group, owner),
+                       group=group)
+        return row
 
     def _decode(self, tokens: np.ndarray, offsets: np.ndarray):
         """One token for every lane, lane i at absolute position
         ``offsets[i]``; every lane's write index is pinned to it first, so
         idle lanes neither drift nor reach the buffer's end. Returns (next
         tokens on the host, logits [B, V])."""
-        both = torch.from_numpy(np.stack([tokens, offsets])).to(self.device)
+        mine = slice(self.lane0, self.lane0 + self.rows)
+        both = torch.from_numpy(np.stack([tokens[mine], offsets[mine]])).to(
+            self.device)
         toks, offs = both[0], both[1].to(torch.int32)
         self.cache["idx"].copy_(offs[None, :].expand_as(self.cache["idx"]))
         logits, self.cache = T.forward(self.bk, self.params, self.arch_cfg,
                                        toks[:, None], cache=self.cache,
                                        q_offset=offs)
         last = logits[:, -1, :]
+        if self._lane_axis:
+            last = self.bk.gather(last, 0, self._lane_axis)
         return torch.argmax(last, dim=-1).cpu().numpy(), last
 
     # -- scheduling ---------------------------------------------------------
@@ -410,6 +463,10 @@ def main(argv=None):
                          "equality (exits 1 on any mismatch)")
     ap.add_argument("--metrics", default=None, metavar="OUT.JSONL")
     ap.add_argument("--prom", default=None, metavar="OUT.PROM")
+    ap.add_argument("--data", type=int, default=None,
+                    help="mesh data-axis size (default: all ranks)")
+    ap.add_argument("--model", type=int, default=None,
+                    help="mesh model-axis size (default: 1)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.certificates and args.precision_k is not None:
@@ -441,13 +498,17 @@ def main(argv=None):
                                 else len(sc.precision_layer_format)),
                  error_bars=certset.error_bars())
 
+    mesh = meshlib.make_serving_mesh(data=args.data, model=args.model,
+                                     device=str(dev))
     registry = obs.MetricsRegistry()
     registry.meta.update(arch=args.arch, size=args.size, lanes=args.lanes,
-                         device=str(dev), precision_k=sc.precision_k)
+                         device=str(dev), precision_k=sc.precision_k,
+                         devices=meshlib.device_count(),
+                         mesh=meshlib.mesh_shape(mesh))
     engine = ContinuousBatchingEngine(
         arch_cfg, sc, params, n_lanes=args.lanes, max_seq=args.max_seq,
         page_size=args.page_size, queue_depth=args.queue_depth,
-        registry=registry, certset=certset, device=str(dev))
+        registry=registry, certset=certset, device=str(dev), mesh=mesh)
 
     rng = np.random.RandomState(args.seed)
     reqs = []

@@ -70,13 +70,15 @@ import torch
 from repro_torch import configs, obs
 from repro_torch.certify.pipeline import serving_certificate
 from repro_torch.certify.spec import CertificateSet
-from repro_torch.core.backend import TorchOps
+from repro_torch.core.backend import MeshOps, MeshTorchOps, TorchOps
 from repro_torch.core.scopes import resolve_scope_value
 from repro_torch.kernels.flash_decode import certified_decode_attention
 from repro_torch.kernels.quant_matmul import (quant_matmul_dynamic_k,
                                               quant_matmul_format_dispatch)
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import transformer as T
 from repro_torch.obs.monitors import ViolationMonitor, stacked_label
+from repro_torch.parallel import sharding
 
 log = obs.get_logger("serve")
 
@@ -138,6 +140,11 @@ class ServeConfig:
     # stored for (arch, exact params) (:func:`apply_certificates`).
     certificates: Optional[str] = None
     device: str = "cuda"
+    # Keep params resident on the "model" axis, replicated over "data" (no
+    # per-step gathers over the data axis): ``shard_params(model_only=)``.
+    # None → auto by param count (resident up to 70e9, the reference's
+    # policy); False reproduces the greedy-FSDP baseline.
+    params_resident: Optional[bool] = None
 
     def __post_init__(self):
         if self.compute_dtype != "float32":
@@ -292,28 +299,83 @@ class FormatQuantJOps(TorchOps):
         return out.to(self.compute_dtype)
 
 
-def _backend(sc: ServeConfig, monitor=None):
+class MeshQuantJOps(MeshOps, QuantJOps):
+    """QuantJOps on a device mesh (:class:`MeshOps`)."""
+
+
+class MeshMixedQuantJOps(MeshOps, MixedQuantJOps):
+    """MixedQuantJOps on a device mesh (:class:`MeshOps`)."""
+
+
+class MeshFormatQuantJOps(MeshOps, FormatQuantJOps):
+    """FormatQuantJOps on a device mesh (:class:`MeshOps`)."""
+
+
+_ON_MESH = {TorchOps: MeshTorchOps, QuantJOps: MeshQuantJOps,
+            MixedQuantJOps: MeshMixedQuantJOps,
+            FormatQuantJOps: MeshFormatQuantJOps}
+
+
+def _backend(sc: ServeConfig, monitor=None, mesh=None):
     """The serving backend, in the reference's precedence: the format map,
     then the per-layer k map (which needs ``precision_k`` as its default),
-    then the uniform k, then plain TorchOps. A violation ``monitor`` is
-    attached to the certified backends; the plain one refuses it."""
-    bk = None
+    then the uniform k, then plain TorchOps; its mesh variant on ``mesh``
+    (a DeviceMesh) when given (:class:`repro_torch.core.backend.MeshOps`).
+    A violation ``monitor`` is attached to the certified backends; the
+    plain one refuses it."""
     if sc.precision_layer_format:
-        bk = FormatQuantJOps(sc.precision_layer_format)
+        cls, args = FormatQuantJOps, (sc.precision_layer_format,)
     elif sc.precision_layer_k:
         if sc.precision_k is None:
             raise ValueError("precision_layer_k needs precision_k as the "
                              "default for unmapped scopes")
-        bk = MixedQuantJOps(sc.precision_layer_k, sc.precision_k)
+        cls, args = MixedQuantJOps, (sc.precision_layer_k, sc.precision_k)
     elif sc.precision_k is not None:
-        bk = QuantJOps(sc.precision_k)
-    if bk is not None:
+        cls, args = QuantJOps, (sc.precision_k,)
+    else:
+        if monitor is not None:
+            raise ValueError("violation monitoring needs a certified "
+                             "quantised backend (precision_k / layer map / "
+                             "format map)")
+        cls, args = TorchOps, (torch.float32,)
+    bk = cls(*args) if mesh is None else _ON_MESH[cls](*args, mesh=mesh)
+    if cls is not TorchOps:
         bk.monitor = monitor
-        return bk
-    if monitor is not None:
-        raise ValueError("violation monitoring needs a certified quantised "
-                         "backend (precision_k / layer map / format map)")
-    return TorchOps(torch.float32)
+    return bk
+
+
+def resident_params(sc: ServeConfig, cfg) -> bool:
+    """``sc.params_resident``, or by param count where it is None: resident
+    up to 70e9 params (the reference's auto policy)."""
+    if sc.params_resident is not None:
+        return bool(sc.params_resident)
+    return T.analytic_params(cfg) <= 70e9
+
+
+def serving_cache_specs(cache, mesh, cfg) -> Dict[str, tuple]:
+    """The cache's placement on a serving mesh: ``shard_cache``'s spec,
+    of which a rank's buffers take the batch split (over "data") and a GQA
+    cache's KV-head split (over "model"). A sequence split, and a split of
+    a recurrent state's heads, is not taken: the attention and the scan
+    would then reduce across ranks; those dims stay whole."""
+    specs = sharding.shard_cache(cache, mesh, cfg)
+    out = {}
+    for key, spec in specs.items():
+        keep = {1} | ({3} if key in ("k", "v") and cache[key].dim() == 5
+                      else set())
+        out[key] = tuple(e if d in keep else None
+                         for d, e in enumerate(spec))
+    return out
+
+
+def gather_rows(bk, t, entry):
+    """Gather a batch-split tensor's rows over the axes of the batch spec
+    entry ``entry`` (None: whole already), in the spec's order."""
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    for ax in reversed(axes):
+        t = bk.gather(t, 0, ax)
+    return t
 
 
 def apply_certificate_set(sc: ServeConfig,
@@ -457,6 +519,8 @@ class ServeResult:
     registry: Optional[obs.MetricsRegistry] = None
     monitor: Optional[ViolationMonitor] = None
     frontend: Optional[torch.Tensor] = None   # the stub's frames / patches
+    backend: Any = None           # the backend the run served through
+    placed: Optional[Dict[str, Any]] = None   # params as placed on its mesh
 
 
 def _sync(dev):
@@ -509,7 +573,12 @@ def _log_served(registry, monitor, certset, responses, args, sc, toks,
                                     ms["scope_margin_log2"].items()})
 
 
-def main(argv=None) -> ServeResult:
+def main(argv=None, mesh=None) -> ServeResult:
+    """The serving CLI. ``mesh``: the ("data", "model") DeviceMesh to serve
+    on; None builds the host mesh (1 × 1, this process's device). Params
+    are placed by ``shard_params(model_only=params_resident)`` and the
+    cache by ``shard_cache`` (:func:`serving_cache_specs`); each rank runs
+    its block of the batch, and the results are gathered whole."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen2_7b")
     ap.add_argument("--size", choices=("smoke", "full"), default="smoke",
@@ -554,6 +623,10 @@ def main(argv=None) -> ServeResult:
                          "reference's compile-time and jaxpr-size gauges "
                          "have no PyTorch counterpart and are not "
                          "recorded")
+    ap.add_argument("--params-resident", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="params on the mesh's model axis only (on), or "
+                         "also split over data (off); auto by param count")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.certificate_set and (args.layer_format
@@ -589,7 +662,9 @@ def main(argv=None) -> ServeResult:
                      precision_k=args.precision_k,
                      precision_layer_format=(json.loads(args.layer_format)
                                              if args.layer_format else None),
-                     certificates=args.certificates, device=str(dev))
+                     certificates=args.certificates, device=str(dev),
+                     params_resident={"auto": None, "on": True,
+                                      "off": False}[args.params_resident])
     certset = None
     if args.certificate_set:
         with open(args.certificate_set) as fh:
@@ -627,15 +702,27 @@ def main(argv=None) -> ServeResult:
     registry = obs.MetricsRegistry()
     registry.meta.update(arch=args.arch, batch=sc.batch,
                          precision_k=sc.precision_k)
-    bk = _backend(sc, monitor)
+    if mesh is None:
+        mesh = meshlib.make_host_mesh(str(dev))
+    sc = dataclasses.replace(sc, params_resident=resident_params(sc, cfg))
+    placed = sharding.place(params, sharding.shard_params(
+        params, mesh, model_only=sc.params_resident), mesh)
+    c_specs = serving_cache_specs(cache, mesh, cfg)
+    cache = sharding.local(sharding.place(cache, c_specs, mesh))
+    rows = sharding.batch_spec(mesh, sc.batch, sc.prefill_len)[0]
+    mine = lambda t: (None if t is None else
+                      sharding.local_block(t, (rows,), mesh))
+    bk = _backend(sc, monitor=monitor, mesh=mesh)
 
     with torch.no_grad():
         t0 = time.perf_counter()
         with obs.span("serve.prefill", arch=args.arch, batch=sc.batch,
                       prefill_len=sc.prefill_len):
-            enc_out = encode_step(bk, params, cfg, frontend)
-            logits, cache = prefill_step(bk, params, cfg, cache, prompt,
-                                         frontend, enc_out)
+            enc_out = encode_step(bk, placed, cfg, mine(frontend))
+            logits, cache = prefill_step(bk, placed, cfg, cache,
+                                         mine(prompt), mine(frontend),
+                                         enc_out)
+            logits = gather_rows(bk, logits, rows)
             tok = torch.argmax(logits[:, -1, :], dim=-1)
             if monitor is not None:
                 monitor.flush()
@@ -646,10 +733,12 @@ def main(argv=None) -> ServeResult:
         for i in range(args.decode_steps):
             td = time.perf_counter()
             with obs.span("serve.decode", step=i):
-                tok, last, cache = decode_step(bk, params, cfg, cache,
-                                               tok[:, None],
-                                               prefix + sc.prefill_len + i,
-                                               enc_out)
+                _, last, cache = decode_step(bk, placed, cfg, cache,
+                                             mine(tok)[:, None],
+                                             prefix + sc.prefill_len + i,
+                                             enc_out)
+                last = gather_rows(bk, last, rows)
+                tok = torch.argmax(last, dim=-1)
                 if monitor is not None:
                     monitor.flush()
                 _sync(dev)
@@ -699,7 +788,7 @@ def main(argv=None) -> ServeResult:
                        decode_logits=decode_logits, responses=responses,
                        timing=timing, params=params, cfg=cfg, config=sc,
                        registry=registry, monitor=monitor,
-                       frontend=frontend)
+                       frontend=frontend, backend=bk, placed=placed)
 
 
 if __name__ == "__main__":

@@ -25,9 +25,24 @@ The data stream is :mod:`repro_torch.data.pipeline`'s, the reference's bit
 for bit; checkpoints are :mod:`repro_torch.checkpoint.checkpointing`'s, in
 the reference's layout. A checkpoint is labelled with the number of steps
 it holds (its ``opt.step``), and ``--resume`` continues the stream from
-there. The mesh and its sharding policies (``param_sharding``) wait for the
-port's ``launch/mesh.py`` and ``parallel/``: on one device the option has
-no effect.
+there.
+
+On a mesh (``build_train_step(..., mesh=)``, a DeviceMesh from
+:mod:`repro_torch.launch.mesh`) each rank keeps its block of every leaf of
+the state, placed by the reference's rules: ``param_sharding`` "fsdp"
+splits the params over every axis (``shard_params``), "tp" over "model"
+only (``model_only``), "auto" picks "tp" for a dense model up to 40e9
+params and "fsdp" otherwise; the moments follow their params
+(:func:`opt_specs`, the reference's ``_opt_shardings``). A step gathers
+the params whole for the loss and its gradients on this rank's rows of the
+batch (``shard_batch``; the reference gathers a layer at a time inside its
+scan, the port the whole tree), averages the gradients over the
+data-parallel axes, clips them by their whole norm, and runs AdamW on this
+rank's blocks of the params and f32 moments. 8-bit moments and the EF
+residuals are quantised in blocks of the flattened leaf, which do not
+follow the leaf's split, so they are gathered and updated one leaf at a
+time, each rank keeping its blocks. ``main`` trains on one device, without
+a mesh.
 
 CLI (``--device cpu`` on the CPU; a missing card raises otherwise)::
 
@@ -52,12 +67,14 @@ from torch.profiler import record_function
 
 from repro_torch import configs
 from repro_torch.checkpoint.checkpointing import Checkpointer
-from repro_torch.core.backend import TorchOps, _tree_index
+from repro_torch.core.backend import TorchOps
 from repro_torch.data import pipeline
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.serve import configure_precision, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim import grad_compress as gc
 from repro_torch.optim import optimizer as opt
+from repro_torch.parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +90,7 @@ class TrainConfig:
     remat: bool = True
     quantized_moments: bool = False
     grad_compression: bool = False
-    # "fsdp" / "tp" / "auto" in the reference; no effect on one device
+    # "fsdp" / "tp" / "auto": the params' placement on a mesh
     param_sharding: str = "auto"
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 20
@@ -84,9 +101,9 @@ class RematTorchOps(TorchOps):
     """TorchOps whose layer loop checkpoints each layer (full remat): the
     counterpart of the reference's ``RematJOps``. Under autograd a layer's
     forward keeps only its inputs, and the backward recomputes it; outside
-    autograd the loop is the plain one. The reference's sharding
-    constraints on the residual and the query sequence wait for the
-    mesh."""
+    autograd the loop is the plain one. The residual between layers and
+    the queries pass the reference's sharding hints (``act_batch``,
+    ``q_seq``; :meth:`Backend.shard_hint`)."""
 
     def layer_loop(self, fn, stacked_params, x, n_layers: int, aux=None):
         if not torch.is_grad_enabled():
@@ -94,8 +111,9 @@ class RematTorchOps(TorchOps):
         for i in range(n_layers):
             with self.scope(f"layer{i}"):
                 x = torch.utils.checkpoint.checkpoint(
-                    fn, _tree_index(stacked_params, i), x, i,
-                    _tree_index(aux, i), use_reentrant=False)
+                    fn, self.layer_params(stacked_params, i), x, i,
+                    self.layer_params(aux, i), use_reentrant=False)
+            x = self.shard_hint(x, "act_batch")
         return x
 
 
@@ -157,36 +175,213 @@ def loss_and_grads(loss_fn, params, batch):
     return loss.detach(), grads
 
 
+def sharding_mode(arch_cfg, tc: TrainConfig) -> str:
+    """``tc.param_sharding``, "auto" resolved as the reference resolves it:
+    "tp" for a dense model up to 40e9 params, else "fsdp"."""
+    mode = tc.param_sharding
+    if mode == "auto":
+        dense_small = (arch_cfg.family != "moe"
+                       and T.analytic_params(arch_cfg) <= 40e9)
+        mode = "tp" if dense_small else "fsdp"
+    if mode not in ("fsdp", "tp"):
+        raise ValueError(f"unknown param_sharding {tc.param_sharding!r}")
+    return mode
+
+
+def opt_specs(opt_state: opt.OptState, p_specs, mesh) -> opt.OptState:
+    """The optimizer state's specs (the reference's ``_opt_shardings``):
+    moments take their params' specs where the ranks match; quantised
+    payloads and scales ([blocks, block]) the greedy rule; the step count
+    is whole."""
+    def for_tree(ms, like_params: bool):
+        def one(keys, leaf):
+            if like_params:
+                ref = p_specs
+                for k in keys:
+                    ref = ref[k]
+                if len(ref) == leaf.dim():
+                    return ref
+            return sharding._greedy_param_spec(tuple(leaf.shape), mesh,
+                                               stacked=False)
+        return sharding.map_with_path(one, ms)
+
+    quant = opt_state.m_scale is not None
+    return opt.OptState(
+        step=(), m=for_tree(opt_state.m, not quant),
+        v=for_tree(opt_state.v, not quant),
+        m_scale=None if not quant else for_tree(opt_state.m_scale, False),
+        v_scale=None if not quant else for_tree(opt_state.v_scale, False))
+
+
+def state_specs(state: dict, arch_cfg, tc: TrainConfig, mesh) -> dict:
+    """Specs of a train state: params by ``param_sharding``, the
+    optimizer by :func:`opt_specs`, the EF residuals as the params."""
+    p_specs = sharding.shard_params(state["params"], mesh,
+                                    model_only=sharding_mode(arch_cfg, tc)
+                                    == "tp")
+    return {"params": p_specs,
+            "opt": opt_specs(state["opt"], p_specs, mesh),
+            "ef": None if state["ef"] is None else p_specs}
+
+
+def _state_map(fn, state, specs=None):
+    """``fn(leaf, spec)`` over a train state's tensor leaves (``spec``
+    None without a spec tree)."""
+    def tree(t, sp):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: tree(t[k], None if sp is None else sp[k]) for k in t}
+        return fn(t, sp)
+
+    o = state["opt"]
+    so = None if specs is None else specs["opt"]
+    return {"params": tree(state["params"],
+                           None if specs is None else specs["params"]),
+            "opt": opt.OptState(*(tree(getattr(o, f), None if so is None
+                                       else getattr(so, f))
+                                  for f in opt.OptState._fields)),
+            "ef": None if state["ef"] is None else gc.EFState(tree(
+                state["ef"].residual, None if specs is None
+                else specs["ef"]))}
+
+
+def place_state(state: dict, specs: dict, mesh) -> dict:
+    """The train state as DTensors on ``mesh``: each rank keeps its block of
+    every leaf (the step count whole)."""
+    return _state_map(lambda t, spec: sharding.place_one(t, spec, mesh),
+                      state, specs)
+
+
+def _dp_mean(t, mesh, axes):
+    """The mean of ``t`` over the data-parallel ``axes`` (sum, then one
+    division by the rank count); ``t`` itself where they have size 1."""
+    import torch.distributed as dist
+
+    n = 1
+    for ax in axes:
+        if meshlib.axis_size(mesh, ax) > 1:
+            dist.all_reduce(t, group=mesh.get_group(ax))
+            n *= meshlib.axis_size(mesh, ax)
+    if n > 1:
+        t.div_(n)
+    return t
+
+
 def build_train_step(arch_cfg, tc: TrainConfig, device,
-                     adam_cfg: Optional[opt.AdamWConfig] = None):
+                     adam_cfg: Optional[opt.AdamWConfig] = None, mesh=None):
     """Returns (step_fn, init_fn). ``init_fn(generator)`` draws the
     parameters with the port's ``init_params`` (``generator`` on
     ``device``) and zero optimizer (and EF) state. ``step_fn(state,
     batch)`` returns (state, loss); it updates ``state``'s tensors in place
     (the reference donates them). Its phases are profiler ranges
     (``train::loss_and_grads``, ``train::compress``, ``train::update``):
-    ``tools/train_step_split.py`` splits a step's device time by them."""
+    ``tools/train_step_split.py`` splits a step's device time by them.
+
+    With ``mesh`` the state's leaves are DTensors placed by
+    ``param_sharding`` (:func:`state_specs`); a step takes the whole
+    ``batch`` (the same on every rank) and runs this rank's rows of it."""
     adam_cfg = adam_cfg or opt.AdamWConfig(
         quantized_moments=tc.quantized_moments, total_steps=tc.steps)
     loss_fn = make_loss_fn(arch_cfg, tc)
 
     def init_fn(generator: torch.Generator):
         params = T.init_params(arch_cfg, generator=generator, device=device)
-        return init_state(params, tc, adam_cfg)
+        state = init_state(params, tc, adam_cfg)
+        if mesh is None:
+            return state
+        return place_state(state, state_specs(state, arch_cfg, tc, mesh),
+                           mesh)
+
+    def update(state, batch):
+        with record_function("train::loss_and_grads"):
+            loss, grads = loss_and_grads(loss_fn, state["params"], batch)
+        if tc.grad_compression:
+            with record_function("train::compress"):
+                grads, state["ef"] = gc.compress_tree(grads, state["ef"])
+        with record_function("train::update"):
+            opt.update(state["params"], grads, state["opt"], adam_cfg,
+                       inplace=True)
+        return loss
+
+    def mesh_update(state, batch):
+        rows = sharding.batch_spec(mesh, tc.global_batch, tc.seq)[0]
+        mine = {k: sharding.local_block(v, (rows,), mesh)
+                for k, v in batch.items()}
+        params = opt.tree_map(sharding.full, state["params"])
+        with record_function("train::loss_and_grads"):
+            loss, grads = loss_and_grads(loss_fn, params, mine)
+        del params
+        axes = meshlib.data_axes(mesh)
+        for _, g in opt.tree_paths(grads):
+            _dp_mean(g, mesh, axes)
+        loss = _dp_mean(loss.clone(), mesh, axes)
+        if tc.grad_compression:
+            with record_function("train::compress"):
+                for path, r in opt.tree_paths(state["ef"].residual):
+                    d, new_r = gc.compress_leaf(opt._get(grads, path),
+                                                sharding.full(r))
+                    opt.tree_set(grads, path, d)
+                    _keep_block(r, new_r, mesh)
+        with record_function("train::update"):
+            update_blocks(state, grads, adam_cfg, mesh)
+        return loss
 
     def step_fn(state, batch):
         with deterministic():
-            with record_function("train::loss_and_grads"):
-                loss, grads = loss_and_grads(loss_fn, state["params"], batch)
-            if tc.grad_compression:
-                with record_function("train::compress"):
-                    grads, state["ef"] = gc.compress_tree(grads, state["ef"])
-            with record_function("train::update"):
-                opt.update(state["params"], grads, state["opt"], adam_cfg,
-                           inplace=True)
+            loss = (update if mesh is None else mesh_update)(state, batch)
         return state, loss
 
     return step_fn, init_fn
+
+
+def _keep_block(dst, whole, mesh):
+    """Write this rank's block of the whole tensor ``whole`` into the
+    DTensor ``dst``."""
+    dst.to_local().copy_(sharding.local_block(whole, _spec_of(dst), mesh))
+
+
+def update_blocks(state: dict, grads, adam_cfg: opt.AdamWConfig, mesh):
+    """AdamW on a placed train state, in place, from the whole averaged
+    ``grads``: the clip from their whole norm, then each leaf on this
+    rank's blocks of its param, gradient and f32 moments; a leaf with 8-bit
+    moments is gathered whole, updated, and keeps its blocks. Bit for bit
+    ``opt.update`` of the whole state, block by block."""
+    o = state["opt"]
+    count = o.step.to_local()
+    step, lr, bc1, bc2 = opt.step_scalars(count, adam_cfg)
+    clip = opt.clip_factor(grads, adam_cfg)
+    quant = adam_cfg.quantized_moments
+    trees = {"p": state["params"], "m": o.m, "v": o.v, "ms": o.m_scale,
+             "vs": o.v_scale}
+    for path, p in opt.tree_paths(state["params"]):
+        dst = {n: opt._get(t, path) for n, t in trees.items()
+               if t is not None}
+        g = opt._get(grads, path)
+        if quant:
+            src = {n: sharding.full(t) for n, t in dst.items()}
+        else:
+            src = {n: t.to_local() for n, t in dst.items()}
+            g = sharding.local_block(g, _spec_of(p), mesh)
+        out = opt.update_leaf(adam_cfg, src["p"], g.to(torch.float32) * clip,
+                              src["m"], src["v"], src.get("ms"),
+                              src.get("vs"), lr, bc1, bc2)
+        for n, t in out.items():
+            if quant:
+                _keep_block(dst[n], t, mesh)
+            else:
+                dst[n].to_local().copy_(t)
+        del src, g, out
+    count.copy_(step)
+
+
+def _spec_of(t) -> tuple:
+    """A DTensor's spec, read back from its placements."""
+    spec = [[] for _ in range(t.dim())]
+    for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if p.is_shard():
+            spec[p.dim].append(name)
+    return tuple(sharding._entry(a) for a in spec)
 
 
 def init_state(params, tc: TrainConfig, adam_cfg: opt.AdamWConfig) -> dict:

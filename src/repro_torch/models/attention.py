@@ -7,7 +7,10 @@ Unlike the reference, whose arrays are immutable, the port writes new keys
 and values INTO the cache buffers in place (``index_copy_`` along the
 sequence axis, or one ``index_put_`` on (lane, position) when each lane
 writes at its own offset): the returned cache holds the same storage, so a
-full-width cache is never copied per layer or per step.
+full-width cache is never copied per layer or per step. On a mesh whose
+"model" axis splits the cache's KV heads, a rank writes and attends its own
+heads (``bk.kv_local``, the backend's decode hooks) and the composed path
+reads the whole cache (``bk.kv_whole``).
 """
 from __future__ import annotations
 
@@ -91,8 +94,8 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
 
     new_cache = None
     if cache is not None:
-        _cache_write(cache.k, k, cache.index)
-        _cache_write(cache.v, v, cache.index)
+        _cache_write(cache.k, bk.kv_local(k, cache.k), cache.index)
+        _cache_write(cache.v, bk.kv_local(v, cache.v), cache.index)
         new_cache = KVCache(cache.k, cache.v, cache.index + S)
         if S == 1 and (fused_decode or windowed_decode):
             lengths = new_cache.index.to(torch.int32)
@@ -109,9 +112,11 @@ def gqa_attention(bk, x, p, *, n_heads: int, n_kv_heads: int, d_head: int,
             if fused is not None:
                 out = bk.reshape(fused, (B, S, n_heads * d_head))
                 return bk.matmul(out, bk.param(p["wo"])), new_cache
-        k = bk.input(cache.k)
-        v = bk.input(cache.v)
+        k = bk.input(bk.kv_whole(cache.k, n_kv_heads))
+        v = bk.input(bk.kv_whole(cache.v, n_kv_heads))
 
+    if cache is None:
+        q = bk.shard_hint(q, "q_seq")
     q = bk.reshape(q, (B, S, n_kv_heads, G, d_head))
     scores = bk.einsum("bqkgd,bskd->bkgqs", q, k)
     scores = bk.scale(scores, d_head ** -0.5)

@@ -15,9 +15,12 @@ Two of the reference's three execution modes:
   products outside every certified backend, as the reference's raw
   ``jnp.einsum`` are: ``torch.bmm``, unrounded.
 
-The third, ``ep_shard_map`` (experts sharded over a mesh's "model" axis),
-waits for the port's ``launch/mesh.py`` and ``parallel/``: asking for it
-raises.
+The third, ``ep_shard_map`` — expert parallelism on a mesh whose
+"model" axis divides the experts (the backend's ``mesh``, a DeviceMesh):
+tokens are split over the data-parallel axes and the same on every
+"model" rank; each rank routes them with the full router, runs its E/m
+local experts with the reference's capacity and chunking, and one
+all-reduce over "model" combines the ranks' partial outputs.
 
 The router is ``bk.matmul``, so a certified serving backend rounds it like
 every projection; its top-k is FP-dependent control flow, and under CAA
@@ -67,14 +70,20 @@ def init_moe(d: int, d_ff: int, n_experts: int, *,
 def moe_mlp(bk, x, p, *, n_experts: int, top_k: int, act: str = "silu",
             capacity_factor: float = 1.25, chunk_tokens: int = 4096,
             mode: Optional[str] = None):
-    """x: [B, S, d] → [B, S, d]. ``mode`` None: ``dense`` under analysis,
-    ``dropping`` otherwise (the reference's single-device choice)."""
+    """x: [B, S, d] → [B, S, d]. ``mode`` None: ``dense`` under analysis;
+    ``ep_shard_map`` where the backend's mesh has a "model" axis > 1 that
+    divides ``n_experts``; ``dropping`` otherwise (the reference's
+    choice)."""
     if mode is None:
-        mode = "dense" if bk.is_analysis else "dropping"
+        if bk.is_analysis:
+            mode = "dense"
+        elif _ep_mesh(bk, n_experts) is not None:
+            mode = "ep_shard_map"
+        else:
+            mode = "dropping"
     if mode == "ep_shard_map":
-        raise NotImplementedError(
-            "ep_shard_map (expert parallelism over a mesh) is not ported to "
-            "repro_torch: it waits for launch/mesh.py and parallel/")
+        return bk.input(_ep_experts(bk, bk.value_of(x), p, n_experts, top_k,
+                                    capacity_factor, chunk_tokens))
     if mode not in ("dense", "dropping"):
         raise ValueError(f"unknown MoE mode {mode!r}")
     B, S, d = bk.shape_of(x)
@@ -93,6 +102,99 @@ def moe_mlp(bk, x, p, *, n_experts: int, top_k: int, act: str = "silu",
             bk, xt, bk.value_of(gates), p, n_experts, top_k, act,
             capacity_factor, chunk_tokens))
     return bk.reshape(y, (B, S, d))
+
+
+def _ep_mesh(bk, n_experts: int):
+    """The backend's mesh when its "model" axis (> 1) divides the experts,
+    else None."""
+    mesh = getattr(bk, "mesh", None)
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if "model" not in names:
+        return None
+    m = mesh.shape[names.index("model")]
+    return mesh if m > 1 and n_experts % m == 0 else None
+
+
+def _local_experts(w, rank: int, e_loc: int):
+    """This "model" rank's experts [e_loc, ...] of an expert weight (a
+    DTensor split on its expert dim over "model", or any whole one)."""
+    from repro_torch.core.backend import _is_dtensor, _whole
+
+    if _is_dtensor(w):
+        mesh = w.device_mesh
+        split = [(mesh.mesh_dim_names[i], pl.dim)
+                 for i, pl in enumerate(w.placements)
+                 if pl.is_shard() and mesh.shape[i] > 1]
+        if split == [("model", 0)]:
+            return w.to_local()
+        w = _whole(w)
+    return w[rank * e_loc:(rank + 1) * e_loc]
+
+
+def _ep_experts(bk, x, p, n_experts, top_k, capacity_factor, chunk_tokens):
+    """Expert parallelism over the mesh's "model" axis, as the reference's
+    ``shard_map`` body computes it on each rank: ``x`` [B_loc, S, d] is
+    this data-parallel rank's block (the same on every "model" rank); the
+    router is the full f32 product and softmax; the rank keeps its experts
+    [r·E/m, (r+1)·E/m), takes at most C = max(1, int(Tc·top_k/E·cf)) tokens
+    an expert in each chunk of Tc tokens, in token order, runs SiLU-gated
+    experts (the reference's body applies SiLU whatever the config's act)
+    and weights their outputs by the gates; one all-reduce over "model"
+    sums the ranks' partial outputs."""
+    import torch.distributed as dist
+    from repro_torch.core.backend import _whole
+
+    mesh = getattr(bk, "mesh", None)
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if "model" not in names or n_experts % mesh.shape[
+            names.index("model")]:
+        raise ValueError("ep_shard_map needs a backend on a mesh whose "
+                         f"'model' axis divides the {n_experts} experts")
+    m = mesh.shape[names.index("model")]
+    rank = mesh.get_coordinate()[names.index("model")]
+    e_loc = n_experts // m
+    B, S, d = x.shape
+    wr = _whole(p["w_router"]).to(torch.float32)
+    wg, wu, wd = (_local_experts(p[k], rank, e_loc).to(torch.float32)
+                  for k in ("w_gate", "w_up", "w_down"))
+    xt = x.reshape(B * S, d).to(torch.float32)
+    probs = torch.softmax(xt @ wr, dim=-1)
+    _, idx = torch.topk(probs, top_k)
+    mask = F.one_hot(idx, n_experts).to(xt.dtype).sum(-2)
+    gates = probs * mask
+    gates = gates / gates.sum(-1, keepdim=True)
+    lo = rank * e_loc
+    gsel, msel = gates[:, lo:lo + e_loc], mask[:, lo:lo + e_loc]
+    T = xt.shape[0]
+    Tc = min(chunk_tokens, T)
+    n_chunks = -(-T // Tc)
+    C = max(1, int(Tc * top_k / n_experts * capacity_factor))
+    pad = n_chunks * Tc - T
+    if pad:
+        xt, gsel, msel = (F.pad(t, (0, 0, 0, pad)) for t in (xt, gsel, msel))
+    tok = torch.arange(Tc, device=xt.device)[:, None].expand(Tc, e_loc)
+    slot0 = (torch.arange(e_loc, device=xt.device) * C)[None, :]
+    out = []
+    for i in range(n_chunks):
+        xc, gc, mc = (t[i * Tc:(i + 1) * Tc] for t in (xt, gsel, msel))
+        sel = mc > 0
+        pos = torch.cumsum(sel.to(torch.int32), dim=0) * sel - 1
+        keep = sel & (pos < C)
+        slot = torch.where(keep, slot0 + pos, e_loc * C)
+        src = torch.full((e_loc * C + 1,), Tc, dtype=torch.int64,
+                         device=xt.device)
+        src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
+        rows = torch.cat([xc, xc.new_zeros(1, d)])
+        xe = rows[src[:e_loc * C]].reshape(e_loc, C, d)
+        h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+        ye = torch.bmm(h, wd).reshape(e_loc * C, d)
+        yg = ye[torch.where(keep, slot0 + pos, 0)]
+        w = torch.where(keep, gc, 0.0)
+        out.append((w[:, :, None] * yg).sum(dim=1))
+    y = torch.cat(out)[:T]
+    if m > 1:
+        dist.all_reduce(y, group=mesh.get_group("model"))
+    return y.reshape(B, S, d)
 
 
 def _dense_experts(bk, xt, gates, p, act):

@@ -161,23 +161,50 @@ def _adam_leaf(cfg, p, g, m, v, lr, bc1, bc2):
     return newp.to(p.dtype), m, v
 
 
-def update(params, grads, state: OptState, cfg: AdamWConfig,
-           inplace: bool = False):
-    """One AdamW step; returns (new_params, new_state). With ``inplace``
-    the returned trees are ``params`` and ``state``'s own tensors, written
-    leaf by leaf."""
-    step = state.step + 1
-    # the step's scalars on the host, so that every device takes the same
+def step_scalars(step_count: torch.Tensor, cfg: AdamWConfig):
+    """(step, lr, bc1, bc2) of the update after ``step_count`` updates: the
+    new count and the schedule's scalars, computed on the host so that
+    every device takes the same, then moved to the count's device."""
+    step = step_count + 1
     stepf = step.cpu().to(torch.float32)
     lr, bc1, bc2 = (t.to(step.device) for t in (
         schedule(cfg, step.cpu()),
         1 - torch.pow(torch.tensor(cfg.b1), stepf),
         1 - torch.pow(torch.tensor(cfg.b2), stepf)))
+    return step, lr, bc1, bc2
 
+
+def clip_factor(grads, cfg: AdamWConfig) -> torch.Tensor:
+    """The factor (≤ 1) that clips the gradient tree to ``grad_clip`` in
+    global norm."""
     gnorm = global_norm(grads)
-    clip = torch.clamp(
+    return torch.clamp(
         torch.tensor(cfg.grad_clip, dtype=torch.float32,
                      device=gnorm.device) / (gnorm + 1e-9), max=1.0)
+
+
+def update_leaf(cfg: AdamWConfig, p, g, m, v, ms, vs, lr, bc1, bc2):
+    """One leaf's AdamW step on its clipped f32 gradient ``g``: a dict of
+    the new "p", "m", "v" (and the 8-bit moments' scales "ms", "vs"; ``m``
+    and ``v`` are then the payloads, ``ms`` and ``vs`` their scales)."""
+    if not cfg.quantized_moments:
+        newp, m, v = _adam_leaf(cfg, p, g, m, v, lr, bc1, bc2)
+        return {"p": newp, "m": m, "v": v}
+    m = _dq8(m, ms, p.shape, cfg.block)
+    sv = _dq8(v, vs, p.shape, cfg.block)
+    newp, m, v = _adam_leaf(cfg, p, g, m, sv * sv, lr, bc1, bc2)
+    out = dict(zip(("p", "m", "ms"), (newp, *_q8(m, cfg.block))))
+    out["v"], out["vs"] = _q8(sqrt_rn(v), cfg.block)
+    return out
+
+
+def update(params, grads, state: OptState, cfg: AdamWConfig,
+           inplace: bool = False):
+    """One AdamW step; returns (new_params, new_state). With ``inplace``
+    the returned trees are ``params`` and ``state``'s own tensors, written
+    leaf by leaf."""
+    step, lr, bc1, bc2 = step_scalars(state.step, cfg)
+    clip = clip_factor(grads, cfg)
 
     quant = cfg.quantized_moments
     trees = {"p": params, "m": state.m, "v": state.v, "ms": state.m_scale,
@@ -185,18 +212,9 @@ def update(params, grads, state: OptState, cfg: AdamWConfig,
     new = {name: {} for name in trees}
     for path, p in tree_paths(params):
         g = _get(grads, path).to(torch.float32) * clip
-        if quant:
-            m = _dq8(_get(state.m, path), _get(state.m_scale, path),
-                     p.shape, cfg.block)
-            sv = _dq8(_get(state.v, path), _get(state.v_scale, path),
-                      p.shape, cfg.block)
-            newp, m, v = _adam_leaf(cfg, p, g, m, sv * sv, lr, bc1, bc2)
-            out = dict(zip(("p", "m", "ms"), (newp, *_q8(m, cfg.block))))
-            out["v"], out["vs"] = _q8(sqrt_rn(v), cfg.block)
-        else:
-            newp, m, v = _adam_leaf(cfg, p, g, _get(state.m, path),
-                                    _get(state.v, path), lr, bc1, bc2)
-            out = {"p": newp, "m": m, "v": v}
+        out = update_leaf(cfg, p, g, *(
+            None if trees[n] is None else _get(trees[n], path)
+            for n in ("m", "v", "ms", "vs")), lr, bc1, bc2)
         for name, t in out.items():
             tree_set(new[name], path,
                  _get(trees[name], path).copy_(t) if inplace else t)

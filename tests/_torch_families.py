@@ -5,6 +5,7 @@ own parameters, a serving loop run through a JAX backend and a port
 backend side by side with the modality stub's inputs, and the checks
 with the tolerances of ``tests/_torch_serve_parity.py`` as
 ``tests/test_torch_zoo.py``'s docstring states them."""
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ within 1e-4: the relative bound of a logit divides by its enclosure's
 endpoint nearest 0, which the two packages' sums reach through
 cancellation (the mixed certificate's ε̄ is 1.8e-5 apart), and no LM
 decision reads it (the argmax rule is 2·δ̄·u < gap)."""
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 import math
 

@@ -2,6 +2,7 @@
 Qwen2 config of both packages, the reference's parameters carried across
 through numpy, and a greedy prefill + decode loop run through a JAX backend
 and a port backend side by side, with the per-step checks."""
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax
 import jax.numpy as jnp
 import numpy as np

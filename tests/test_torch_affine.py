@@ -9,6 +9,7 @@ of the reference's (the same f64 expressions; sums over the slot axis may
 run in another order), ids equal; every ``RangeStat`` field within 1e-9
 relative, ``crosses_zero``, ``n_ops`` and the key set equal.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax.numpy as jnp
 import numpy as np
 import pytest

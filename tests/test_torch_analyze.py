@@ -10,6 +10,7 @@ order); required k, decisions, trace names and scopes equal; certified
 decisions equal the f64 model's argmax (no violation) and the reference's
 certification of the same inputs.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax
 import jax.numpy as jnp
 import numpy as np

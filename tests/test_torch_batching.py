@@ -19,6 +19,7 @@ What the CPU shows about bits: PyTorch's CPU GEMM gives a row other bits
 when the product has one or two rows than when it has more, so the
 engine's decode steps (one row a lane) and the batch-1 oracle's differ in
 their last bits, and a padded prefill equals the unpadded one bit for bit
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 from three prompt tokens on. Tokens agree.
 """
 import jax

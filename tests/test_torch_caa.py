@@ -14,6 +14,7 @@ Tolerances, per output field:
 * ``seq_dot``/``pairwise_dot``/``kahan_dot``: bit for bit (every step is an
   elementwise rounding).
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 
 import jax.numpy as jnp

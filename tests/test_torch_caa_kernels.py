@@ -12,6 +12,7 @@ val and of the interval bounds are x·w, those of err and mag are
 non-negative); the interval enclosure contains the f64 product at sampled
 points of [lo, hi] and the f64 sign-split bounds of the f32 operands.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax.numpy as jnp
 import numpy as np
 import pytest

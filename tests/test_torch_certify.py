@@ -20,6 +20,7 @@ The nano LM's uniform certification (``certify_lm``, k_max 24; the helper
 ``tests/_torch_nano.py``) is held here too, with the cross-package hits of
 ``serving_certificate`` and the port's certification on a miss; its mixed
 descent is in ``tests/test_torch_certify_lm.py``."""
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import json
 import math
 import os

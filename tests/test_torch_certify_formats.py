@@ -11,6 +11,7 @@ key; within 1e-9 relative: the certified bounds and the confirming pass's
 per-class bounds (inf equal to inf). The port's v3 map is then served
 through ``FormatQuantJOps`` bit for bit as an eager emulation of the map.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import math
 import os
 

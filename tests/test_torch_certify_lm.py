@@ -17,6 +17,7 @@ Also here: the certification profile's tokens (the reference's
 CLIs of ``repro_torch.certify`` and ``repro_torch.launch.analyze`` on the
 CPU.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 import math
 import os

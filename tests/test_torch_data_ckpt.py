@@ -17,6 +17,7 @@ the CPU.
   (``tests/test_system.py``), mirrored on the port; the atomic publish
   and the disk-space refusal.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 
 import jax

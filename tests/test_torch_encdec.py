@@ -34,6 +34,7 @@ them).
 * The layer-stacked analyses (CAA, IA ranges, affine ranges) equal the
   eager ones on the port (``_torch_families.stacked_equals_eager``).
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax.numpy as jnp
 import numpy as np
 import pytest

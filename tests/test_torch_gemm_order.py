@@ -17,6 +17,7 @@ these bit for bit. Here they are held:
   (the product is exact in f64; adding two f32 values in f64 and rounding to
   f32 is the f32 sum, since 53 ≥ 2·24 + 2).
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ Tolerances:
   another order (n·2⁻⁵³·Σ|terms|), and both enclose the exact value at
   sampled points.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ bit. Here they are held:
   order and any rounding give the same bits;
 * on zeros of either sign at a ragged K edge.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 from fractions import Fraction
 
 import jax.numpy as jnp

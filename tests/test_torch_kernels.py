@@ -12,6 +12,7 @@ the sums' rounding errors have random signs, so their difference grows as
 √K, well inside the worst case 2·γ_K·(|q(x)|@|q(w)|); for decode attention
 a few f32 ulps of the largest |v| attended, 2·(len + 16)·2⁻²⁴·max|v|.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,7 +13,8 @@ CPU, with the reference's weights and inputs made from a seed in numpy.
   differ (a route flip) the test reports it and asserts that the
   reference's top-k margin there is below the router probabilities'
   tolerance, 1e-6: it does not pick inputs to avoid flips.
-* ``aux_load_balance_loss``; ``ep_shard_map`` refused with the reason.
+* ``aux_load_balance_loss``; ``ep_shard_map`` on a one-rank mesh against
+  the reference's on a one-device mesh, and refused without a mesh.
 * TorchOps' ops that the MoE and Gemma-2 paths added, against JOps.
 * Mixtral's and Llama-4's ``CaaOps`` forward (router records included) and
   ``certify_lm`` decisions, with the tolerances of ``tests/
@@ -23,6 +24,7 @@ CPU, with the reference's weights and inputs made from a seed in numpy.
   two packages: 1.6e-7 measured), their ``min_margin`` within 1e-9.
 * ``python -m repro_torch.launch.analyze --routers`` on Mixtral.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,7 @@ import torch
 
 from repro.core.backend import JOps
 from repro.models import moe as JM
-from repro_torch.core.backend import TorchOps
+from repro_torch.core.backend import MeshTorchOps, TorchOps
 from repro_torch.models import moe as TM
 from test_torch_zoo import (caa_traces, certify_both, check_decisions,
                             check_traces)
@@ -155,11 +157,29 @@ def test_aux_loss_and_unported_mode():
     got = float(TM.aux_load_balance_loss(torch.from_numpy(probs),
                                          torch.from_numpy(mask), 4))
     assert abs(got - want) <= 1e-6 * abs(want)
+    # ep_shard_map on a one-rank mesh (every expert local) against the
+    # reference's on a one-device mesh; without a mesh it is refused (the
+    # multi-rank cases are in tests/test_torch_mesh_dist.py)
+    from jax.sharding import Mesh
+    from repro_torch.launch import mesh as tmesh
+
     x, p = moe_inputs(0)
     tp = {k: torch.from_numpy(v) for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="mesh.py"):
+    with pytest.raises(ValueError, match="mesh"):
         TM.moe_mlp(TorchOps(), torch.from_numpy(x), tp, n_experts=4,
                    top_k=2, mode="ep_shard_map")
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                 ("data", "model"))
+    want = np.asarray(JM.moe_mlp(
+        JOps(jnp.float32, jnp.float32, mesh=jmesh), jnp.asarray(x),
+        jax.tree_util.tree_map(jnp.asarray, p), n_experts=4, top_k=2,
+        chunk_tokens=8, mode="ep_shard_map"))
+    bk = MeshTorchOps(mesh=tmesh.make_serving_mesh(1, 1, device="cpu"))
+    with torch.no_grad():
+        y = TM.moe_mlp(bk, torch.from_numpy(x), tp, n_experts=4, top_k=2,
+                       chunk_tokens=8, mode="ep_shard_map").numpy()
+    np.testing.assert_allclose(y, want, rtol=0,
+                               atol=Y_REL * float(np.abs(want).max()))
     shapes = TM.moe_shapes(16, 24, 4)
     init = TM.init_moe(16, 24, 4, generator=torch.Generator().manual_seed(0),
                        device="cpu")

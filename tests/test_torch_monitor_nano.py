@@ -13,6 +13,7 @@ profile the monitor stays silent in both packages: every observed product
 lies inside the certified enclosures (which fold to ``layer*``: the
 serving body observes every layer under the stacked scope).
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax
 import jax.numpy as jnp
 import numpy as np

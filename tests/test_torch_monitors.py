@@ -11,6 +11,7 @@ What the port adds is the device log: a monitored forward writes one row a
 matmul and calls nothing on the host; ``flush()`` folds the rows in order,
 exactly as one ``observe_scope`` call per product would.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import json
 import math
 

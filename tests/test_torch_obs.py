@@ -11,6 +11,7 @@ reference's kernel names and row keys (``route`` in place of
 Everything runs on the CPU: the rows time plain versions, and only their
 shapes and bookkeeping are checked here.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import json
 import warnings
 

@@ -14,6 +14,7 @@ serving CLI against the JAX package's, on the CPU.
   gauges aside: they have no PyTorch counterpart), and a trace both
   packages' ``validate_events`` accept.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import json
 import os
 

@@ -31,6 +31,7 @@ on the CPU.
   with 8-bit moments; error feedback converges and keeps its residual
   small); ``compressed_psum_grads`` waits for the mesh slice.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 
 import jax
@@ -236,9 +237,24 @@ def test_compress_tree_matches_reference():
     assert np.array_equal(np.asarray(js), s.numpy())
 
 
-def test_compressed_psum_grads_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tgc.compressed_psum_grads({"x": torch.zeros(3)}, mesh=None)
+def test_compressed_psum_grads_on_a_one_rank_mesh():
+    """On one rank the all-reduce is the int8 round trip: bit for bit the
+    reference's on a one-device mesh (the multi-rank cases are in
+    ``tests/test_torch_mesh_dist.py``)."""
+    from jax.sharding import Mesh
+    from repro_torch.launch import mesh as tmesh
+
+    rng = np.random.RandomState(5)
+    g = {"w": rng.randn(3, 300).astype(np.float32),
+         "b": {"x": (1e-3 * rng.randn(5, 77)).astype(np.float32)}}
+    want = jgc.compressed_psum_grads(
+        jax.tree_util.tree_map(jnp.asarray, g),
+        Mesh(np.array(jax.devices()[:1]), ("data",)))
+    got = tgc.compressed_psum_grads(
+        params_from_numpy(g, "cpu"),
+        tmesh.make_serving_mesh(1, 1, device="cpu"))
+    for k, a in j_leaves(want).items():
+        assert np.array_equal(a, leaves(got)[k].numpy()), k
 
 
 # -- the reference's own system tests, mirrored on the port -----------------

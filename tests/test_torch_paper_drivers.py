@@ -16,6 +16,7 @@ On params made by the JAX package and carried across through numpy
   times a JAX recompilation (``gemm_format_sweep_recompile_s``), and
   ``run.main`` prints the CSV and appends one bench entry.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ cache entries within one ulp at the smallest attention k, u = 2^(1-k), of
 themselves plus u·max|cache| (rope mixes two rounded values, which may
 cancel).
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import json
 import os
 

@@ -9,6 +9,7 @@ inconsistent, so ``quantize_to_format`` is compared on carrier-normal
 inputs (plus 0/±inf/NaN); the port rounds subnormals exactly
 (:func:`test_port_rounds_carrier_subnormals_onto_the_format_grid`).
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax.numpy as jnp
 import numpy as np
 import pytest

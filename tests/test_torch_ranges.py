@@ -25,6 +25,7 @@ the CAA rules carry that through two layers and the head to 2e-7 there
 (measured op by op); it stays far inside the ranges' 1e-9, which the
 enclosures' magnitudes dominate.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import math
 import sys
 from pathlib import Path

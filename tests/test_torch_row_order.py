@@ -18,6 +18,7 @@
 * On the CPU, ``TorchOps`` keeps ``Tensor.mean`` and ``torch.einsum``
   (the routing is card-only), so CPU serving keeps its bits.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ the reference's source, and exactly-once data through a real run:
 shrink, and every step's loss, re-run ones included, and the final state
 equal the uninterrupted run's bit for bit (the stateless pipeline gives a
 re-run step its batch again)."""
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 import inspect
 

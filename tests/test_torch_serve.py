@@ -14,6 +14,7 @@ one ulp at the scope's k, so cache entries may differ by one ulp at the
 attention format's k relative (2^-(k-1)) and logits by 1e-3; tokens must be
 equal, and a mismatch reports the top-1 gap at that step.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import ast
 import json
 from pathlib import Path
@@ -271,6 +272,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/launch/mesh.py",
+            "src/repro_torch/parallel/sharding.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

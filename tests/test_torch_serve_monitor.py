@@ -28,6 +28,7 @@ and a uniform k. Held:
 The plain backend's refusal of a monitor is held in
 ``tests/test_torch_quant_k.py``.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import json
 import math
 

@@ -1,6 +1,7 @@
 """The port's certificate schema (repro_torch.certify.spec) against the JAX
 package's: the v1 fixture and v2/v3 sets written by the reference load and
 write back byte for byte, and the serving decisions agree."""
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import json
 import os
 

@@ -23,6 +23,7 @@ the reference's own SMOKE parameters, carried across through numpy).
   the clamp off (the exponential branch).
 """
 
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -42,6 +42,7 @@ through numpy and ``params_from_numpy``; the ``tmix``, ``cmix`` and
   invariant, as ``chip_smoke.py``'s ``ranges`` phase holds it).
 * The CLIs ``serve`` and ``analyze`` at SMOKE.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 import math
 

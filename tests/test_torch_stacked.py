@@ -17,6 +17,7 @@ Tolerances: δ̄ and every ``RangeStat`` field within 1e-9 relative
 (sensitivities 1e-7, the reference's own tolerance); ``n_ops``, key sets,
 ``seen_scopes`` and sensitivity rankings equal.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import math
 
 import jax

@@ -3,6 +3,7 @@ against the JAX package's: the same params digest for the same numbers,
 the same request keys, entries written by one package read by the other,
 the same stats for the same sequence of reads, and the same ServeConfig
 resolved from a store hit. A miss certifies on first use and persists."""
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 import os
 import shutil

@@ -35,6 +35,7 @@ not run on this JAX (``with_sharding_constraint`` at
   without a gradient the routes are taken (a tensor that reports
   ``is_cuda`` and recording dispatchers stand in for the card).
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 
 import jax

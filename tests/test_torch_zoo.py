@@ -50,6 +50,7 @@ reference's own parameters (JAX ``init_params`` through numpy and
 The MoE module itself, Mixtral's and Llama-4's analysis with router
 records and their certificates are in ``tests/test_torch_moe.py``.
 """
+import _torch_test_setup  # noqa: F401  (before any reference compile)
 import dataclasses
 import math
 
