@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the repository root with ``python3 chip_smoke.py``. It builds the
-port's CUDA kernels (nine sources in ``src/repro_torch/csrc``) with nvcc (into
+port's CUDA kernels (nine sources in ``src/repro_torch/csrc``; the ``dtypes``
+phase builds the five of the bf16 / e4m3 instances) with nvcc (into
 ``build/repro_torch/``; the ``build`` line carries registers, shared memory
 and spills of every kernel), holds the two certified GEMMs bit for bit
 against their sequential-order plain versions on sampled columns of every
@@ -97,7 +98,8 @@ sha256 of its logits and a profiler trace of its decode steps):
   on card and CPU (full width does not fit the card); and the four SMOKE
   configs analysed (CAA forward, router records) and certified on card and
   CPU with the same weights, decisions equal;
-* ``ssm`` — the recurrent families at full width and full depth: RWKV6
+* ``ssm`` — the recurrent families at full width, depth cut to 2 layers
+  (``ZOO_LAYERS``: room in the time limit; no check needs the depth): RWKV6
   1.6B under a format map with a ``layer*`` key (its layers have no
   sub-scope; the scope each product resolved to printed) and at k = 12,
   then at batch 1 with a 4,096-token prompt on the plain backend, its last
@@ -112,7 +114,8 @@ sha256 of its logits and a profiler trace of its decode steps):
   on the inputs the serve runs gave them; both SMOKE configs analysed and
   certified on card and CPU, and one CAA pass of each at full width on 2
   layers with its recurrences' fixpoint bounds;
-* ``mla_encdec`` — the last three families at full width and full depth,
+* ``mla_encdec`` — the last three families at full width, depth cut to 2
+  decoder layers (``ZOO_LAYERS``, as ``ssm``),
   each under the format map plus a ``layer*`` key and at k = 12 (batch 4
   × 128 × 16): MiniCPM3 4B (MLA: its two per-head weight products through
   ``f32_matmul`` on block-diagonal tables, its decode attention through
@@ -120,12 +123,29 @@ sha256 of its logits and a profiler trace of its decode steps):
   steps' calls held against the plain versions), then through the
   batching engine (every request bit for bit alone), every op of a ragged
   decode step against each lane alone and the library products' lane
-  bits; Whisper medium (24 + 24 layers, 1,500 frames encoded once, the
+  bits; Whisper medium (24 encoder layers, 1,500 frames encoded once, the
   encoder states reused by every step; the last decode logits against a
   full forward; the engine refuses it); PaliGemma 3B (256 patches + 128
   tokens; the engine text-only, bit for bit alone); the three SMOKE
   configs analysed and certified on card and CPU, and one CAA pass of
   MiniCPM3 at full width on 2 layers;
+* ``dtypes`` — serving in bf16 and fp8 (``ServeConfig.compute_dtype``,
+  ``cache_dtype``, ``param_dtype``): the narrow instances of kernels 1-4,
+  ``f32_matmul`` and ``row_mean`` at Qwen2-7B's shapes (M = 4 / 512, the
+  serve cache and 32K), bf16 x with bf16 or e4m3 w / cache, bit for bit
+  their f32 instances on the upcast operands and held against their
+  plain versions on the same operands (kernel 4's bf16 instance, the
+  reference's composed bf16 path: bit for bit its plain version), timed,
+  their bounds' operations at the bf16 peak; kernels 2 and 4 on an f32 q
+  with the narrow caches (f32 compute, narrow ``cache_dtype``);
+  Qwen2-7B FULL at full depth in bf16 under the plain, k = 12 and format
+  backends (bf16 cache), then the format map and k = 12 with an e4m3
+  cache and e4m3 params (exact launches, every kept kernel call checked,
+  the decode step against a full forward, peak memory); the batching
+  cell's requests through the engine in bf16, every lane bit for bit
+  alone; Gemma-2 27B FULL at all 46 layers (bf16 compute, e4m3 params,
+  bf16 cache, format map) with its peak memory and the share of its
+  weights e4m3 stores as zero or subnormal;
 * ``train`` — training (``launch/train.py``): every arch's SMOKE loss and
   gradients on the card, with each layer rematerialised and without (bit
   for bit), against the CPU port's on the same params and batch (loss
@@ -156,10 +176,11 @@ nano certificates, ``analyze``'s Table I) run in one spawned process with
 CPU_SIDE_THREADS torch threads and no card, queued as soon as their inputs
 exist, while the card works; a phase compares where it always did, and a
 CPU half that failed fails it there. The ``paper`` phase (with its
-quickstart's CPU half) runs in a second spawned process on the card while
-this one runs ``zoo``, ``ssm`` and ``mla_encdec``: it needs nothing of
-them, its models are small, and it counts its own launches; the run waits
-for it before ``train`` and fails if it failed.
+quickstart's CPU half) runs in a second spawned process on the card
+while this one runs ``zoo``, ``ssm`` and ``mla_encdec``: it needs nothing
+of them and counts its own launches; the run waits for it before
+``dtypes`` and fails if it failed. ``dtypes`` runs alone: beside the
+analyses of ``ssm`` and ``mla_encdec`` both ran up to twice as long.
 
 Each phase prints one JSON object on a line of its own, then a ``seconds``
 line with its host seconds; a phase that fails raises and the script exits
@@ -190,6 +211,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 F32_TFLOPS = 67e12      # H100 SXM f32 outside the tensor cores (data sheet)
+BF16_TFLOPS = 989e12    # H100 SXM dense bf16 on the tensor cores (data sheet)
+FP8_TFLOPS = 1979e12    # H100 SXM dense fp8 on the tensor cores (data sheet)
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 FORMATS = {             # (k, emax, emin)
     "k24_e127": (24, 127, -126),
@@ -375,7 +398,7 @@ def time_cold_ms(torch, fn, copies, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def trace_ms(torch, fn, copies, iters: int) -> float:
+def trace_ms(torch, fn, copies, iters: int, attempts: int = 6) -> float:
     """Mean device time of ``fn(w)`` a call, ``w`` rotating through
     ``copies`` (after one warm-up pass): the summed durations of the device
     activities (kernels, copies) in a ``torch.profiler`` trace of ``iters``
@@ -390,7 +413,7 @@ def trace_ms(torch, fn, copies, iters: int) -> float:
     for w in copies:
         fn(w)
     torch.cuda.synchronize()
-    for attempt in range(6):
+    for attempt in range(attempts):
         if attempt:
             time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
@@ -402,7 +425,7 @@ def trace_ms(torch, fn, copies, iters: int) -> float:
                  if e.device_type == DeviceType.CUDA]
         if spans:
             return sum(spans) / 1e3 / iters
-    raise AssertionError("six traces held no device activity")
+    raise AssertionError(f"{attempts} traces held no device activity")
 
 
 def gemm_times(torch, kernel, plain, x, w, iters):
@@ -421,8 +444,17 @@ def gemm_times(torch, kernel, plain, x, w, iters):
     return out
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_TFLOPS
+def ops_peak(*dtypes) -> float:
+    """The card's peak rate for work on operands of ``dtypes``: that of the
+    widest (f32 outside the tensor cores; bf16 and fp8 on them)."""
+    names = {str(d).rsplit(".", 1)[-1] for d in dtypes}
+    if names & {"float32", "float64"}:
+        return F32_TFLOPS
+    return BF16_TFLOPS if "bfloat16" in names else FP8_TFLOPS
+
+
+def bound_ms(n_bytes: float, n_ops: float, peak: float = F32_TFLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -501,15 +533,49 @@ def ptxas_report(log: str):
     return out
 
 
-def phase_build(build):
+def built(build, sources):
+    """Build ``sources``, every nvcc started together; returns the fields
+    of a build line: seconds, each source's seconds and ptxas report."""
     t0 = time.perf_counter()
-    res = build.build(build.SOURCES, ptxas_verbose=True)
+    res = build.build(sources, ptxas_verbose=True)
     for name, r in res.items():
         print(f"--- nvcc {name}\n{r['log']}", file=sys.stderr)
-    emit("build", seconds=time.perf_counter() - t0,
-         sources=list(build.SOURCES),
-         per_source_s={n: r["seconds"] for n, r in res.items()},
-         ptxas={n: ptxas_report(res[n]["log"]) for n in build.SOURCES})
+    return dict(seconds=time.perf_counter() - t0, sources=list(sources),
+                per_source_s={n: r["seconds"] for n, r in res.items()},
+                ptxas={n: ptxas_report(res[n]["log"]) for n in sources})
+
+
+def phase_build(build):
+    """The f32 kernels' sources (``SOURCES``)."""
+    emit("build", **built(build, build.SOURCES))
+
+
+class NarrowBuild:
+    """The ``dtypes`` phase's sources (``NARROW_SOURCES``: the bf16 / e4m3
+    instances) built in a thread beside the run's first phases, every nvcc
+    started together (cores the card's phases leave idle; the phase runs
+    some ten minutes later). ``finish()`` waits for it, prints its
+    ``dtypes_build`` line and raises if the build failed."""
+
+    def __init__(self, build):
+        import threading
+
+        self.result, self.error = None, None
+        self.thread = threading.Thread(target=self._run, args=(build,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, build):
+        try:
+            self.result = built(build, build.NARROW_SOURCES)
+        except BaseException as e:       # raised again in finish()
+            self.error = e
+
+    def finish(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        emit("dtypes_build", **self.result)
 
 
 def phase_rounding(torch, quantize, qmm):
@@ -607,10 +673,14 @@ def check_gemm_k(torch, qmm, x, w, k):
 
 
 def same_bits(torch, got, want) -> bool:
-    """Equal bit for bit, except that any NaN equals any NaN."""
+    """Equal bit for bit (and in dtype), except that any NaN equals any
+    NaN."""
+    if got.dtype != want.dtype:
+        return False
     nan = torch.isnan(want)
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.int8}[got.element_size()]
     return bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
-        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+        got[~nan].view(bits), want[~nan].view(bits)))
 
 
 def coarse_operands(torch, gen, M, K, N):
@@ -1081,7 +1151,8 @@ def cache_copies(torch, k, v):
     """Copies of the cache (k, v) whose total exceeds the L2 twice over (at
     least two), so that a call that rotates through them reads its cache
     from HBM, as a decode step does (it reads 28 layers' caches in turn)."""
-    n = max(2, math.ceil(2 * L2_BYTES / (4 * (k.numel() + v.numel()))))
+    n = max(2, math.ceil(2 * L2_BYTES / (k.element_size() * k.numel()
+                                         + v.element_size() * v.numel())))
     return [(k.clone(), v.clone()) for _ in range(n)]
 
 
@@ -1093,7 +1164,7 @@ def flash_iters(S: int) -> int:
 
 
 def flash_timing(torch, kernel, plain, q, k, v, lengths, scale=None,
-                 shared_kv=False):
+                 shared_kv=False, timer=None, plain_timer=None):
     """Device ms of ``kernel`` and ``plain`` on the same inputs and of the
     SDPA yardstick, each from a profiler trace (:func:`trace_ms`) with the
     cache rotated through :func:`cache_copies`; ``host_ms``: the kernel
@@ -1104,8 +1175,12 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths, scale=None,
     P·V): a lane of length 0 reads no k and computes no score, its weights
     are all exp(0). With ``shared_kv`` the keys serve as the values (k is
     v, as in MLA's latent decode): read once, they count once; ``scale``
-    (None: D^-½) is the yardstick's.
+    (None: D^-½) is the yardstick's. ``timer`` / ``plain_timer`` (default
+    :func:`trace_ms`) time the kernel and the yardstick / the plain
+    version; the bound counts each operand's own bytes.
     """
+    timer = timer or trace_ms
+    plain_timer = plain_timer or trace_ms
     B, H, G, D = q.shape
     S = k.shape[1]
     lens = lengths.tolist()
@@ -1114,12 +1189,11 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths, scale=None,
     if shared_kv:
         copies = [(ck, ck) for ck, _ in copies]
     timing = {
-        "ms": trace_ms(torch, lambda c: kernel(q, *c, lengths), copies,
-                       iters),
+        "ms": timer(torch, lambda c: kernel(q, *c, lengths), copies, iters),
         "host_ms": time_cold_ms(torch, lambda c: kernel(q, *c, lengths),
                                 copies, iters),
-        "plain_ms": trace_ms(torch, lambda c: plain(q, *c, lengths), copies,
-                             max(2, iters // 5)),
+        "plain_ms": plain_timer(torch, lambda c: plain(q, *c, lengths),
+                                copies, max(2, iters // 5)),
         "cache_copies": len(copies)}
     # the yardstick: SDPA with grouped heads on [B, H, S, D] (transposed
     # outside the timing); uniform lengths attend to the prefix with no
@@ -1130,19 +1204,20 @@ def flash_timing(torch, kernel, plain, q, k, v, lengths, scale=None,
     mask = None if len(set(lens)) == 1 else (
         torch.arange(S, device="cuda")[None, :]
         < lengths[:, None])[:, None, None, :]
-    tcopies = [tuple(t[:, :n].permute(0, 2, 1, 3).contiguous() for t in c)
-               for c in copies]
+    tcopies = [tuple(t[:, :n].permute(0, 2, 1, 3).contiguous().to(q.dtype)
+                     for t in c) for c in copies]
     del copies
-    timing["library_ms"] = trace_ms(
+    timing["library_ms"] = timer(
         torch, lambda c: sdpa(qs, *c, attn_mask=mask, enable_gqa=True,
                               scale=scale), tcopies, iters)
     del tcopies
     n_k = int(lengths.clamp(min=0, max=S).sum())
     n_v = int(attended(torch, lengths, S).sum())
     n_read = n_v if shared_kv else n_k + n_v    # attended ⊇ below length
-    n_bytes = 4.0 * (2 * q.numel() + n_read * H * D) + 4 * B
+    n_bytes = (2.0 * q.element_size() * q.numel()
+               + k.element_size() * n_read * H * D + 4 * B)
     timing["bound_ms"], timing["bound_by"] = bound_ms(
-        n_bytes, 2.0 * G * D * H * (n_k + n_v))
+        n_bytes, 2.0 * G * D * H * (n_k + n_v), ops_peak(q.dtype, k.dtype))
     return timing
 
 
@@ -1375,6 +1450,7 @@ HEAD_KERNEL_MARK = "PassThrough"  # the same body as the LM head (f32_matmul)
 HEALTH_KERNEL_MARK = "numeric_health_kernel"
 DTOH_MARK = "Memcpy DtoH"
 TRACE_STEPS = 8
+TRACE_GAP_S = 0.05                # idle after a trace's warm-up step
 STEP_MARK = "chip_smoke.decode_step"
 
 
@@ -1402,8 +1478,11 @@ def step_split(prof, names=False):
     # marks' device-side copies are annotations, not activity)
     starts = sorted(e.time_range.start for e in evts if e.name == STEP_MARK
                     and e.device_type == DeviceType.CPU)
+    # the warm-up step's activities (before the first mark, past an idle
+    # gap) are not counted: the profiler may drop a session's first ones
     kernels = [e for e in evts if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.name != STEP_MARK]
+               and not e.is_user_annotation and e.name != STEP_MARK
+               and e.time_range.start >= starts[0]] if starts else []
     ops = [e for e in evts if e.device_type == DeviceType.CPU
            and e.name in ("aten::einsum", "aten::softmax")]
     rows = []
@@ -1450,23 +1529,67 @@ def step_split(prof, names=False):
                                    "whole_trace": whole}
 
 
-def decode_trace(torch, serve, T, res, monitor=None, names=False):
+# device activities a port kernel's launch leaves in a trace, by name mark:
+# a GEMM (kernels 1 and 3, f32_matmul, raw or rounding), kernel 2 or 4 at
+# G <= 8 (one chunk launch and the combine), the mean, the health stats,
+# the rounding in place
+PORT_TRACE_MARKS = (*GEMM_KERNEL_NAMES, "flash_decode_chunk_kernel",
+                    "flash_decode_combine_kernel", "row_mean_kernel",
+                    HEALTH_KERNEL_MARK, "repro_round_elementwise_kernel")
+PORT_TRACE_ACTS = {"quant_matmul_format": 1, "quant_matmul": 1,
+                   "f32_matmul": 1, "flash_decode_certified": 2,
+                   "flash_decode_attention": 2, "row_mean": 1,
+                   "numeric_health": 1, "round_k_inplace": 1}
+
+
+def trace_whole(traced, launched):
+    """Whether a decode trace (:func:`step_split` with ``names``) holds
+    every device activity its counted steps made: the port kernels'
+    activities equal to what the port's launch counters counted over those
+    steps (``launched``: {kernel: launches}, at PORT_TRACE_ACTS a launch),
+    and every activity name's count a whole multiple of the steps (the
+    steps launch the same kernels, copies and fills; a lost activity
+    leaves its name's count short). The per-step windows are no test:
+    they split the trace by the host clock, and activities near a window's
+    edge land in either neighbour. (Without the warm-up step, traces whose
+    port activities were all there counted 8 of 9 steps' rope kernels: a
+    session's first activities dropped.) Returns (whole, evidence)."""
+    whole = traced["whole_trace"]
+    n = whole["steps"]
+    port = sum(c for name, c in whole["by_name"].items()
+               if any(m in name for m in PORT_TRACE_MARKS))
+    want = sum(PORT_TRACE_ACTS.get(name, 0) * c
+               for name, c in launched.items())
+    uneven = {name: c for name, c in whole["by_name"].items() if c % n}
+    evidence = {"steps": n, "port_activities": port,
+                "port_launch_activities": want, "uneven_names": uneven,
+                "kernels": whole["kernels"]}
+    return port == want and not uneven, evidence
+
+
+def decode_trace(torch, serve, T, res, monitor=None, names=False,
+                 fns=None):
     """Decode steps of a served run's own backend, params as ``serve.main``
     placed them on its mesh, and prompt, from a fresh cache: TRACE_STEPS
     timed by the host clock (each ends in a synchronize; their median),
-    then TRACE_STEPS + 1 under torch.profiler split by :func:`step_split`
+    then under torch.profiler one warm-up step (the profiler may drop a
+    session's first activities; it is followed by an idle gap and not
+    counted) and TRACE_STEPS + 1 split by :func:`step_split`
     (medians over the steps; with ``names``, the whole trace's activities
     counted by name too). With a violation ``monitor`` (or without one
     after a monitored run) a backend of the run's class is built on the
     run's mesh with that monitor; every step then ends in its ``flush()``
-    as the serving loop's steps do."""
+    as the serving loop's steps do. With ``fns`` (the kernel wrappers by
+    name) the port's launches over the traced steps are counted too
+    (``launched``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     bk = res.backend
     if getattr(bk, "monitor", None) is not monitor:
         bk = serve._backend(res.config, monitor, mesh=bk.mesh)
+    # the served steps, and the trace's warm-up step
     cache = T.init_cache(res.cfg, res.prompt.shape[0],
-                         SERVE_PROMPT + SERVE_STEPS + 1,
+                         SERVE_PROMPT + SERVE_STEPS + 2,
                          device=res.prompt.device)
     state = {"pos": SERVE_PROMPT}
     with torch.no_grad():
@@ -1492,11 +1615,19 @@ def decode_trace(torch, serve, T, res, monitor=None, names=False):
             host.append(1e3 * (time.perf_counter() - t0))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            step()
+            time.sleep(TRACE_GAP_S)
+            before = read_launches(fns) if fns else {}
             for _ in range(TRACE_STEPS + 1):
                 with record_function(STEP_MARK):
                     step()
-    return {"host_ms_median": sorted(host)[len(host) // 2],
-            "host_ms": host, "traced": step_split(prof, names)}
+        launched = {name: n - before[name]
+                    for name, n in read_launches(fns).items()} if fns else {}
+    out = {"host_ms_median": sorted(host)[len(host) // 2],
+           "host_ms": host, "traced": step_split(prof, names)}
+    if fns:
+        out["launched"] = launched
+    return out
 
 
 def phase_serve(torch, serve, qmm, fd, T):
@@ -1953,17 +2084,40 @@ ROUND_K_REPLACES = ("none: port-only (XLA's final _quantize_normal in the "
 RAW_GEMM_MARK = "RawOut"
 
 
-def k12_decode_traces(torch, serve, T, spec, res_k, set_path):
+def k12_decode_traces(torch, serve, T, spec, res_k, set_path, fns):
     """The monitored uniform-k decode step traced beside the unmonitored
     one on the same run's weights and prompt (:func:`decode_trace`); raises
     unless, a step, the monitor adds one health kernel and one rounding in
     place a GEMM (196 each), turns each GEMM into its raw instance (the
     GEMM count unchanged), adds one device-to-host copy, and at most one
-    other launch (the log's re-initialisation)."""
+    other launch (the log's re-initialisation).
+
+    Each trace is first proven whole (:func:`trace_whole`: the same count
+    every step, the port kernels' activities equal to the launch
+    counters'); a lossy trace is taken again once. If one is still lossy,
+    the comparison is not made and the traces are reported as lossy
+    (``lossy``): the profiler lost activities, which says nothing of the
+    launches (the counters gate those exactly)."""
     mon = serve.ViolationMonitor.from_certificate_set(
         spec.CertificateSet.from_json(set_path.read_text()))
-    plain = decode_trace(torch, serve, T, res_k, names=True)
-    monitored = decode_trace(torch, serve, T, res_k, mon, names=True)
+    traces, lossy = {}, {}
+    for key, monitor in (("plain", None), ("monitored", mon)):
+        for attempt in range(2):
+            t = decode_trace(torch, serve, T, res_k, monitor, names=True,
+                             fns=fns)
+            whole, evidence = trace_whole(t["traced"], t["launched"])
+            t["whole"] = dict(evidence, whole=whole, attempt=attempt)
+            if whole:
+                break
+        traces[key] = t
+        if not whole:
+            lossy[key] = t["whole"]
+    plain, monitored = traces["plain"], traces["monitored"]
+    if lossy:
+        emit("k12_decode_traces", lossy=lossy, note="a trace lost device "
+             "activities twice; the per-name comparison is not made")
+        return {"unmonitored": plain, "monitored": monitored,
+                "lossy": lossy}
     a, b = (t["traced"]["whole_trace"] for t in (plain, monitored))
     n = a["steps"]
     names = set(a["by_name"]) | set(b["by_name"])
@@ -2182,7 +2336,7 @@ def phase_serve_monitor(torch, serve, qmm, fd, T, shas):
     if k_summary["violations"]:
         raise AssertionError(f"k = 12 under wide envelopes: {k_summary}")
     k_timing = res_k.timing
-    k_traces = k12_decode_traces(torch, serve, T, spec, res_k, k12_set)
+    k_traces = k12_decode_traces(torch, serve, T, spec, res_k, k12_set, fns)
     del res_k
     free_device_memory(torch)
 
@@ -4223,11 +4377,11 @@ def cert_summary(cs, seconds=None, peak_gb=None):
 
 class ShapeSpy(KernelSpy):
     """A KernelSpy keeping copies of the tensor inputs (and the keyword
-    arguments) of the first call of each input shape."""
+    arguments) of the first call of each input shape and dtype."""
 
     def __init__(self, fn):
         super().__init__(
-            fn, lambda *a, **kw: tuple(tuple(t.shape) for t in a
+            fn, lambda *a, **kw: tuple((tuple(t.shape), t.dtype) for t in a
                                        if hasattr(t, "shape")),
             lambda *a, **kw: (tuple(t.clone() if hasattr(t, "clone") else t
                                     for t in a), dict(kw)))
@@ -4834,7 +4988,14 @@ def phase_paper(torch, qmm, fd):
 # full width, depth cut for memory (f32 weights; embeddings and the LM head's
 # transposed copy included): Gemma-2 27B 8 layers (4 local, 4 global) ~27.5
 # GB, Mixtral 8x22B 2 layers ~22.4 GB, Command-R 35B 4 layers ~28 GB
-ZOO_LAYERS = {"gemma2_27b": 8, "mixtral_8x22b": 2, "command_r_35b": 4}
+# the depth a full-width serve pass runs at: Gemma-2, Mixtral and Command-R
+# cut to fit the card; the recurrent and the last three families cut to
+# make room in the time limit (none of their checks needs the depth: each
+# is a kernel's inputs, a layer's calls or lanes, or a decode against a
+# full forward; every Hymba layer is a local, windowed one)
+ZOO_LAYERS = {"gemma2_27b": 8, "mixtral_8x22b": 2, "command_r_35b": 4,
+              "rwkv6_1p6b": 2, "hymba_1p5b": 2, "minicpm3_4b": 2,
+              "whisper_medium": 2, "paligemma_3b": 2}
 ZOO_WINDOW_PROMPT = 4224          # past Gemma-2's 4,096-position local window
 ZOO_BATCH_REQUESTS, ZOO_BATCH_MAX_NEW = 4, 8
 ZOO_SOFTCAP = 50.0                # Gemma-2's attention softcap
@@ -5418,7 +5579,7 @@ def _launch_counts(report):
 
 # ---------------------------------------------------------------------------
 # the recurrent families: RWKV6 1.6B and Hymba 1.5B through the port's entry
-# points, at full width and full depth
+# points, at full width, depth cut to ZOO_LAYERS
 # ---------------------------------------------------------------------------
 
 SSM_ARCHS = ("rwkv6_1p6b", "hymba_1p5b")
@@ -5569,7 +5730,7 @@ def new_shape_checks(torch, qmm, spies, f32_rows=None):
 
 
 def ssm_rwkv(torch, serve, qmm, T, fns):
-    """RWKV6 1.6B at full width and depth: served under the format map
+    """RWKV6 1.6B at full width, depth ZOO_LAYERS: served under the format map
     (its products at the map's layer* key) and at k = 12, batch 4 ×
     128-token prompts × 16 steps, kernels 1 and 3 spied at the new shapes;
     then at batch 1 with a 4,096-token prompt (128 chunks) and 16 steps on
@@ -5580,7 +5741,7 @@ def ssm_rwkv(torch, serve, qmm, T, fns):
     out, scopes, spies = ssm_format_and_k(torch, serve, qmm, fns,
                                           "rwkv6_1p6b")
     want = {f"layer{i}": list(FORMATS["k12_e15"])
-            for i in range(serve.configs.get("rwkv6_1p6b").FULL.n_layers)}
+            for i in range(ZOO_LAYERS["rwkv6_1p6b"])}
     if scopes != want:
         raise AssertionError(f"rwkv format map: products resolved at "
                              f"{scopes}")
@@ -5664,7 +5825,7 @@ def engine_requests(torch, batching, vocab, seed=3):
 
 
 def ssm_hymba(torch, serve, batching, qmm, fd, T, fns):
-    """Hymba 1.5B at full width and depth: served under the format map and
+    """Hymba 1.5B at full width, depth ZOO_LAYERS: served under the format map and
     at k = 12 (batch 4 × 128 × 16; kernel 4 once a layer a decode step,
     kernel 2 never), kernels 1 and 3 spied at the new shapes; at batch 1
     with a 1,200-token prompt under the format map, every decode-attention
@@ -5705,7 +5866,8 @@ def ssm_hymba(torch, serve, batching, qmm, fd, T, fns):
     del res, spy
     free_device_memory(torch)
 
-    cfg = serve.configs.get("hymba_1p5b").FULL
+    cfg = dataclasses.replace(serve.configs.get("hymba_1p5b").FULL,
+                              n_layers=ZOO_LAYERS["hymba_1p5b"])
     params = T.init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
     sc = serve.ServeConfig(arch="hymba_1p5b", batch=BATCH_ENGINE["n_lanes"],
@@ -5768,11 +5930,12 @@ def ssm_analysis(torch, T, fns):
     and certified (``certify_lm`` uniform, k_max 24) on the card and on the
     CPU with the same weights: trace records and recurrence records (δ̄,
     |h|) within 1e-9 relative, decisions equal. Then each arch at full
-    width, cut to 2 layers, through one ``CaaOps`` pass on 8 tokens at
-    f32's u (SSM_FULL_K): seconds, peak memory and each recurrence's
-    bound, which is finite wherever its operands' bounds are (at full width
-    with random weights they are not everywhere: RWKV's second layer and
-    Hymba's softplus already saturate, and the rule passes ∞ on); and the
+    width, cut to SSM_FULL_LAYERS layers, through one ``CaaOps`` pass on 8
+    tokens at f32's u (SSM_FULL_K): seconds, peak memory and each
+    recurrence's bound, which is finite wherever its operands' bounds are
+    (at full width with random weights they are not everywhere: RWKV's
+    second layer and Hymba's softplus already saturate, and the rule
+    passes ∞ on); and the
     rule on the first recurrence's own operands, each charged one rounding
     (``caa.const_rounded``), over 8, 4,096 and 500,000 steps: finite, as
     its contraction clamp promises."""
@@ -5946,7 +6109,7 @@ def phase_ssm(torch, serve, batching, qmm, fd, T):
 # ---------------------------------------------------------------------------
 # the last three families: MiniCPM3 4B (MLA), Whisper medium (encoder-
 # decoder) and PaliGemma 3B (vision prefix) through the port's entry points,
-# at full width and full depth
+# at full width, depth cut to ZOO_LAYERS
 # ---------------------------------------------------------------------------
 
 MLA_ENCDEC_ARCHS = ("minicpm3_4b", "whisper_medium", "paligemma_3b")
@@ -5991,7 +6154,7 @@ def spying(module, name, spy):
 
 def mla_serves(torch, serve, qmm, fns, arch, fd_spy=None, fd=None):
     """``arch`` served through ``serve.main`` under MLA_FORMAT and at k =
-    12 (batch 4 × 128 × 16, full width and depth), kernels 1 and 3 spied
+    12 (batch 4 × 128 × 16, full width, ZOO_LAYERS depth), kernels 1 and 3 spied
     at the phase's new shapes and ``f32_matmul`` at every shape (the LM
     head, MiniCPM3's block-diagonal tables), ``fd_spy`` standing in for
     kernel 4 on the k path; then every kept input held to its plain
@@ -6123,7 +6286,7 @@ def engine_alone(torch, serve, batching, fns, cfg, arch, params):
 
 
 def mla_minicpm3(torch, serve, batching, qmm, fd, T, fns):
-    """MiniCPM3 4B at full width and depth: served under the format map
+    """MiniCPM3 4B at full width, depth ZOO_LAYERS: served under the format map
     and at k = 12 (batch 4 × 128 × 16, :func:`mla_serves`), the k path's
     latent decode attention held against kernel 4's plain versions at two
     steps, its last decode logits against a full forward
@@ -6132,8 +6295,7 @@ def mla_minicpm3(torch, serve, batching, qmm, fd, T, fns):
     against each lane alone;
     and the library products of the absorbed attention, lane by lane (the
     measurement that routes them)."""
-    spy = LatentCheckSpy(torch, fd,
-                         serve.configs.get("minicpm3_4b").FULL.n_layers)
+    spy = LatentCheckSpy(torch, fd, ZOO_LAYERS["minicpm3_4b"])
     out, res = mla_serves(torch, serve, qmm, fns, "minicpm3_4b", spy, fd)
     out["decode_vs_full"] = decode_vs_full(torch, serve, T, res)
     cfg, params = res.cfg, res.params          # the same seed-0 weights
@@ -6203,7 +6365,7 @@ def decode_vs_full(torch, serve, T, res):
 
 
 def mla_whisper(torch, serve, batching, qmm, T, fns):
-    """Whisper medium at full width and depth (24 encoder and 24 decoder
+    """Whisper medium at full width, decoder depth ZOO_LAYERS (24 encoder and 2 decoder
     layers, 1,500 frames): served under the format map and at k = 12
     (batch 4 × 128 × 16, :func:`mla_serves`; the frames encoded once, the
     encoder states reused by every step); the k path's last decode logits
@@ -6228,7 +6390,7 @@ def mla_whisper(torch, serve, batching, qmm, T, fns):
 
 
 def mla_paligemma(torch, serve, batching, qmm, T, fns):
-    """PaliGemma 3B at full width and depth: served under the format map
+    """PaliGemma 3B at full width, depth ZOO_LAYERS: served under the format map
     and at k = 12 (batch 4, 256 patches + 128 tokens, 16 steps,
     :func:`mla_serves`), its last decode logits against a full forward
     over the patches and tokens (:func:`decode_vs_full`); then the batching
@@ -6252,8 +6414,9 @@ def mla_analysis(torch, T, fns):
     (MiniCPM3 uniform; Whisper and PaliGemma through the stacked pipeline,
     the one that passes the stub's inputs) on the card and on the CPU with
     the same weights: trace records within 1e-9 relative, decisions equal.
-    Then MiniCPM3 at full width cut to 2 layers through one ``CaaOps``
-    pass on 8 tokens at f32's u: seconds, peak memory, the logits' bound."""
+    Then MiniCPM3 at full width cut to MLA_FULL_LAYERS layers through one
+    ``CaaOps`` pass on 8 tokens at f32's u: seconds, peak memory, the
+    logits' bound."""
     import shutil
 
     from repro_torch import configs
@@ -6798,6 +6961,742 @@ FLASH_KEYS = ("Smax", "lengths", "shape", "ms", "host_ms", "plain_ms",
               "bound_ms", "library_ms")
 
 
+# -- dtypes: serving in bf16 and fp8 -----------------------------------------
+
+# (instance, activation dtype, weight / cache dtype); e4m3 is the
+# reference's jnp.float8_e4m3fn
+DTYPE_CASES = (("bf16", "bfloat16", "bfloat16"),
+               ("e4m3", "bfloat16", "float8_e4m3fn"))
+DTYPES_FORMAT = FORMATS["k12_e15"]
+DTYPES_FLASH = {"serve_last": FLASH_CASES["serve_last"],
+                "long": FLASH_CASES["long"]}
+DTYPES_GEMMA_STEPS = 8
+DTYPES_DECODE_TOL = 0.05          # decode vs full forward, × max |logit|
+DTYPES_REPLACES = {
+    "quant_matmul_format": "src/repro/kernels/quant_matmul.py:123",
+    "quant_matmul": "src/repro/kernels/quant_matmul.py:39",
+    "flash_decode_certified": "src/repro/kernels/flash_decode.py:112",
+    "flash_decode_attention": "src/repro/kernels/flash_decode.py:40",
+    "f32_matmul": ROW_ORDER_REPLACES["f32_matmul"],
+    "row_mean": ROW_ORDER_REPLACES["row_mean"]}
+DTYPES_SOURCES = {
+    "quant_matmul_format": "src/repro_torch/csrc/quant_matmul_format_narrow.cu",
+    "quant_matmul": "src/repro_torch/csrc/quant_matmul_narrow.cu",
+    "f32_matmul": "src/repro_torch/csrc/f32_matmul_narrow.cu",
+    "row_mean": "src/repro_torch/csrc/row_mean.cu",
+    "flash_decode_certified":
+        "src/repro_torch/csrc/flash_decode_certified_narrow.cu",
+    "flash_decode_attention": "src/repro_torch/csrc/flash_decode_bf16.cu"}
+
+
+def device_timer(how):
+    """A timer like :func:`trace_ms` that, where its trace holds no device
+    activity (the profiler's loss, seen after the monitored runs), times by
+    CUDA events instead (:func:`time_cold_ms`, which time the host's
+    launch where that is longer); ``how`` gets the method used."""
+    def timer(torch, fn, copies, iters):
+        try:
+            ms = trace_ms(torch, fn, copies, iters, attempts=1)
+            how.append("trace")
+        except AssertionError:
+            ms = time_cold_ms(torch, fn, copies, iters)
+            how.append("events")
+        return ms
+
+    return timer
+
+
+def narrow_flash_timing(torch, kernel, plain, q, k, v, lengths):
+    """:func:`flash_timing` of a narrow instance: the kernel and bf16 SDPA
+    (an e4m3 cache upcast to bf16 outside the timing) by
+    :func:`device_timer`, the plain version by CUDA events."""
+    how = []
+    out = flash_timing(torch, kernel, plain, q, k, v, lengths,
+                       timer=device_timer(how),
+                       plain_timer=lambda *a: time_cold_ms(*a[:3], 2))
+    return dict(out, timed_by=how)
+
+
+def narrow_copies(torch, w):
+    """:func:`weight_copies` counted in ``w``'s own bytes."""
+    n = max(2, math.ceil(2 * L2_BYTES / (w.element_size() * w.numel())))
+    return [w.clone() for _ in range(n)]
+
+
+def narrow_vs_f32(torch, what, got, f32_out):
+    """A narrow instance's output against its f32 instance on the upcast
+    operands, cast to the output's dtype: bit for bit, or it raises."""
+    want = f32_out.to(got.dtype)
+    if not same_bits(torch, got, want):
+        n = int((got.float() != want.float()).sum())
+        raise AssertionError(f"{what}: {n} of {got.numel()} elements differ "
+                             "from the f32 instance on the upcast operands")
+    return {"bitwise_f32_instance": True, "elements": got.numel()}
+
+
+def narrow_agreement(torch, got, want, fmt, pre_tol, what):
+    """A narrow instance's output (rounded into ``got``'s dtype) against its
+    plain version's f32 result on the same narrow operands, cast to that
+    dtype: the f32 phases' rule (:func:`compare`: one ulp at k plus the
+    order's ``pre_tol``) with the output's own rounding added, one ulp of
+    its dtype (bf16: 8 significant bits) on top of one at k. Returns the
+    stats; raises on disagreement."""
+    k, emax, emin = fmt
+    kb = min(k, 8) if got.dtype == torch.bfloat16 else k
+    w32 = want.float()
+    tol = pre_tol + ulp_at_k(torch, w32.abs().double(), k, emin)
+    ok, st = compare(torch, got.float(), w32.to(got.dtype).float(),
+                     (kb, emax, emin), tol)
+    if not ok:
+        raise AssertionError(f"{what} against its plain version: {st}")
+    return st
+
+
+def f32_matmul_plain_columns(torch, ro, x, w, got, what):
+    """``f32_matmul``'s output on HEAD_COLUMNS sampled columns against its
+    plain version (the fmaf chain) on the same narrow operands, cast to
+    the output's dtype: bit for bit, or it raises."""
+    N = w.shape[1]
+    cols = torch.linspace(0, N - 1, min(HEAD_COLUMNS, N),
+                          device=w.device).long()
+    want = ro.f32_matmul_seq_ref(x, w[:, cols]).to(got.dtype)
+    if not same_bits(torch, got[:, cols].contiguous(), want):
+        raise AssertionError(f"{what}: differs from the fmaf chain")
+    return {"bitwise_plain_columns": len(cols)}
+
+
+def dtype_gemm_fns(qmm, ro):
+    """(kernel, callable(x, w)) of the three GEMM wrappers at the dtypes
+    phase's format / k."""
+    return (("quant_matmul_format",
+             lambda x, w: qmm.quant_matmul_format(x, w, DTYPES_FORMAT),
+             lambda x, w: qmm.quant_matmul_format_ref(x, w, DTYPES_FORMAT)),
+            ("quant_matmul", lambda x, w: qmm.quant_matmul(x, w, k=SERVE_K),
+             lambda x, w: qmm.quant_matmul_ref(x, w, SERVE_K)),
+            ("f32_matmul", ro.f32_matmul, None))
+
+
+def dtype_gemm_rows(torch, qmm, ro, dt):
+    """Kernels 1, 3 and f32_matmul on bf16 x with bf16 or e4m3 w at every
+    Qwen2-7B projection, M = 4 and 512: bit for bit the f32 instance on the
+    upcast operands, and against the plain version on the same narrow
+    operands (kernels 1 and 3 under :func:`narrow_agreement` with the GEMM
+    order spread; f32_matmul bit for bit on sampled columns at M = 4 of
+    wq and w_down, both K of the projections); kernels 1
+    and 3 timed with the weights cold (plain: the plain version on the
+    same narrow operands; library: one bf16 ``torch.matmul``, an e4m3 w
+    upcast to bf16 outside the timing; the bound's operations at the bf16
+    peak)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for case, xname, wname in DTYPE_CASES:
+        xdt, wdt = getattr(torch, xname), getattr(torch, wname)
+        for proj, (K, N) in GEMM_SHAPES.items():
+            w = dt.cast(torch.randn(K, N, device="cuda", generator=gen)
+                        / math.sqrt(K), wdt)
+            for M in (4, 512):
+                x = torch.randn(M, K, device="cuda", generator=gen).to(xdt)
+                for name, fn, plain in dtype_gemm_fns(qmm, ro):
+                    what = f"{name} {case} {proj} M={M}"
+                    got = fn(x, w)
+                    st = narrow_vs_f32(torch, what, got,
+                                       fn(x.float(), w.float()))
+                    if plain is None:
+                        # the fmaf chain costs ~10 launches a k: at both K
+                        # of the projections (the head's whole output is
+                        # held in dtype_head_rows)
+                        if M == SERVE_BATCH and proj in ("wq", "w_down"):
+                            st.update(f32_matmul_plain_columns(
+                                torch, ro, x, w, got, what))
+                    else:
+                        fmt = (DTYPES_FORMAT if name == "quant_matmul_format"
+                               else (SERVE_K, 127, -126))
+                        xq, wq = (gemm_rounded(torch, t, name) for t in (x, w))
+                        st["vs_plain"] = narrow_agreement(
+                            torch, got, plain(x, w), fmt,
+                            gemm_order_tol(torch, xq, wq), what)
+                        st["max_abs_err"] = st["vs_plain"]["max_abs_err"]
+                        del xq, wq
+                    del got
+                    row = {"kernel": name, "case": case, "proj": proj,
+                           "M": M, "K": K, "N": N, **st}
+                    if plain is not None:
+                        copies = narrow_copies(torch, w)
+                        iters = 10 if M == 4 else 3
+                        row["ms"] = time_cold_ms(
+                            torch, lambda wc: fn(x, wc), copies, iters)
+                        row["plain_ms"] = time_cold_ms(
+                            torch, lambda wc: plain(x, wc), copies, 2)
+                        lib = [wc.to(torch.bfloat16) for wc in copies]
+                        del copies
+                        row["library_ms"] = time_cold_ms(
+                            torch, lambda wc: torch.matmul(x, wc), lib,
+                            iters)
+                        del lib
+                        row["bound_ms"], row["bound_by"] = bound_ms(
+                            x.element_size() * (M * K + M * N)
+                            + w.element_size() * K * N, 2.0 * M * N * K,
+                            ops_peak(x.dtype, w.dtype))
+                    rows.append(row)
+                del x
+            del w
+    return rows
+
+
+def gemm_rounded(torch, t, name):
+    """The operand as the plain version of kernel ``name`` rounds it, in
+    f32 (for the order spread :func:`gemm_order_tol`)."""
+    from repro_torch.core.quantize import _quantize_normal, quantize_to_format
+
+    t = t.float()
+    if name == "quant_matmul_format":
+        return quantize_to_format(t, *DTYPES_FORMAT, True, True)
+    return _quantize_normal(t, SERVE_K)
+
+
+def dtype_layer_timing(rows, name, case, M):
+    """One layer's seven GEMMs of a narrow instance at batch M, summed;
+    max_abs_err the largest against the plain version."""
+    got = [r for r in rows if r["kernel"] == name and r["case"] == case
+           and r["M"] == M]
+    if len(got) != len(GEMM_SHAPES):
+        raise AssertionError(f"{len(got)} timed {name} {case} rows at M={M}")
+    out = {key: sum(r[key] for r in got)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in got)
+    out["bound_by"] = got[0]["bound_by"] if len(
+        {r["bound_by"] for r in got}) == 1 else "bytes and operations"
+    return out
+
+
+def dtype_head_rows(torch, ro, dt, cfg):
+    """f32_matmul as the LM head at decode (x [4, d] bf16 against the
+    transposed [d, V] table in bf16 or e4m3): bit for bit the f32 instance
+    on the upcast operands and its plain version (the fmaf chain, run
+    once, timed) on the same operands; library: one bf16
+    ``torch.matmul``); and row_mean on bf16 rows of d_model at 4 and 512
+    rows bit for bit its f32 instance on the upcast rows and its plain
+    version, timed (library: ``Tensor.mean`` in bf16). Bounds: the
+    operations at the operands' peak (:func:`ops_peak`)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    d, V = cfg.d_model, cfg.vocab
+    for case, xname, wname in DTYPE_CASES:
+        wdt = getattr(torch, wname)
+        table_t = dt.cast(torch.randn(d, V, device="cuda", generator=gen)
+                          * 0.02, wdt)
+        x = torch.randn(SERVE_BATCH, d, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        st = narrow_vs_f32(torch, f"f32_matmul head {case}",
+                           ro.f32_matmul(x, table_t),
+                           ro.f32_matmul(x.float(), table_t.float()))
+        copies = narrow_copies(torch, table_t)
+        ms = time_cold_ms(torch, lambda w: ro.f32_matmul(x, w), copies, 10)
+        del copies
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = ro.f32_matmul_seq_ref(x, table_t)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        if not same_bits(torch, ro.f32_matmul(x, table_t),
+                         plain.to(x.dtype)):
+            raise AssertionError(f"f32_matmul head {case}: differs from "
+                                 "its plain version")
+        st["bitwise_plain"] = True
+        del plain
+        lib = narrow_copies(torch, table_t.to(torch.bfloat16))
+        library_ms = time_cold_ms(torch, lambda w: torch.matmul(x, w), lib,
+                                  10)
+        del lib
+        out[f"f32_matmul/{case}"] = dict(
+            st, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                2.0 * SERVE_BATCH * (d + V) + table_t.element_size() * d * V,
+                2.0 * SERVE_BATCH * d * V,
+                ops_peak(x.dtype, table_t.dtype)))))
+        del table_t, x
+    for rows in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT):
+        x = (torch.randn(rows, d, device="cuda", generator=gen) ** 2).to(
+            torch.bfloat16)
+        got = ro.row_mean(x)
+        st = narrow_vs_f32(torch, f"row_mean bf16 R={rows}", got,
+                           ro.row_mean(x.float()))
+        if not same_bits(torch, got, ro.row_mean_ref(x)[:, 0].to(x.dtype)):
+            raise AssertionError(f"row_mean bf16 R={rows}: differs from "
+                                 "its plain version")
+        st["bitwise_plain"] = True
+        del got
+        one, how = [x.clone() for _ in range(8)], []
+        timer = device_timer(how)
+        out[f"row_mean/bf16/R{rows}"] = dict(
+            st, ms=timer(torch, ro.row_mean, one, 50),
+            plain_ms=time_cold_ms(torch, ro.row_mean_ref, one, 10),
+            library_ms=timer(torch, lambda t: t.mean(-1), one, 50),
+            timed_by=how, **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                2.0 * rows * (d + 1), 1.0 * rows * d, ops_peak(x.dtype)))))
+        del x, one
+    return out
+
+
+def dtype_flash_rows(torch, fd, dt):
+    """Kernel 2 on bf16 q with a bf16 or e4m3 cache against its f32
+    instance on the upcast operands (bit for bit) and its plain version
+    (``flash_decode_quantized_ref``) on the same narrow operands under
+    :func:`narrow_agreement` with :func:`flash_tol`, and kernel 4's bf16
+    instance against its plain version (``flash_decode_bf16_ref``, bit for
+    bit), at the serve cache (B 4, K 4, G 7, D 128) at its last step and
+    at 32K, plus Gemma-2's shape with a window and a softcap; each timed
+    from a trace with the cache rotated (library: bf16 SDPA, an e4m3 cache
+    upcast to bf16 outside the timing; the bound's operations at the bf16
+    peak). At the serve cache, kernels 2 and 4 on an f32 q with the same
+    narrow cache (f32 compute with a narrow ``cache_dtype``): bit for bit
+    the f32 instance on the upcast cache, and against the plain versions
+    under the f32 phases' rule."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, out = SERVE_BATCH, {}
+    cases = [(c, S, lens, (4, 7, 128), 0, 0.0)
+             for c, (S, lens) in DTYPES_FLASH.items()]
+    cases.append(("gemma_w16_cap50", 145, [145, 144, 17, 1],
+                  ZOO_FLASH_SHAPE, 16, ZOO_SOFTCAP))
+    for case, xname, wname in DTYPE_CASES:
+        cdt = getattr(torch, wname)
+        for name, S, lens, (H, G, D), window, cap in cases:
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q = torch.randn(B, H, G, D, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            k, v = (dt.cast(torch.randn(B, S, H, D, device="cuda",
+                                        generator=gen), cdt)
+                    for _ in range(2))
+            up = [t.float() for t in (q, k, v)]
+            rows = {}
+            if not window:
+                what = f"flash_decode_certified {case} {name}"
+                got = fd.flash_decode_certified(q, k, v, lengths,
+                                                DTYPES_FORMAT)
+                st = narrow_vs_f32(
+                    torch, what, got,
+                    fd.flash_decode_certified(*up, lengths, DTYPES_FORMAT))
+                st["vs_plain"] = narrow_agreement(
+                    torch, got, fd.flash_decode_quantized_ref(
+                        q, k, v, lengths, DTYPES_FORMAT), DTYPES_FORMAT,
+                    flash_tol(torch, up[2], lengths, DTYPES_FORMAT), what)
+                st["max_abs_err"] = st["vs_plain"]["max_abs_err"]
+                del got
+                rows["flash_decode_certified"] = dict(
+                    st, **narrow_flash_timing(
+                        torch, lambda *a: fd.flash_decode_certified(
+                            *a, DTYPES_FORMAT),
+                        lambda *a: fd.flash_decode_quantized_ref(
+                            *a, DTYPES_FORMAT), q, k, v, lengths))
+            got = fd.flash_decode_attention(q, k, v, lengths, window=window,
+                                            softcap=cap)
+            want = fd.flash_decode_bf16_ref(q, k, v, lengths, window=window,
+                                            softcap=cap)
+            if not same_bits(torch, got, want):
+                n = int((got.float() != want.float()).sum())
+                raise AssertionError(
+                    f"flash_decode_attention bf16 {case} {name}: {n} of "
+                    f"{got.numel()} elements differ from its plain version")
+            diff = (got.double() - fd.flash_decode_ref(
+                *up, lengths, window=window, softcap=cap).double()).abs()
+            timing = narrow_flash_timing(
+                torch, fd.flash_decode_attention, fd.flash_decode_bf16_ref,
+                q, k, v, lengths) if not window else {}
+            rows["flash_decode_attention"] = dict(
+                bitwise_plain=True, elements=got.numel(),
+                max_abs_vs_f32_instance=float(diff.max()), **timing)
+            if name == "serve_last":
+                rows["f32_q"] = f32_q_narrow_cache(torch, fd, up[0], k, v,
+                                                   lengths, f"{case} {name}")
+            out[f"{case}/{name}"] = {"Smax": S, "lengths": lens,
+                                     "shape": [B, H, G, D], "window": window,
+                                     "softcap": cap, **rows}
+            del q, k, v, up
+    return out
+
+
+def f32_q_narrow_cache(torch, fd, q, k, v, lengths, what):
+    """Kernels 2 and 4 on an f32 q with a bf16 or e4m3 cache: bit for bit
+    the f32 instance on the upcast cache, and against the plain versions on
+    the same operands under the f32 phases' rule (:func:`compare` with
+    :func:`flash_tol`). Returns the stats; raises on disagreement."""
+    kf, vf = k.float(), v.float()
+    out = {}
+    for name, fmt, kern, plain in (
+            ("flash_decode_certified", DTYPES_FORMAT,
+             lambda *a: fd.flash_decode_certified(*a, DTYPES_FORMAT),
+             lambda *a: fd.flash_decode_quantized_ref(*a, DTYPES_FORMAT)),
+            ("flash_decode_attention", F32_FMT, fd.flash_decode_attention,
+             fd.flash_decode_ref)):
+        got = kern(q, k, v, lengths)
+        st = narrow_vs_f32(torch, f"{name} f32 q, {what}", got,
+                           kern(q, kf, vf, lengths))
+        ok, cmp = compare(torch, got, plain(q, k, v, lengths), fmt,
+                          flash_tol(torch, vf, lengths,
+                                    fmt if fmt != F32_FMT else None))
+        if not ok:
+            raise AssertionError(f"{name} f32 q, {what} against its plain "
+                                 f"version: {cmp}")
+        out[name] = dict(st, vs_plain=cmp)
+    return out
+
+
+@contextlib.contextmanager
+def dtype_spies(qmm, fd, ro):
+    spies = {"quant_matmul_format": qmm, "quant_matmul": qmm,
+             "flash_decode_certified": fd, "flash_decode_attention": fd,
+             "row_mean": ro, "f32_matmul": ro}
+    made = {name: ShapeSpy(getattr(mod, name)) for name, mod in spies.items()}
+    for name, mod in spies.items():
+        setattr(mod, name, made[name])
+    try:
+        yield made
+    finally:
+        for name, mod in spies.items():
+            setattr(mod, name, made[name].fn)
+
+
+def spied_narrow(torch, fd, spies):
+    """Every kept call of a narrow serving run again on the card: a kernel
+    against its f32 instance on the upcast operands (kernels 1, 2, 3,
+    f32_matmul, row_mean), kernel 4's bf16 instance against its plain
+    version; bit for bit, or it raises. Returns the calls checked a
+    kernel."""
+    checked = {}
+    for name, spy in spies.items():
+        n = 0
+        for args, kw in spy.seen.values():
+            tensors = [a for a in args if hasattr(a, "dtype")]
+            if all(t.dtype in (torch.float32, torch.int32) for t in tensors):
+                continue                  # an f32 call: the earlier phases'
+            got = spy.fn(*args, **kw)
+            if name == "flash_decode_attention":
+                want = fd.flash_decode_bf16_ref(*args, **kw)
+                if not same_bits(torch, got, want):
+                    raise AssertionError(f"{name}: a served call differs "
+                                         "from its plain version")
+            else:
+                up = [a.float() if hasattr(a, "dtype") and a.is_floating_point()
+                      else a for a in args]
+                narrow_vs_f32(torch, f"{name} served", got,
+                              spy.fn(*up, **kw))
+            n += 1
+        checked[name] = n
+    return checked
+
+
+def dtype_expected(cfg, path, forwards, steps):
+    """Exact launches of a narrow Qwen2-7B / Gemma-2 serve: as
+    :func:`zoo_expected`, with the plain path's products through
+    f32_matmul (7 a layer a forward beside the LM head)."""
+    path = path.split("_")[0]         # "format_fp8" / "k_fp8": the backend
+    want = zoo_expected(cfg, path, forwards, steps)
+    if path == "plain":
+        want["f32_matmul"] += 7 * cfg.n_layers * forwards
+    return want
+
+
+def decode_vs_full_narrow(torch, T, res):
+    """The run's last decode logits against one full forward of the same
+    tokens on the run's own backend and params, through a fresh cache of
+    the run's cache dtype (so that its attention, too, reads the keys and
+    values rounded into the cache): within DTYPES_DECODE_TOL · max |logit|,
+    the argmax equal unless the top two lie within twice the difference
+    (the decode's attention runs in a kernel, the full forward's composed,
+    and a bf16 rounding that flips moves a logit further); raises
+    otherwise."""
+    seq = torch.cat([res.prompt, res.tokens[:, :-1]], dim=1)
+    cache = T.init_cache(res.cfg, seq.shape[0], seq.shape[1],
+                         device=seq.device,
+                         dtype=res.config.dtypes[1])
+    with torch.no_grad():
+        full, _ = T.forward(res.backend, res.placed, res.cfg, seq,
+                            cache=cache, q_offset=0)
+    del cache
+    got, want = res.decode_logits[-1].double(), full[:, -1].double()
+    del full
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+    rep = dict(max_abs_dlogit=err, max_abs_logit=scale,
+               tolerance=DTYPES_DECODE_TOL * scale, argmax_agrees=agree,
+               top1_gap=gap)
+    if not err <= DTYPES_DECODE_TOL * scale or not (agree or gap <= 2 * err):
+        raise AssertionError(f"{res.cfg.name} decode vs full forward: {rep}")
+    return rep
+
+
+def dtype_serve(torch, serve, T, qmm, fd, fns, spies_ctx, arch, path,
+                extra, steps):
+    """``serve.main`` at full width in bf16 with its launch counters set to
+    0 just before and read just after: exact counts, finite logits, each
+    kept kernel call checked (:func:`spied_narrow`), the decode step
+    against a full forward. Returns (result, report)."""
+    full = serve.configs.get(arch).FULL
+    argv = ["--arch", arch, "--size", "full", "--batch", str(SERVE_BATCH),
+            "--prefill-len", str(SERVE_PROMPT), "--decode-steps", str(steps),
+            "--device", "cuda", "--seed", "0", "--compute-dtype",
+            "bfloat16", *extra]
+    torch.cuda.reset_peak_memory_stats()
+    with spies_ctx() as spies:
+        reset_launches(fns)
+        by_dtype = {n: dict(qmm.BY_DTYPE[n]) for n in spies}
+        res = serve.main(argv)
+        launches = read_launches(fns)
+        by_dtype = {n: {k: c - by_dtype[n].get(k, 0)
+                        for k, c in qmm.BY_DTYPE[n].items()
+                        if c != by_dtype[n].get(k, 0)}
+                    for n in spies}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg = res.cfg
+        if cfg != full:
+            raise AssertionError(f"{arch}: served {cfg}")
+        expected = dtype_expected(cfg, path, 1 + steps, steps)
+        if launches != expected:
+            raise AssertionError(f"{arch} {path}: launch counts {launches} "
+                                 f"!= {expected}")
+        for lg in [res.prefill_logits] + res.decode_logits:
+            if lg.dtype != torch.bfloat16 or not bool(
+                    torch.isfinite(lg).all()):
+                raise AssertionError(f"{arch} {path}: logits {lg.dtype}, "
+                                     "or not finite")
+        checked = spied_narrow(torch, fd, spies)
+    rep = dict(config=f"{arch}.FULL", path=path, argv=extra,
+               n_layers=cfg.n_layers, batch=SERVE_BATCH,
+               prompt_tokens=SERVE_PROMPT, decode_steps=steps,
+               launches=launches, launches_by_dtype=by_dtype,
+               spied_calls_checked=checked,
+               prefill_s=res.timing["prefill_s"],
+               decode_ms_per_step=res.timing["decode_ms_per_step"],
+               decode_step_ms_median=statistics.median(
+                   res.timing["decode_step_ms"]),
+               decode_tokens_per_s=res.timing["decode_tokens_per_s"],
+               init_s=res.timing["init_s"], max_memory_allocated_gb=peak_gb,
+               param_gb=sum(t.numel() * t.element_size()
+                            for t in _leaves(res.params)) / 1e9,
+               sample_tokens=res.tokens[0].tolist(),
+               logits_sha256=logits_sha256(res),
+               decode_vs_full=decode_vs_full_narrow(torch, T, res))
+    return res, rep
+
+
+def e4m3_small_share(torch, params):
+    """Of the weights stored in e4m3 (dense leaves of two or more dims),
+    the share stored as zero and the share stored subnormal (|w| < 2⁻⁶):
+    the reference keeps no scales, so N(0, 1/fan_in) weights of a wide
+    layer fall there."""
+    n = zero = sub = 0
+    for t in _leaves(params):
+        if t.dtype != torch.float8_e4m3fn or t.dim() < 2:
+            continue
+        for part in (t if t.dim() > 2 else t[None]):   # a layer at a time
+            bits = part.view(torch.uint8) & 0x7F
+            n += part.numel()
+            zero += int(torch.count_nonzero(bits == 0))
+            sub += int(torch.count_nonzero((bits > 0) & (bits < 8)))
+            del bits
+    return {"weights": n, "zero_share": zero / n, "subnormal_share": sub / n}
+
+
+def dtype_engine(torch, batching, serve, T, fd, fns, spies_ctx, cfg):
+    """The batching cell's requests through the engine in bf16 (params in
+    bf16, the f32 cache of the reference's engine) under the format map:
+    every request's tokens and logit rows bit for bit
+    ``reference_generate``'s (the request alone), exact launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    sc = serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
+                           max_seq=BATCH_ENGINE["max_seq"],
+                           compute_dtype="bfloat16",
+                           precision_layer_format=SERVE_FORMAT)
+    reqs, too_long = batching_requests(torch, batching, cfg.vocab)
+
+    def expected(engine, admitted):
+        fwd = admitted + engine.steps
+        return {"quant_matmul_format": 7 * L_FULL * fwd,
+                "flash_decode_certified": L_FULL * engine.steps,
+                "quant_matmul": 0, "flash_decode_attention": 0,
+                **IDLE_ON_SERVING, **row_order_launches(fwd)}
+
+    with spies_ctx() as spies:
+        engine, responses, launches, registry, wall = run_batching(
+            torch, batching, fns, cfg, sc, params, reqs + [too_long], None,
+            -1, expected)
+        checked = spied_narrow(torch, fd, spies)
+    ref = {}
+    for r in reqs:
+        toks, rows = batching.reference_generate(
+            cfg, sc, params, r.prompt, r.max_new_tokens,
+            max_seq=BATCH_ENGINE["max_seq"], return_logits=True)
+        ref[r.rid] = (toks, rows)
+    served = [r for r in responses if r["id"] in ref]
+    lanes = lane_bits(torch, served, ref)
+    if len(served) != len(reqs) or not all(
+            r["tokens_equal"] and r["logits_bitwise"] for r in lanes):
+        raise AssertionError(f"bf16 engine lanes differ from the requests "
+                             f"alone: {lanes}")
+    return dict(batching_report(engine, responses, registry, wall),
+                launches=launches, spied_calls_checked=checked,
+                lanes=lanes, requests=len(reqs))
+
+
+def phase_dtypes(torch, serve, batching, qmm, fd, T):
+    """Serving in bf16 and fp8 (``ServeConfig.compute_dtype`` /
+    ``cache_dtype`` / ``param_dtype``; their sources ``NARROW_SOURCES``,
+    built by :class:`NarrowBuild` beforehand, or at first use): the
+    narrow instances of kernels 1-4, f32_matmul and row_mean at Qwen2-7B's
+    shapes, bit for bit their f32 instances on the upcast operands and
+    held against their plain versions (kernel 4's bf16 instance: bit for
+    bit its plain version), timed; Qwen2-7B FULL at full depth in
+    bf16 (bf16 cache) under the plain, k = 12 and format backends, then
+    the format map and k = 12 with an e4m3 cache and e4m3 params; the
+    engine in bf16; Gemma-2
+    27B FULL at all 46 layers (bf16 compute, e4m3 params, bf16 cache,
+    format map). Returns ({kernel: launches of the phase's runs}, report)."""
+    from repro_torch.core import dtypes as dt
+    from repro_torch.kernels import row_order as ro
+
+    t_phase = time.perf_counter()
+    emit("free", before="dtypes", allocated_gb=free_device_memory(torch))
+    fns = kernel_fns(qmm, fd)
+    cfg = serve.configs.get("qwen2_7b").FULL
+    out, part_s = {}, {}
+    for part, fn, args in (("gemm", dtype_gemm_rows, (torch, qmm, ro, dt)),
+                           ("head_mean", dtype_head_rows,
+                            (torch, ro, dt, cfg)),
+                           ("flash", dtype_flash_rows, (torch, fd, dt))):
+        t0 = time.perf_counter()
+        out[part] = fn(*args)
+        part_s[part] = time.perf_counter() - t0
+    emit("dtypes_kernels", note="narrow instances bit for bit their f32 "
+         "instance on the upcast operands (kernel 4's bf16 instance: its "
+         "plain version)", seconds=time.perf_counter() - t_phase,
+         part_seconds=part_s, **out)
+    spies_ctx = lambda: dtype_spies(qmm, fd, ro)
+    fmt = ["--layer-format", json.dumps(SERVE_FORMAT)]
+    runs = (("plain", ["--cache-dtype", "bfloat16"]),
+            ("k", ["--cache-dtype", "bfloat16", "--precision-k",
+                   str(SERVE_K)]),
+            ("format", ["--cache-dtype", "bfloat16", *fmt]),
+            ("format_fp8", ["--cache-dtype", "fp8", "--param-dtype", "fp8",
+                            *fmt]),
+            ("k_fp8", ["--cache-dtype", "fp8", "--param-dtype", "fp8",
+                       "--precision-k", str(SERVE_K)]))
+    launches, serves = collections.Counter(), {}
+    for path, extra in runs:
+        free_device_memory(torch)
+        t0 = time.perf_counter()
+        res, rep = dtype_serve(torch, serve, T, qmm, fd, fns, spies_ctx,
+                               "qwen2_7b", path, extra, SERVE_STEPS)
+        rep["seconds"] = time.perf_counter() - t0
+        launches.update(rep["launches"])
+        serves[f"qwen2_7b/{path}"] = rep
+        emit("dtypes_serve", **rep)
+        del res
+    free_device_memory(torch)
+    t0 = time.perf_counter()
+    eng = dtype_engine(torch, batching, serve, T, fd, fns, spies_ctx, cfg)
+    launches.update(eng["launches"])
+    emit("dtypes_engine", seconds=time.perf_counter() - t0, **eng)
+    free_device_memory(torch)
+    t0 = time.perf_counter()
+    res, rep = dtype_serve(
+        torch, serve, T, qmm, fd, fns, spies_ctx, "gemma2_27b", "format",
+        ["--cache-dtype", "bfloat16", "--param-dtype", "fp8", *fmt],
+        DTYPES_GEMMA_STEPS)
+    rep["e4m3_weights"] = e4m3_small_share(torch, res.params)
+    rep["seconds"] = time.perf_counter() - t0
+    launches.update(rep["launches"])
+    serves["gemma2_27b/format_fp8"] = rep
+    emit("dtypes_serve", **rep)
+    del res
+    free_device_memory(torch)
+    seconds = time.perf_counter() - t_phase
+    emit("dtypes", seconds=seconds, launches=dict(launches))
+    return dict(launches), dict(out, serves=serves, engine=eng,
+                                seconds=seconds)
+
+
+def dtype_kernel_rows(parts, launches_by_path):
+    """The kernels line's rows of the narrow instances: one a kernel and
+    operand case, launches from the dtypes phase's runs (per dtype), times
+    at the serve shapes."""
+    serves = list(parts["serves"].values())
+    by_dtype = collections.Counter()
+    for rep in serves:
+        for name, counts in rep["launches_by_dtype"].items():
+            for key, n in counts.items():
+                by_dtype[(name, key)] += n
+    rows = []
+    for case, _, wname in DTYPE_CASES:
+        key = "bf16/" + ("e4m3" if "float8" in wname else "bf16")
+        for name in ("quant_matmul_format", "quant_matmul"):
+            t = dtype_layer_timing(parts["gemm"], name, case, SERVE_BATCH)
+            rows.append(dict(
+                name=f"{name}[{case}]", route="cuda",
+                source=DTYPES_SOURCES[name],
+                replaces=DTYPES_REPLACES[name],
+                launches=by_dtype[(name, key)],
+                launches_by_path=launches_by_path, **t,
+                what=f"the 7 GEMMs of one Qwen2-7B layer at decode, M=4, "
+                     f"bf16 x, {case} w, weights cold; bit for bit the f32 "
+                     "instance on the upcast operands; max_abs_err: "
+                     "against the plain version on the same operands",
+                prefill_per_layer=dtype_layer_timing(parts["gemm"], name,
+                                                     case, 512)))
+        t = parts["head_mean"][f"f32_matmul/{case}"]
+        rows.append(dict(
+            name=f"f32_matmul[{case}]", route="cuda",
+            source=DTYPES_SOURCES["f32_matmul"],
+            replaces=DTYPES_REPLACES["f32_matmul"],
+            launches=by_dtype[("f32_matmul", key)],
+            launches_by_path=launches_by_path,
+            max_abs_err=0.0,          # bit for bit its plain version
+            **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")},
+            what=f"the LM head at decode: 4 rows x 3584 bf16 against the "
+                 f"transposed {case} table"))
+        for name in ("flash_decode_certified", "flash_decode_attention"):
+            t = parts["flash"][f"{case}/serve_last"][name]
+            rows.append(dict(
+                name=f"{name}[{case}]", route="cuda",
+                source=DTYPES_SOURCES[name], replaces=DTYPES_REPLACES[name],
+                launches=by_dtype[(name, "bf16/" + key.split("/")[1])],
+                launches_by_path=launches_by_path,
+                max_abs_err=t.get("max_abs_err", 0.0),
+                **{k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")},
+                what=f"the serve cache at its last step, bf16 q, {case} "
+                     "cache; "
+                     + ("bit for bit the f32 instance on the upcast "
+                        "operands; max_abs_err: against the plain version "
+                        "on the same operands"
+                        if name == "flash_decode_certified" else
+                        "the composed bf16 path, bit for bit its plain "
+                        "version"),
+                long_32k={k: parts["flash"][f"{case}/long"][name][k]
+                          for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")}))
+    t = parts["head_mean"][f"row_mean/bf16/R{SERVE_BATCH}"]
+    rows.append(dict(
+        name="row_mean[bf16]", route="cuda", source=DTYPES_SOURCES["row_mean"],
+        replaces=DTYPES_REPLACES["row_mean"],
+        launches=by_dtype[("row_mean", "bf16")],
+        launches_by_path=launches_by_path,
+        max_abs_err=0.0,              # bit for bit its plain version
+        **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")},
+        what="the rmsnorm's mean of bf16 squares over d_model=3584 for the "
+             "4 rows of a decode step (no e4m3 instance: its operand is an "
+             "activation, never stored in e4m3)",
+        prefill=parts["head_mean"][
+            f"row_mean/bf16/R{SERVE_BATCH * SERVE_PROMPT}"]))
+    return rows
+
+
 def kernel_row(name, source, replaces, launches_by_path, path, err,
                timing, what, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -6873,6 +7772,7 @@ def _main() -> int:
     phase_build(_build)
     marks.append(("build", time.perf_counter()))
     clock("env_build")
+    narrow_build = NarrowBuild(_build)
     # the CPU halves of the card-against-CPU checks run in their own process
     import shutil
 
@@ -6976,7 +7876,8 @@ def _main() -> int:
     marks.append(("analyze_caa_interval", time.perf_counter()))
     # ``paper`` runs in its own process on the card beside the next three;
     # a phase's lines are marked contended until one ends after it finished
-    paper = PAPER.start(PAPER_THREADS).submit(paper_side)
+    PAPER.start(PAPER_THREADS)
+    paper = PAPER.submit(paper_side)
     CONTENDED["note"] = ("the paper phase ran on the card in a second "
                          "process meanwhile")
 
@@ -6999,6 +7900,11 @@ def _main() -> int:
     PAPER.close()
     clock("paper_wait")
     marks.append(("paper", time.perf_counter()))
+    narrow_build.finish()
+    by_path["dtypes"], dtype_parts = phase_dtypes(torch, serve, batching,
+                                                  qmm, fd, T)
+    clock("dtypes")
+    marks.append(("dtypes", time.perf_counter()))
     by_path["train"], train_parts = phase_train(torch, qmm, fd, T)
     marks.append(("train", time.perf_counter()))
     clock("train")
@@ -7130,6 +8036,7 @@ def _main() -> int:
         row["profile_roofline_frac"] = roofline.get(
             {"flash_decode_attention": "flash_decode"}.get(row["name"],
                                                            row["name"]))
+    kernels += dtype_kernel_rows(dtype_parts, {"dtypes": by_path["dtypes"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import caa
+from repro_torch.core import dtypes
 from repro_torch.core import interval as iv
 from repro_torch.core.caa import CaaConfig, CaaTensor, DEFAULT_CONFIG
 from repro_torch.core.scopes import STACK_SCOPE, resolve_scope_value
@@ -307,19 +308,58 @@ class UnrolledLayerLoop:
         return x
 
 
+def _up(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` where it is stored in e4m3 (exact); else ``t``."""
+    return t.to(dtype) if t.dtype == dtypes.FP8 else t
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card (the kernels' route predicate)."""
+    return t.is_cuda
+
+
+def _card_product(a, b) -> bool:
+    """Whether ``a @ b`` on the card takes a kernel: a 2-d ``b`` and no
+    gradient recorded (:func:`kernel_route_ok`). The kernels take ``a`` in
+    f32 or bf16 and ``b`` in f32, bf16 or e4m3; f64 (the exact model of
+    the analysis) stays a library product, as XLA computes it in the
+    reference; any other dtype raises: no product goes quietly to a
+    library kernel."""
+    if not (_on_card(a) and b.dim() == 2 and kernel_route_ok(a, b)):
+        return False
+    if a.dtype == torch.float64 and b.dtype == torch.float64:
+        return False
+    if (a.dtype in (torch.float32, torch.bfloat16)
+            and b.dtype in (torch.float32, torch.bfloat16, dtypes.FP8)):
+        return True
+    raise ValueError(f"no kernel takes a {a.dtype} @ {b.dtype} product on "
+                     "the card")
+
+
 class TorchOps(UnrolledLayerLoop, Backend):
     """Plain PyTorch with a dtype policy — the counterpart of ``JOps``, with
     the ops the port's models use.
 
-    Matmuls and einsums run in ``compute_dtype`` (f32 for serving; with the
-    serve entry point's precision settings they are true f32 on the card,
-    no TF32). ``TorchOps(torch.float64)`` evaluates in f64 throughout."""
+    Activations and products are in ``compute_dtype`` (f32 or bf16 for
+    serving; with the serve entry point's precision settings f32 products
+    are true f32 on the card, no TF32). A product is exact products summed
+    in f32, rounded once into the compute dtype (the reference's
+    ``preferred_element_type=f32`` and ``.astype``); softmax runs in f32,
+    a mean or a sum accumulates in f32, and a constant of ``scale`` /
+    ``shift`` is rounded into the operand's dtype first (the reference's
+    ``jnp.asarray(c, a.dtype)``). Other elementwise ops round once per op,
+    as XLA's CPU backend does in a bf16 chain. An e4m3 weight (``param_dtype``
+    "fp8") is upcast exactly: on the card a 2-d one is handed as it is to
+    the products, whose kernels read e4m3, and any other use upcasts it.
+    ``TorchOps(torch.float64)`` evaluates in f64 throughout."""
 
     def __init__(self, compute_dtype=torch.float32):
         self.compute_dtype = compute_dtype
         self._head_t = None     # (key, transposed table) of the LM head
 
     def param(self, w, exact: Optional[bool] = None):
+        if w.dtype == dtypes.FP8 and w.is_cuda and w.dim() == 2:
+            return w
         return w.to(self.compute_dtype)
 
     def input(self, x):
@@ -332,33 +372,50 @@ class TorchOps(UnrolledLayerLoop, Backend):
     def sub(self, a, b): return a - b
     def mul(self, a, b): return a * b
 
+    @staticmethod
+    def _in_dtype(a, c):
+        """The constant ``c`` rounded into a narrow ``a``'s dtype (a 0-d CPU
+        tensor), or ``c`` itself for f32 / f64 operands (which PyTorch
+        already rounds it into)."""
+        if a.dtype in (torch.float32, torch.float64):
+            return c
+        return torch.tensor(c, dtype=a.dtype)
+
     def scale(self, a, c, exact_const: bool = False):
-        return a * c
+        return a * self._in_dtype(a, c)
 
     def shift(self, a, c):
-        return a + c
+        return a + self._in_dtype(a, c)
+
+    def _f32(self, t):
+        """``t`` for an f32-accumulated product: a narrow tensor in f32
+        (exact), any other as it is."""
+        return t.float() if t.dtype in dtypes.NARROW else t
 
     def matmul(self, a, b):
-        """On the card, ``a [..., K] @ b [K, N]`` of f32 tensors runs through
-        the fixed-order ``f32_matmul`` kernel
-        (:mod:`repro_torch.kernels.row_order`): one order per output
-        element whatever the row count, so a lane's bits do not depend on
-        its batch. The weights are read where they lie (a contiguous
-        ``[K, N]`` slice of the stacked params), no copy. Under autograd
-        (:func:`kernel_route_ok`), for other dtypes and on the CPU it is
-        ``torch.matmul``."""
-        if (a.is_cuda and a.dtype == b.dtype == torch.float32
-                and b.dim() == 2 and kernel_route_ok(a, b)):
-            return row_order.matmul_dispatch(a, b)
-        return torch.matmul(a, b).to(self.compute_dtype)
+        """On the card, ``a [..., K] @ b [K, N]`` runs through the
+        fixed-order ``f32_matmul`` kernel (:mod:`repro_torch.kernels.
+        row_order`; a in f32 or bf16, b in f32, bf16 or e4m3, the result in
+        a's dtype): one order per output element whatever the row count, so
+        a lane's bits do not depend on its batch. The weights are read
+        where they lie (a contiguous ``[K, N]`` slice of the stacked
+        params), no copy. Any other dtype raises there
+        (:func:`_card_product`). Under autograd (:func:`kernel_route_ok`),
+        in f64 and on the CPU it is ``torch.matmul`` of the operands in f32
+        (f64), rounded once into the compute dtype."""
+        if _card_product(a, b):
+            return row_order.matmul_dispatch(a, b).to(self.compute_dtype)
+        b = _up(b, self.compute_dtype)
+        return torch.matmul(self._f32(a), self._f32(b)).to(self.compute_dtype)
 
     def decode_attention(self, q, k, v, lengths):
-        """On the card, the single-token decode attention of f32 tensors
-        runs through the fixed-order ``flash_decode_attention`` kernel
-        (:mod:`repro_torch.kernels.flash_decode`): a lane's bits depend on
-        its own length only. Outside the kernel's limits (f32, contiguous,
-        S ≥ 1) it raises: it never composes on the card, except under
-        autograd (:func:`kernel_route_ok`). There, and on the CPU, it
+        """On the card, the single-token decode attention runs through the
+        fixed-order ``flash_decode_attention`` kernel (:mod:`repro_torch.
+        kernels.flash_decode`; a bf16 q takes its bf16 instance, the
+        composed bf16 path): a lane's bits depend on its own length only.
+        Outside the kernel's limits (f32 q with an f32 cache, or bf16 q,
+        contiguous, S ≥ 1) it raises: it never composes on the card, except
+        under autograd (:func:`kernel_route_ok`). There, and on the CPU, it
         returns None, the composed einsum/softmax path of the reference."""
         if not q.is_cuda or not kernel_route_ok(q, k, v):
             return None
@@ -378,29 +435,34 @@ class TorchOps(UnrolledLayerLoop, Backend):
             q.contiguous(), k, v, lengths, window=window, softcap=softcap)
 
     def einsum(self, subscripts, a, b):
-        """On the card, the LM head ("bsd,vd->bsv" of f32 tensors) runs
-        through the fixed-order ``f32_matmul`` kernel
-        (:mod:`repro_torch.kernels.row_order`), so a lane's logits do not
-        depend on its batch; it reads a transposed copy of the table, made
-        once per table and kept while the backend lives. Under autograd
-        (:func:`kernel_route_ok`: no copy of the table either), everything
-        else and everything on the CPU is ``torch.einsum``."""
-        if (subscripts == _HEAD and a.is_cuda
-                and a.dtype == b.dtype == torch.float32
-                and kernel_route_ok(a, b)):
-            return row_order.lm_head_dispatch(a, self._table_t(b))
-        return torch.einsum(subscripts, a, b).to(self.compute_dtype)
+        """On the card, the LM head ("bsd,vd->bsv") runs through the
+        fixed-order ``f32_matmul`` kernel (:mod:`repro_torch.kernels.
+        row_order`; the dtypes of :func:`_card_product`), so a lane's logits
+        do not depend on its batch; it reads a transposed copy of the
+        table, made once per table and kept while the backend lives. Under
+        autograd (:func:`kernel_route_ok`: no copy of the table either),
+        everything else and everything on the CPU is ``torch.einsum`` of
+        the operands in f32 (f64), rounded once into the compute dtype."""
+        if subscripts == _HEAD and _card_product(a, b):
+            return row_order.lm_head_dispatch(
+                a, self._table_t(b)).to(self.compute_dtype)
+        b = _up(b, self.compute_dtype)
+        return torch.einsum(subscripts, self._f32(a),
+                            self._f32(b)).to(self.compute_dtype)
 
     def per_head_matmul(self, x, w, into: bool):
-        """On the card, a single-token step's (S = 1, f32) runs through the
-        fixed-order ``f32_matmul`` kernel as one product of the heads side
-        by side against the block-diagonal table of their weights
-        (:func:`per_head_table`), bit for bit each head's own chain: the
-        library product's bits depend on the batch there. Longer steps
+        """On the card, a single-token step's (S = 1, f32 or bf16) runs
+        through the fixed-order ``f32_matmul`` kernel as one product of the
+        heads side by side against the block-diagonal table of their
+        weights (:func:`per_head_table`), bit for bit each head's own
+        chain: the library product's bits depend on the batch there. An
+        e4m3 weight is upcast first. Longer steps
         (the library product keeps a row's bits), steps under autograd
         (:func:`kernel_route_ok`) and everything on the CPU compose the
         einsum."""
-        if x.is_cuda and x.dtype == w.dtype == torch.float32 \
+        w = _up(w, self.compute_dtype)
+        if x.is_cuda and x.dtype == w.dtype \
+                and x.dtype in (torch.float32, torch.bfloat16) \
                 and x.shape[1] == 1 and kernel_route_ok(x, w):
             B, S, H, n = x.shape
             out = row_order.matmul_dispatch(x.reshape(B, S, H * n),
@@ -416,14 +478,22 @@ class TorchOps(UnrolledLayerLoop, Backend):
         cache a step), queries [q_lat | q_rope], the given ``scale``; the
         kernel's values are the same keys and the first R entries of its
         context are the mix of c. Unrounded, as the reference composes it
-        on every backend; a lane's bits depend on its own length only. On
-        the CPU (or in f64, or under autograd) None: the composed path."""
-        if (not q_lat.is_cuda or q_lat.dtype != torch.float32
+        on every backend; a lane's bits depend on its own length only. A
+        narrow latent cache is upcast in that copy (exact). On the CPU (or
+        in f64, or under autograd) None: the composed path. A bf16 step on
+        the card raises: the reference's composed bf16 path rounds its two
+        score products apart, and no kernel takes it yet (R + Dr = 288 at
+        MiniCPM3's widths, beyond the bf16 instance's D ≤ 256)."""
+        if (not _on_card(q_lat) or q_lat.dtype == torch.float64
                 or not kernel_route_ok(q_lat, q_rope, c, k_rope)):
             return None
+        if q_lat.dtype != torch.float32:
+            raise ValueError(f"latent decode attention in {q_lat.dtype}: no "
+                             "kernel takes MLA's composed bf16 step on the "
+                             "card (compute_dtype float32 serves MLA)")
         B, _, H, R = q_lat.shape
         q = torch.cat([q_lat, q_rope], dim=-1).reshape(B, 1, H, -1)
-        kv = torch.cat([c, k_rope], dim=-1)[:, :, None, :]
+        kv = torch.cat([c, k_rope], dim=-1).to(q.dtype)[:, :, None, :]
         out = flash_decode.flash_decode_attention(q, kv, kv, lengths,
                                                   scale=scale)
         return out[..., :R].reshape(B, 1, H, R)
@@ -458,17 +528,27 @@ class TorchOps(UnrolledLayerLoop, Backend):
 
     def mean(self, a, dim, keepdim=False):
         """On the card, the mean over the last dim with keepdim of an f32
-        tensor (the rmsnorm's) runs through the fixed-order ``row_mean``
-        kernel (:mod:`repro_torch.kernels.row_order`); under autograd
-        (:func:`kernel_route_ok`) and everywhere else it is
-        ``Tensor.mean``."""
-        if (a.is_cuda and a.dtype == torch.float32 and keepdim
-                and dim in (-1, a.dim() - 1) and kernel_route_ok(a)):
+        or bf16 tensor (the rmsnorm's) runs through the fixed-order
+        ``row_mean`` kernel (:mod:`repro_torch.kernels.row_order`); under
+        autograd (:func:`kernel_route_ok`) and everywhere else it is
+        ``Tensor.mean``, accumulated in f32 for a bf16 tensor (as
+        ``jnp.mean``), in a's dtype."""
+        if (a.is_cuda and a.dtype in (torch.float32, torch.bfloat16)
+                and keepdim and dim in (-1, a.dim() - 1)
+                and kernel_route_ok(a)):
             return row_order.row_mean_dispatch(a)
-        return a.mean(dim=dim, keepdim=keepdim)
+        return self._narrow_back(a, self._f32(a).mean(dim=dim,
+                                                      keepdim=keepdim))
 
     def sum(self, a, dim, keepdim=False):
-        return a.sum(dim=dim, keepdim=keepdim)
+        return self._narrow_back(a, self._f32(a).sum(dim=dim,
+                                                     keepdim=keepdim))
+
+    @staticmethod
+    def _narrow_back(a, out):
+        """A reduction of a narrow ``a`` (accumulated in f32) in a's dtype;
+        any other as PyTorch returns it."""
+        return out.to(a.dtype) if a.dtype in dtypes.NARROW else out
 
     def max(self, a, dim, keepdim=False):
         return a.amax(dim=dim, keepdim=keepdim)
@@ -488,7 +568,11 @@ class TorchOps(UnrolledLayerLoop, Backend):
     def concat(self, parts, dim): return torch.cat(list(parts), dim=dim)
 
     def take(self, a, idx, dim: int = 0):
-        """Entries of ``a`` along ``dim`` at integer ``idx`` of any shape."""
+        """Entries of ``a`` along ``dim`` at integer ``idx`` of any shape
+        (of an e4m3 table: its bytes gathered, then upcast exactly)."""
+        if a.dtype == dtypes.FP8:
+            rows = caa.take_along(a.view(torch.uint8), idx, dim)
+            return rows.view(dtypes.FP8).to(self.compute_dtype)
         return caa.take_along(a, idx, dim)
 
     def slice(self, a, slices): return a[slices]
@@ -645,7 +729,8 @@ class MeshOps:
             if not self._split(w):
                 w = w.to_local()
             elif (self._column_dim(w) is not None
-                  and w.dtype == self.compute_dtype):
+                  and (w.dtype == self.compute_dtype
+                       or (w.dtype == dtypes.FP8 and w.dim() == 2))):
                 return w
             else:
                 w = _whole(w)

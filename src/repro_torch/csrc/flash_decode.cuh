@@ -87,9 +87,26 @@
 // is cap * tanhf((x * scale) * inv_cap), inv_cap = f32(1 / cap) from the
 // host, before the online softmax: the reference's composed order
 // (bk.scale, then bk.softcap = scale(tanh(scale(a, 1/cap)), cap)).
+//
+// Narrow operands (flash_decode_narrow, built in
+// flash_decode_certified_narrow.cu). The instances above read f32 q, k and
+// v. A bf16 q (TQ; compute_dtype "bfloat16") with an f32, bf16 or e4m3
+// cache (TKV), or an f32 q with a bf16 or e4m3 cache (compute_dtype
+// "float32" with a narrow cache_dtype), runs the same arithmetic on the
+// operands upcast to f32 in registers straight after their loads (exact),
+// and the output acc / l, after the functor, is written in TQ (by RNE for
+// bf16): bit for bit the f32 instance on the upcast operands followed by
+// the cast. A narrow cache is read by plain loads (8
+// bytes a lane's part for bf16, 4 for e4m3, where D % 4 == 0 and the cache
+// is aligned; element by element otherwise) and stored into the same f32
+// shared rows the async copies fill; D <= 256 only (no wide instance).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include "gemm_common.cuh"
@@ -163,14 +180,58 @@ __device__ __forceinline__ void fd_copy_part(float* dst, const float* src,
     }
 }
 
+// A narrow cache's part of a row: four elements of T loaded (one 8- or
+// 4-byte load where V, else one at a time, zero past D), upcast to f32 and
+// stored as one float4 of the shared row.
+template <bool V, class T>
+__device__ __forceinline__ void fd_load_part(float* dst, const T* src, int d,
+                                             int D) {
+    float f[4];
+    if constexpr (V) {
+        using W = typename std::conditional<sizeof(T) == 2, uint2,
+                                            uint32_t>::type;
+        const W u = *reinterpret_cast<const W*>(src);
+        const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[i] = to_f32(e[i]);
+    } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[i] = d + i < D ? to_f32(src[i]) : 0.0f;
+    }
+    *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// The warp's rows j in [jlo, nr) of one part of k or v into the shared
+// rows: async copies of an f32 cache (one group, committed by the caller),
+// or a narrow cache's loads.
+template <bool V, class TKV, int DM>
+__device__ __forceinline__ void fd_rows(float (*dst)[DM], const TKV* src,
+                                        size_t row0, int r0, int jlo, int nr,
+                                        int H, int d, int dl, int D) {
+    if constexpr (std::is_same<TKV, float>::value) {
+        for (int j = jlo; j < nr; ++j) {
+            fd_copy_part<V>(&dst[r0 + j][dl], src + (row0 + (size_t)j * H) * D + d,
+                            d, D);
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < kFdRows; ++j) {
+            if (j >= jlo && j < nr) {
+                fd_load_part<V>(&dst[r0 + j][dl],
+                                src + (row0 + (size_t)j * H) * D + d, d, D);
+            }
+        }
+    }
+}
+
 // One tile of GT <= 8 query heads: q points at the tile's first head, the
 // partials at its first head's rows; G is the heads of a kv head (the
 // stride of q and of the partials). DL elements a lane, V: 16-byte copies.
-template <class Q, int DL, bool V>
+template <class Q, int DL, bool V, class TQ = float, class TKV = float>
 __global__ void __launch_bounds__(kFdThreads, DL == 4 ? 3 : 1)
-flash_decode_chunk_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
+flash_decode_chunk_kernel(const TQ* __restrict__ q,
+                          const TKV* __restrict__ k,
+                          const TKV* __restrict__ v,
                           const int* __restrict__ lengths,
                           float* __restrict__ part_acc,
                           float* __restrict__ part_m,
@@ -204,10 +265,7 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     for (int pt = 0; pt < NP; ++pt) {
         const int d = kFdPart * pt + d0;
         if (has_d(pt) && !empty) {
-            for (int j = jlo; j < nr; ++j) {
-                fd_copy_part<V>(&sm.k[r0 + j][d],
-                                k + (row0 + (size_t)j * H) * D + d, d, D);
-            }
+            fd_rows<V>(sm.k, k, row0, r0, jlo, nr, H, d, d, D);
         }
     }
     cp_async_commit();
@@ -215,19 +273,16 @@ flash_decode_chunk_kernel(const float* __restrict__ q,
     for (int pt = 0; pt < NP; ++pt) {
         const int d = kFdPart * pt + d0;
         if (has_d(pt)) {
-            for (int j = jlo; j < nr; ++j) {
-                fd_copy_part<V>(&sm.v[r0 + j][d],
-                                v + (row0 + (size_t)j * H) * D + d, d, D);
-            }
+            fd_rows<V>(sm.v, v, row0, r0, jlo, nr, H, d, d, D);
         }
     }
     cp_async_commit();
 
     // q, rounded, zero past GT and D
-    const float* qb = q + (size_t)(b * H + h) * G * D;
+    const TQ* qb = q + (size_t)(b * H + h) * G * D;
     for (int e = threadIdx.x; e < kFdGMax * DM; e += kFdThreads) {
         const int g = e / DM, d = e % DM;
-        sm.q[g][d] = g < GT && d < D ? rnd(qb[g * D + d]) : 0.0f;
+        sm.q[g][d] = g < GT && d < D ? rnd(to_f32(qb[g * D + d])) : 0.0f;
     }
     __syncthreads();
 
@@ -678,13 +733,13 @@ __device__ __forceinline__ void fd_load_group(FdGroup& gr, const float* ap,
 // loads while the lane's length does), and writes rnd(acc / l). WIDE: D in
 // slices of DM, one block a slice, blockIdx.x = slice * G + head. The next
 // group's loads are in flight while a group folds.
-template <class Q, int DM, bool WIN, bool WIDE>
+template <class Q, int DM, bool WIN, bool WIDE, class TO = float>
 __global__ void __launch_bounds__(DM)
 flash_decode_combine_kernel(const float* __restrict__ part_acc,
                             const float* __restrict__ part_m,
                             const float* __restrict__ part_l,
                             const int* __restrict__ lengths,
-                            float* __restrict__ out, int S, int H, int G,
+                            TO* __restrict__ out, int S, int H, int G,
                             int D, int NC, int window, Q rnd) {
     const int g = WIDE ? blockIdx.x % G : blockIdx.x;
     const int h = blockIdx.y, b = blockIdx.z;
@@ -730,22 +785,34 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
         m = __shfl_sync(kFdFull, mx, cnt - 1);
         cur = next;
     }
-    if (has_d) out[head * D + d] = rnd(__fdiv_rn(acc, l));
+    if (has_d) store_rn(out + head * D + d, rnd(__fdiv_rn(acc, l)));
+}
+
+template <class Q, int DL, bool V, bool WIDE, class TQ, class TKV>
+constexpr auto flash_decode_chunk_select() {
+    if constexpr (WIDE) {
+        return flash_decode_chunk_wide_kernel<Q, V>;
+    } else {
+        return flash_decode_chunk_kernel<Q, DL, V, TQ, TKV>;
+    }
 }
 
 // Both kernels of one instance: the chunk kernel (the wide one where
 // WIDE) once a tile of 8 heads, then the combine over all G and every
 // slice of 32 * DL dims.
-template <class Q, int DL, bool V, bool WIDE>
-cudaError_t fd_launch(const float* q, const float* k, const float* v,
-                      const int* lengths, float* out, float* acc, float* m,
+template <class Q, int DL, bool V, bool WIDE, class TQ = float,
+          class TKV = float>
+cudaError_t fd_launch(const TQ* q, const TKV* k, const TKV* v,
+                      const int* lengths, TQ* out, float* acc, float* m,
                       float* l, int B, int S, int H, int G, int D, int NC,
                       float scale, int window, float cap, float inv_cap,
                       const Q& rnd, cudaStream_t s) {
     constexpr int DM = 32 * DL;
     constexpr int smem = sizeof(FdSmem<DM>);
-    constexpr auto chunk = WIDE ? flash_decode_chunk_wide_kernel<Q, V>
-                                : flash_decode_chunk_kernel<Q, DL, V>;
+    static_assert(!WIDE || (std::is_same<TQ, float>::value &&
+                            std::is_same<TKV, float>::value),
+                  "the wide instance reads f32 only");
+    constexpr auto chunk = flash_decode_chunk_select<Q, DL, V, WIDE, TQ, TKV>();
     static const cudaError_t attr = allow_smem(chunk, smem);
     if (attr != cudaSuccess) return attr;
     for (int g0 = 0; g0 < G; g0 += kFdGMax) {
@@ -759,11 +826,11 @@ cudaError_t fd_launch(const float* q, const float* k, const float* v,
     }
     const dim3 grid(G * ((D + DM - 1) / DM), H, B);
     if (window > 0) {
-        flash_decode_combine_kernel<Q, DM, true, WIDE>
+        flash_decode_combine_kernel<Q, DM, true, WIDE, TQ>
             <<<grid, DM, 0, s>>>(acc, m, l, lengths, out, S, H, G, D, NC,
                                  window, rnd);
     } else {
-        flash_decode_combine_kernel<Q, DM, false, WIDE>
+        flash_decode_combine_kernel<Q, DM, false, WIDE, TQ>
             <<<grid, DM, 0, s>>>(acc, m, l, lengths, out, S, H, G, D, NC,
                                  window, rnd);
     }
@@ -808,6 +875,81 @@ cudaError_t flash_decode(const void* q, const void* k, const void* v,
     }
     return vec ? FD_LAUNCH(8, true, true) : FD_LAUNCH(8, false, true);
 #undef FD_LAUNCH
+}
+
+}  // namespace
+
+namespace {
+
+// The instance of one q type TQ (out of the same type) for the cache's
+// type code tkv. Returns cudaErrorInvalidValue for a code it lacks.
+template <class Q, class TQ>
+cudaError_t flash_decode_narrow_q(const void* q, const void* k,
+                                  const void* v, const int* lp, void* out,
+                                  float* acc, float* m, float* l, int B,
+                                  int S, int H, int G, int D, int NC,
+                                  float scale, int window, float cap,
+                                  float inv_cap, int tkv, const Q& rnd,
+                                  cudaStream_t s) {
+    const auto* qp = static_cast<const TQ*>(q);
+    auto* op = static_cast<TQ*>(out);
+    const size_t ek = tkv == kF32 ? 4 : (tkv == kBF16 ? 2 : 1);
+    const bool vec = D % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(k) % (4 * ek) == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % (4 * ek) == 0 &&
+                     (tkv != kF32 || (reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                                      reinterpret_cast<uintptr_t>(v) % 16 == 0));
+#define FD_NARROW(TKV, DL, V)                                                \
+    fd_launch<Q, DL, V, false, TQ, TKV>(                                     \
+        qp, static_cast<const TKV*>(k), static_cast<const TKV*>(v), lp, op,   \
+        acc, m, l, B, S, H, G, D, NC, scale, window, cap, inv_cap, rnd, s)
+#define FD_NARROW_D(TKV)                                                     \
+    (D <= kFdPart ? (vec ? FD_NARROW(TKV, 4, true) : FD_NARROW(TKV, 4, false)) \
+                  : (vec ? FD_NARROW(TKV, 8, true) : FD_NARROW(TKV, 8, false)))
+    if constexpr (!std::is_same<TQ, float>::value) {
+        if (tkv == kF32) return FD_NARROW_D(float);
+    }
+    if (tkv == kBF16) return FD_NARROW_D(__nv_bfloat16);
+    if (tkv == kE4M3) return FD_NARROW_D(__nv_fp8_e4m3);
+    return cudaErrorInvalidValue;
+#undef FD_NARROW_D
+#undef FD_NARROW
+}
+
+// The narrow instances: q (and out) of type code tq, k and v of code tkv,
+// any pair but f32 / f32 (flash_decode's): a bf16 q with an f32, bf16 or
+// e4m3 cache (compute_dtype "bfloat16"), or an f32 q with a bf16 or e4m3
+// cache (compute_dtype "float32" with a narrow cache_dtype); D <= 256.
+// Arguments and partials as flash_decode's. Returns cudaErrorInvalidValue
+// for anything else.
+template <class Q>
+cudaError_t flash_decode_narrow(const void* q, const void* k, const void* v,
+                                const void* lengths, void* out,
+                                void* partials, int B, int S, int H, int G,
+                                int D, float scale, int window, float cap,
+                                float inv_cap, int tq, int tkv, Q rnd,
+                                void* stream) {
+    if (G < 1 || D < 1 || D > 2 * kFdPart || window < 0) {
+        return cudaErrorInvalidValue;
+    }
+    const auto s = static_cast<cudaStream_t>(stream);
+    const int NC = fd_chunks(S);
+    const size_t rows = (size_t)B * H * G * NC;
+    float* acc = static_cast<float*>(partials);
+    float* m = acc + rows * D;
+    float* l = m + rows;
+    const auto* lp = static_cast<const int*>(lengths);
+    if (tq == kBF16) {
+        return flash_decode_narrow_q<Q, __nv_bfloat16>(
+            q, k, v, lp, out, acc, m, l, B, S, H, G, D, NC, scale, window,
+            cap, inv_cap, tkv, rnd, s);
+    }
+    if (tq == kF32) {
+        return flash_decode_narrow_q<Q, float>(
+            q, k, v, lp, out, acc, m, l, B, S, H, G, D, NC, scale, window,
+            cap, inv_cap, tkv, rnd, s);
+    }
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -53,32 +53,57 @@
 // into one of two [k][m] tiles; w is rounded in place. 128 x 128 tiles
 // where the grid fills half the card, else 32 x 64 (w_k/w_v at M = 512,
 // and small M): one rounding per 64 FMAs at 128 x 128.
+//
+// Narrow operands (ServeConfig's compute_dtype "bfloat16", param_dtype
+// "fp8"; quant_gemm_narrow): x of TX = f32 or bf16, w of TW = f32, bf16 or
+// e4m3, the output of TO. The same two configurations and tiles, the same
+// FMAs in the same order; only the staging changes. The copies land the
+// raw elements in rings of their own type (16-byte copies of 8 bf16, 8-byte
+// copies of 8 e4m3 or 4 bf16 of x at prefill, 4-byte copies of 2 bf16 of x
+// at decode, where the rows are aligned; one element at a time otherwise),
+// and the copying thread converts each to f32 in registers (exact) as it
+// rounds it, then stores it into one of two f32 tiles the FMAs read (the
+// f32 instance rounds in place). So every output is bit for bit the f32
+// instance's on the upcast operands; the epilogue then rounds it into TO
+// by RNE (the reference's preferred_element_type=f32 product and
+// .astype). The f32 instance's code is unchanged.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #include "gemm_common.cuh"
 
 namespace {
 
-// A thread's share of one staged tile: NW packs of W floats of w, at
+// A thread's share of one staged tile: NW packs of W elements of w, at
 // offsets W*(tid + j*NT) of the w slot (copy j of the thread wrote there),
-// and NX floats of x at offsets xoff(j) of the x slot, where xok(j). Each
-// is rounded once, in registers: all loads, then the rounding, then all
-// stores, so that the elements overlap.
-template <int W, int NW, int NX>
+// and NX packs of WX elements of x at offsets xoff(j) of the x slot, where
+// xok(j). Each is read from the raw slots (TW, TX), converted to f32 and
+// rounded once, in registers: all loads, then the rounding, then all
+// stores into the f32 tiles (the raw slots themselves in the f32
+// instance), so that the elements overlap.
+template <int W, int NW, int NX, int WX = 1>
 struct Share {
     Pack<W> w[NW];
-    Pack<1> x[NX];
+    Pack<WX> x[NX];
 
-    template <int NT, class XOff, class XOk>
-    __device__ __forceinline__ void load(const float* ws, const float* xs,
-                                         int pt, XOff xoff, XOk xok) {
+    template <int NT, class TW, class TX, class XOff, class XOk>
+    __device__ __forceinline__ void load(const TW* ws, const TX* xs, int pt,
+                                         XOff xoff, XOk xok) {
 #pragma unroll
         for (int j = 0; j < NW; ++j) w[j] = lds_pack<W>(ws + W * (pt + j * NT));
 #pragma unroll
-        for (int j = 0; j < NX; ++j) x[j].v[0] = xok(j) ? xs[xoff(j)] : 0.0f;
+        for (int j = 0; j < NX; ++j) {
+            if (xok(j)) {
+                x[j] = lds_pack<WX>(xs + xoff(j));
+            } else {
+#pragma unroll
+                for (int i = 0; i < WX; ++i) x[j].v[i] = 0.0f;
+            }
+        }
     }
 
     template <class Q>
@@ -88,7 +113,9 @@ struct Share {
 #pragma unroll
             for (int i = 0; i < W; ++i) w[j].v[i] = q(w[j].v[i]);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) x[j].v[0] = q(x[j].v[0]);
+        for (int j = 0; j < NX; ++j)
+#pragma unroll
+            for (int i = 0; i < WX; ++i) x[j].v[i] = q(x[j].v[i]);
     }
 
     template <int NT, class XOff, class XOk>
@@ -98,20 +125,29 @@ struct Share {
         for (int j = 0; j < NW; ++j) sts_pack(ws + W * (pt + j * NT), w[j]);
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
-            if (xok(j)) xs[xoff(j)] = x[j].v[0];
+            if (xok(j)) sts_pack(xs + xoff(j), x[j]);
         }
     }
 };
 
-// Rounds the share of copying thread pt (of NT) of a staged tile in place.
-template <int W, int NW, int NX, int NT, class Q, class XOff, class XOk>
-__device__ __forceinline__ void round_share(float* ws, float* xs, int pt,
+// Rounds the share of copying thread pt (of NT) of a staged tile: from the
+// raw slots (ws, xs) into the f32 tiles (wf, xf), which are the raw slots
+// in the f32 instance.
+template <int W, int NW, int NX, int NT, int WX = 1, class TW, class TX,
+          class Q, class XOff, class XOk>
+__device__ __forceinline__ void round_share(const TW* ws, const TX* xs,
+                                            float* wf, float* xf, int pt,
                                             XOff xoff, XOk xok, const Q& q) {
-    Share<W, NW, NX> sh;
+    Share<W, NW, NX, WX> sh;
     sh.template load<NT>(ws, xs, pt, xoff, xok);
     sh.round(q);
-    sh.template store<NT>(ws, xs, pt, xoff, xok);
+    sh.template store<NT>(wf, xf, pt, xoff, xok);
 }
+
+// Whether a GEMM's operands are both f32: its tiles are rounded in place.
+template <class TX, class TW>
+constexpr bool kF32Pair =
+    std::is_same<TX, float>::value && std::is_same<TW, float>::value;
 
 // The epilogue's rounding of an output: q itself, or none where the
 // functor is wrapped in RawOut. A RawOut GEMM writes the f32 accumulator
@@ -137,9 +173,12 @@ __device__ __forceinline__ float round_out(const RawOut<Q>&, float v) {
 constexpr int kDecBN = 32;      // columns per block (one per lane)
 constexpr int kDecStages = 8;
 
-template <int BK>
+// The ring of raw tiles, and for narrow operands the two f32 tiles.
+template <int BK, class TX = float, class TW = float>
 constexpr int dec_smem_bytes() {
-    return kDecStages * (BK * kDecBN + 8 * BK) * (int)sizeof(float);
+    return kDecStages * BK * (kDecBN * (int)sizeof(TW) +
+                              8 * (int)sizeof(TX)) +
+           (kF32Pair<TX, TW> ? 0 : 2 * BK * (kDecBN + 8) * (int)sizeof(float));
 }
 
 // One full K-tile of FMAs for R rows (1..4) of one column: per 4 k, the
@@ -177,18 +216,39 @@ __device__ __forceinline__ void dec_fma(const float* ws, const float* xs,
 }
 
 // F FMA warps (rows split among them, at most 4 a warp) and NP copying
-// warps.
-template <class Q, int BK, int W, int F, int NP>
+// warps. W elements of w and WX of x a copy.
+template <class Q, int BK, int W, int F, int NP, class TX = float,
+          class TW = float, class TO = float, int WX = 1>
 __global__ void __launch_bounds__(32 * (F + NP))
-quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  float* __restrict__ out, int M, int N, int K, Q q) {
+quant_gemv_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                  TO* __restrict__ out, int M, int N, int K, Q q) {
     q.pin();
     constexpr int NT = 32 * NP, WS = BK * kDecBN, XS = 8 * BK;
-    constexpr int NW = WS / (W * NT), NX = XS / NT;
-    static_assert(NW * W * NT == WS && NX * NT == XS, "whole shares");
+    constexpr int NW = WS / (W * NT), NX = XS / (WX * NT);
+    static_assert(NW * W * NT == WS && NX * WX * NT == XS, "whole shares");
+    constexpr bool inplace = kF32Pair<TX, TW>;
     extern __shared__ float4 dec_smem4[];
-    float* const wring = reinterpret_cast<float*>(dec_smem4);
-    float* const xring = wring + kDecStages * WS;
+    // f32 tiles first (narrow operands: two, alternating), then the raw
+    // rings; every region is a multiple of 16 bytes
+    float* const ftiles = reinterpret_cast<float*>(dec_smem4);
+    TW* const wring = reinterpret_cast<TW*>(
+        ftiles + (inplace ? 0 : 2 * (WS + XS)));
+    TX* const xring = reinterpret_cast<TX*>(wring + kDecStages * WS);
+    // tile t's f32 w and x, as the FMA warps read them
+    auto wtile = [&](int t) -> float* {
+        if constexpr (inplace) {
+            return reinterpret_cast<float*>(wring) + (t % kDecStages) * WS;
+        } else {
+            return ftiles + (t % 2) * (WS + XS);
+        }
+    };
+    auto xtile = [&](int t) -> float* {
+        if constexpr (inplace) {
+            return reinterpret_cast<float*>(xring) + (t % kDecStages) * XS;
+        } else {
+            return ftiles + (t % 2) * (WS + XS) + WS;
+        }
+    };
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     // warps 0..F-1 run the FMA chains of rp consecutive rows each, a lane
@@ -200,8 +260,8 @@ quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int n0 = blockIdx.x * kDecBN;
     const int T = (K + BK - 1) / BK;
     const int mbk = M * BK;          // x items past it (rows >= M) idle
-    auto xoff = [&](int j) { return pt + j * NT; };
-    auto xok = [&](int j) { return pt + j * NT < mbk; };
+    auto xoff = [&](int j) { return WX * (pt + j * NT); };
+    auto xok = [&](int j) { return WX * (pt + j * NT) < mbk; };
 
     auto issue = [&](int t) {
         if (t < T) {
@@ -209,11 +269,13 @@ quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
             copy_w<W, BK, kDecBN, NT>(wring + s * WS, w, pt, k0, n0, N, K);
 #pragma unroll
             for (int j = 0; j < NX; ++j) {
-                const int i = pt + j * NT, gk = k0 + i % BK;
+                // WX elements of one row (BK % WX == 0; K % WX == 0 where
+                // WX > 1, so gk < K covers the item)
+                const int i = WX * (pt + j * NT), gk = k0 + i % BK;
                 if (i < mbk) {
-                    cp_async4(xring + s * XS + i,
-                              gk < K ? x + (size_t)(i / BK) * K + gk : x,
-                              gk < K);
+                    cp_async<WX>(xring + s * XS + i,
+                                 gk < K ? x + (size_t)(i / BK) * K + gk : x,
+                                 gk < K);
                 }
             }
         }
@@ -221,8 +283,8 @@ quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     };
     auto round_tile = [&](int t) {
         const int s = t % kDecStages;
-        round_share<W, NW, NX, NT>(wring + s * WS, xring + s * XS, pt, xoff,
-                                   xok, q);
+        round_share<W, NW, NX, NT, WX>(wring + s * WS, xring + s * XS,
+                                       wtile(t), xtile(t), pt, xoff, xok, q);
     };
 
     if (!fma_warp) {
@@ -247,9 +309,8 @@ quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
             cp_async_wait<kDecStages - 2>();   // own copies of tile t+1
             if (t + 1 < T) round_tile(t + 1);
         } else if (R > 0) {
-            const int s = t % kDecStages;
-            const float* ws = wring + s * WS + lane;
-            const float* xs = xring + s * XS + row0 * BK;
+            const float* ws = wtile(t) + lane;
+            const float* xs = xtile(t) + row0 * BK;
             const int kc = min(BK, K - t * BK);
             if (kc == BK) {
                 switch (R) {
@@ -278,7 +339,8 @@ quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
             if (r < R) {
-                out[(size_t)(row0 + r) * N + n] = round_out(q, acc[r]);
+                store_rn(out + (size_t)(row0 + r) * N + n,
+                         round_out(q, acc[r]));
             }
         }
     }
@@ -289,22 +351,26 @@ quant_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 constexpr int kPfBK = 16;
 constexpr int kPfStages = 4;
 
-template <int BM, int BN>
+template <int BM, int BN, class TX = float, class TW = float>
 constexpr int pf_smem_bytes() {
-    // a ring of raw x tiles [m][k] and of w tiles [k][n], and two rounded,
-    // transposed x tiles [k][m]
-    return (kPfStages * kPfBK * (BM + BN) + 2 * kPfBK * (BM + 4)) *
-           (int)sizeof(float);
+    // a ring of raw x tiles [m][k] and of raw w tiles [k][n], two rounded,
+    // transposed x tiles [k][m], and for narrow operands two f32 w tiles
+    // [k][n]
+    return kPfStages * kPfBK * (BM * (int)sizeof(TX) + BN * (int)sizeof(TW)) +
+           (2 * kPfBK * (BM + 4) + (kF32Pair<TX, TW> ? 0 : 2 * kPfBK * BN)) *
+               (int)sizeof(float);
 }
 
 // TM x TM register micro-tiles (TM = 8: two float4 fragments a side, at
-// ty*4 and BM/2 + ty*4; TM = 4: one). W = 4: x and w are copied 16 bytes
-// at a time (K % 4 == N % 4 == 0, aligned bases), else 4.
-template <class Q, int BM, int BN, int TM, int W>
+// ty*4 and BM/2 + ty*4; TM = 4: one). W elements of w and WX of x a copy:
+// f32 16 bytes (K % 4 == N % 4 == 0, aligned bases) or 4; narrow operands
+// as in the header.
+template <class Q, int BM, int BN, int TM, int W, class TXE = float,
+          class TW = float, class TO = float, int WX = W>
 __global__ void __launch_bounds__((BM / TM) * (BN / TM),
                                   512 / ((BM / TM) * (BN / TM)))
-quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ out, int M, int N, int K, Q q) {
+quant_sgemm_kernel(const TXE* __restrict__ x, const TW* __restrict__ w,
+                   TO* __restrict__ out, int M, int N, int K, Q q) {
     q.pin();
     constexpr int BK = kPfBK, S = kPfStages;
     constexpr int TX = BN / TM, NT = (BM / TM) * (BN / TM);
@@ -312,29 +378,40 @@ quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     constexpr int HM = BM / H, HN = BN / H;   // their stride
     constexpr int LDA = BM + 4;        // [k][m], padded; rows stay 16B-aligned
     constexpr int XS = BM * BK, AS = BK * LDA, BS = BK * BN;
-    constexpr int NA = XS / (W * NT), NB = BS / (W * NT);
-    static_assert(NA * W * NT == XS && NB * W * NT == BS, "whole shares");
+    constexpr int NA = XS / (WX * NT), NB = BS / (W * NT);
+    static_assert(NA * WX * NT == XS && NB * W * NT == BS, "whole shares");
+    constexpr bool inplace = kF32Pair<TXE, TW>;
     extern __shared__ float4 pf_smem4[];
-    float* const xring = reinterpret_cast<float*>(pf_smem4);
-    float* const bring = xring + S * XS;
-    float* const at = bring + S * BS;
+    // every region is a multiple of 16 bytes
+    TXE* const xring = reinterpret_cast<TXE*>(pf_smem4);
+    TW* const bring = reinterpret_cast<TW*>(xring + S * XS);
+    float* const at = reinterpret_cast<float*>(bring + S * BS);
+    float* const bt = at + 2 * AS;    // narrow operands' f32 w tiles
+    // tile t's f32 w, as the FMAs read it
+    auto btile = [&](int t) -> float* {
+        if constexpr (inplace) {
+            return reinterpret_cast<float*>(bring) + (t % S) * BS;
+        } else {
+            return bt + (t % 2) * BS;
+        }
+    };
 
     const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
     const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
     const int T = (K + BK - 1) / BK;
 
-    // x item j of a thread: W floats of row e / BK from column e % BK of
-    // the tile, e = W*(tid + j*NT), at offset e of the raw slot
+    // x item j of a thread: WX elements of row e / BK from column e % BK
+    // of the tile, e = WX*(tid + j*NT), at offset e of the raw slot
     auto issue = [&](int t) {
         if (t < T) {
             const int s = t % S, k0 = t * BK;
 #pragma unroll
             for (int j = 0; j < NA; ++j) {
-                const int e = W * (tid + j * NT);
+                const int e = WX * (tid + j * NT);
                 const int gm = m0 + e / BK, gk = k0 + e % BK;
                 const bool ok = gm < M && gk < K;
-                cp_async<W>(xring + s * XS + e,
-                            ok ? x + (size_t)gm * K + gk : x, ok);
+                cp_async<WX>(xring + s * XS + e,
+                             ok ? x + (size_t)gm * K + gk : x, ok);
             }
             copy_w<W, BK, BN, NT>(bring + s * BS, w, tid, k0, n0, N, K);
         }
@@ -343,13 +420,15 @@ quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
     // this thread's share of tile t, rounded once: its x items into the
     // transposed tile at (one of two, alternating), its w items in place
+    // (narrow operands: into the f32 tile, one of two)
     auto round_tile = [&](int t) {
         const int s = t % S;
         float* const a = at + (t % 2) * AS;
-        Pack<W> xv[NA], wv[NB];
+        Pack<WX> xv[NA];
+        Pack<W> wv[NB];
 #pragma unroll
         for (int j = 0; j < NA; ++j) {
-            xv[j] = lds_pack<W>(xring + s * XS + W * (tid + j * NT));
+            xv[j] = lds_pack<WX>(xring + s * XS + WX * (tid + j * NT));
         }
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
@@ -358,20 +437,20 @@ quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < NA; ++j)
 #pragma unroll
-            for (int i = 0; i < W; ++i) xv[j].v[i] = q(xv[j].v[i]);
+            for (int i = 0; i < WX; ++i) xv[j].v[i] = q(xv[j].v[i]);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
 #pragma unroll
             for (int i = 0; i < W; ++i) wv[j].v[i] = q(wv[j].v[i]);
 #pragma unroll
         for (int j = 0; j < NA; ++j) {
-            const int e = W * (tid + j * NT), mm = e / BK, kk = e % BK;
+            const int e = WX * (tid + j * NT), mm = e / BK, kk = e % BK;
 #pragma unroll
-            for (int i = 0; i < W; ++i) a[(kk + i) * LDA + mm] = xv[j].v[i];
+            for (int i = 0; i < WX; ++i) a[(kk + i) * LDA + mm] = xv[j].v[i];
         }
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-            sts_pack(bring + s * BS + W * (tid + j * NT), wv[j]);
+            sts_pack(btile(t) + W * (tid + j * NT), wv[j]);
         }
     };
 
@@ -412,7 +491,7 @@ quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
         issue(t + S - 1);   // into tile t-1's slots
 
         const float* as = at + (t % 2) * AS;
-        const float* bs = bring + (t % S) * BS;
+        const float* bs = btile(t);
         const int kc = min(BK, K - t * BK);
         if (kc == BK) {
 #pragma unroll
@@ -433,7 +512,7 @@ quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int j = 0; j < TM; ++j) {
             const int gn = n0 + (j / 4) * HN + tx * 4 + j % 4;
             if (gn < N) {
-                out[(size_t)gm * N + gn] = round_out(q, acc[i][j]);
+                store_rn(out + (size_t)gm * N + gn, round_out(q, acc[i][j]));
             }
         }
     }
@@ -441,53 +520,98 @@ quant_sgemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // ---------------------------------------------------------------- launch
 
-template <class Q, int BK, int W, int F, int NP>
-cudaError_t launch_gemv(const float* x, const float* w, float* out, int M,
-                        int N, int K, const Q& q, cudaStream_t s) {
+template <class Q, int BK, int W, int F, int NP, int WX = 1, class TX,
+          class TW, class TO>
+cudaError_t launch_gemv(const TX* x, const TW* w, TO* out, int M, int N,
+                        int K, const Q& q, cudaStream_t s) {
     static_assert(8 <= 4 * F, "at most 4 rows an FMA warp");
-    constexpr int smem = dec_smem_bytes<BK>();
-    static const cudaError_t attr =
-        allow_smem(quant_gemv_kernel<Q, BK, W, F, NP>, smem);
+    constexpr int smem = dec_smem_bytes<BK, TX, TW>();
+    static const cudaError_t attr = allow_smem(
+        quant_gemv_kernel<Q, BK, W, F, NP, TX, TW, TO, WX>, smem);
     if (attr != cudaSuccess) return attr;
-    quant_gemv_kernel<Q, BK, W, F, NP>
+    quant_gemv_kernel<Q, BK, W, F, NP, TX, TW, TO, WX>
         <<<(N + kDecBN - 1) / kDecBN, 32 * (F + NP), smem, s>>>(x, w, out, M,
                                                                 N, K, q);
     return cudaGetLastError();
 }
 
-template <class Q, int BM, int BN, int TM, int W>
-cudaError_t launch_sgemm(const float* x, const float* w, float* out, int M,
-                         int N, int K, const Q& q, cudaStream_t s) {
-    constexpr int smem = pf_smem_bytes<BM, BN>();
-    static const cudaError_t attr =
-        allow_smem(quant_sgemm_kernel<Q, BM, BN, TM, W>, smem);
+template <class Q, int BM, int BN, int TM, int W, int WX = W, class TX,
+          class TW, class TO>
+cudaError_t launch_sgemm(const TX* x, const TW* w, TO* out, int M, int N,
+                         int K, const Q& q, cudaStream_t s) {
+    constexpr int smem = pf_smem_bytes<BM, BN, TX, TW>();
+    static const cudaError_t attr = allow_smem(
+        quant_sgemm_kernel<Q, BM, BN, TM, W, TX, TW, TO, WX>, smem);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    quant_sgemm_kernel<Q, BM, BN, TM, W>
+    quant_sgemm_kernel<Q, BM, BN, TM, W, TX, TW, TO, WX>
         <<<grid, (BM / TM) * (BN / TM), smem, s>>>(x, w, out, M, N, K, q);
     return cudaGetLastError();
 }
 
-// The configuration and tile for (M, N), with w's copies W floats wide.
-template <class Q, int W>
-cudaError_t quant_gemm_w(const float* x, const float* w, float* out, int M,
-                         int N, int K, const Q& q, cudaStream_t s) {
+// Elements a wide copy moves: of w (16 bytes of f32 or bf16, 8 of e4m3),
+// of x at decode (f32 one, bf16 two: 4 bytes) and at prefill (four).
+template <class TW>
+constexpr int kVecW = std::is_same<TW, float>::value ? 4 : 8;
+template <class TX>
+constexpr int kVecXDec = std::is_same<TX, float>::value ? 1 : 2;
+constexpr int kVecXPf = 4;
+
+// The configuration and tile for (M, N). VEC: the wide copies (kVec*);
+// else one element a copy, and for narrow operands one configuration a
+// phase (every configuration gives the same bits).
+template <class Q, bool VEC, class TX, class TW, class TO>
+cudaError_t quant_gemm_cfg(const TX* x, const TW* w, TO* out, int M, int N,
+                           int K, const Q& q, cudaStream_t s) {
+    constexpr bool all = kF32Pair<TX, TW> || VEC;
+    constexpr int W = VEC ? kVecW<TW> : 1;
+    constexpr int WXD = VEC ? kVecXDec<TX> : 1;
+    constexpr int WXP = VEC ? kVecXPf : 1;
     const int sms = sm_count();
     if (M <= 8) {
         // wide N: several blocks an SM, each a small ring; narrow N: one
         // block an SM, a deeper ring and more copying warps
-        if ((N + kDecBN - 1) / kDecBN >= 2 * sms) {
-            return launch_gemv<Q, 32, W, 2, 4>(x, w, out, M, N, K, q, s);
+        if constexpr (all) {
+            if ((N + kDecBN - 1) / kDecBN >= 2 * sms) {
+                return launch_gemv<Q, 32, W, 2, 4, WXD>(x, w, out, M, N, K,
+                                                        q, s);
+            }
         }
-        return launch_gemv<Q, 64, W, 4, 8>(x, w, out, M, N, K, q, s);
+        return launch_gemv<Q, 64, W, 4, 8, WXD>(x, w, out, M, N, K, q, s);
     }
-    auto blocks = [&](int bm, int bn) {
-        return ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+    if constexpr (all) {
+        const int blocks = ((M + 127) / 128) * ((N + 127) / 128);
+        if (blocks >= sms / 2) {
+            return launch_sgemm<Q, 128, 128, 8, W, WXP>(x, w, out, M, N, K,
+                                                        q, s);
+        }
+    }
+    return launch_sgemm<Q, 32, 64, 4, W, WXP>(x, w, out, M, N, K, q, s);
+}
+
+// x [M, K] of TX, w [K, N] of TW, out [M, N] of TO: row-major,
+// contiguous, on the device. Launches one kernel on ``stream``; returns
+// its launch error.
+template <class TX, class TW, class TO, class Q>
+cudaError_t quant_gemm_t(const void* x, const void* w, void* out, int M,
+                         int N, int K, const Q& q, void* stream) {
+    if (M <= 0 || N <= 0) return cudaSuccess;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* xp = static_cast<const TX*>(x);
+    const auto* wp = static_cast<const TW*>(w);
+    auto* op = static_cast<TO*>(out);
+    // wide copies need rows of whole copies and bases aligned to them: of
+    // w (both configurations) and of x
+    auto aligned = [](const void* p, int cols, int n, int bytes) {
+        return cols % n == 0 && reinterpret_cast<uintptr_t>(p) % bytes == 0;
     };
-    if (blocks(128, 128) >= sms / 2) {
-        return launch_sgemm<Q, 128, 128, 8, W>(x, w, out, M, N, K, q, s);
-    }
-    return launch_sgemm<Q, 32, 64, 4, W>(x, w, out, M, N, K, q, s);
+    constexpr int W = kVecW<TW>, WXD = kVecXDec<TX>;
+    const bool vec =
+        aligned(wp, N, W, W * (int)sizeof(TW)) &&
+        (M <= 8 ? aligned(xp, K, WXD, WXD * (int)sizeof(TX))
+                : aligned(xp, K, kVecXPf, kVecXPf * (int)sizeof(TX)));
+    if (vec) return quant_gemm_cfg<Q, true>(xp, wp, op, M, N, K, q, s);
+    return quant_gemm_cfg<Q, false>(xp, wp, op, M, N, K, q, s);
 }
 
 // x [M, K], w [K, N], out [M, N]: f32, row-major, contiguous, on the
@@ -495,19 +619,45 @@ cudaError_t quant_gemm_w(const float* x, const float* w, float* out, int M,
 template <class Q>
 cudaError_t quant_gemm(const void* x, const void* w, void* out, int M, int N,
                        int K, Q q, void* stream) {
-    if (M <= 0 || N <= 0) return cudaSuccess;
-    const auto s = static_cast<cudaStream_t>(stream);
-    const auto* xp = static_cast<const float*>(x);
-    const auto* wp = static_cast<const float*>(w);
-    auto* op = static_cast<float*>(out);
-    // 16-byte copies need 16-byte-aligned rows: of w (both configurations)
-    // and of x (prefill; decode copies x 4 bytes at a time)
-    auto aligned = [](const float* p, int cols) {
-        return cols % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    };
-    const bool vec = aligned(wp, N) && (M <= 8 || aligned(xp, K));
-    if (vec) return quant_gemm_w<Q, 4>(xp, wp, op, M, N, K, q, s);
-    return quant_gemm_w<Q, 1>(xp, wp, op, M, N, K, q, s);
+    return quant_gemm_t<float, float, float>(x, w, out, M, N, K, q, stream);
+}
+
+// The narrow instances for the operand type codes (OperandType): x f32 or
+// bf16, w f32, bf16 or e4m3, not both f32 (the f32 instance's sources
+// launch that pair); out in x's type, or in f32 and unrounded where RAW
+// (the functor wrapped in RawOut). Returns cudaErrorInvalidValue for any
+// other pair.
+template <bool RAW = false, class Q>
+cudaError_t quant_gemm_narrow(const void* x, const void* w, void* out, int M,
+                              int N, int K, int tx, int tw, const Q& q,
+                              void* stream) {
+    using QO = typename std::conditional<RAW, RawOut<Q>, Q>::type;
+    const QO qo{q};
+    using bf = __nv_bfloat16;
+    using f8 = __nv_fp8_e4m3;
+    if (tx == kF32) {
+        if (tw == kBF16) {
+            return quant_gemm_t<float, bf, float>(x, w, out, M, N, K, qo,
+                                                  stream);
+        }
+        if (tw == kE4M3) {
+            return quant_gemm_t<float, f8, float>(x, w, out, M, N, K, qo,
+                                                  stream);
+        }
+    } else if (tx == kBF16) {
+        using TO = typename std::conditional<RAW, float, bf>::type;
+        if (tw == kF32) {
+            return quant_gemm_t<bf, float, TO>(x, w, out, M, N, K, qo,
+                                               stream);
+        }
+        if (tw == kBF16) {
+            return quant_gemm_t<bf, bf, TO>(x, w, out, M, N, K, qo, stream);
+        }
+        if (tw == kE4M3) {
+            return quant_gemm_t<bf, f8, TO>(x, w, out, M, N, K, qo, stream);
+        }
+    }
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace

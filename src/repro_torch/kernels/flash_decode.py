@@ -47,6 +47,19 @@ for both. A lane of length 0 still attends all S positions uniformly.
 when 0 (what every GQA caller passes); MLA's absorbed decode runs as one
 kv head of keys [c | k_rope] with the scale (d_nope + d_rope)^-½
 (``TorchOps.latent_decode_attention``).
+
+Narrow operands (``compute_dtype`` "bfloat16", D ≤ 256): a bf16 q with an
+f32, bf16 or e4m3 cache. Kernel 2 upcasts them (exact) and runs its f32
+arithmetic, then writes the output in bf16 by RNE: bit for bit the f32
+instance on the upcast operands followed by the cast. Kernel 4's bf16
+instance is the reference's composed bf16 path, whose scores,
+probabilities and output round to bf16 (``csrc/flash_decode_bf16.cu``);
+:func:`flash_decode_bf16_ref` is its algorithm in plain PyTorch. An f32 q
+with a bf16 or e4m3 cache (``compute_dtype`` "float32" with a narrow
+``cache_dtype``) takes the f32 instances' arithmetic on the upcast cache,
+kernel 4 included (``csrc/flash_decode_certified_narrow.cu``), bit for bit
+the f32 instance on the upcast operands. ``launches_by_dtype`` counts
+launches by q / cache dtype.
 """
 from __future__ import annotations
 
@@ -56,10 +69,16 @@ import torch
 
 from repro_torch.core.quantize import quantize_to_format
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_matmul import fmt_triple
+from repro_torch.kernels.caa_matmul import fmaf_rn
+from repro_torch.kernels.quant_matmul import (BY_DTYPE, DTYPE_CODES,
+                                              W_DTYPES, _lib_narrow,
+                                              dtype_key, fmt_triple)
 
 NEG = -1e30
+NEG_BIG = -1e9     # the composed path's mask value (models.layers.NEG_BIG)
 FD_CHUNK = 64      # cached positions a kernel block takes (flash_decode.cuh)
+FD_PART = 128      # head dims of a lane part: 32 lanes of 4 (flash_decode.cuh)
+NARROW_D_MAX = 256     # the narrow instances' largest head dim
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -193,15 +212,27 @@ def _lib():
     return lib
 
 
+def _narrow(q, k) -> bool:
+    """Whether a call takes a narrow instance (a bf16 q or a narrow
+    cache)."""
+    return q.dtype == torch.bfloat16 or k.dtype != torch.float32
+
+
 def _check_decode_args(q, k, v, lengths):
     """Shapes (B, S, H, G, D) of a decode-attention call, after checking
-    what the kernels take; raises ValueError on anything else."""
+    what the kernels take; raises ValueError on anything else: q in f32 or
+    bf16 with an f32, bf16 or e4m3 cache (D ≤ 256 unless both are f32)."""
     for name, t in {"q": q, "k": k, "v": v}.items():
-        if t.device.type != "cuda" or t.dtype != torch.float32:
-            raise ValueError(f"{name}: needs a float32 CUDA tensor, got "
-                             f"{t.dtype} on {t.device}")
+        if t.device.type != "cuda" or t.dtype not in W_DTYPES:
+            raise ValueError(f"{name}: needs a CUDA tensor of float32, "
+                             f"bfloat16 or float8_e4m3fn, got {t.dtype} on "
+                             f"{t.device}")
         if not t.is_contiguous() or t.dim() != 4:
             raise ValueError(f"{name}: needs a contiguous 4-d tensor")
+    if k.dtype != v.dtype or q.dtype == torch.float8_e4m3fn:
+        raise ValueError(f"q {q.dtype} with a {k.dtype}/{v.dtype} cache: "
+                         "the kernels take an f32 or bf16 q with an f32, "
+                         "bf16 or e4m3 cache")
     B, H, G, D = q.shape
     S = k.shape[1]
     if k.shape != (B, S, H, D) or v.shape != k.shape or S < 1:
@@ -210,6 +241,9 @@ def _check_decode_args(q, k, v, lengths):
     if G < 1 or D < 1:
         raise ValueError(f"kernel takes G >= 1 and D >= 1, got G={G}, "
                          f"D={D}")
+    if _narrow(q, k) and D > NARROW_D_MAX:
+        raise ValueError(f"the narrow instances take D <= {NARROW_D_MAX}, "
+                         f"got D={D}")
     if (lengths.dtype != torch.int32 or lengths.shape != (B,)
             or lengths.device != q.device or not lengths.is_contiguous()):
         raise ValueError("lengths: needs a contiguous int32 [B] tensor on "
@@ -238,17 +272,28 @@ def flash_decode_certified(q, k, v, lengths, fmt, *,
     kk, emax, emin = fmt_triple(fmt)
     out = torch.empty_like(q)
     part = _partials(B, S, H, G, D, q.device)
-    rc = _lib().repro_flash_decode_certified_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr(), B, S, H, G, D, D ** -0.5, kk, emax,
-        emin, int(has_subnormals), int(saturating),
-        _build.stream_ptr(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), part.data_ptr(), B, S, H, G, D, D ** -0.5, kk,
+            emax, emin, int(has_subnormals), int(saturating))
+    if _narrow(q, k):
+        rc = _lib_narrow(
+            "flash_decode_certified_narrow",
+            "repro_flash_decode_certified_narrow",
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+             _I, _I, _I, _I, _I, _I, _P])(
+            *args, DTYPE_CODES[q.dtype], DTYPE_CODES[k.dtype],
+            _build.stream_ptr(q.device))
+    else:
+        rc = _lib().repro_flash_decode_certified_f32(
+            *args, _build.stream_ptr(q.device))
     _build.check(rc, "flash_decode_certified")
     flash_decode_certified.launches += 1
+    BY_DTYPE["flash_decode_certified"][dtype_key(q, k)] += 1
     return out
 
 
 flash_decode_certified.launches = 0
+flash_decode_certified.launches_by_dtype = BY_DTYPE["flash_decode_certified"]
 
 
 def certified_decode_attention(q, k, v, lengths, fmt, *,
@@ -276,7 +321,8 @@ def flash_decode_ref(q, k, v, lengths, window: int = 0,
     [B, K, G, D]."""
     _check_window_softcap(window, softcap)
     D, S = q.shape[-1], k.shape[1]
-    s = torch.einsum("bkgd,bskd->bkgs", q, k) * (scale or D ** -0.5)
+    s = torch.einsum("bkgd,bskd->bkgs", q, k.to(q.dtype)) * (
+        scale or D ** -0.5)
     s = _softcap(s, softcap)
     valid = _attended_mask(lengths, S, window, q.device)        # [B, S]
     s = torch.where(valid[:, None, None, :], s, NEG)
@@ -296,6 +342,115 @@ def _lib_plain():
     return lib
 
 
+def _bf16(x: float) -> float:
+    """A Python float rounded to bf16 (RNE), as the composed path's
+    constants are (``bk.const`` / ``bk.scale`` in the compute dtype)."""
+    return float(torch.tensor(float(x), dtype=torch.bfloat16))
+
+
+def bf16_constants(D: int, scale: float = 0.0, softcap: float = 0.0):
+    """(scale, cap, 1/cap, NEG_BIG), each rounded to bf16: the composed
+    bf16 path's constants (0 for a cap of none)."""
+    cap = float(softcap)
+    return (_bf16(float(scale) or D ** -0.5), _bf16(cap) if cap else 0.0,
+            _bf16(1.0 / cap) if cap else 0.0, _bf16(NEG_BIG))
+
+
+def _rbf(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 and back (RNE)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def flash_decode_bf16_ref(q, k, v, lengths, window: int = 0,
+                          softcap: float = 0.0,
+                          scale: float = 0.0) -> torch.Tensor:
+    """Plain version of kernel 4's bf16 instance: the reference's composed
+    bf16 decode attention (scores, their scale, softcap and mask in bf16,
+    softmax in f32 over the row, probabilities in bf16, p·v summed in f32,
+    then bf16) in the kernel's order (``csrc/flash_decode_bf16.cu``): a
+    score is each lane's chain over its dims then the 32-lane butterfly; a
+    chunk's max and Σ exp(s − m_c) in position order; the chunks folded in
+    order by m' = max(m, m_c), l = fmaf(exp(m − m'), l, exp(m_c − m')·l_c);
+    p = bf16(exp(s − m) / l); each chunk's Σ p·v in position order, the
+    chunks added in order. q [B, K, G, D] (bf16), k/v [B, S, K, D] (f32,
+    bf16 or e4m3; read in bf16), lengths [B]; D ≤ 256. Returns [B, K, G, D]
+    bf16. Bit for bit the kernel where exp, tanh and division are the
+    card's, i.e. on the card; not on the serving path."""
+    _check_window_softcap(window, softcap)
+    B, H, G, D = q.shape
+    S = k.shape[1]
+    if D > NARROW_D_MAX:
+        raise ValueError(f"D <= {NARROW_D_MAX}, got {D}")
+    scb, capb, icb, negb = bf16_constants(D, scale, softcap)
+    dev = q.device
+    NP = 1 if D <= FD_PART else 2
+    Dp = NP * FD_PART
+    pad = lambda t: torch.nn.functional.pad(t, (0, Dp - D))
+    qf = pad(q.to(torch.float32))                               # [B,H,G,Dp]
+    kf = pad(_rbf(k.to(torch.float32)))                         # [B,S,H,Dp]
+    prod = qf[:, :, :, None, :] * kf.permute(0, 2, 1, 3)[:, :, None]
+    prod = prod.reshape(B, H, G, S, NP, 32, 4)                  # exact
+    x = prod[..., 0, :, 0]
+    for pt in range(NP):
+        for u in range(4):
+            if pt or u:
+                x = x + prod[..., pt, :, u]
+    for half in (16, 8, 4, 2, 1):
+        x = x[..., :half] + x[..., half:2 * half]
+    s = _rbf(_rbf(x[..., 0]) * scb)                             # [B,H,G,S]
+    if softcap:
+        s = _rbf(_rbf(torch.tanh(_rbf(s * icb))) * capb)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    n = torch.where(lengths <= 0, S, lengths.clamp(max=S))
+    lo = torch.clamp(n - window, min=0) if window else torch.zeros_like(n)
+    lo = torch.where(lengths <= 0, 0, lo)
+    pos = torch.arange(S, device=dev)
+    att = (pos[None] < n[:, None]) & (pos[None] >= lo[:, None])   # read
+    real = att & (lengths > 0)[:, None]                           # scored
+    s = torch.where(real[:, None, None, :], s, negb)
+    NC = -(-S // FD_CHUNK)
+    sp = torch.nn.functional.pad(s, (0, NC * FD_CHUNK - S), value=negb)
+    sp = sp.reshape(B, H, G, NC, FD_CHUNK)
+    tc = (n[:, None] - torch.arange(NC, device=dev)[None] * FD_CHUNK).clamp(
+        0, FD_CHUNK)                                            # [B, NC]
+    inside = (torch.arange(FD_CHUNK, device=dev)[None, None]
+              < tc[:, :, None])[:, None, None]                  # [B,1,1,NC,64]
+    m_c = torch.where(inside, sp, negb).amax(-1).clamp_min(negb)
+    e = torch.exp(sp - m_c[..., None])
+    l_c = e[..., 0]
+    for i in range(1, FD_CHUNK):
+        l_c = torch.where(inside[..., i], l_c + e[..., i], l_c)
+    nc = -(-n // FD_CHUNK)
+    c_lo = lo // FD_CHUNK
+    first = c_lo[:, None, None, None].expand(B, H, G, 1)
+    m = m_c.gather(-1, first)[..., 0]
+    l = l_c.gather(-1, first)[..., 0]
+    for c in range(1, NC):
+        live = ((c > c_lo) & (c < nc))[:, None, None]
+        m2 = torch.maximum(m, m_c[..., c])
+        l2 = fmaf_rn(torch.exp(m - m2), l, torch.exp(m_c[..., c] - m2)
+                     * l_c[..., c])
+        l = torch.where(live, l2, l)
+        m = torch.where(live, m2, m)
+    p = _rbf(torch.exp(s - m[..., None]) / l[..., None])        # [B,H,G,S]
+    vf = _rbf(v.to(torch.float32)).permute(0, 2, 1, 3)         # [B,H,S,D]
+    vf = torch.where(att[:, None, :, None], vf, 0.0)
+    pv = p[..., None] * vf[:, :, None]                          # exact
+    pv = torch.nn.functional.pad(pv, (0, 0, 0, NC * FD_CHUNK - S))
+    pv = pv.reshape(B, H, G, NC, FD_CHUNK, D)
+    inside_pv = (inside & torch.nn.functional.pad(
+        att, (0, NC * FD_CHUNK - S)).reshape(B, 1, 1, NC, FD_CHUNK))
+    acc_c = torch.zeros((B, H, G, NC, D), dtype=torch.float32, device=dev)
+    for i in range(FD_CHUNK):
+        acc_c = torch.where(inside_pv[..., i, None], acc_c + pv[..., i, :],
+                            acc_c)
+    acc = acc_c.gather(3, first[..., None].expand(B, H, G, 1, D))[..., 0, :]
+    for c in range(1, NC):
+        live = ((c > c_lo) & (c < nc))[:, None, None, None]
+        acc = torch.where(live, acc + acc_c[..., c, :], acc)
+    return acc.to(torch.bfloat16)
+
+
 def flash_decode_attention(q, k, v, lengths, window: int = 0,
                            softcap: float = 0.0,
                            scale: float = 0.0) -> torch.Tensor:
@@ -303,21 +458,48 @@ def flash_decode_attention(q, k, v, lengths, window: int = 0,
     k/v f32[B, S, K, D] with S ≥ 1, lengths int32[B], all contiguous on one
     card; any G ≥ 1 and D ≥ 1, as :func:`flash_decode_certified` (Qwen2-7B
     needs G=7, D=128); ``window``, ``softcap`` and ``scale`` as in the
-    module's docstring (0: none, none, D^-½).
+    module's docstring (0: none, none, D^-½). A bf16 q (with an f32, bf16
+    or e4m3 cache, D ≤ 256) launches the bf16 instance, the composed bf16
+    path (:func:`flash_decode_bf16_ref`), and returns bf16; an f32 q with a
+    bf16 or e4m3 cache (D ≤ 256) the f32 arithmetic on the upcast cache.
     ``flash_decode_attention.launches`` counts calls."""
     B, S, H, G, D = _check_decode_args(q, k, v, lengths)
     _check_window_softcap(window, softcap)
     out = torch.empty_like(q)
-    part = _partials(B, S, H, G, D, q.device)
     cap = float(softcap)
-    rc = _lib_plain().repro_flash_decode_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr(), B, S, H, G, D,
-        float(scale) or D ** -0.5, int(window), cap, 1.0 / cap if cap else 0.0,
-        _build.stream_ptr(q.device))
+    if q.dtype == torch.bfloat16:
+        scb, capb, icb, negb = bf16_constants(D, scale, softcap)
+        NC = -(-S // FD_CHUNK)
+        scratch = torch.empty(B * H * G * (S + NC * (D + 2) + 2),
+                              dtype=torch.float32, device=q.device)
+        rc = _lib_narrow(
+            "flash_decode_bf16", "repro_flash_decode_bf16",
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _P])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), B, S, H, G, D, scb,
+            int(window), capb, icb, negb, DTYPE_CODES[k.dtype],
+            _build.stream_ptr(q.device))
+    else:
+        part = _partials(B, S, H, G, D, q.device)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), part.data_ptr(), B, S, H, G, D,
+                float(scale) or D ** -0.5, int(window), cap,
+                1.0 / cap if cap else 0.0)
+        if _narrow(q, k):
+            rc = _lib_narrow(
+                "flash_decode_certified_narrow", "repro_flash_decode_narrow",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+                 _I, ctypes.c_float, ctypes.c_float, _I, _P])(
+                *args, DTYPE_CODES[k.dtype], _build.stream_ptr(q.device))
+        else:
+            rc = _lib_plain().repro_flash_decode_f32(
+                *args, _build.stream_ptr(q.device))
     _build.check(rc, "flash_decode_attention")
     flash_decode_attention.launches += 1
+    BY_DTYPE["flash_decode_attention"][dtype_key(q, k)] += 1
     return out
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.launches_by_dtype = BY_DTYPE["flash_decode_attention"]

@@ -30,6 +30,14 @@ through :func:`f32_matmul`, on a :func:`block_diagonal` table of the
 heads' weights: at MiniCPM3's widths the library product's bits depend on
 the batch there.
 
+Narrow instances (``compute_dtype`` "bfloat16", ``param_dtype`` "fp8"):
+:func:`row_mean` reads bf16 rows and writes the f32 mean rounded to bf16;
+:func:`f32_matmul` takes x in f32 or bf16 and w in f32, bf16 or e4m3
+(``csrc/f32_matmul_narrow.cu``: the same body with its loads typed) and
+writes x's dtype. Each is bit for bit its
+f32 instance on the upcast operands followed by the cast, and the plain
+versions upcast first; the dispatchers cast to the input's dtype.
+
 These are port-only kernels: the JAX package has no Pallas kernel for
 either (XLA computes both), so they replace no TPU kernel.
 """
@@ -42,6 +50,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.caa_matmul import fmaf_rn
+from repro_torch.kernels.quant_matmul import (BY_DTYPE, DTYPE_CODES,
+                                              _lib_narrow,
+                                              check_gemm_operands,
+                                              dtype_key)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -49,10 +61,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ROW_THREADS = 256
 
 
-def _check_cuda_f32(name, t, ndim):
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise ValueError(f"{name}: needs a float32 CUDA tensor, got "
-                         f"{t.dtype} on {t.device}")
+def _check_cuda_f32(name, t, ndim, dtypes=(torch.float32,)):
+    if t.device.type != "cuda" or t.dtype not in dtypes:
+        raise ValueError(f"{name}: needs a CUDA tensor of "
+                         f"{[str(d) for d in dtypes]}, got {t.dtype} on "
+                         f"{t.device}")
     if t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous {ndim}-d tensor, got "
                          f"shape {tuple(t.shape)}")
@@ -89,37 +102,44 @@ def row_mean_ref(x: torch.Tensor) -> torch.Tensor:
 def _lib_mean():
     lib = _build.load("row_mean")
     if not getattr(lib, "_typed", False):
-        lib.repro_row_mean_f32.argtypes = [_P, _P, _I, _I, _P]
-        lib.repro_row_mean_f32.restype = _I
+        for fn in (lib.repro_row_mean_f32, lib.repro_row_mean_bf16):
+            fn.argtypes = [_P, _P, _I, _I, _P]
+            fn.restype = _I
         lib._typed = True
     return lib
 
 
 def row_mean(x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x f32[R, n] on the card, contiguous → f32[R], each
-    row's mean in the order of :func:`row_mean_ref`. Launches on the
-    current stream; raises on a refused launch. ``row_mean.launches``
-    counts launches."""
-    _check_cuda_f32("x", x, 2)
+    """The CUDA kernel: x [R, n] (f32 or bf16) on the card, contiguous →
+    [R] in x's dtype, each row's mean in the order of :func:`row_mean_ref`
+    (in f32; a bf16 mean is the f32 one rounded). Launches on the current
+    stream; raises on a refused launch. ``row_mean.launches`` counts
+    launches."""
+    _check_cuda_f32("x", x, 2, (torch.float32, torch.bfloat16))
     R, n = x.shape
     if n < 1:
         raise ValueError("row_mean: rows must not be empty")
-    out = torch.empty((R,), dtype=torch.float32, device=x.device)
-    rc = _lib_mean().repro_row_mean_f32(x.data_ptr(), out.data_ptr(), R, n,
-                                        _build.stream_ptr(x.device))
+    out = torch.empty((R,), dtype=x.dtype, device=x.device)
+    lib = _lib_mean()
+    fn = (lib.repro_row_mean_f32 if x.dtype == torch.float32
+          else lib.repro_row_mean_bf16)
+    rc = fn(x.data_ptr(), out.data_ptr(), R, n, _build.stream_ptr(x.device))
     _build.check(rc, "row_mean")
     row_mean.launches += 1
+    BY_DTYPE["row_mean"][dtype_key(x)] += 1
     return out
 
 
 row_mean.launches = 0
+row_mean.launches_by_dtype = BY_DTYPE["row_mean"]
 
 
 def row_mean_dispatch(x: torch.Tensor) -> torch.Tensor:
-    """mean(x, -1, keepdim=True) of an f32 tensor with a fixed order per
-    row: the plain version on the CPU, the kernel on the card."""
+    """mean(x, -1, keepdim=True) of an f32 or bf16 tensor with a fixed
+    order per row, in x's dtype: the plain version on the CPU, the kernel
+    on the card."""
     if x.device.type == "cpu":
-        return row_mean_ref(x)
+        return row_mean_ref(x).to(x.dtype)
     lead, n = x.shape[:-1], x.shape[-1]
     return row_mean(x.reshape(-1, n).contiguous()).reshape(*lead, 1)
 
@@ -149,32 +169,38 @@ def _lib_mm():
 
 
 def f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x f32[M, K] @ w f32[K, N] → f32[M, N], both on the
-    card and contiguous, in the order of :func:`f32_matmul_seq_ref`.
-    Launches on the current stream; raises on a refused launch.
-    ``f32_matmul.launches`` counts launches."""
-    _check_cuda_f32("x", x, 2)
-    _check_cuda_f32("w", w, 2)
-    M, K = x.shape
-    K2, N = w.shape
-    if K != K2 or w.device != x.device:
-        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} on "
-                         f"{x.device}/{w.device} do not match")
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    rc = _lib_mm().repro_f32_matmul(x.data_ptr(), w.data_ptr(),
-                                    out.data_ptr(), M, N, K,
-                                    _build.stream_ptr(x.device))
+    """The CUDA kernel: x [M, K] (f32 or bf16) @ w [K, N] (f32, bf16 or
+    e4m3) → [M, N] in x's dtype, both on the card and contiguous, in the
+    order of :func:`f32_matmul_seq_ref` (then cast). Launches on the
+    current stream; raises on a refused launch. ``f32_matmul.launches``
+    counts launches."""
+    M, N, K = check_gemm_operands(x, w)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    stream = _build.stream_ptr(x.device)
+    if x.dtype == w.dtype == torch.float32:
+        rc = _lib_mm().repro_f32_matmul(x.data_ptr(), w.data_ptr(),
+                                        out.data_ptr(), M, N, K, stream)
+    else:
+        rc = _lib_narrow("f32_matmul_narrow", "repro_f32_matmul_narrow",
+                         [_P, _P, _P, _I, _I, _I, _I, _I, _P])(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+            DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype], stream)
     _build.check(rc, "f32_matmul")
     f32_matmul.launches += 1
+    BY_DTYPE["f32_matmul"][dtype_key(x, w)] += 1
     return out
 
 
 f32_matmul.launches = 0
+f32_matmul.launches_by_dtype = BY_DTYPE["f32_matmul"]
 
 
 def transposed(table: torch.Tensor) -> torch.Tensor:
     """A contiguous ``[D, V]`` copy of an embedding table ``[V, D]``: the
-    layout the GEMM body reads w in (2.18 GB at Qwen2-7B's width)."""
+    layout the GEMM body reads w in (2.18 GB at Qwen2-7B's width in f32;
+    an e4m3 table is copied as its bytes)."""
+    if table.dtype == torch.float8_e4m3fn:
+        return table.view(torch.uint8).t().contiguous().view(table.dtype)
     return table.t().contiguous()
 
 
@@ -192,27 +218,27 @@ def block_diagonal(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_dispatch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [..., K] @ w [K, N]`` of f32 tensors with a fixed order per
-    output element: the plain version on the CPU, the kernel on the card
-    (``w`` read as it lies: it must be contiguous, so no copy is made)."""
+    """``x [..., K] @ w [K, N]`` with a fixed order per output element, in
+    x's dtype: the plain version on the CPU, the kernel on the card (``w``
+    read as it lies: it must be contiguous, so no copy is made)."""
     lead, K = x.shape[:-1], x.shape[-1]
     rows = x.reshape(-1, K)
     if x.device.type == "cpu" and w.device.type == "cpu":
-        out = f32_matmul_seq_ref(rows, w)
+        out = f32_matmul_seq_ref(rows, w).to(x.dtype)
     else:
         out = f32_matmul(rows.contiguous(), w)
     return out.reshape(*lead, w.shape[-1])
 
 
 def lm_head_dispatch(x: torch.Tensor, table_t: torch.Tensor) -> torch.Tensor:
-    """``einsum('bsd,vd->bsv', x, table)`` of f32 tensors with a fixed order
-    per row, given ``table_t`` = :func:`transposed` (table): the plain
+    """``einsum('bsd,vd->bsv', x, table)`` with a fixed order per row, in
+    x's dtype, given ``table_t`` = :func:`transposed` (table): the plain
     version on the CPU, the kernel on the card. ``x`` [..., D] is
     flattened to rows and restored after."""
     lead, D = x.shape[:-1], x.shape[-1]
     rows = x.reshape(-1, D)
     if x.device.type == "cpu" and table_t.device.type == "cpu":
-        out = f32_matmul_seq_ref(rows, table_t)
+        out = f32_matmul_seq_ref(rows, table_t).to(x.dtype)
     else:
         out = f32_matmul(rows.contiguous(), table_t)
     return out.reshape(*lead, table_t.shape[-1])

@@ -123,6 +123,16 @@ def _device_of(params) -> torch.device:
     return params["embed"].device
 
 
+def _check_cache_dtype(sc: serve.ServeConfig) -> None:
+    """The engine's cache is f32, as the reference engine's is (it
+    allocates ``init_cache(..., jnp.float32)`` and never reads
+    ``cache_dtype``); a ServeConfig asking for a narrower one raises
+    instead of being ignored. ``compute_dtype`` is served."""
+    if sc.cache_dtype != "float32":
+        raise ValueError(f"cache_dtype {sc.cache_dtype!r}: the batching "
+                         "engine's cache is float32, as the reference's")
+
+
 def _check_servable(arch_cfg) -> None:
     """An encoder-decoder model raises: requests carry no encoder input."""
     if arch_cfg.enc_dec:
@@ -156,6 +166,7 @@ class ContinuousBatchingEngine:
         if on.type != dev.type or dev.index not in (None, on.index):
             raise ValueError(f"params live on {on}, the engine on {dev}")
         _check_servable(arch_cfg)
+        _check_cache_dtype(sc)
         self.device = on
         self.arch_cfg, self.sc, self.params = arch_cfg, sc, params
         self.n_lanes, self.max_seq = n_lanes, max_seq
@@ -230,8 +241,8 @@ class ContinuousBatchingEngine:
             self.cache["idx"][:, owner] = P
             row = logits[0, P - 1]
         else:
-            row = torch.empty(self.arch_cfg.vocab, dtype=torch.float32,
-                              device=dev)
+            row = torch.empty(self.arch_cfg.vocab,
+                              dtype=self.sc.dtypes[0], device=dev)
         if self._lane_axis:
             row = self._from_lane_owner(row, lane // self.rows)
         return int(torch.argmax(row)), row
@@ -409,6 +420,7 @@ def reference_generate(arch_cfg, sc: serve.ServeConfig, params,
     shape). Returns the tokens, or (tokens, logit rows [n, V]) with
     ``return_logits``."""
     _check_servable(arch_cfg)
+    _check_cache_dtype(sc)
     bk = make_backend(sc, unrolled=True)
     dev = _device_of(params)
     cache = T.init_cache(arch_cfg, 1, max_seq, device=dev, per_lane_idx=True)
@@ -456,6 +468,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights' generator and the requests")
     ap.add_argument("--precision-k", type=int, default=None)
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="activations and products; params are stored in "
+                         "it (the cache stays float32, as the reference "
+                         "engine's)")
     serve.add_certificate_flags(ap)
     ap.add_argument("--check-ref", action="store_true",
                     help="re-serve every request alone through "
@@ -484,9 +501,11 @@ def main(argv=None):
     sc = serve.ServeConfig(arch=args.arch, batch=args.lanes,
                            max_seq=args.max_seq,
                            precision_k=args.precision_k,
-                           certificates=args.certificates, device=str(dev))
+                           certificates=args.certificates, device=str(dev),
+                           compute_dtype=args.compute_dtype)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = T.init_params(arch_cfg, generator=gen, device=dev)
+    params = T.init_params(arch_cfg, generator=gen, device=dev,
+                           dtype=sc.dtypes[2])
     certset = None
     if args.certificates is not None:
         sc, certset = serve.apply_certificates(sc, arch_cfg, params,

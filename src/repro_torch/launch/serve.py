@@ -48,13 +48,25 @@ prepended at prefill (its decode positions follow them), and Whisper's
 frames are encoded once at prefill, the encoder states reused by every
 decode step.
 
+Dtypes (``ServeConfig.compute_dtype`` / ``cache_dtype`` / ``param_dtype``,
+the reference's fields; CLI ``--compute-dtype float32|bfloat16``,
+``--cache-dtype float32|bfloat16|fp8``, ``--param-dtype same|fp8``): every
+backend runs in the compute dtype; params are stored in it ("same") or in
+e4m3 ("fp8"), the dry run's reading; the cache is allocated in the cache
+dtype, written by rounding into it and read by upcasting to the compute
+dtype. The certified backends keep the reference's order: operands to f32,
+rounded into the format or k, f32 sums, the result rounded, then cast to
+the compute dtype (two roundings in bf16 for k > 8). Under bf16 a
+violation monitor observes each product in bf16, after that cast.
+
 CLI::
 
     python -m repro_torch.launch.serve --size full --batch 4 \\
         --prefill-len 128 --decode-steps 16 --precision-k 12
     (or --layer-format '{"": {...}}', --certificate-set SET.json, or
     --certificates STORE_DIR [--certify-formats]; plus --monitor,
-    --metrics OUT.jsonl, --prom OUT.prom, --trace OUT.jsonl)
+    --metrics OUT.jsonl, --prom OUT.prom, --trace OUT.jsonl; plus
+    --compute-dtype bfloat16 --cache-dtype fp8 --param-dtype fp8)
 """
 from __future__ import annotations
 
@@ -70,6 +82,7 @@ import torch
 from repro_torch import configs, obs
 from repro_torch.certify.pipeline import serving_certificate
 from repro_torch.certify.spec import CertificateSet
+from repro_torch.core import dtypes
 from repro_torch.core.backend import MeshOps, MeshTorchOps, TorchOps
 from repro_torch.core.scopes import resolve_scope_value
 from repro_torch.kernels.flash_decode import certified_decode_attention
@@ -126,7 +139,12 @@ class ServeConfig:
     batch: int = 4
     max_seq: int = 256
     prefill_len: int = 128
+    # the dtypes of activations and products, of the KV cache (or recurrent
+    # state) and of stored params ("same": the compute dtype; "fp8": e4m3),
+    # the reference's fields and defaults; names outside DTYPES raise
     compute_dtype: str = "float32"
+    cache_dtype: str = "float32"
+    param_dtype: str = "same"
     # Uniform certified mantissa precision k (v1); None serves plain.
     precision_k: Optional[int] = None
     # Per-layer map {scope: k} (v2): matmuls inside a mapped scope run at
@@ -147,10 +165,17 @@ class ServeConfig:
     params_resident: Optional[bool] = None
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r}: the port serves f32 "
-                "only")
+        # stricter than the reference, which reads an unknown name as f32
+        dtypes.compute_dtype(self.compute_dtype)
+        dtypes.cache_dtype(self.cache_dtype)
+        dtypes.param_dtype(self.param_dtype, self.compute_dtype)
+
+    @property
+    def dtypes(self):
+        """(compute, cache, param) torch dtypes."""
+        return (dtypes.compute_dtype(self.compute_dtype),
+                dtypes.cache_dtype(self.cache_dtype),
+                dtypes.param_dtype(self.param_dtype, self.compute_dtype))
 
 
 class QuantJOps(TorchOps):
@@ -322,22 +347,25 @@ def _backend(sc: ServeConfig, monitor=None, mesh=None):
     then the uniform k, then plain TorchOps; its mesh variant on ``mesh``
     (a DeviceMesh) when given (:class:`repro_torch.core.backend.MeshOps`).
     A violation ``monitor`` is attached to the certified backends; the
-    plain one refuses it."""
+    plain one refuses it. Every backend, the plain one included, runs in
+    ``sc.compute_dtype`` (the reference's ``dt``)."""
+    dt = dtypes.compute_dtype(sc.compute_dtype)
     if sc.precision_layer_format:
-        cls, args = FormatQuantJOps, (sc.precision_layer_format,)
+        cls, args = FormatQuantJOps, (sc.precision_layer_format, dt)
     elif sc.precision_layer_k:
         if sc.precision_k is None:
             raise ValueError("precision_layer_k needs precision_k as the "
                              "default for unmapped scopes")
-        cls, args = MixedQuantJOps, (sc.precision_layer_k, sc.precision_k)
+        cls, args = MixedQuantJOps, (sc.precision_layer_k, sc.precision_k,
+                                     dt)
     elif sc.precision_k is not None:
-        cls, args = QuantJOps, (sc.precision_k,)
+        cls, args = QuantJOps, (sc.precision_k, dt)
     else:
         if monitor is not None:
             raise ValueError("violation monitoring needs a certified "
                              "quantised backend (precision_k / layer map / "
                              "format map)")
-        cls, args = TorchOps, (torch.float32,)
+        cls, args = TorchOps, (dt,)
     bk = cls(*args) if mesh is None else _ON_MESH[cls](*args, mesh=mesh)
     if cls is not TorchOps:
         bk.monitor = monitor
@@ -623,6 +651,16 @@ def main(argv=None, mesh=None) -> ServeResult:
                          "reference's compile-time and jaxpr-size gauges "
                          "have no PyTorch counterpart and are not "
                          "recorded")
+    ap.add_argument("--compute-dtype", choices=sorted(dtypes.COMPUTE_DTYPES),
+                    default="float32",
+                    help="activations and products (ServeConfig."
+                         "compute_dtype)")
+    ap.add_argument("--cache-dtype", choices=sorted(dtypes.CACHE_DTYPES),
+                    default="float32",
+                    help="the KV cache or recurrent state (fp8: e4m3)")
+    ap.add_argument("--param-dtype", choices=dtypes.PARAM_DTYPES,
+                    default="same",
+                    help="stored params: the compute dtype, or e4m3 (fp8)")
     ap.add_argument("--params-resident", choices=("auto", "on", "off"),
                     default="auto",
                     help="params on the mesh's model axis only (on), or "
@@ -663,8 +701,12 @@ def main(argv=None, mesh=None) -> ServeResult:
                      precision_layer_format=(json.loads(args.layer_format)
                                              if args.layer_format else None),
                      certificates=args.certificates, device=str(dev),
+                     compute_dtype=args.compute_dtype,
+                     cache_dtype=args.cache_dtype,
+                     param_dtype=args.param_dtype,
                      params_resident={"auto": None, "on": True,
                                       "off": False}[args.params_resident])
+    compute_dt, cache_dt, param_dt = sc.dtypes
     certset = None
     if args.certificate_set:
         with open(args.certificate_set) as fh:
@@ -673,13 +715,14 @@ def main(argv=None, mesh=None) -> ServeResult:
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = T.init_params(cfg, generator=gen, device=dev)
-    cache = T.init_cache(cfg, sc.batch, sc.max_seq, device=dev)
+    params = T.init_params(cfg, generator=gen, device=dev, dtype=param_dt)
+    cache = T.init_cache(cfg, sc.batch, sc.max_seq, device=dev,
+                         dtype=cache_dt)
     rng = np.random.RandomState(args.seed)
     prompt = torch.from_numpy(
         rng.randint(0, cfg.vocab, (sc.batch, sc.prefill_len))).to(dev)
     # the stub's inputs, drawn after the prompt as the reference draws them
-    frontend = T.frontend_inputs(cfg, sc.batch, rng, dev)
+    frontend = T.frontend_inputs(cfg, sc.batch, rng, dev, dtype=compute_dt)
     _sync(dev)
     t_init = time.perf_counter() - t0
     if sc.certificates is not None:

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import dtypes
 from repro_torch.models import layers as L
 
 
@@ -33,9 +34,14 @@ def _cache_write(buf: torch.Tensor, upd: torch.Tensor, index: torch.Tensor):
     """Write ``upd`` [B, S, ...] into ``buf`` [B, Smax, ...] in place and
     without a host sync. A 0-d ``index`` writes every lane at that sequence
     offset; a [B] one writes lane b at ``index[b]`` (one ``index_put_`` on
-    (lane, position)). The positions written must lie inside the buffer."""
+    (lane, position)). The positions written must lie inside the buffer.
+    The values are rounded into the cache's dtype (a bf16 or e4m3 cache:
+    the reference's ``astype``, :func:`repro_torch.core.dtypes.cast`); an
+    e4m3 cache is written as its bytes."""
     steps = torch.arange(upd.shape[1], device=buf.device)
-    upd = upd.to(buf.dtype)
+    upd = dtypes.cast(upd, buf.dtype)
+    if buf.dtype == dtypes.FP8:
+        buf, upd = buf.view(torch.uint8), upd.view(torch.uint8)
     if index.dim() == 0:
         buf.index_copy_(1, index.to(torch.int64) + steps, upd)
         return

@@ -59,14 +59,17 @@ def mamba_shapes(d: int, d_inner: int, d_state: int = 16):
             "w_out": (d_inner, d)}
 
 
-def init_leaf(name: str, shape, *, generator: torch.Generator, device):
+def init_leaf(name: str, shape, *, generator: torch.Generator, device,
+              layer_slice: bool = False):
     """One leaf of a ``tmix``, ``cmix`` or ``mamba`` block (any leading
     ``[L]`` axis), filled in place on ``device`` from ``generator`` (which
     must live there), with the reference's distributions: the token-shift
     mixes ``mu_*`` 0.5, ``w0`` −0.6, ``ln_out`` and ``D`` ones, ``A_log``
     log(1..N), ``u`` N(0, 0.3²), ``wB`` N(0, 0.01²), ``w_dt`` N(0, 0.1²)
-    and every other dense weight N(0, 1/fan_in)."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
+    and every other dense weight N(0, 1/fan_in). ``layer_slice``: one
+    layer's slice ``shape[1:]`` of the stacked leaf ``shape``."""
+    t = torch.empty(shape[1:] if layer_slice else shape,
+                    dtype=torch.float32, device=device)
     if name.startswith("mu_"):
         return t.fill_(0.5)
     if name == "w0":

@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import dtypes
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -134,18 +135,26 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
 _SSM_BLOCKS = ("tmix", "cmix", "mamba")
 
 
-def _init_value(path, shape, generator, device):
+#: the trees whose leaves are stacked over layers, [L, ...]
+_STACKS = ("layers", "enc_layers", "cross")
+
+
+def _init_value(path, shape, generator, device, layer_slice=False):
     """One tensor at ``path`` (its keys in the tree), filled in place on
     ``device`` with the reference's distributions: N(0, 1/fan_in) dense
     weights (the experts' too: fan_in is the second-to-last axis), N(0,
     0.02²) embeddings, ones for norm gains (MLA's latent norms and the
     encoder's too), zeros for biases (LayerNorm's ``ln*_b`` too); the leaves of
     the ``tmix``, ``cmix`` and ``mamba`` blocks (whose names collide with
-    attention's) as :func:`repro_torch.models.ssm.init_leaf` draws them."""
+    attention's) as :func:`repro_torch.models.ssm.init_leaf` draws them.
+    ``layer_slice``: one layer's slice ``shape[1:]`` of a stacked leaf
+    ``shape``, with the whole leaf's distribution."""
     name = path[-1]
     if len(path) > 1 and path[-2] in _SSM_BLOCKS:
-        return SSM.init_leaf(name, shape, generator=generator, device=device)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
+        return SSM.init_leaf(name, shape, generator=generator, device=device,
+                             layer_slice=layer_slice)
+    t = torch.empty(shape[1:] if layer_slice else shape,
+                    dtype=torch.float32, device=device)
     if name in ("ln1", "ln2", "final_norm", "enc_norm", "q_norm",
                 "kv_norm"):
         return t.fill_(1.0)
@@ -156,17 +165,33 @@ def _init_value(path, shape, generator, device):
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
-                device) -> Dict[str, Any]:
+                device, dtype=torch.float32) -> Dict[str, Any]:
     """Random parameters from ``generator`` (which must live on ``device``),
     each tensor allocated and filled in place on the device — a 30 GB
     model never holds a second copy. The numbers differ from JAX's
     ``init_params`` (another generator); tests that compare the two
     packages convert the reference's params with
-    :func:`repro_torch.convert.params_from_numpy` instead."""
+    :func:`repro_torch.convert.params_from_numpy` instead.
+
+    ``dtype`` (f32, bf16 or e4m3: ``ServeConfig``'s param dtype) is the
+    stored dtype. A stacked leaf (under ``layers`` / ``enc_layers``, [L,
+    ...]) is filled one layer slice at a time in f32 and rounded into it
+    (e4m3 by the reference's rounding, :func:`repro_torch.core.dtypes.
+    cast`), so one slice is the largest f32 temporary (Gemma-2's stacked
+    ``w_gate`` is 31.3 GB in f32), and every dtype draws the same numbers:
+    a narrow init is the f32 init followed by the cast, bit for bit. A
+    leaf outside the stack is filled whole, then cast."""
     def build(tree, path=()):
         if isinstance(tree, dict):
             return {k: build(v, path + (k,)) for k, v in tree.items()}
-        return _init_value(path, tree, generator, device)
+        if path[0] not in _STACKS:
+            return dtypes.cast(_init_value(path, tree, generator, device),
+                               dtype)
+        out = torch.empty(tree, dtype=dtype, device=device)
+        for i in range(tree[0]):
+            out[i] = dtypes.cast(_init_value(path, tree, generator, device,
+                                             layer_slice=True), dtype)
+        return out
 
     return build(param_shapes(cfg))
 
@@ -258,15 +283,17 @@ def _rope_dim(cfg: ArchConfig) -> int:
     return cfg.d_rope if cfg.mla else cfg.head_dim
 
 
-def frontend_inputs(cfg: ArchConfig, batch: int, rng, device):
-    """The modality stub's inputs, [batch, frontend_seq, frontend_dim] f32
-    drawn from ``rng`` (a ``np.random.RandomState``) as the reference draws
-    them (Whisper's audio frames, ``enc_embeds``; PaliGemma's vision
-    patches, ``frontend_embeds``), or None for a text-only arch."""
+def frontend_inputs(cfg: ArchConfig, batch: int, rng, device,
+                    dtype=torch.float32):
+    """The modality stub's inputs, [batch, frontend_seq, frontend_dim]
+    drawn in f32 from ``rng`` (a ``np.random.RandomState``) as the reference
+    draws them (Whisper's audio frames, ``enc_embeds``; PaliGemma's vision
+    patches, ``frontend_embeds``), in ``dtype`` (the compute dtype), or
+    None for a text-only arch."""
     if not cfg.frontend:
         return None
     x = rng.randn(batch, cfg.frontend_seq, cfg.frontend_dim)
-    return torch.from_numpy(x.astype("float32")).to(device)
+    return torch.from_numpy(x.astype("float32")).to(device).to(dtype)
 
 
 def forward(bk, params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
@@ -346,9 +373,11 @@ def forward(bk, params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
         x = bk.add(x, SSM.rwkv_cmix(bk, h2, p["cmix"],
                                     None if aux is None else aux["x_cm"]))
         if aux is not None:
-            aux["S"].copy_(new_state.S)
-            aux["x_tm"].copy_(new_state.x_prev)
-            aux["x_cm"].copy_(bk.value_of(h2)[:, -1, :])
+            # stored in the cache's dtype, upcast at use (reference
+            # ssm.py: the state may live in a narrower format)
+            dtypes.copy_into(aux["S"], new_state.S)
+            dtypes.copy_into(aux["x_tm"], new_state.x_prev)
+            dtypes.copy_into(aux["x_cm"], bk.value_of(h2)[:, -1, :])
         return x
 
     def layer_fn(p, x, i, aux):
@@ -382,7 +411,7 @@ def forward(bk, params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
                 h0=None if aux is None else aux["h_ssm"], return_state=True)
             out = bk.scale(bk.add(out, m_out), 0.5, exact_const=True)
             if aux is not None:
-                aux["h_ssm"].copy_(h_fin)
+                dtypes.copy_into(aux["h_ssm"], h_fin)
         x = bk.add(x, out)
         if cfg.enc_dec:
             hc = _norm(bk, x, p, cfg, "ln1")

@@ -154,8 +154,8 @@ def test_format_backend_guards():
     with pytest.raises(NotImplementedError):
         tserve.FormatQuantJOps({"": {"k": 4, "emax": 8, "emin": -6,
                                      "max_finite_override": 448.0}})
-    with pytest.raises(NotImplementedError):
-        tserve.ServeConfig(compute_dtype="bfloat16")
+    with pytest.raises(ValueError):
+        tserve.ServeConfig(compute_dtype="float16")
     assert isinstance(tserve._backend(tserve.ServeConfig()), TorchOps)
     assert isinstance(tserve._backend(tserve.ServeConfig(
         precision_layer_format=FMT_MAP)), tserve.FormatQuantJOps)
