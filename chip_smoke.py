@@ -145,7 +145,18 @@ sha256 of its logits and a profiler trace of its decode steps):
   cell's requests through the engine in bf16, every lane bit for bit
   alone; Gemma-2 27B FULL at all 46 layers (bf16 compute, e4m3 params,
   bf16 cache, format map) with its peak memory and the share of its
-  weights e4m3 stores as zero or subnormal;
+  weights e4m3 stores as zero or subnormal; MLA's bf16 decode through the
+  port-only latent kernel: bit for bit its plain version at MiniCPM3's
+  decode shapes, at 32K and with a lane of length 0 (bf16, e4m3 and f32
+  latent caches), timed beside the composed bf16 einsum path; MiniCPM3 4B
+  FULL at all 62 layers in bf16 under the plain, k = 12 and format
+  backends (one latent launch a layer and decode step, two steps' calls
+  bit for bit the plain version), then through the engine, every lane bit
+  for bit alone; and the dry run (``launch/dryrun.py``, started in a
+  spawned CPU process after the kernel phases): Qwen2-7B's four shapes on
+  the fake single-pod 16 × 16 mesh, and the prefill steps of ``dtypes``'
+  Qwen2-7B and Gemma-2 runs on 1 × 1, whose params and cache bytes must
+  equal the bytes those runs allocated on the card;
 * ``train`` — training (``launch/train.py``): every arch's SMOKE loss and
   gradients on the card, with each layer rematerialised and without (bit
   for bit), against the CPU port's on the same params and batch (loss
@@ -179,8 +190,11 @@ CPU half that failed fails it there. The ``paper`` phase (with its
 quickstart's CPU half) runs in a second spawned process on the card
 while this one runs ``zoo``, ``ssm`` and ``mla_encdec``: it needs nothing
 of them and counts its own launches; the run waits for it before
-``dtypes`` and fails if it failed. ``dtypes`` runs alone: beside the
-analyses of ``ssm`` and ``mla_encdec`` both ran up to twice as long.
+``dtypes`` and fails if it failed. A third spawned process on the card
+(SMOKE_CARD) runs the card halves of those three phases' SMOKE analyses
+from ``ranges`` on, counting its own launches, which the phases add to
+theirs. ``dtypes`` runs alone: beside the analyses of ``ssm`` and
+``mla_encdec`` both ran up to twice as long.
 
 Each phase prints one JSON object on a line of its own, then a ``seconds``
 line with its host seconds; a phase that fails raises and the script exits
@@ -334,7 +348,59 @@ class SideProcess:
 
 CPU = SideProcess(card=False)
 PAPER = SideProcess(card=True)
+SMOKE_CARD = SideProcess(card=True)
 CPU_JOBS = {}           # (phase, arch) → future of a job queued at the start
+CARD_JOBS = {}          # (phase, arch) → future of a card half (SMOKE_CARD)
+SMOKE_CARD_THREADS = 1  # its SMOKE analyses are host-bound Python
+
+
+SMOKE_CARD_ROOTS = {"zoo": ROOT / "build" / "chip_smoke_zoo",
+                    "ssm": ROOT / "build" / "chip_smoke_ssm",
+                    "mla": ROOT / "build" / "chip_smoke_mla_encdec"}
+
+
+def card_smoke_side(kind: str, arch: str, root):
+    """The card half of ``kind``'s SMOKE check of ``arch`` (the
+    ``*_smoke_side`` function with ``dev="cuda"``), in the SMOKE_CARD
+    process, and the kernel launches it made there (every counter set to
+    0 just before, read just after)."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qmm
+
+    fns = kernel_fns(qmm, fd)
+    reset_launches(fns)
+    fn = {"zoo": zoo_smoke_side, "ssm": ssm_smoke_side,
+          "mla": mla_smoke_side}[kind]
+    out = fn(arch, "cuda", root)
+    return out, read_launches(fns)
+
+
+def queue_card_smoke_sides() -> None:
+    """Queue the card halves of ``zoo``'s, ``ssm``'s and ``mla_encdec``'s
+    SMOKE analyses in the SMOKE_CARD process: host-bound eager passes on
+    tiny tensors, which run there while the main process serves."""
+    import shutil
+
+    for kind, archs in (("zoo", ZOO_SMOKE), ("ssm", SSM_ARCHS),
+                        ("mla", MLA_ENCDEC_ARCHS)):
+        shutil.rmtree(SMOKE_CARD_ROOTS[kind], ignore_errors=True)
+        for arch in archs:
+            CARD_JOBS[(kind, arch)] = SMOKE_CARD.submit(
+                card_smoke_side, kind, arch, SMOKE_CARD_ROOTS[kind])
+
+
+def card_job(kind: str, arch: str, fns):
+    """The card half of ``kind``'s SMOKE check of ``arch`` (queued, or run
+    here when it was not); its launches are added to ``fns``' counters,
+    as if it had run in this process."""
+    job = CARD_JOBS.pop((kind, arch), None)
+    if job is None:
+        job = SMOKE_CARD.submit(card_smoke_side, kind, arch,
+                                SMOKE_CARD_ROOTS[kind])
+    out, launches = job.result()
+    for name, n in launches.items():
+        fns[name].launches += n
+    return out
 
 
 def queue_smoke_sides() -> None:
@@ -426,6 +492,36 @@ def trace_ms(torch, fn, copies, iters: int, attempts: int = 6) -> float:
         if spans:
             return sum(spans) / 1e3 / iters
     raise AssertionError(f"{attempts} traces held no device activity")
+
+
+def graph_ms(torch, fn, copies, iters: int) -> float:
+    """Mean device time of ``fn(w)`` a call, ``w`` rotating through
+    ``copies``: ``iters`` calls captured in one CUDA graph (after a warm-up
+    pass on a side stream), the graph replayed between two CUDA events. The
+    device runs the calls back to back with no host launch between them,
+    so a call shorter than its launch is timed by the device, without the
+    profiler (whose traces now and then hold no device activity)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for w in copies:
+            fn(w)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(iters):
+            fn(copies[i % len(copies)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
 
 
 def gemm_times(torch, kernel, plain, x, w, iters):
@@ -553,8 +649,8 @@ def phase_build(build):
 class NarrowBuild:
     """The ``dtypes`` phase's sources (``NARROW_SOURCES``: the bf16 / e4m3
     instances) built in a thread beside the run's first phases, every nvcc
-    started together (cores the card's phases leave idle; the phase runs
-    some ten minutes later). ``finish()`` waits for it, prints its
+    started together at a lower priority (cores the card's phases leave
+    idle; the phase runs some ten minutes later). ``finish()`` waits for it, prints its
     ``dtypes_build`` line and raises if the build failed."""
 
     def __init__(self, build):
@@ -566,6 +662,10 @@ class NarrowBuild:
         self.thread.start()
 
     def _run(self, build):
+        # this thread and the nvcc processes it starts yield the host's
+        # cores to the kernel phases' timing loops (on Linux a nice value
+        # is a thread's, and a child inherits it)
+        os.nice(10)
         try:
             self.result = built(build, build.NARROW_SOURCES)
         except BaseException as e:       # raised again in finish()
@@ -2751,6 +2851,67 @@ def reference_runs(batching, cfg, sc, params, reqs, eos_id):
         for req in reqs}
 
 
+def batching_k_path(torch, serve, batching, qmm, fd, T, fns, cfg, params,
+                    reqs):
+    """``batching``'s k path: its first BATCH_K_REQUESTS requests through
+    the engine at k = 12 (kernel 3, the decode attention through kernel
+    4), kernel inputs against their plain versions, every request against
+    ``reference_generate``, one ragged step's ops each lane against
+    itself alone. Returns (ServeConfig, launches, report, kernel rows,
+    lane bits, the mesh phase's handoff, op lane bits)."""
+    sc_k = serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
+                             max_seq=BATCH_ENGINE["max_seq"],
+                             precision_k=SERVE_K)
+    dispatch_k = serve.quant_matmul_dynamic_k
+    k_in, k_seen = {}, set()
+
+    def spy_k(x, w, k):
+        x2 = x.reshape(-1, x.shape[-1])
+        shape = (x2.shape[0] == BATCH_ENGINE["n_lanes"], *w.shape, int(k))
+        if shape not in k_seen:
+            k_seen.add(shape)
+            k_in[(*x2.shape, w.shape[1], int(k))] = (x2.clone(),
+                                                     w.contiguous())
+        return dispatch_k(x, w, k)
+
+    def expected_k(engine, admitted):
+        return {"quant_matmul_format": 0, "flash_decode_certified": 0,
+                "quant_matmul": 7 * L_FULL * (admitted + engine.steps),
+                "flash_decode_attention": L_FULL * engine.steps,
+                **IDLE_ON_SERVING,
+                **row_order_launches(admitted + engine.steps)}
+
+    k_reqs = reqs[:BATCH_K_REQUESTS]
+    fd_spy = FirstLastSpy(fd.flash_decode_attention)
+    serve.quant_matmul_dynamic_k = spy_k
+    fd.flash_decode_attention = fd_spy
+    try:
+        engine_k, responses_k, launches_k, registry_k, wall_k = run_batching(
+            torch, batching, fns, cfg, sc_k, params, k_reqs, None, -1,
+            expected_k)
+    finally:
+        serve.quant_matmul_dynamic_k = dispatch_k
+        fd.flash_decode_attention = fd_spy.fn
+    k_report = batching_report(engine_k, responses_k, registry_k, wall_k)
+    k_path = {"quant_matmul": [],
+              "flash_decode_attention": flash_attention_rows(
+                  torch, fd, fd_spy.seen)}
+    del fd_spy
+    for (M, K, N, k), (x, w) in sorted(k_in.items()):
+        _, st = check_gemm_k(torch, qmm, x, w, k)
+        k_path["quant_matmul"].append({"M": M, "K": K, "N": N, "k": k, **st})
+    del k_in
+    ref_k = reference_runs(batching, cfg, sc_k, params, k_reqs, -1)
+    k_bits = lane_bits(torch, responses_k, ref_k)
+    handoff = {"launches": launches_k,
+               "requests": served_digests(responses_k)}
+    del ref_k, responses_k, engine_k
+    k_ops = op_lane_bits(torch, serve, T, cfg, params,
+                         serve.QuantJOps(SERVE_K),
+                         smax=BATCH_ENGINE["max_seq"])
+    return sc_k, launches_k, k_report, k_path, k_bits, handoff, k_ops
+
+
 def phase_batching(torch, serve, batching, qmm, fd, T):
     """Continuous batching at Qwen2-7B FULL (f32, random weights from seed
     0): 4 lanes over a per-lane cache of 256 positions in pages of 16, 28
@@ -2777,21 +2938,37 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
     torch.cuda.synchronize()
 
     # the store: an entry put under the port's key, then found by
-    # apply_certificates, which digests the params again
+    # apply_certificates, which digests the params again; both digests
+    # (host-bound, ~26 s each at full width) run in a thread while the k
+    # path below serves
     root = ROOT / "build" / "chip_smoke_store"
     shutil.rmtree(root, ignore_errors=True)
-    t0 = time.perf_counter()
-    digest = store.params_digest(params)
-    digest_s = time.perf_counter() - t0
-    key, path = write_format_entry(spec, formats, store, pipeline, root, cfg,
-                                   digest)
-    t0 = time.perf_counter()
-    sc, certset = serve.apply_certificates(
-        serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
-                          max_seq=BATCH_ENGINE["max_seq"],
-                          certificates=str(root)),
-        cfg, params, formats=True, k_max=53)
-    apply_s = time.perf_counter() - t0
+
+    def from_store():
+        t0 = time.perf_counter()
+        digest = store.params_digest(params)
+        digest_s = time.perf_counter() - t0
+        key, path = write_format_entry(spec, formats, store, pipeline, root,
+                                       cfg, digest)
+        t0 = time.perf_counter()
+        sc, certset = serve.apply_certificates(
+            serve.ServeConfig(arch="qwen2_7b",
+                              batch=BATCH_ENGINE["n_lanes"],
+                              max_seq=BATCH_ENGINE["max_seq"],
+                              certificates=str(root)),
+            cfg, params, formats=True, k_max=53)
+        return (digest, digest_s, key, path, sc, certset,
+                time.perf_counter() - t0)
+
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        stored = pool.submit(from_store)
+        reqs, too_long = batching_requests(torch, batching, cfg.vocab)
+        k_part = batching_k_path(torch, serve, batching, qmm, fd, T, fns,
+                                 cfg, params, reqs)
+        (digest, digest_s, key, path, sc, certset,
+         apply_s) = stored.result()
     bk = serve._backend(sc)
     want_bk = serve.FormatQuantJOps(SERVE_FORMAT)
     paths = [["embed"], ["head"]] + [[f"layer{i}", s] for i in (0, 1, 27)
@@ -2800,7 +2977,6 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
             bk.format_for(p) != want_bk.format_for(p) for p in paths):
         raise AssertionError(f"the store served {sc.precision_layer_format}")
 
-    reqs, too_long = batching_requests(torch, batching, cfg.vocab)
     eos_req, eos_at = BATCH_EOS_FROM
     eos_id = batching.reference_generate(
         cfg, sc, params, reqs[eos_req].prompt, BATCH_MAX_NEW,
@@ -2935,58 +3111,10 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
                            serve.FormatQuantJOps(SERVE_FORMAT),
                            smax=BATCH_ENGINE["max_seq"])
 
-    # the k path: kernel 3, the decode attention through kernel 4
-    sc_k = serve.ServeConfig(arch="qwen2_7b", batch=BATCH_ENGINE["n_lanes"],
-                             max_seq=BATCH_ENGINE["max_seq"],
-                             precision_k=SERVE_K)
-    dispatch_k = serve.quant_matmul_dynamic_k
-    k_in, k_seen = {}, set()
-
-    def spy_k(x, w, k):
-        x2 = x.reshape(-1, x.shape[-1])
-        shape = (x2.shape[0] == BATCH_ENGINE["n_lanes"], *w.shape, int(k))
-        if shape not in k_seen:
-            k_seen.add(shape)
-            k_in[(*x2.shape, w.shape[1], int(k))] = (x2.clone(),
-                                                     w.contiguous())
-        return dispatch_k(x, w, k)
-
-    def expected_k(engine, admitted):
-        return {"quant_matmul_format": 0, "flash_decode_certified": 0,
-                "quant_matmul": 7 * L_FULL * (admitted + engine.steps),
-                "flash_decode_attention": L_FULL * engine.steps,
-                **IDLE_ON_SERVING,
-                **row_order_launches(admitted + engine.steps)}
-
-    k_reqs = reqs[:BATCH_K_REQUESTS]
-    fd_spy = FirstLastSpy(fd.flash_decode_attention)
-    serve.quant_matmul_dynamic_k = spy_k
-    fd.flash_decode_attention = fd_spy
-    try:
-        engine_k, responses_k, launches_k, registry_k, wall_k = run_batching(
-            torch, batching, fns, cfg, sc_k, params, k_reqs, None, -1,
-            expected_k)
-    finally:
-        serve.quant_matmul_dynamic_k = dispatch_k
-        fd.flash_decode_attention = fd_spy.fn
-    k_report = batching_report(engine_k, responses_k, registry_k, wall_k)
-    k_path = {"quant_matmul": [],
-              "flash_decode_attention": flash_attention_rows(
-                  torch, fd, fd_spy.seen)}
-    del fd_spy
-    for (M, K, N, k), (x, w) in sorted(k_in.items()):
-        _, st = check_gemm_k(torch, qmm, x, w, k)
-        k_path["quant_matmul"].append({"M": M, "K": K, "N": N, "k": k, **st})
-    del k_in
-    ref_k = reference_runs(batching, cfg, sc_k, params, k_reqs, -1)
-    k_bits = lane_bits(torch, responses_k, ref_k)
-    handoff.update(sc_k=sc_k, k={"launches": launches_k,
-                                 "requests": served_digests(responses_k)})
-    del ref_k, responses_k, engine_k
-    k_ops = op_lane_bits(torch, serve, T, cfg, params,
-                         serve.QuantJOps(SERVE_K),
-                         smax=BATCH_ENGINE["max_seq"])
     del params
+    (sc_k, launches_k, k_report, k_path, k_bits, k_handoff,
+     k_ops) = k_part
+    handoff.update(sc_k=sc_k, k=k_handoff)
 
     library = library_lane_bits(torch, cfg)
     launches_all = {name: launches[name] + launches_k[name]
@@ -3001,6 +3129,8 @@ def phase_batching(torch, serve, batching, qmm, fd, T):
              "served_from_store": certset.meta.get("from_store")},
          format_path=fmt_report | {"launches": launches,
                                    "vs_reference": fmt_bits},
+         note="the k path served while a thread digested the params for "
+              "the store entry and apply_certificates",
          k_path=k_report | {"precision_k": SERVE_K, "launches": launches_k,
                             "vs_reference": k_bits},
          kernel2_distinct_lengths_max=max(distinct),
@@ -5433,20 +5563,16 @@ def zoo_analysis(torch, T, fns):
     the router records' and the certificates' bounds reported. Then
     ``python -m
     repro_torch.launch.analyze --routers`` on the card for the MoE archs."""
-    import shutil
-
     from repro_torch import configs
     from repro_torch.launch import analyze
 
-    root = ROOT / "build" / "chip_smoke_zoo"
-    shutil.rmtree(root, ignore_errors=True)
     out = {}
     reset_launches(fns)
     for arch in ZOO_SMOKE:
         cpu = cpu_job("zoo", arch)
         traces, certs, secs = {}, {}, {}
-        traces["cuda"], certs["cuda"], secs["cuda"] = zoo_smoke_side(
-            arch, "cuda", root)
+        traces["cuda"], certs["cuda"], secs["cuda"] = card_job(
+            "zoo", arch, fns)
         traces["cpu"], certs["cpu"], secs["cpu"] = cpu.result()
         a, b = traces["cuda"], traces["cpu"]
         if [(r.name, r.kind) for r in a] != [(r.name, r.kind) for r in b]:
@@ -5592,7 +5718,10 @@ SSM_HYMBA_LONG = 1200             # past Hymba's 1,024-position window
 SSM_LONG_TOL = 1e-3               # decode vs full forward, × max |logit|
 SSM_NEW_N = (1, 16, 64)           # w_dt; w_B / w_C; RWKV's decay LoRA wA
 SSM_CAA_U = 2.0 ** -11            # the analysis's u (emulated k = 12)
-SSM_FULL_LAYERS = 2               # the full-width analysis pass's depth
+# the full-width analysis pass's depth: RWKV6's second layer is where its
+# saturation shows; Hymba's softplus saturates in its first layer, so one
+# layer keeps that check and halves its pass (35-72 s at 2 layers)
+SSM_FULL_LAYERS = {"rwkv6_1p6b": 2, "hymba_1p5b": 1}
 SSM_CAA_TOKENS = 8
 # the full-width pass at f32's own u: at k = 12 RWKV's decay exp(−exp(·))
 # already has no finite bound at full width (its argument's δ̄ of ~4.6e5 u
@@ -5930,7 +6059,7 @@ def ssm_analysis(torch, T, fns):
     and certified (``certify_lm`` uniform, k_max 24) on the card and on the
     CPU with the same weights: trace records and recurrence records (δ̄,
     |h|) within 1e-9 relative, decisions equal. Then each arch at full
-    width, cut to SSM_FULL_LAYERS layers, through one ``CaaOps`` pass on 8
+    width, cut to SSM_FULL_LAYERS[arch] layers, through one ``CaaOps`` pass on 8
     tokens at f32's u (SSM_FULL_K): seconds, peak memory and each
     recurrence's bound, which is finite wherever its operands' bounds are
     (at full width with random weights they are not everywhere: RWKV's
@@ -5939,15 +6068,11 @@ def ssm_analysis(torch, T, fns):
     rule on the first recurrence's own operands, each charged one rounding
     (``caa.const_rounded``), over 8, 4,096 and 500,000 steps: finite, as
     its contraction clamp promises."""
-    import shutil
-
     from repro_torch import configs
     from repro_torch.certify.tokens import profile_tokens
     from repro_torch.core import caa
     from repro_torch.core.backend import CaaOps
 
-    root = ROOT / "build" / "chip_smoke_ssm"
-    shutil.rmtree(root, ignore_errors=True)
     out = {}
     reset_launches(fns)
     for arch in SSM_ARCHS:
@@ -5955,7 +6080,7 @@ def ssm_analysis(torch, T, fns):
         cpu = cpu_job("ssm", arch)
         traces, scans, certs, secs = {}, {}, {}, {}
         (traces["cuda"], scans["cuda"], certs["cuda"],
-         secs["cuda"]) = ssm_smoke_side(arch, "cuda", root)
+         secs["cuda"]) = card_job("ssm", arch, fns)
         traces["cpu"], scans["cpu"], certs["cpu"], secs["cpu"] = \
             cpu.result()
         worst = 0.0
@@ -5988,7 +6113,7 @@ def ssm_analysis(torch, T, fns):
     out["launches"] = read_launches(fns)
     for arch in SSM_ARCHS:
         cfg = dataclasses.replace(configs.get(arch).FULL,
-                                  n_layers=SSM_FULL_LAYERS)
+                                  n_layers=SSM_FULL_LAYERS[arch])
         free_device_memory(torch)
         params = T.init_params(cfg, generator=torch.Generator(
             device="cuda").manual_seed(0), device="cuda")
@@ -6016,14 +6141,14 @@ def ssm_analysis(torch, T, fns):
                          caa.const_rounded(drv, ccfg), n, 1)
             rule[n] = {"dbar": float(torch.max(h.dbar)),
                        "mag": float(torch.max(h.exact.hi))}
-        if (len(rows) != SSM_FULL_LAYERS or bad
+        if (len(rows) != SSM_FULL_LAYERS[arch] or bad
                 or not all(math.isfinite(r["dbar"]) and math.isfinite(
                     r["mag"]) for r in rule.values())):
             raise AssertionError(f"{arch} full width: recurrence bounds "
                                  f"{rows}, the rule on its operands {rule}")
         finite = [r["dbar"] for r in rows if math.isfinite(r["dbar"])]
         out[f"{arch}_full"] = {
-            "config": f"{arch}.FULL cut to {SSM_FULL_LAYERS} layers",
+            "config": f"{arch}.FULL cut to {SSM_FULL_LAYERS[arch]} layers",
             "tokens": SSM_CAA_TOKENS, "emulate_k": SSM_FULL_K,
             "seconds": secs, "peak_gb": peak, "recurrences": rows,
             "max_finite_recurrence_dbar": max(finite) if finite else None,
@@ -6417,22 +6542,18 @@ def mla_analysis(torch, T, fns):
     Then MiniCPM3 at full width cut to MLA_FULL_LAYERS layers through one
     ``CaaOps`` pass on 8 tokens at f32's u: seconds, peak memory, the
     logits' bound."""
-    import shutil
-
     from repro_torch import configs
     from repro_torch.certify.tokens import profile_tokens
     from repro_torch.core import caa
     from repro_torch.core.backend import CaaOps
 
-    root = ROOT / "build" / "chip_smoke_mla_encdec"
-    shutil.rmtree(root, ignore_errors=True)
     out = {}
     reset_launches(fns)
     for arch in MLA_ENCDEC_ARCHS:
         cpu = cpu_job("mla", arch)
         traces, certs, secs = {}, {}, {}
-        traces["cuda"], certs["cuda"], secs["cuda"] = mla_smoke_side(
-            arch, "cuda", root)
+        traces["cuda"], certs["cuda"], secs["cuda"] = card_job(
+            "mla", arch, fns)
         traces["cpu"], certs["cpu"], secs["cpu"] = cpu.result()
         worst = 0.0
         if ([(r.name, r.kind) for r in traces["cuda"]]
@@ -7176,8 +7297,9 @@ def dtype_head_rows(torch, ro, dt, cfg):
     once, timed) on the same operands; library: one bf16
     ``torch.matmul``); and row_mean on bf16 rows of d_model at 4 and 512
     rows bit for bit its f32 instance on the upcast rows and its plain
-    version, timed (library: ``Tensor.mean`` in bf16). Bounds: the
-    operations at the operands' peak (:func:`ops_peak`)."""
+    version, timed by device time (:func:`graph_ms`; library:
+    ``Tensor.mean`` in bf16). Bounds: the operations at the operands' peak
+    (:func:`ops_peak`)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     out = {}
     d, V = cfg.d_model, cfg.vocab
@@ -7226,13 +7348,12 @@ def dtype_head_rows(torch, ro, dt, cfg):
                                  "its plain version")
         st["bitwise_plain"] = True
         del got
-        one, how = [x.clone() for _ in range(8)], []
-        timer = device_timer(how)
+        one = [x.clone() for _ in range(8)]
         out[f"row_mean/bf16/R{rows}"] = dict(
-            st, ms=timer(torch, ro.row_mean, one, 50),
+            st, ms=graph_ms(torch, ro.row_mean, one, 50),
             plain_ms=time_cold_ms(torch, ro.row_mean_ref, one, 10),
-            library_ms=timer(torch, lambda t: t.mean(-1), one, 50),
-            timed_by=how, **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            library_ms=graph_ms(torch, lambda t: t.mean(-1), one, 50),
+            timed_by="graph", **dict(zip(("bound_ms", "bound_by"), bound_ms(
                 2.0 * rows * (d + 1), 1.0 * rows * d, ops_peak(x.dtype)))))
         del x, one
     return out
@@ -7248,10 +7369,10 @@ def dtype_flash_rows(torch, fd, dt):
     at 32K, plus Gemma-2's shape with a window and a softcap; each timed
     from a trace with the cache rotated (library: bf16 SDPA, an e4m3 cache
     upcast to bf16 outside the timing; the bound's operations at the bf16
-    peak). At the serve cache, kernels 2 and 4 on an f32 q with the same
-    narrow cache (f32 compute with a narrow ``cache_dtype``): bit for bit
-    the f32 instance on the upcast cache, and against the plain versions
-    under the f32 phases' rule."""
+    peak). At the serve cache and at 32K, kernels 2 and 4 on an f32 q with
+    the same narrow cache (f32 compute with a narrow ``cache_dtype``): bit
+    for bit the f32 instance on the upcast cache, against the plain
+    versions under the f32 phases' rule, and timed."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     B, out = SERVE_BATCH, {}
     cases = [(c, S, lens, (4, 7, 128), 0, 0.0)
@@ -7305,7 +7426,7 @@ def dtype_flash_rows(torch, fd, dt):
             rows["flash_decode_attention"] = dict(
                 bitwise_plain=True, elements=got.numel(),
                 max_abs_vs_f32_instance=float(diff.max()), **timing)
-            if name == "serve_last":
+            if not window:
                 rows["f32_q"] = f32_q_narrow_cache(torch, fd, up[0], k, v,
                                                    lengths, f"{case} {name}")
             out[f"{case}/{name}"] = {"Smax": S, "lengths": lens,
@@ -7319,7 +7440,9 @@ def f32_q_narrow_cache(torch, fd, q, k, v, lengths, what):
     """Kernels 2 and 4 on an f32 q with a bf16 or e4m3 cache: bit for bit
     the f32 instance on the upcast cache, and against the plain versions on
     the same operands under the f32 phases' rule (:func:`compare` with
-    :func:`flash_tol`). Returns the stats; raises on disagreement."""
+    :func:`flash_tol`); each timed (:func:`narrow_flash_timing`, library:
+    f32 SDPA on the upcast cache). Returns the stats; raises on
+    disagreement."""
     kf, vf = k.float(), v.float()
     out = {}
     for name, fmt, kern, plain in (
@@ -7337,7 +7460,9 @@ def f32_q_narrow_cache(torch, fd, q, k, v, lengths, what):
         if not ok:
             raise AssertionError(f"{name} f32 q, {what} against its plain "
                                  f"version: {cmp}")
-        out[name] = dict(st, vs_plain=cmp)
+        out[name] = dict(st, vs_plain=cmp, max_abs_err=cmp["max_abs_err"],
+                         **narrow_flash_timing(torch, kern, plain, q, k, v,
+                                               lengths))
     return out
 
 
@@ -7388,8 +7513,15 @@ def spied_narrow(torch, fd, spies):
 def dtype_expected(cfg, path, forwards, steps):
     """Exact launches of a narrow Qwen2-7B / Gemma-2 serve: as
     :func:`zoo_expected`, with the plain path's products through
-    f32_matmul (7 a layer a forward beside the LM head)."""
+    f32_matmul (7 a layer a forward beside the LM head); of MiniCPM3's:
+    as :func:`mla_encdec_expected`, its decode attention through the
+    latent kernel instead of kernel 4."""
     path = path.split("_")[0]         # "format_fp8" / "k_fp8": the backend
+    if cfg.mla:
+        # the decode attention through the latent kernel, counted apart
+        # (dtype_minicpm3), not kernel 4
+        return dict(mla_encdec_expected(cfg, path, forwards, steps),
+                    flash_decode_attention=0)
     want = zoo_expected(cfg, path, forwards, steps)
     if path == "plain":
         want["f32_matmul"] += 7 * cfg.n_layers * forwards
@@ -7440,10 +7572,20 @@ def dtype_serve(torch, serve, T, qmm, fd, fns, spies_ctx, arch, path,
             "--device", "cuda", "--seed", "0", "--compute-dtype",
             "bfloat16", *extra]
     torch.cuda.reset_peak_memory_stats()
+    caches, init_cache = [], serve.T.init_cache
+
+    def kept_cache(*a, **kw):
+        caches.append(init_cache(*a, **kw))
+        return caches[-1]
+
     with spies_ctx() as spies:
         reset_launches(fns)
         by_dtype = {n: dict(qmm.BY_DTYPE[n]) for n in spies}
-        res = serve.main(argv)
+        serve.T.init_cache = kept_cache
+        try:
+            res = serve.main(argv)
+        finally:
+            serve.T.init_cache = init_cache
         launches = read_launches(fns)
         by_dtype = {n: {k: c - by_dtype[n].get(k, 0)
                         for k, c in qmm.BY_DTYPE[n].items()
@@ -7476,6 +7618,10 @@ def dtype_serve(torch, serve, T, qmm, fd, fns, spies_ctx, arch, path,
                init_s=res.timing["init_s"], max_memory_allocated_gb=peak_gb,
                param_gb=sum(t.numel() * t.element_size()
                             for t in _leaves(res.params)) / 1e9,
+               card_bytes={"params": sum(t.numel() * t.element_size()
+                                         for t in _leaves(res.params)),
+                           "cache": sum(t.numel() * t.element_size()
+                                        for c in caches for t in c.values())},
                sample_tokens=res.tokens[0].tolist(),
                logits_sha256=logits_sha256(res),
                decode_vs_full=decode_vs_full_narrow(torch, T, res))
@@ -7543,7 +7689,302 @@ def dtype_engine(torch, batching, serve, T, fd, fns, spies_ctx, cfg):
                 lanes=lanes, requests=len(reqs))
 
 
-def phase_dtypes(torch, serve, batching, qmm, fd, T):
+# MiniCPM3's latent decode in bf16: (B, H, R, Dr, S, lengths) of each case
+LATENT_CASES = {
+    "minicpm3_decode": (SERVE_BATCH, 40, 256, 32,
+                        SERVE_PROMPT + SERVE_STEPS + 1, [145, 130, 64, 1]),
+    "minicpm3_32k": (SERVE_BATCH, 40, 256, 32, 32768,
+                     [32768, 20001, 4097, 65]),
+    "ragged_empty": (3, 40, 256, 32, 200, [0, 129, 64])}
+LATENT_REPLACES = ("none: port-only (the reference composes MLA's bf16 "
+                   "decode attention, src/repro/models/attention.py:210; its "
+                   "f32 route is kernel 4's, src/repro/kernels/"
+                   "flash_decode.py:40)")
+LATENT_SOURCE = "src/repro_torch/csrc/latent_decode_bf16.cu"
+MLA_SCALE = (64 + 32) ** -0.5     # MiniCPM3's (d_nope + d_rope)^-1/2
+
+
+def latent_composed(torch, q_lat, q_rope, c, k_rope, lengths, scale):
+    """The composed bf16 path of MLA's decode attention as library calls
+    (bf16 einsums with f32 sums, their sum, the scale, the mask, softmax in
+    f32, the mix of c): the latent kernel's yardstick; c and k_rope in
+    bf16."""
+    S = c.shape[1]
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c)
+         + torch.einsum("bhd,bsd->bhs", q_rope, k_rope)) * scale
+    s = s.masked_fill(torch.arange(S, device=c.device)[None, None, :]
+                      >= lengths[:, None, None], -1e9)
+    p = torch.softmax(s.float(), dim=-1).to(torch.bfloat16)
+    return torch.einsum("bhs,bsr->bhr", p, c)
+
+
+def latent_vs_plain(torch, fd, q_lat, q_rope, c, k_rope, lengths, scale,
+                    what):
+    """The latent kernel bit for bit its plain version on the same
+    operands; raises otherwise."""
+    got = fd.latent_decode_bf16(q_lat, q_rope, c, k_rope, lengths, scale)
+    want = fd.latent_decode_bf16_ref(q_lat, q_rope, c, k_rope, lengths,
+                                     scale)
+    if not same_bits(torch, got, want):
+        n = int((got.float() != want.float()).sum())
+        raise AssertionError(f"latent_decode_bf16 {what}: {n} of "
+                             f"{got.numel()} elements differ from its plain "
+                             "version")
+    return {"shape": list(q_lat.shape), "Smax": c.shape[1],
+            "cache_dtype": str(c.dtype), "lengths": lengths.tolist(),
+            "bitwise_plain": True}
+
+
+def dtype_latent_rows(torch, fd, dt):
+    """The latent kernel on MiniCPM3's decode shapes (40 heads on one
+    latent of R = 256 and a rope key of Dr = 32) at the serve cache's
+    length, at 32K and with a lane of length 0, on bf16, e4m3 and f32
+    latent caches: bit for bit its plain version; the first two on the
+    bf16 cache timed by :func:`graph_ms` with the cache rotated past the L2
+    (plain version: CUDA events; library: the composed bf16 path,
+    :func:`latent_composed`). The bound: bytes (q
+    in, out, c and k_rope up to each lane's length) or operations (2·H·(R
+    + Dr) a position for the scores, 2·H·R for p·c) at the operands' peak
+    (:func:`ops_peak`)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for name, (B, H, R, Dr, S, lens) in LATENT_CASES.items():
+        for cname in ("bfloat16", "float8_e4m3fn", "float32"):
+            if cname != "bfloat16" and name == "minicpm3_32k":
+                continue
+            cdt = getattr(torch, cname)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            f = lambda *sh: torch.randn(*sh, device="cuda", generator=gen)
+            q_lat, q_rope = f(B, H, R).to(torch.bfloat16), f(
+                B, H, Dr).to(torch.bfloat16)
+            c, k_rope = dt.cast(f(B, S, R), cdt), dt.cast(f(B, S, Dr), cdt)
+            row = latent_vs_plain(torch, fd, q_lat, q_rope, c, k_rope,
+                                  lengths, MLA_SCALE, f"{name} {cname}")
+            if cname == "bfloat16" and name != "ragged_empty":
+                copies = cache_copies(torch, c, k_rope)
+                iters = flash_iters(S)
+                run = lambda fn: lambda cc: fn(q_lat, q_rope, *cc, lengths,
+                                               MLA_SCALE)
+                row["ms"] = graph_ms(torch, run(fd.latent_decode_bf16),
+                                     copies, iters)
+                row["plain_ms"] = time_cold_ms(
+                    torch, run(fd.latent_decode_bf16_ref), copies, 2)
+                row["library_ms"] = graph_ms(
+                    torch, lambda cc: latent_composed(
+                        torch, q_lat, q_rope, *cc, lengths, MLA_SCALE),
+                    copies, iters)
+                del copies
+                n = int(torch.where(lengths <= 0, S,
+                                    lengths.clamp(max=S)).sum())
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2.0 * B * H * (R + Dr) + 2.0 * B * H * R + 4 * B
+                    + c.element_size() * n * (R + Dr),
+                    2.0 * H * n * (R + Dr) + 2.0 * H * n * R,
+                    ops_peak(q_lat.dtype, c.dtype))
+                row["bound_f32_cores_ms"] = 1e3 * (
+                    2.0 * H * n * (2 * R + Dr)) / F32_TFLOPS
+            out[f"{name}/{cname}"] = row
+            del q_lat, q_rope, c, k_rope
+    return out
+
+
+class LatentInputSpy:
+    """Stands in for the latent kernel while a serve runs: launches it, and
+    keeps (cloned) the operands of the calls numbered in ``keep``."""
+
+    def __init__(self, fd, keep):
+        self.fn, self.keep, self.seen, self.calls = (
+            fd.latent_decode_bf16, set(keep), [], 0)
+
+    def __call__(self, q_lat, q_rope, c, k_rope, lengths, scale):
+        if self.calls in self.keep:
+            self.seen.append((*(t.clone() for t in (q_lat, q_rope, c,
+                                                    k_rope, lengths)),
+                              scale))
+        self.calls += 1
+        return self.fn(q_lat, q_rope, c, k_rope, lengths, scale)
+
+    launches = KernelSpy.launches
+
+
+def dtype_minicpm3(torch, serve, batching, T, qmm, fd, fns, spies_ctx):
+    """MiniCPM3 4B at full width and full depth (62 layers) in bf16 (bf16
+    params and latent cache) through ``serve.main`` under the plain, k = 12
+    and format backends (:func:`dtype_serve`: exact launches, finite
+    logits, the last decode step against a full forward), its decode
+    attention through the latent kernel: one launch a layer and decode
+    step, counted apart (its counter set to 0 just before each run and
+    read just after), the operands of the first call and of the last
+    step's first call bit for bit the plain version's result. Then the
+    batching engine in bf16 (the engine's f32 cache, read as bf16 by the
+    kernel) under the format map on the same weights: every request's
+    tokens and logit rows bit for bit the request alone, exact launches.
+    Returns ({path: report}, engine report, latent launches)."""
+    arch = "minicpm3_4b"
+    L = serve.configs.get(arch).FULL.n_layers
+    fmt = ["--layer-format", json.dumps(MLA_FORMAT)]
+    runs = (("plain", []), ("k", ["--precision-k", str(SERVE_K)]),
+            ("format", fmt))
+    reps, latent_launches = {}, 0
+    for path, extra in runs:
+        params = None                 # the last run's weights, for the engine
+        free_device_memory(torch)
+        t0 = time.perf_counter()
+        spy = LatentInputSpy(fd, (0, L * (SERVE_STEPS - 1)))
+        spy.fn.launches = 0
+        fd.latent_decode_bf16 = spy
+        try:
+            res, rep = dtype_serve(torch, serve, T, qmm, fd, fns, spies_ctx,
+                                   arch, path,
+                                   ["--cache-dtype", "bfloat16", *extra],
+                                   SERVE_STEPS)
+        finally:
+            fd.latent_decode_bf16 = spy.fn
+        n = spy.fn.launches           # read before the checks launch it
+        checked = [latent_vs_plain(torch, fd, *ops, f"{path} call {i}")
+                   for i, ops in zip(sorted(spy.keep), spy.seen)]
+        if n != L * SERVE_STEPS or len(checked) != 2:
+            raise AssertionError(f"minicpm3 bf16 {path}: {n} latent "
+                                 f"launches, {len(checked)} calls checked")
+        latent_launches += n
+        rep.update(latent_launches=n, latent_calls_checked=checked,
+                   seconds=time.perf_counter() - t0)
+        reps[path] = rep
+        emit("dtypes_serve", **rep)
+        cfg, params = res.cfg, res.params
+        del res, spy
+    free_device_memory(torch)
+    t0 = time.perf_counter()
+    sc = serve.ServeConfig(arch=arch, batch=BATCH_ENGINE["n_lanes"],
+                           max_seq=BATCH_ENGINE["max_seq"],
+                           compute_dtype="bfloat16",
+                           precision_layer_format=MLA_FORMAT, device="cuda")
+    reqs = engine_requests(torch, batching, cfg.vocab)
+    fd.latent_decode_bf16.launches = 0
+    engine, responses, launches, registry, wall = run_batching(
+        torch, batching, fns, cfg, sc, params, reqs, None, -1,
+        lambda eng, admitted: dict(mla_encdec_expected(
+            cfg, "format", admitted + eng.steps, eng.steps, stub=0),
+            flash_decode_attention=0))
+    n = fd.latent_decode_bf16.launches
+    if n != L * engine.steps:
+        raise AssertionError(f"minicpm3 bf16 engine: {n} latent launches, "
+                             f"{engine.steps} steps")
+    latent_launches += n
+    ref = reference_runs(batching, cfg, sc, params, reqs, -1)
+    rows = lane_bits(torch, responses, ref)
+    if not all(r["tokens_equal"] and r["logits_bitwise"] for r in rows):
+        raise AssertionError(f"minicpm3 bf16 engine: a request's bits "
+                             f"differ from the request alone: {rows}")
+    eng = dict(batching_report(engine, responses, registry, wall),
+               launches=launches, latent_launches=n, lanes_vs_alone=rows,
+               seconds=time.perf_counter() - t0)
+    del params, engine, responses, ref
+    free_device_memory(torch)
+    return reps, eng, latent_launches
+
+
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_ONE_BY_ONE = (
+    ("qwen2_7b", "format", SERVE_STEPS, {"cache_dtype": "bfloat16",
+                                         "param_dtype": "same"}),
+    ("gemma2_27b", "format_fp8", DTYPES_GEMMA_STEPS,
+     {"cache_dtype": "bfloat16", "param_dtype": "fp8"}))
+
+
+def start_dryrun():
+    """The dry run (``repro_torch.launch.dryrun``) in a freshly spawned CPU
+    process beside the card's work, waited for in a thread: Qwen2-7B's
+    four shapes on the single-pod 16 × 16 mesh (a fake group of 256
+    ranks), then on 1 × 1 (a fake group of one) the prefill steps that
+    ``dtypes`` serves on the card, DRYRUN_ONE_BY_ONE (4 × 128 prompts into
+    a cache of the run's length, its param and cache dtypes). Returns the
+    future of the records (a list a group)."""
+    import concurrent.futures
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    single = [dict(arch="qwen2_7b", shape=s, mesh_shape=(16, 16))
+              for s in SHAPES]
+    one = [dict(arch=arch, shape=dict(name=f"dtypes_{arch}",
+                                      kind="prefill", seq=SERVE_PROMPT,
+                                      batch=SERVE_BATCH),
+                mesh_shape=(1, 1), cache_len=SERVE_PROMPT + steps + 1,
+                serve_policy=pol)
+           for arch, _, steps, pol in DRYRUN_ONE_BY_ONE]
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(dryrun.run_isolated, [(256, 0, single), (1, 0, one)],
+                         DRYRUN_TIMEOUT_S)
+    pool.shutdown(wait=False)
+    return future
+
+
+def _dryrun_summary(rec):
+    if rec["status"] != "ok":
+        return {k: rec.get(k) for k in ("shape", "status", "reason",
+                                        "error")}
+    return {"shape": rec["shape"], "mesh": rec["mesh"],
+            "status": rec["status"], "step_s": rec["step_s"],
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "argument_parts": rec["memory"]["argument_parts"],
+            "peak_bytes": rec["memory"]["peak_bytes"],
+            "fits": rec["memory"]["fits"],
+            "flops_products": rec["cost"]["flops"],
+            "collectives": rec["collectives"]}
+
+
+def dryrun_vs_card(serves, future):
+    """The dry run's records (:func:`start_dryrun`): Qwen2-7B's four
+    single-pod cells ok but the documented skip of long_500k; each 1 × 1
+    cell's params and cache bytes equal to the bytes of the params and
+    cache that ``dtypes``' serve of the same arch and dtypes allocated on
+    the card (the batch's token ids, int32 as the reference's input
+    specs, are counted apart; the card's prompt holds int64 ids), and its
+    peak beside the card's ``max_memory_allocated`` for the run (not
+    gated: the card's also holds the LM head's transposed table copy,
+    kernel scratch, the decode steps and the allocator's rounding). Raises
+    on any other outcome. Returns the report."""
+    t0 = time.perf_counter()
+    single, one = future.result()
+    waited = time.perf_counter() - t0
+    want = ["ok", "ok", "ok", "skipped"]
+    got = [r["status"] for r in single]
+    if got != want:
+        raise AssertionError(f"dry run, qwen2_7b on 16 x 16: {got} "
+                             f"{[r.get('error') for r in single]}")
+    cells = []
+    for rec, (arch, path, _, pol) in zip(one, DRYRUN_ONE_BY_ONE):
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} 1 x 1: {rec}")
+        card = serves[f"{arch}/{path}"]
+        parts = rec["memory"]["argument_parts"]
+        dry = {"params": parts["params"], "cache": parts["cache"]}
+        if dry != card["card_bytes"]:
+            raise AssertionError(f"dry run {arch} 1 x 1: params and cache "
+                                 f"{dry} != the card's {card['card_bytes']}")
+        cfg = __import__("repro_torch.configs", fromlist=["get"]).get(
+            arch).FULL
+        head = cfg.vocab * cfg.d_model * (1 if pol["param_dtype"] == "fp8"
+                                          else 2)
+        cells.append(dict(
+            _dryrun_summary(rec), arch=arch, policy=pol,
+            card_bytes=card["card_bytes"], params_and_cache_equal=True,
+            batch_bytes=parts["batch"],
+            card_max_memory_allocated_gb=card["max_memory_allocated_gb"],
+            dry_peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+            gap_gb=card["max_memory_allocated_gb"]
+            - rec["memory"]["peak_bytes"] / 1e9,
+            head_table_copy_gb=head / 1e9))
+    rep = {"single_pod_qwen2_7b": [_dryrun_summary(r) for r in single],
+           "one_by_one": cells, "waited_s": waited}
+    emit("dryrun", note="the dry run in a spawned CPU process on fake "
+         "process groups (no card); 1 x 1 cells: the prefill steps dtypes "
+         "serves, params and cache bytes equal the card's exactly", **rep)
+    return rep
+
+
+def phase_dtypes(torch, serve, batching, qmm, fd, T, dryrun_records):
     """Serving in bf16 and fp8 (``ServeConfig.compute_dtype`` /
     ``cache_dtype`` / ``param_dtype``; their sources ``NARROW_SOURCES``,
     built by :class:`NarrowBuild` beforehand, or at first use): the
@@ -7555,7 +7996,11 @@ def phase_dtypes(torch, serve, batching, qmm, fd, T):
     the format map and k = 12 with an e4m3 cache and e4m3 params; the
     engine in bf16; Gemma-2
     27B FULL at all 46 layers (bf16 compute, e4m3 params, bf16 cache,
-    format map). Returns ({kernel: launches of the phase's runs}, report)."""
+    format map); MiniCPM3 4B FULL at 62 layers in bf16 through the latent
+    kernel (:func:`dtype_minicpm3`); the dry run's 1 × 1 cells against the
+    card's bytes (:func:`dryrun_vs_card`; ``dryrun_records``: a future of
+    :func:`start_dryrun`'s records). Returns ({kernel: launches of the
+    phase's runs}, report)."""
     from repro_torch.core import dtypes as dt
     from repro_torch.kernels import row_order as ro
 
@@ -7567,13 +8012,15 @@ def phase_dtypes(torch, serve, batching, qmm, fd, T):
     for part, fn, args in (("gemm", dtype_gemm_rows, (torch, qmm, ro, dt)),
                            ("head_mean", dtype_head_rows,
                             (torch, ro, dt, cfg)),
-                           ("flash", dtype_flash_rows, (torch, fd, dt))):
+                           ("flash", dtype_flash_rows, (torch, fd, dt)),
+                           ("latent", dtype_latent_rows, (torch, fd, dt))):
         t0 = time.perf_counter()
         out[part] = fn(*args)
         part_s[part] = time.perf_counter() - t0
     emit("dtypes_kernels", note="narrow instances bit for bit their f32 "
-         "instance on the upcast operands (kernel 4's bf16 instance: its "
-         "plain version)", seconds=time.perf_counter() - t_phase,
+         "instance on the upcast operands (kernel 4's bf16 instance and the "
+         "latent kernel: their plain versions)",
+         seconds=time.perf_counter() - t_phase,
          part_seconds=part_s, **out)
     spies_ctx = lambda: dtype_spies(qmm, fd, ro)
     fmt = ["--layer-format", json.dumps(SERVE_FORMAT)]
@@ -7613,11 +8060,23 @@ def phase_dtypes(torch, serve, batching, qmm, fd, T):
     serves["gemma2_27b/format_fp8"] = rep
     emit("dtypes_serve", **rep)
     del res
+    t0 = time.perf_counter()
+    mla, mla_engine, latent_launches = dtype_minicpm3(
+        torch, serve, batching, T, qmm, fd, fns, spies_ctx)
+    for path, rep in mla.items():
+        launches.update(rep["launches"])
+        serves[f"minicpm3_4b/{path}"] = rep
+    launches.update(mla_engine["launches"])
+    emit("dtypes_minicpm3_engine", **mla_engine)
+    mla_s = time.perf_counter() - t0
+    dryrun = dryrun_vs_card(serves, dryrun_records)
     free_device_memory(torch)
     seconds = time.perf_counter() - t_phase
-    emit("dtypes", seconds=seconds, launches=dict(launches))
-    return dict(launches), dict(out, serves=serves, engine=eng,
-                                seconds=seconds)
+    emit("dtypes", seconds=seconds, minicpm3_seconds=mla_s,
+         launches=dict(launches, latent_decode_bf16=latent_launches))
+    return dict(launches, latent_decode_bf16=latent_launches), dict(
+        out, serves=serves, engine=eng, minicpm3_engine=mla_engine,
+        dryrun=dryrun, seconds=seconds)
 
 
 def dtype_kernel_rows(parts, launches_by_path):
@@ -7680,6 +8139,23 @@ def dtype_kernel_rows(parts, launches_by_path):
                 long_32k={k: parts["flash"][f"{case}/long"][name][k]
                           for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms")}))
+    t = parts["latent"]["minicpm3_decode/bfloat16"]
+    rows.append(dict(
+        name="latent_decode_bf16", route="cuda", source=LATENT_SOURCE,
+        replaces=LATENT_REPLACES,
+        launches=launches_by_path["dtypes"].get("latent_decode_bf16", 0),
+        launches_by_path={p: c.get("latent_decode_bf16", 0)
+                          for p, c in launches_by_path.items()},
+        max_abs_err=0.0,              # bit for bit its plain version
+        **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")},
+        what="MiniCPM3's absorbed decode attention in bf16 at the serve "
+             "cache's length: B=4, 40 heads on one latent, R=256, Dr=32, "
+             "Smax=145, a bf16 cache; library: the composed bf16 einsum "
+             "path; bit for bit its plain version",
+        long_32k={k: parts["latent"]["minicpm3_32k/bfloat16"][k]
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by")}))
     t = parts["head_mean"][f"row_mean/bf16/R{SERVE_BATCH}"]
     rows.append(dict(
         name="row_mean[bf16]", route="cuda", source=DTYPES_SOURCES["row_mean"],
@@ -7729,6 +8205,7 @@ def main() -> int:
     finally:
         CPU.close()
         PAPER.close()
+        SMOKE_CARD.close()
 
 
 class PhaseClock:
@@ -7796,6 +8273,10 @@ def _main() -> int:
     rorows = phase_row_order(torch, serve.configs.get("qwen2_7b").FULL)
     clock("row_order")
     marks.append(("kernels", time.perf_counter()))
+    # the dry run's CPU process starts once the narrow sources' nvcc
+    # processes are done with the host's cores (they share it with the
+    # CPU side process and the kernel phases' timing loops)
+    dryrun_records = start_dryrun()
 
     by_path, timings = {}, {}
     by_path["serve"], fmt_path, timings["serve"] = phase_serve(
@@ -7849,43 +8330,60 @@ def _main() -> int:
     clock("decode_trace_end_to_end")
     phase_interval_libm(torch, iv)
     clock("interval_libm")
+    # the SMOKE analyses' card halves of zoo, ssm and mla_encdec run in a
+    # side process on the card from here (~150 s, host-bound), done before
+    # the analysis kernels' timed phases begin; ``paper`` in another beside
+    # zoo, ssm and mla_encdec. A phase's lines are marked contended while
+    # either runs (the note is renewed as each phase ends).
+    SMOKE_CARD.start(SMOKE_CARD_THREADS)
+    queue_card_smoke_sides()
+    sides = {"the zoo / ssm / mla_encdec SMOKE analyses' card halves":
+             list(CARD_JOBS.values())}
+
+    def renew_note():
+        running = [what for what, jobs in sides.items()
+                   if not all(j.done() for j in jobs)]
+        CONTENDED["note"] = (" and ".join(running) + " ran on the card in "
+                             "side processes meanwhile") if running else None
+
+    def tick(name, mark=False):
+        clock(name)
+        if mark:
+            marks.append((name, time.perf_counter()))
+        renew_note()
+
+    renew_note()
     by_path["ranges"] = phase_ranges(torch, qmm, fd)
-    clock("ranges")
+    tick("ranges")
     marks.append(("interval_libm_ranges", time.perf_counter()))
     by_path["certify"] = phase_certify(torch, serve, batching, qmm, fd, T)
-    clock("certify")
-    marks.append(("certify", time.perf_counter()))
+    tick("certify", mark=True)
     seen = phase_analyze(torch)
-    clock("analyze")
+    tick("analyze")
     operands = analysis_operands(torch, seen)
     del seen
     by_path["analysis_ops"], path_outs = phase_analysis_ops(
         torch, kops, qmm, fd, operands)
     free_device_memory(torch)
-    clock("analysis_ops")
+    tick("analysis_ops")
     phase_interval_gemm_order(torch, operands)
-    clock("interval_gemm_order")
+    tick("interval_gemm_order")
     cpath, crows, cerr = phase_caa_kernel(torch, "caa_matmul", kops,
                                           operands, path_outs)
-    clock("caa_matmul")
+    tick("caa_matmul")
     ipath, irows, ierr = phase_caa_kernel(torch, "interval_matmul", kops,
                                           operands, path_outs)
     del path_outs, operands
     free_device_memory(torch)
-    clock("interval_matmul")
+    tick("interval_matmul")
     marks.append(("analyze_caa_interval", time.perf_counter()))
-    # ``paper`` runs in its own process on the card beside the next three;
-    # a phase's lines are marked contended until one ends after it finished
     PAPER.start(PAPER_THREADS)
     paper = PAPER.submit(paper_side)
-    CONTENDED["note"] = ("the paper phase ran on the card in a second "
-                         "process meanwhile")
+    sides["the paper phase"] = [paper]
+    renew_note()
 
     def phase_ended(name):
-        clock(name)
-        marks.append((name, time.perf_counter()))
-        if paper.done():
-            CONTENDED["note"] = None
+        tick(name, mark=True)
 
     by_path["zoo"], zoo_parts = phase_zoo(torch, serve, batching, qmm, fd,
                                           T)
@@ -7898,11 +8396,12 @@ def _main() -> int:
     by_path["paper"] = paper.result()
     CONTENDED["note"] = None
     PAPER.close()
+    SMOKE_CARD.close()
     clock("paper_wait")
     marks.append(("paper", time.perf_counter()))
     narrow_build.finish()
     by_path["dtypes"], dtype_parts = phase_dtypes(torch, serve, batching,
-                                                  qmm, fd, T)
+                                                  qmm, fd, T, dryrun_records)
     clock("dtypes")
     marks.append(("dtypes", time.perf_counter()))
     by_path["train"], train_parts = phase_train(torch, qmm, fd, T)

@@ -472,26 +472,34 @@ class TorchOps(UnrolledLayerLoop, Backend):
 
     def latent_decode_attention(self, q_lat, q_rope, c, k_rope, lengths,
                                 scale: float):
-        """On the card, MLA's absorbed decode attention through the
-        fixed-order ``flash_decode_attention`` kernel as one kv head with G
-        = H query heads: keys [c | k_rope] (R + Dr wide, one copy of the
-        cache a step), queries [q_lat | q_rope], the given ``scale``; the
-        kernel's values are the same keys and the first R entries of its
-        context are the mix of c. Unrounded, as the reference composes it
-        on every backend; a lane's bits depend on its own length only. A
-        narrow latent cache is upcast in that copy (exact). On the CPU (or
-        in f64, or under autograd) None: the composed path. A bf16 step on
-        the card raises: the reference's composed bf16 path rounds its two
-        score products apart, and no kernel takes it yet (R + Dr = 288 at
-        MiniCPM3's widths, beyond the bf16 instance's D ≤ 256)."""
+        """On the card, MLA's absorbed decode attention through a
+        fixed-order kernel, unrounded in f32 and the composed bf16 path in
+        bf16, as the reference composes it on every backend; a lane's bits
+        depend on its own length only. In f32 it is the
+        ``flash_decode_attention`` kernel as one kv head with G = H query
+        heads: keys [c | k_rope] (R + Dr wide, one copy of the cache a
+        step; a narrow latent cache is upcast in that copy, exact),
+        queries [q_lat | q_rope], the given ``scale``; the kernel's values
+        are the same keys and the first R entries of its context are the
+        mix of c. In bf16 it is the ``latent_decode_bf16`` kernel, which
+        rounds the two score products apart as the composed path does and
+        reads c and k_rope in place from the latent cache (f32, bf16 or
+        e4m3). Any other dtype raises on the card. On the CPU (or in f64,
+        or under autograd) None: the composed path."""
         if (not _on_card(q_lat) or q_lat.dtype == torch.float64
                 or not kernel_route_ok(q_lat, q_rope, c, k_rope)):
             return None
+        B, _, H, R = q_lat.shape
+        if q_lat.dtype == torch.bfloat16:
+            out = flash_decode.latent_decode_bf16(
+                q_lat.reshape(B, H, R).contiguous(),
+                q_rope.reshape(B, H, -1).contiguous(), c, k_rope, lengths,
+                scale)
+            return out.reshape(B, 1, H, R)
         if q_lat.dtype != torch.float32:
             raise ValueError(f"latent decode attention in {q_lat.dtype}: no "
-                             "kernel takes MLA's composed bf16 step on the "
-                             "card (compute_dtype float32 serves MLA)")
-        B, _, H, R = q_lat.shape
+                             "kernel takes it on the card (float32 or "
+                             "bfloat16 compute serves MLA)")
         q = torch.cat([q_lat, q_rope], dim=-1).reshape(B, 1, H, -1)
         kv = torch.cat([c, k_rope], dim=-1).to(q.dtype)[:, :, None, :]
         out = flash_decode.flash_decode_attention(q, kv, kv, lengths,
@@ -633,9 +641,10 @@ class MeshOps:
 
     * a parameter whole on every rank (no axis of size > 1 splits it) is
       read where it lies;
-    * a parameter split only over "model", on a product's OUTPUT dim (the
-      serving rules' column parallelism: a weight's last dim, the vocab dim
-      of the LM head's table), stays a DTensor until its product, which
+    * a weight (two or more dims) split only over "model", on a product's
+      OUTPUT dim (the serving rules' column parallelism: a weight's last
+      dim, the vocab dim of the LM head's table), stays a DTensor until
+      its product, which
       computes this rank's columns through the backend's own route
       (kernels 1 and 3, ``f32_matmul`` for the head) and gathers the exact
       columns over "model": each column's bits are those of the whole
@@ -643,8 +652,9 @@ class MeshOps:
       models hand such a weight to no op but a product (:meth:`matmul`,
       :meth:`einsum`), ``take`` (a tied embedding) and ``reshape`` (MLA's
       ``wkv_b``), which gather it whole; any other op refuses a DTensor;
-    * a parameter split on any other dim (the greedy FSDP / TP rules) is
-      gathered whole at each use;
+    * a parameter split on any other dim (the greedy FSDP / TP rules), and
+      a one-dim one (a norm's gain) split at all, is gathered whole at each
+      use;
     * single-token decode attention on a cache whose KV heads are split
       over "model" runs the backend's kernel (2 or 4) on this rank's heads
       and gathers the heads; the composed attention reads the whole cache
@@ -728,7 +738,7 @@ class MeshOps:
         if _is_dtensor(w):
             if not self._split(w):
                 w = w.to_local()
-            elif (self._column_dim(w) is not None
+            elif (self._column_dim(w) is not None and w.dim() >= 2
                   and (w.dtype == self.compute_dtype
                        or (w.dtype == dtypes.FP8 and w.dim() == 2))):
                 return w

@@ -35,7 +35,7 @@ SOURCES = ("quant_matmul_format", "flash_decode_certified", "quant_matmul",
 # not wait on them
 NARROW_SOURCES = ("quant_matmul_format_narrow", "quant_matmul_narrow",
                   "f32_matmul_narrow", "flash_decode_certified_narrow",
-                  "flash_decode_bf16")
+                  "flash_decode_bf16", "latent_decode_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -60,6 +60,14 @@ with a bf16 or e4m3 cache (``compute_dtype`` "float32" with a narrow
 kernel 4 included (``csrc/flash_decode_certified_narrow.cu``), bit for bit
 the f32 instance on the upcast operands. ``launches_by_dtype`` counts
 launches by q / cache dtype.
+
+MLA's latent decode in bf16 (MiniCPM3 under ``compute_dtype``
+"bfloat16"): :func:`latent_decode_bf16` launches
+``csrc/latent_decode_bf16.cu``, the composed bf16 path of the reference's
+absorbed MLA attention (its two score products rounded apart, then their
+sum, the scale, the mask; softmax in f32; p and the mix of c in bf16),
+reading c and k_rope in place from the latent cache;
+:func:`latent_decode_bf16_ref` is its algorithm in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -503,3 +511,182 @@ def flash_decode_attention(q, k, v, lengths, window: int = 0,
 
 flash_decode_attention.launches = 0
 flash_decode_attention.launches_by_dtype = BY_DTYPE["flash_decode_attention"]
+
+
+# -- MLA's latent decode in bf16 ----------------------------------------------
+
+LATENT_R_MAX = 2 * FD_PART      # the latent kernel's widest c (kv_rank)
+LATENT_DR_MAX = FD_PART         # and rope key
+_SMEM_MAX = 232448              # an H100 block's dynamic shared memory
+
+
+def _warp_dots(q, k):
+    """[B, H, s] dot products of q [B, H, Dp] with k [B, s, Dp] (Dp a
+    multiple of FD_PART, zero past the width) in the kernels' order: lane
+    l's chain over d = FD_PART·pt + 4l + u, then the 32-lane butterfly
+    (products exact: bf16 operands)."""
+    B, H, Dp = q.shape
+    s = k.shape[1]
+    NP = Dp // FD_PART
+    prod = (q[:, :, None, :] * k[:, None, :, :]).reshape(B, H, s, NP, 32, 4)
+    x = prod[..., 0, :, 0]
+    for pt in range(NP):
+        for u in range(4):
+            if pt or u:
+                x = x + prod[..., pt, :, u]
+    for half in (16, 8, 4, 2, 1):
+        x = x[..., :half] + x[..., half:2 * half]
+    return x[..., 0]
+
+
+def _pad_to_part(t):
+    """``t`` [..., D] in f32, zero-padded to a multiple of FD_PART."""
+    D = t.shape[-1]
+    return torch.nn.functional.pad(t.to(torch.float32),
+                                   (0, -(-D // FD_PART) * FD_PART - D))
+
+
+def latent_decode_bf16_ref(q_lat, q_rope, c, k_rope, lengths,
+                           scale: float, block: int = 1024) -> torch.Tensor:
+    """Plain version of the latent kernel (``csrc/latent_decode_bf16.cu``):
+    the composed bf16 path of MLA's absorbed decode attention in the
+    kernel's order. Scores s = bf16(bf16(bf16(q_lat·c) + bf16(q_rope·k_rope))
+    · bf16(scale)), each dot a lane's chain then the butterfly
+    (:func:`_warp_dots`); positions at or past a lane's length are not
+    scored (a lane of length ≤ 0 scores all S at bf16(NEG_BIG)); each
+    chunk of FD_CHUNK positions' max m_c and Σ exp(s − m_c) in position
+    order, folded in chunk order by m' = max(m, m_c), l = fmaf(exp(m − m'),
+    l, exp(m_c − m')·l_c); p = bf16(exp(s − m) / l); each chunk's Σ p·c
+    from +0 in position order, the chunks added in order, then bf16.
+    q_lat [B, H, R] and q_rope [B, H, Dr] bf16; c [B, S, R] and k_rope
+    [B, S, Dr] f32, bf16 or e4m3 (read in bf16); lengths [B]. Returns
+    [B, H, R] bf16. ``block``: positions scored at a time (memory only).
+    Bit for bit the kernel where exp and division are the card's, i.e. on
+    the card; not on the serving path."""
+    B, H, R = q_lat.shape
+    S = c.shape[1]
+    dev = q_lat.device
+    scb, negb = _bf16(scale), _bf16(NEG_BIG)
+    ql, qr = _pad_to_part(q_lat), _pad_to_part(q_rope)
+    s = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    for p0 in range(0, S, block):
+        cs = _pad_to_part(_rbf(c[:, p0:p0 + block].to(torch.float32)))
+        rs = _pad_to_part(_rbf(k_rope[:, p0:p0 + block].to(torch.float32)))
+        s[..., p0:p0 + block] = _rbf(_rbf(
+            _rbf(_warp_dots(ql, cs)) + _rbf(_warp_dots(qr, rs))) * scb)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    n = torch.where(lengths <= 0, S, lengths.clamp(max=S))
+    pos = torch.arange(S, device=dev)
+    att = pos[None] < n[:, None]                                # read
+    real = att & (lengths > 0)[:, None]                         # scored
+    s = torch.where(real[:, None, :], s, negb)
+    NC = -(-S // FD_CHUNK)
+    Sp = NC * FD_CHUNK
+    sp = torch.nn.functional.pad(s, (0, Sp - S), value=negb)
+    sp = sp.reshape(B, H, NC, FD_CHUNK)
+    tc = (n[:, None] - torch.arange(NC, device=dev)[None] * FD_CHUNK).clamp(
+        0, FD_CHUNK)                                            # [B, NC]
+    inside = (torch.arange(FD_CHUNK, device=dev)[None, None]
+              < tc[:, :, None])[:, None]                        # [B,1,NC,64]
+    m_c = torch.where(inside, sp, negb).amax(-1).clamp_min(negb)
+    e = torch.exp(sp - m_c[..., None])
+    l_c = e[..., 0]
+    for i in range(1, FD_CHUNK):
+        l_c = torch.where(inside[..., i], l_c + e[..., i], l_c)
+    nc = (-(-n // FD_CHUNK))[:, None]                           # [B, 1]
+    m, l = m_c[..., 0], l_c[..., 0]
+    for ch in range(1, NC):
+        live = ch < nc
+        m2 = torch.maximum(m, m_c[..., ch])
+        l2 = fmaf_rn(torch.exp(m - m2), l, torch.exp(m_c[..., ch] - m2)
+                     * l_c[..., ch])
+        l = torch.where(live, l2, l)
+        m = torch.where(live, m2, m)
+    p = _rbf(torch.exp(sp - m[..., None, None]) / l[..., None, None])
+    p = torch.where(inside, p, 0.0)                             # [B,H,NC,64]
+    cf = torch.nn.functional.pad(_rbf(c.to(torch.float32)),
+                                 (0, 0, 0, Sp - S)).reshape(B, NC, FD_CHUNK, R)
+    acc_c = torch.zeros((B, H, NC, R), dtype=torch.float32, device=dev)
+    for i in range(FD_CHUNK):
+        step = p[..., i, None] * cf[:, None, :, i, :]          # exact
+        acc_c = torch.where(inside[..., i, None], acc_c + step, acc_c)
+    acc = acc_c[:, :, 0]
+    for ch in range(1, NC):
+        acc = torch.where((ch < nc)[..., None], acc + acc_c[:, :, ch], acc)
+    return acc.to(torch.bfloat16)
+
+
+def _check_latent_args(q_lat, q_rope, c, k_rope, lengths):
+    """Shapes (B, S, H, R, Dr) of a latent-kernel call, after checking what
+    the kernel takes; raises ValueError on anything else."""
+    named = (("q_lat", q_lat, (torch.bfloat16,)),
+             ("q_rope", q_rope, (torch.bfloat16,)),
+             ("c", c, W_DTYPES), ("k_rope", k_rope, W_DTYPES))
+    for name, t, dts in named:
+        if t.dtype not in dts:
+            raise ValueError(f"{name}: needs {[str(d) for d in dts]}, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous() or t.dim() != 3:
+            raise ValueError(f"{name}: needs a contiguous 3-d tensor")
+    B, H, R = q_lat.shape
+    S, Dr = c.shape[1], k_rope.shape[2]
+    if (q_rope.shape[:2] != (B, H) or q_rope.shape[2] != Dr
+            or c.shape != (B, S, R) or k_rope.shape != (B, S, Dr)
+            or c.dtype != k_rope.dtype or S < 1):
+        raise ValueError(f"shapes q_lat {tuple(q_lat.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, c {tuple(c.shape)} "
+                         f"({c.dtype}), k_rope {tuple(k_rope.shape)} "
+                         f"({k_rope.dtype}) do not fit")
+    smem = 4 * max(H * (-(-R // FD_PART) * FD_PART + FD_PART + FD_CHUNK),
+                   H * FD_CHUNK + FD_CHUNK * R)
+    if R > LATENT_R_MAX or Dr > LATENT_DR_MAX or smem > _SMEM_MAX:
+        raise ValueError(f"the latent kernel takes R <= {LATENT_R_MAX}, Dr "
+                         f"<= {LATENT_DR_MAX} and {_SMEM_MAX} bytes of "
+                         f"shared memory; got R={R}, Dr={Dr}, H={H}")
+    for name, t, _ in named:
+        if t.device.type != "cuda" or t.device != q_lat.device:
+            raise ValueError(f"{name}: needs a CUDA tensor on q_lat's "
+                             f"device, got one on {t.device}")
+    if (lengths.dtype != torch.int32 or lengths.shape != (B,)
+            or lengths.device != q_lat.device
+            or not lengths.is_contiguous()):
+        raise ValueError("lengths: needs a contiguous int32 [B] tensor on "
+                         "q_lat's device")
+    return B, S, H, R, Dr
+
+
+def latent_decode_bf16(q_lat, q_rope, c, k_rope, lengths,
+                       scale: float) -> torch.Tensor:
+    """MLA's absorbed single-token decode attention in bf16: the CUDA
+    kernel for tensors on the card, its plain version
+    (:func:`latent_decode_bf16_ref`) for tensors on the CPU. q_lat bf16
+    [B, H, R] (R ≤ 256), q_rope bf16 [B, H, Dr] (Dr ≤ 128), c [B, S, R]
+    and k_rope [B, S, Dr] of one dtype (f32, bf16 or e4m3: the latent
+    cache's k and v buffers, read in place), lengths int32 [B], all
+    contiguous; ``scale`` the scores' factor (rounded to bf16). Returns
+    [B, H, R] bf16. ``latent_decode_bf16.launches`` counts the kernel's
+    calls."""
+    if all(t.device.type == "cpu" for t in (q_lat, q_rope, c, k_rope)):
+        return latent_decode_bf16_ref(q_lat, q_rope, c, k_rope, lengths,
+                                      scale)
+    B, S, H, R, Dr = _check_latent_args(q_lat, q_rope, c, k_rope, lengths)
+    out = torch.empty_like(q_lat)
+    NC = -(-S // FD_CHUNK)
+    scratch = torch.empty(B * H * (S + NC * (R + 2) + 2),
+                          dtype=torch.float32, device=q_lat.device)
+    rc = _lib_narrow(
+        "latent_decode_bf16", "repro_latent_decode_bf16",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+         ctypes.c_float, _I, _P])(
+        q_lat.data_ptr(), q_rope.data_ptr(), c.data_ptr(), k_rope.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, S, H, R,
+        Dr, _bf16(scale), _bf16(NEG_BIG), DTYPE_CODES[c.dtype],
+        _build.stream_ptr(q_lat.device))
+    _build.check(rc, "latent_decode_bf16")
+    latent_decode_bf16.launches += 1
+    BY_DTYPE["latent_decode_bf16"][dtype_key(q_lat, c)] += 1
+    return out
+
+
+latent_decode_bf16.launches = 0
+latent_decode_bf16.launches_by_dtype = BY_DTYPE["latent_decode_bf16"]

@@ -381,18 +381,25 @@ def resident_params(sc: ServeConfig, cfg) -> bool:
 
 
 def serving_cache_specs(cache, mesh, cfg) -> Dict[str, tuple]:
-    """The cache's placement on a serving mesh: ``shard_cache``'s spec,
-    of which a rank's buffers take the batch split (over "data") and a GQA
-    cache's KV-head split (over "model"). A sequence split, and a split of
-    a recurrent state's heads, is not taken: the attention and the scan
-    would then reduce across ranks; those dims stay whole."""
+    """The cache's placement on a serving mesh, from ``shard_cache``'s: a
+    rank's buffers hold its rows of the batch, so every per-lane buffer
+    ([L, B, ...]: keys and values, a recurrent state and its token-shift
+    rows) takes the batch's split (``batch_spec``: over "pod" and
+    "data", as the rank's rows), and a GQA cache its KV-head split (over
+    "model"). A sequence split, and a split of a recurrent state's heads,
+    is not taken: the attention and the scan would then reduce across
+    ranks; those dims stay whole. The reference's ``shard_cache`` also
+    leaves RWKV's token-shift rows whole and splits the batch over "data"
+    only."""
     specs = sharding.shard_cache(cache, mesh, cfg)
     out = {}
-    for key, spec in specs.items():
-        keep = {1} | ({3} if key in ("k", "v") and cache[key].dim() == 5
-                      else set())
-        out[key] = tuple(e if d in keep else None
-                         for d, e in enumerate(spec))
+    for key, t in cache.items():
+        spec = [None] * t.dim()
+        if t.dim() >= 3:
+            spec[1] = sharding.batch_spec(mesh, t.shape[1], 1)[0]
+        if key in ("k", "v") and t.dim() == 5:
+            spec[3] = specs[key][3]
+        out[key] = tuple(spec)
     return out
 
 
@@ -520,6 +527,64 @@ def decode_step(bk, params, cfg, cache, tokens, pos: int, enc_out=None):
     return torch.argmax(last, dim=-1), last, cache
 
 
+def build_serve_steps(arch_cfg, sc: ServeConfig, mesh, monitor=None):
+    """The prefill and decode steps on ``mesh`` (a DeviceMesh), the
+    counterpart of the reference's ``build_serve_steps``: returns
+    (prefill, decode, placements).
+
+    * ``prefill(params, cache, batch)`` → (logits [B, 1, V], cache), and
+      an encoder-decoder model's encoder states [B, Se, d] after them;
+    * ``decode(params, cache, batch)`` → (next tokens [B], logits [B, V],
+      cache);
+
+    over :func:`prefill_step` / :func:`decode_step` on the backend of
+    ``sc`` (:func:`_backend`, its mesh variant). ``params`` are placed
+    by ``placements["params"]`` (``shard_params(model_only=
+    resident_params(sc, cfg))``) and ``cache`` is this rank's block of
+    the cache placed by ``placements["cache"]``
+    (:func:`serving_cache_specs`, which keeps the sequence dim and a
+    recurrent state's heads whole where the reference's ``shard_cache``
+    splits them). ``batch`` holds the whole batch, the same on every
+    rank: ``tokens`` [B, S], at decode ``pos`` (an int), a modality's
+    ``frontend`` at prefill and an encoder-decoder's ``enc_out`` at
+    decode; each rank runs its rows (``batch_spec``) and the results are
+    gathered whole. ``placements["backend"]`` is the backend the steps
+    run on."""
+    bk = _backend(sc, monitor=monitor, mesh=mesh)
+    resident = resident_params(sc, arch_cfg)
+    specs = {"params": sharding.shard_params(
+                 T.param_shapes(arch_cfg), mesh, model_only=resident),
+             "cache": serving_cache_specs(
+                 {k: torch.empty(shape, device="meta") for k, shape in
+                  T.cache_shapes(arch_cfg, sc.batch, sc.max_seq).items()},
+                 mesh, arch_cfg),
+             "backend": bk}
+
+    rows = sharding.batch_spec(mesh, sc.batch, 1)[0]    # the batch's split
+    mine = lambda t: (None if t is None else
+                      sharding.local_block(t, (rows,), mesh))
+
+    def prefill(params, cache, batch):
+        frontend = mine(batch.get("frontend"))
+        enc_out = encode_step(bk, params, arch_cfg, frontend)
+        logits, cache = prefill_step(bk, params, arch_cfg, cache,
+                                     mine(batch["tokens"]), frontend,
+                                     enc_out)
+        logits = gather_rows(bk, logits, rows)
+        if arch_cfg.enc_dec:
+            return logits, cache, gather_rows(bk, enc_out, rows)
+        return logits, cache
+
+    def decode(params, cache, batch):
+        _, last, cache = decode_step(bk, params, arch_cfg, cache,
+                                     mine(batch["tokens"]), batch["pos"],
+                                     mine(batch.get("enc_out")))
+        last = gather_rows(bk, last, rows)
+        return torch.argmax(last, dim=-1), last, cache
+
+    return prefill, decode, specs
+
+
 def make_responses(toks, certset: Optional[CertificateSet] = None):
     """Per-sequence response dicts; with a certificate set, each carries
     the certified (δ̄, ε̄, k) error bars it was served under."""
@@ -603,10 +668,11 @@ def _log_served(registry, monitor, certset, responses, args, sc, toks,
 
 def main(argv=None, mesh=None) -> ServeResult:
     """The serving CLI. ``mesh``: the ("data", "model") DeviceMesh to serve
-    on; None builds the host mesh (1 × 1, this process's device). Params
-    are placed by ``shard_params(model_only=params_resident)`` and the
-    cache by ``shard_cache`` (:func:`serving_cache_specs`); each rank runs
-    its block of the batch, and the results are gathered whole."""
+    on; None builds the host mesh (1 × 1, this process's device). The
+    steps and placements are :func:`build_serve_steps`': params placed by
+    ``shard_params(model_only=params_resident)`` and the cache by
+    ``shard_cache`` (:func:`serving_cache_specs`); each rank runs its
+    block of the batch, and the results are gathered whole."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen2_7b")
     ap.add_argument("--size", choices=("smoke", "full"), default="smoke",
@@ -748,24 +814,19 @@ def main(argv=None, mesh=None) -> ServeResult:
     if mesh is None:
         mesh = meshlib.make_host_mesh(str(dev))
     sc = dataclasses.replace(sc, params_resident=resident_params(sc, cfg))
-    placed = sharding.place(params, sharding.shard_params(
-        params, mesh, model_only=sc.params_resident), mesh)
-    c_specs = serving_cache_specs(cache, mesh, cfg)
-    cache = sharding.local(sharding.place(cache, c_specs, mesh))
-    rows = sharding.batch_spec(mesh, sc.batch, sc.prefill_len)[0]
-    mine = lambda t: (None if t is None else
-                      sharding.local_block(t, (rows,), mesh))
-    bk = _backend(sc, monitor=monitor, mesh=mesh)
+    prefill, decode, specs = build_serve_steps(cfg, sc, mesh, monitor)
+    bk = specs["backend"]
+    placed = sharding.place(params, specs["params"], mesh)
+    cache = sharding.local(sharding.place(cache, specs["cache"], mesh))
 
     with torch.no_grad():
         t0 = time.perf_counter()
         with obs.span("serve.prefill", arch=args.arch, batch=sc.batch,
                       prefill_len=sc.prefill_len):
-            enc_out = encode_step(bk, placed, cfg, mine(frontend))
-            logits, cache = prefill_step(bk, placed, cfg, cache,
-                                         mine(prompt), mine(frontend),
-                                         enc_out)
-            logits = gather_rows(bk, logits, rows)
+            out = prefill(placed, cache, {"tokens": prompt,
+                                          "frontend": frontend})
+            logits, cache = out[:2]
+            enc_out = out[2] if cfg.enc_dec else None
             tok = torch.argmax(logits[:, -1, :], dim=-1)
             if monitor is not None:
                 monitor.flush()
@@ -776,12 +837,9 @@ def main(argv=None, mesh=None) -> ServeResult:
         for i in range(args.decode_steps):
             td = time.perf_counter()
             with obs.span("serve.decode", step=i):
-                _, last, cache = decode_step(bk, placed, cfg, cache,
-                                             mine(tok)[:, None],
-                                             prefix + sc.prefill_len + i,
-                                             enc_out)
-                last = gather_rows(bk, last, rows)
-                tok = torch.argmax(last, dim=-1)
+                tok, last, cache = decode(placed, cache, {
+                    "tokens": tok[:, None], "enc_out": enc_out,
+                    "pos": prefix + sc.prefill_len + i})
                 if monitor is not None:
                     monitor.flush()
                 _sync(dev)

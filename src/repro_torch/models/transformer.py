@@ -208,21 +208,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     ``per_lane_idx=True`` gives each batch lane its own write index (idx
     [L, B]): the continuous-batching engine's cache, where lanes prefill
     and decode at independent positions."""
-    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    return {name: torch.zeros(shape, dtype=torch.int32 if name == "idx"
+                              else dtype, device=device)
+            for name, shape in cache_shapes(cfg, batch, max_seq,
+                                            per_lane_idx=per_lane_idx).items()}
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int, *,
+                 per_lane_idx: bool = False) -> Dict[str, tuple]:
+    """The shapes of :func:`init_cache`'s buffers (``idx`` is int32, the
+    others in the cache dtype)."""
     Lh, d = cfg.n_layers, cfg.d_model
     if cfg.rwkv:
         C = d // cfg.n_heads
-        return {"S": zeros(Lh, batch, cfg.n_heads, C, C),
-                "x_tm": zeros(Lh, batch, d), "x_cm": zeros(Lh, batch, d)}
-    idx = torch.zeros((Lh, batch) if per_lane_idx else (Lh,),
-                      dtype=torch.int32, device=device)
+        return {"S": (Lh, batch, cfg.n_heads, C, C), "x_tm": (Lh, batch, d),
+                "x_cm": (Lh, batch, d)}
+    idx = (Lh, batch) if per_lane_idx else (Lh,)
     if cfg.mla:
-        return {"k": zeros(Lh, batch, max_seq, cfg.kv_rank),
-                "v": zeros(Lh, batch, max_seq, cfg.d_rope), "idx": idx}
+        return {"k": (Lh, batch, max_seq, cfg.kv_rank),
+                "v": (Lh, batch, max_seq, cfg.d_rope), "idx": idx}
     shape = (Lh, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    out = {"k": zeros(*shape), "v": zeros(*shape), "idx": idx}
+    out = {"k": shape, "v": shape, "idx": idx}
     if cfg.hybrid:
-        out["h_ssm"] = zeros(Lh, batch, cfg.mamba_expand * d, cfg.ssm_state)
+        out["h_ssm"] = (Lh, batch, cfg.mamba_expand * d, cfg.ssm_state)
     return out
 
 

@@ -586,15 +586,24 @@ def test_card_route_refuses_other_dtypes(monkeypatch):
 def test_card_latent_decode_route(monkeypatch):
     """MLA's decode step with the route predicate told that every tensor
     lies on the card: in f32 a bf16 latent cache reaches kernel 4 upcast
-    (exact) in the one copy the step makes, and a bf16 step raises instead
-    of composing library products; f64 (the analysis's exact model) keeps
-    the composed path."""
+    (exact) in the one copy the step makes; a bf16 step reaches the latent
+    kernel with the cache's own buffers (no copy) and q as [B, H, R] /
+    [B, H, Dr]; any other dtype raises instead of composing library
+    products; f64 (the analysis's exact model) keeps the composed path."""
     monkeypatch.setattr(tbackend, "_on_card", lambda t: True)
     seen = []
     monkeypatch.setattr(
         tbackend.flash_decode, "flash_decode_attention",
         lambda q, k, v, lengths, scale: seen.append((q.dtype, k.dtype))
         or q)
+    latent = []
+
+    def fake_latent(q_lat, q_rope, c, k_rope, lengths, scale):
+        latent.append((q_lat.shape, q_rope.shape, c, k_rope, scale))
+        return q_lat
+
+    monkeypatch.setattr(tbackend.flash_decode, "latent_decode_bf16",
+                        fake_latent)
     B, S, H, R, Dr = 2, 5, 3, 8, 4
     c = torch.randn(B, S, R).to(BF16)
     k_rope = torch.randn(B, S, Dr).to(BF16)
@@ -604,10 +613,17 @@ def test_card_latent_decode_route(monkeypatch):
         lengths, 0.5)
     assert seen == [(torch.float32, torch.float32)]
     assert out.shape == (B, 1, H, R)
+    out = TorchOps(BF16).latent_decode_attention(
+        torch.randn(B, 1, H, R).to(BF16), torch.randn(B, 1, H, Dr).to(BF16),
+        c, k_rope, lengths, 0.5)
+    assert out.shape == (B, 1, H, R) and out.dtype == BF16
+    [(ql, qr, c_in, r_in, scale)] = latent
+    assert (ql, qr, scale) == ((B, H, R), (B, H, Dr), 0.5)
+    assert c_in is c and r_in is k_rope
     with pytest.raises(ValueError, match="latent decode"):
-        TorchOps(BF16).latent_decode_attention(
-            torch.randn(B, 1, H, R).to(BF16), torch.randn(B, 1, H, Dr).to(
-                BF16), c, k_rope, lengths, 0.5)
+        TorchOps(torch.float16).latent_decode_attention(
+            torch.randn(B, 1, H, R).half(), torch.randn(B, 1, H, Dr).half(),
+            c, k_rope, lengths, 0.5)
     assert TorchOps(torch.float64).latent_decode_attention(
         *(t.double() for t in (torch.randn(B, 1, H, R),
                                torch.randn(B, 1, H, Dr), c, k_rope)),

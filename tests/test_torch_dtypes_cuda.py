@@ -5,7 +5,8 @@ bf16 instance (the reference's composed bf16 attention) bit for bit its
 plain version ``flash_decode_bf16_ref``; an f32 q with a bf16 or e4m3
 cache (kernels 2 and 4) bit for bit the f32 instance on the upcast cache;
 ``serve.main`` in f32 with a narrow cache for a GQA, a windowed and an MLA
-model, and MLA's bf16 decode refused. They need a CUDA device and skip
+model; MLA's bf16 decode through the latent kernel, bit for bit its plain
+version ``latent_decode_bf16_ref``. They need a CUDA device and skip
 without one; they import nothing of JAX: ``python -m pytest -q --noconftest
 -m cuda tests/test_torch_dtypes_cuda.py``.
 """
@@ -182,9 +183,55 @@ def test_serve_main_f32_compute_with_a_narrow_cache(cuda_device, arch,
 
 @pytest.mark.cuda
 def test_mla_bf16_decode_is_refused_on_the_card(cuda_device):
+    """MLA's bf16 decode on the card: served through the latent kernel
+    (one launch a layer and decode step, none at prefill) since it exists;
+    an f16 step is still refused rather than composed."""
+    from repro_torch.core.backend import TorchOps
     from repro_torch.launch import serve as tserve
 
+    tfd.latent_decode_bf16.launches = 0
+    res = tserve.main(["--device", "cuda", "--arch", "minicpm3_4b",
+                       "--batch", "2", "--prefill-len", "6",
+                       "--decode-steps", "2", "--compute-dtype", "bfloat16",
+                       "--cache-dtype", "bfloat16"])
+    assert tfd.latent_decode_bf16.launches == 2 * res.cfg.n_layers
+    assert all(torch.isfinite(lg.float()).all() for lg in res.decode_logits)
+    B, S, H, R, Dr = 2, 9, 4, 16, 8
     with pytest.raises(ValueError, match="latent decode"):
-        tserve.main(["--device", "cuda", "--arch", "minicpm3_4b", "--batch",
-                     "2", "--prefill-len", "6", "--decode-steps", "2",
-                     "--compute-dtype", "bfloat16"])
+        TorchOps(torch.float16).latent_decode_attention(
+            torch.randn(B, 1, H, R, device=cuda_device).half(),
+            torch.randn(B, 1, H, Dr, device=cuda_device).half(),
+            torch.randn(B, S, R, device=cuda_device).to(BF16),
+            torch.randn(B, S, Dr, device=cuda_device).to(BF16),
+            torch.full((B,), S, dtype=torch.int32, device=cuda_device), 0.5)
+
+
+LATENT_SHAPES = {"minicpm3_decode": (4, 40, 256, 32, 145, [145, 130, 64, 1]),
+                 "minicpm3_32k": (4, 40, 256, 32, 32768,
+                                  [32768, 20001, 4097, 65]),
+                 "ragged_smoke": (3, 4, 16, 8, 200, [0, 129, 64]),
+                 "narrow_widths": (2, 6, 100, 20, 70, [70, 3])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [BF16, FP8, torch.float32],
+                         ids=["bf16", "e4m3", "f32"])
+@pytest.mark.parametrize("shape", list(LATENT_SHAPES))
+def test_latent_kernel_is_its_plain_version(cuda_device, cdt, shape):
+    """The latent kernel bit for bit its plain version at MiniCPM3's decode
+    shape, at 32K, with ragged lengths (0 included) and widths off the
+    parts; a bf16, an e4m3 and an f32 latent cache, read in place."""
+    B, H, R, Dr, S, lens = LATENT_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    f = lambda *sh: torch.randn(*sh, device=cuda_device, generator=gen)
+    q_lat, q_rope = f(B, H, R).to(BF16), f(B, H, Dr).to(BF16)
+    c, k_rope = dtypes.cast(f(B, S, R), cdt), dtypes.cast(f(B, S, Dr), cdt)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    n = tfd.latent_decode_bf16.launches
+    got = tfd.latent_decode_bf16(q_lat, q_rope, c, k_rope, lengths,
+                                 (64 + 32) ** -0.5)
+    assert tfd.latent_decode_bf16.launches == n + 1
+    want = tfd.latent_decode_bf16_ref(q_lat, q_rope, c, k_rope, lengths,
+                                      (64 + 32) ** -0.5)
+    torch.cuda.synchronize()
+    same_bits(got, want)
