@@ -6877,6 +6877,7 @@ def phase_train(torch, qmm, fd, T):
 MESH_SPLITS = (2, 4, 8)            # "model" sizes the shard checks split
 MESH_TRAIN_STEPS = 3
 MESH_TRAIN_MODES = ("fsdp", "tp")
+MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 512, 4
 MESH_PROJ = {"wq": "attn", "wk": "attn", "wv": "attn", "wo": "attn",
              "w_gate": "mlp", "w_up": "mlp", "w_down": "mlp"}
 
@@ -6995,49 +6996,94 @@ def mesh_shards(torch, qmm, fd, params):
     return rows
 
 
-def mesh_train(torch, T, mesh, want_losses):
+def mesh_train_cfg():
+    """The mesh phase's training config: Qwen2-7B at full width, 2
+    layers."""
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("qwen2_7b").FULL, n_layers=2)
+
+
+def _state_bytes(tree):
+    """Bytes of this rank's blocks of a tree of tensors and DTensors."""
+    total = 0
+    for t in _leaves(tree if not hasattr(tree, "_fields") else
+                     {f: getattr(tree, f) for f in tree._fields}):
+        if t is None:
+            continue
+        t = t.to_local() if hasattr(t, "to_local") else t
+        total += t.numel() * t.element_size()
+    return total
+
+
+def mesh_train(torch, T, mesh, want_losses, train_peak_gb=None,
+               dry_train=None):
     """Qwen2-7B at full width cut to 2 layers, MESH_TRAIN_STEPS steps of
     ``build_train_step`` on ``mesh`` with each ``param_sharding``, the
-    ``train`` phase's run's config, seed and stream: the losses must equal
-    that run's bit for bit."""
-    from repro_torch import configs
+    ``train`` phase's run's config, seed and stream, through the mesh
+    step's per-layer path (each layer's params gathered inside its
+    checkpointed region; no collective on the 1 × 1 mesh's axes): the
+    losses must equal that run's bit for bit. Each run's
+    ``max_memory_allocated`` is reported beside the ``train`` phase's peak
+    (not gated). ``dry_train``: the dry run's record of the same step on a
+    fake 1 × 1 group, whose params and optimizer bytes must equal the
+    state's the card allocated under "fsdp", exactly."""
     from repro_torch.data import pipeline
     from repro_torch.launch import train
     from repro_torch.optim import optimizer as opt
 
-    cfg = dataclasses.replace(configs.get("qwen2_7b").FULL, n_layers=2)
+    cfg = mesh_train_cfg()
     dev = torch.device("cuda")
     steps = 6                              # the train phase's schedule
-    dc = pipeline.DataConfig(vocab=cfg.vocab, seq=512, global_batch=4,
-                             seed=0)
+    dc = pipeline.DataConfig(vocab=cfg.vocab, seq=MESH_TRAIN_SEQ,
+                             global_batch=MESH_TRAIN_BATCH, seed=0)
     out = {}
     for mode in MESH_TRAIN_MODES:
-        tc = train.TrainConfig(arch="qwen2_7b", smoke=False, seq=512,
-                               global_batch=4, steps=steps,
+        tc = train.TrainConfig(arch="qwen2_7b", smoke=False,
+                               seq=MESH_TRAIN_SEQ,
+                               global_batch=MESH_TRAIN_BATCH, steps=steps,
                                param_sharding=mode)
+        torch.cuda.reset_peak_memory_stats()
         step_fn, init_fn = train.build_train_step(
             cfg, tc, dev, opt.AdamWConfig(total_steps=steps), mesh=mesh)
         state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        card = {"params": _state_bytes(state["params"]),
+                "opt": _state_bytes(state["opt"])}
         losses, t0 = [], time.perf_counter()
         for step in range(MESH_TRAIN_STEPS):
             state, loss = step_fn(state, train.batch_for(cfg, dc, step, dev))
             losses.append(float(loss))
         out[mode] = {"losses": losses, "seconds": time.perf_counter() - t0,
-                     "equal_to_train": losses == want_losses}
+                     "equal_to_train": losses == want_losses,
+                     "state_bytes": card,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "train_phase_peak_gb": train_peak_gb}
         del state, step_fn, init_fn
         free_device_memory(torch)
         if losses != want_losses:
             raise AssertionError(f"mesh train {mode}: losses {losses}, the "
                                  f"train phase's {want_losses}")
+        if mode == "fsdp" and dry_train is not None:
+            parts = dry_train["argument_parts"]
+            dry = {"params": parts["params"], "opt": parts["opt"]}
+            if dry != card:
+                raise AssertionError(f"mesh train: the dry run's state "
+                                     f"{dry} != the card's {card}")
+            out[mode].update(dry_run_state_bytes=dry,
+                             dry_run_equal_to_card=True,
+                             dry_run_peak_gb=dry_train["peak_bytes"] / 1e9)
     return out
 
 
-def phase_mesh(torch, batching, qmm, fd, T, handoff, train_losses):
+def phase_mesh(torch, batching, qmm, fd, T, handoff, train_losses,
+               train_peak_gb=None, dry_train=None):
     """The device mesh on the card, whose process has one device: the
     engine on the 1 × 1 serving mesh (``batching``'s requests and results,
     bit for bit), the per-shard bits a wider mesh relies on, and training on
     the 1 × 1 mesh under each ``param_sharding`` (``train``'s losses bit
-    for bit). Returns the engine runs' launches (the path's)."""
+    for bit; the dry run's state bytes the card's, :func:`mesh_train`).
+    Returns the engine runs' launches (the path's)."""
     from repro_torch import configs
     from repro_torch.launch import mesh as meshlib
 
@@ -7056,7 +7102,8 @@ def phase_mesh(torch, batching, qmm, fd, T, handoff, train_losses):
     del params
     free_device_memory(torch)
     reset_launches(fns)
-    trained = mesh_train(torch, T, mesh, train_losses)
+    trained = mesh_train(torch, T, mesh, train_losses, train_peak_gb,
+                         dry_train)
     train_launches = read_launches(fns)
     if any(train_launches.values()):
         raise AssertionError(f"mesh train launched kernels: "
@@ -7898,8 +7945,9 @@ def start_dryrun():
     four shapes on the single-pod 16 × 16 mesh (a fake group of 256
     ranks), then on 1 × 1 (a fake group of one) the prefill steps that
     ``dtypes`` serves on the card, DRYRUN_ONE_BY_ONE (4 × 128 prompts into
-    a cache of the run's length, its param and cache dtypes). Returns the
-    future of the records (a list a group)."""
+    a cache of the run's length, its param and cache dtypes), and the
+    train step that ``mesh`` runs on the card (:func:`mesh_train`'s
+    config, fsdp). Returns the future of the records (a list a group)."""
     import concurrent.futures
 
     from repro_torch.configs import SHAPES
@@ -7913,8 +7961,13 @@ def start_dryrun():
                 mesh_shape=(1, 1), cache_len=SERVE_PROMPT + steps + 1,
                 serve_policy=pol)
            for arch, _, steps, pol in DRYRUN_ONE_BY_ONE]
+    train = [dict(arch="qwen2_7b", shape=dict(
+        name="mesh_train", kind="train", seq=MESH_TRAIN_SEQ,
+        batch=MESH_TRAIN_BATCH), cfg=mesh_train_cfg(), mesh_shape=(1, 1),
+        train_policy={"param_sharding": "fsdp"})]
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    future = pool.submit(dryrun.run_isolated, [(256, 0, single), (1, 0, one)],
+    future = pool.submit(dryrun.run_isolated, [(256, 0, single), (1, 0, one),
+                                               (1, 0, train)],
                          DRYRUN_TIMEOUT_S)
     pool.shutdown(wait=False)
     return future
@@ -7946,8 +7999,11 @@ def dryrun_vs_card(serves, future):
     kernel scratch, the decode steps and the allocator's rounding). Raises
     on any other outcome. Returns the report."""
     t0 = time.perf_counter()
-    single, one = future.result()
+    single, one, (train,) = future.result()
     waited = time.perf_counter() - t0
+    if train["status"] != "ok":
+        raise AssertionError(f"dry run, the mesh phase's train step 1 x 1: "
+                             f"{train}")
     want = ["ok", "ok", "ok", "skipped"]
     got = [r["status"] for r in single]
     if got != want:
@@ -7977,10 +8033,12 @@ def dryrun_vs_card(serves, future):
             - rec["memory"]["peak_bytes"] / 1e9,
             head_table_copy_gb=head / 1e9))
     rep = {"single_pod_qwen2_7b": [_dryrun_summary(r) for r in single],
-           "one_by_one": cells, "waited_s": waited}
+           "one_by_one": cells, "train_1x1": _dryrun_summary(train),
+           "waited_s": waited}
     emit("dryrun", note="the dry run in a spawned CPU process on fake "
          "process groups (no card); 1 x 1 cells: the prefill steps dtypes "
-         "serves, params and cache bytes equal the card's exactly", **rep)
+         "serves, params and cache bytes equal the card's exactly; the "
+         "mesh phase's train step, held to the card in mesh", **rep)
     return rep
 
 
@@ -8409,8 +8467,10 @@ def _main() -> int:
     clock("train")
     train_losses = [train_parts["full"]["layers2"]["losses"][str(i)]
                     for i in range(MESH_TRAIN_STEPS)]
-    by_path["mesh"] = phase_mesh(torch, batching, qmm, fd, T, handoff,
-                                 train_losses)
+    by_path["mesh"] = phase_mesh(
+        torch, batching, qmm, fd, T, handoff, train_losses,
+        train_parts["full"]["layers2"]["peak_gb"],
+        dtype_parts["dryrun"]["train_1x1"])
     del handoff
     marks.append(("mesh", time.perf_counter()))
     clock("mesh")

@@ -629,6 +629,21 @@ def _whole(t):
     return full(t)
 
 
+def gather_over(t, dim: int, mesh, axis: str):
+    """All-gather ``t`` along ``dim`` over ``mesh``'s ``axis`` (rank order:
+    exact); ``t`` itself where the mesh has no such axis or it has size
+    1."""
+    names = mesh.mesh_dim_names
+    if axis not in names or mesh.shape[names.index(axis)] <= 1:
+        return t
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
 class MeshOps:
     """Mixin put before a serving backend's class (:class:`MeshTorchOps`,
     ``serve.MeshQuantJOps``, ...): the backend on a ``DeviceMesh`` whose
@@ -679,18 +694,7 @@ class MeshOps:
         return 0 if i is None else self.mesh.get_coordinate()[i]
 
     def gather(self, t, dim: int, axis: str = "model"):
-        """All-gather ``t`` along ``dim`` over mesh ``axis`` (rank order);
-        ``t`` itself where the axis has size 1."""
-        names = self.mesh.mesh_dim_names
-        if axis not in names or self.mesh.shape[names.index(axis)] <= 1:
-            return t
-        import torch.distributed as dist
-
-        group = self.mesh.get_group(axis)
-        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(
-            group))]
-        dist.all_gather(parts, t.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
+        return gather_over(t, dim, self.mesh, axis)
 
     def _split(self, w):
         """The (axis, dim) pairs that split a DTensor over axes of size

@@ -33,16 +33,21 @@ the state, placed by the reference's rules: ``param_sharding`` "fsdp"
 splits the params over every axis (``shard_params``), "tp" over "model"
 only (``model_only``), "auto" picks "tp" for a dense model up to 40e9
 params and "fsdp" otherwise; the moments follow their params
-(:func:`opt_specs`, the reference's ``_opt_shardings``). A step gathers
-the params whole for the loss and its gradients on this rank's rows of the
-batch (``shard_batch``; the reference gathers a layer at a time inside its
-scan, the port the whole tree), averages the gradients over the
-data-parallel axes, clips them by their whole norm, and runs AdamW on this
-rank's blocks of the params and f32 moments. 8-bit moments and the EF
-residuals are quantised in blocks of the flattened leaf, which do not
-follow the leaf's split, so they are gathered and updated one leaf at a
-time, each rank keeping its blocks. ``main`` trains on one device, without
-a mesh.
+(:func:`opt_specs`, the reference's ``_opt_shardings``). A step runs the
+loss on this rank's rows of the batch (``shard_batch``) and differentiates
+it with respect to this rank's blocks, as the reference's scan does: a
+stacked leaf's layer slice is gathered whole inside that layer's
+checkpointed region (:class:`MeshRematTorchOps`; the recompute gathers it
+again), the other leaves once before the loss; each gather's backward
+averages the whole gradient over the data-parallel axes, runs it through
+the EF codec with its residual's slice, keeps its norm partials and
+hands back this rank's block (:class:`MeshGrads`). The remat carry is
+kept split over "model" (the reference's ``_residual_constraint``). Then
+the clip from the partials, in the meshless order, and AdamW on this
+rank's blocks (:func:`update_blocks`). Both codecs quantise blocks of the
+flattened leaf (256 values for EF, 128 for 8-bit moments): a stacked leaf
+whose layer slice is whole blocks is coded a layer at a time, any other
+leaf whole. ``main`` trains on one device, without a mesh.
 
 CLI (``--device cpu`` on the CPU; a missing card raises otherwise)::
 
@@ -56,6 +61,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import os
 import statistics
 import time
@@ -67,7 +73,7 @@ from torch.profiler import record_function
 
 from repro_torch import configs
 from repro_torch.checkpoint.checkpointing import Checkpointer
-from repro_torch.core.backend import TorchOps
+from repro_torch.core.backend import TorchOps, gather_over
 from repro_torch.data import pipeline
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.serve import configure_precision, resolve_device
@@ -117,15 +123,73 @@ class RematTorchOps(TorchOps):
         return x
 
 
-def _backend(tc: TrainConfig, remat: Optional[bool] = None) -> TorchOps:
+class MeshRematTorchOps(RematTorchOps):
+    """RematTorchOps in a mesh step (:func:`build_train_step`): each
+    layer's params are gathered inside its checkpointed region
+    (:class:`LayerBlocks`), so a layer's whole params live only while its
+    forward or its recompute runs, and the region keeps this rank's slice
+    of the residual carry's feature dim when "model" (> 1) divides it (the
+    reference's ``_residual_constraint``), gathered whole again for the
+    recompute: exact. The layer's output stays whole: every model rank
+    computes it. The mesh is kept as ``train_mesh``: the serving paths
+    (MoE's ``ep_shard_map``) read a backend's ``mesh``."""
+
+    def __init__(self, compute_dtype=torch.float32, *, mesh):
+        super().__init__(compute_dtype)
+        self.train_mesh = mesh
+
+    def layer_loop(self, fn, stacked_params, x, n_layers: int, aux=None):
+        if not torch.is_grad_enabled():
+            return super().layer_loop(fn, stacked_params, x, n_layers, aux)
+        for i in range(n_layers):
+            part = self._carry_part(x)
+            held = {"x": x, "split": part is not None}
+            with self.scope(f"layer{i}"):
+                x = torch.utils.checkpoint.checkpoint(
+                    self._layer, fn, stacked_params,
+                    x if part is None else part, i, aux, held,
+                    use_reentrant=False)
+            x = self.shard_hint(x, "act_batch")
+        return x
+
+    def _carry_part(self, x):
+        """This rank's slice of the carry's feature dim, or None where
+        "model" does not split it."""
+        m = meshlib.axis_size(self.train_mesh, "model")
+        d = x.shape[-1]
+        if x.dim() != 3 or m <= 1 or d % m:
+            return None
+        names = self.train_mesh.mesh_dim_names
+        r = self.train_mesh.get_coordinate()[names.index("model")]
+        return x.detach()[..., r * (d // m):(r + 1) * (d // m)].clone()
+
+    def _layer(self, fn, stacked_params, part, i, aux, held):
+        # the forward reads the carry itself; the recompute gets its saved
+        # part (checkpoint keeps its tensor arguments), gathered whole
+        x = held.pop("x", None)
+        if x is None:
+            x = part
+            if held["split"]:
+                x = gather_over(part, part.dim() - 1, self.train_mesh,
+                                "model").requires_grad_(True)
+        return fn(self.layer_params(stacked_params, i), x, i,
+                  self.layer_params(aux, i))
+
+
+def _backend(tc: TrainConfig, remat: Optional[bool] = None,
+             mesh=None) -> TorchOps:
     dt = torch.bfloat16 if tc.compute_dtype == "bfloat16" else torch.float32
-    cls = RematTorchOps if (tc.remat if remat is None else remat) \
-        else TorchOps
-    return cls(dt)
+    if not (tc.remat if remat is None else remat):
+        return TorchOps(dt)
+    if mesh is not None:
+        return MeshRematTorchOps(dt, mesh=mesh)
+    return RematTorchOps(dt)
 
 
-def make_loss_fn(arch_cfg, tc: TrainConfig):
-    bk = _backend(tc)
+def make_loss_fn(arch_cfg, tc: TrainConfig, mesh=None):
+    """The loss of a train state's params and a batch; ``mesh``: the loss
+    of a mesh step (:class:`MeshRematTorchOps` under remat)."""
+    bk = _backend(tc, mesh=mesh)
 
     def loss_fn(params, batch):
         kwargs = {}
@@ -255,17 +319,135 @@ def place_state(state: dict, specs: dict, mesh) -> dict:
 
 def _dp_mean(t, mesh, axes):
     """The mean of ``t`` over the data-parallel ``axes`` (sum, then one
-    division by the rank count); ``t`` itself where they have size 1."""
+    division by the rank count), in a copy; ``t`` itself where they have
+    size 1."""
     import torch.distributed as dist
 
+    live = [ax for ax in axes if meshlib.axis_size(mesh, ax) > 1]
+    if not live:
+        return t
+    t = t.clone()
     n = 1
-    for ax in axes:
-        if meshlib.axis_size(mesh, ax) > 1:
-            dist.all_reduce(t, group=mesh.get_group(ax))
-            n *= meshlib.axis_size(mesh, ax)
-    if n > 1:
-        t.div_(n)
-    return t
+    for ax in live:
+        dist.all_reduce(t, group=mesh.get_group(ax))
+        n *= meshlib.axis_size(mesh, ax)
+    return t.div_(n)
+
+
+def whole_of(block, spec, mesh):
+    """The whole tensor of this rank's ``block`` under ``spec``: gathered
+    over each axis of size > 1 that splits it (a dim split over several
+    axes innermost first, as :func:`sharding.local_block` cuts it), in
+    rank order: exact. ``block`` itself where no such axis splits it."""
+    out = block
+    for d, entry in enumerate(spec):
+        for ax in reversed(sharding._axes(entry)):
+            out = gather_over(out, d, mesh, ax)
+    return out
+
+
+class MeshGrads:
+    """One mesh step's gradient pass, run slice by slice inside the
+    backward (:class:`_Gather`): a param's or a layer slice's whole
+    gradient averaged over the data-parallel axes, through the EF codec
+    with that slice of its residual (``ef``: the residual tree, or None),
+    its norm partials kept (one a layer, as :func:`opt.global_norm` forms
+    them: every rank forms the same), and this rank's block handed
+    back. :meth:`loss_and_grads` builds the loss's param tree from this
+    rank's blocks."""
+
+    def __init__(self, mesh, ef=None):
+        self.mesh = mesh
+        self.dp = meshlib.data_axes(mesh)
+        self.ef = ef
+        self.partials: Dict[tuple, torch.Tensor] = {}
+
+    def per_layer(self, path, leaf) -> bool:
+        """Whether the stacked leaf at ``path`` is gathered a layer at a
+        time: always without EF, else where its layer slice is whole
+        codec blocks. Any other leaf is gathered whole once."""
+        if not opt.is_stacked(path):
+            return False
+        return (self.ef is None
+                or math.prod(leaf.shape[1:]) % gc.BLOCK == 0)
+
+    def loss_and_grads(self, loss_fn, params, batch):
+        """(loss on this rank's rows, this rank's blocks of the processed
+        gradients) of ``loss_fn`` over the placed ``params``."""
+        paths = list(opt.tree_paths(params))
+        blocks = [p.to_local().detach().requires_grad_(True)
+                  for _, p in paths]
+        live: Dict[str, Any] = {}
+        for (path, p), b in zip(paths, blocks):
+            spec = _spec_of(p)
+            if self.per_layer(path, p):
+                leaf = LayerBlocks(b, self, path, spec[1:])
+            else:
+                leaf = _Gather.apply(b, self, path, None, spec)
+            opt.tree_set(live, path, leaf)
+        loss = loss_fn(live, batch)
+        del live
+        grads: Dict[str, Any] = {}
+        for (path, _), g in zip(paths, torch.autograd.grad(loss, blocks)):
+            opt.tree_set(grads, path, g)
+        return loss.detach(), grads
+
+    def reduce(self, g, path, layer, spec):
+        """This rank's block of the whole gradient ``g`` of ``path`` (of
+        its layer ``layer``, or the whole leaf for None), processed."""
+        g = _dp_mean(g.contiguous(), self.mesh, self.dp)
+        if self.ef is not None:
+            r = opt._get(self.ef, path).to_local()
+            if layer is not None:
+                r = r[layer]
+            g, new_r = gc.compress_leaf(g, whole_of(r, spec, self.mesh))
+            r.copy_(sharding.local_block(new_r, spec, self.mesh))
+        if layer is None and opt.is_stacked(path):
+            for i in range(g.shape[0]):
+                self.partials[(path, i)] = opt.square_sum(g[i])
+        else:
+            self.partials[(path, layer)] = opt.square_sum(g)
+        block = sharding.local_block(g, spec, self.mesh)
+        return block.clone() if block.numel() < g.numel() else block
+
+    def norm(self, params) -> torch.Tensor:
+        """The global norm from the partials, added in the meshless order
+        (:func:`opt.partial_keys`). A slice whose gather fed nothing has
+        no partial; the meshless sum adds its exact zero."""
+        return opt.norm_of_partials(self.partials[k]
+                                    for k in opt.partial_keys(params)
+                                    if k in self.partials)
+
+
+class LayerBlocks:
+    """A stacked leaf in a mesh step's loss: this rank's block, of which
+    indexing layer ``i`` (the backend's ``layer_params``) gathers that
+    layer's slice whole (:class:`_Gather`)."""
+
+    def __init__(self, block, grads: MeshGrads, path, spec):
+        self.block, self.grads, self.path, self.spec = (block, grads, path,
+                                                        spec)
+
+    def __getitem__(self, i: int):
+        return _Gather.apply(self.block[i], self.grads, self.path, i,
+                             self.spec)
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: this rank's block whole (:func:`whole_of`). Backward: the
+    whole gradient through the step's gradient pass
+    (:meth:`MeshGrads.reduce`), which hands back this rank's block."""
+
+    @staticmethod
+    def forward(ctx, block, grads, path, layer, spec):
+        ctx.args = (grads, path, layer, spec)
+        whole = whole_of(block, spec, grads.mesh)
+        return block.view_as(block) if whole is block else whole
+
+    @staticmethod
+    def backward(ctx, g):
+        grads, path, layer, spec = ctx.args
+        return (grads.reduce(g, path, layer, spec),) + (None,) * 4
 
 
 def build_train_step(arch_cfg, tc: TrainConfig, device,
@@ -280,10 +462,14 @@ def build_train_step(arch_cfg, tc: TrainConfig, device,
 
     With ``mesh`` the state's leaves are DTensors placed by
     ``param_sharding`` (:func:`state_specs`); a step takes the whole
-    ``batch`` (the same on every rank) and runs this rank's rows of it."""
+    ``batch`` (the same on every rank) and runs this rank's rows of it,
+    gathering a layer at a time (:class:`MeshGrads`); the EF codec runs
+    inside its backward, under ``train::loss_and_grads``."""
     adam_cfg = adam_cfg or opt.AdamWConfig(
         quantized_moments=tc.quantized_moments, total_steps=tc.steps)
     loss_fn = make_loss_fn(arch_cfg, tc)
+    mesh_loss_fn = None if mesh is None else make_loss_fn(arch_cfg, tc,
+                                                          mesh=mesh)
 
     def init_fn(generator: torch.Generator):
         params = T.init_params(arch_cfg, generator=generator, device=device)
@@ -308,23 +494,15 @@ def build_train_step(arch_cfg, tc: TrainConfig, device,
         rows = sharding.batch_spec(mesh, tc.global_batch, tc.seq)[0]
         mine = {k: sharding.local_block(v, (rows,), mesh)
                 for k, v in batch.items()}
-        params = opt.tree_map(sharding.full, state["params"])
+        ef = state["ef"]
+        grads_pass = MeshGrads(mesh, None if ef is None else ef.residual)
         with record_function("train::loss_and_grads"):
-            loss, grads = loss_and_grads(loss_fn, params, mine)
-        del params
-        axes = meshlib.data_axes(mesh)
-        for _, g in opt.tree_paths(grads):
-            _dp_mean(g, mesh, axes)
-        loss = _dp_mean(loss.clone(), mesh, axes)
-        if tc.grad_compression:
-            with record_function("train::compress"):
-                for path, r in opt.tree_paths(state["ef"].residual):
-                    d, new_r = gc.compress_leaf(opt._get(grads, path),
-                                                sharding.full(r))
-                    opt.tree_set(grads, path, d)
-                    _keep_block(r, new_r, mesh)
+            loss, grads = grads_pass.loss_and_grads(mesh_loss_fn,
+                                                    state["params"], mine)
+        loss = _dp_mean(loss, mesh, grads_pass.dp)
+        clip = opt.clip_of_norm(grads_pass.norm(state["params"]), adam_cfg)
         with record_function("train::update"):
-            update_blocks(state, grads, adam_cfg, mesh)
+            update_blocks(state, grads, clip, adam_cfg, mesh)
         return loss
 
     def step_fn(state, batch):
@@ -335,44 +513,121 @@ def build_train_step(arch_cfg, tc: TrainConfig, device,
     return step_fn, init_fn
 
 
-def _keep_block(dst, whole, mesh):
-    """Write this rank's block of the whole tensor ``whole`` into the
-    DTensor ``dst``."""
-    dst.to_local().copy_(sharding.local_block(whole, _spec_of(dst), mesh))
-
-
-def update_blocks(state: dict, grads, adam_cfg: opt.AdamWConfig, mesh):
-    """AdamW on a placed train state, in place, from the whole averaged
-    ``grads``: the clip from their whole norm, then each leaf on this
-    rank's blocks of its param, gradient and f32 moments; a leaf with 8-bit
-    moments is gathered whole, updated, and keeps its blocks. Bit for bit
-    ``opt.update`` of the whole state, block by block."""
+def update_blocks(state: dict, grads, clip, adam_cfg: opt.AdamWConfig,
+                  mesh):
+    """AdamW on a placed train state, in place, from this rank's blocks of
+    the processed gradients ``grads`` and the clip factor ``clip``: each
+    leaf on this rank's blocks of its param, gradient and f32 moments.
+    8-bit moments are quantised in blocks of the flattened leaf, which do
+    not follow the leaf's split: a stacked leaf whose layer slice is whole
+    blocks is gathered and updated a layer at a time (the slices of param
+    and gradient, the rows of payloads and scales), any other leaf whole;
+    each rank keeps its blocks. Bit for bit ``opt.update`` of the whole
+    state."""
     o = state["opt"]
     count = o.step.to_local()
     step, lr, bc1, bc2 = opt.step_scalars(count, adam_cfg)
-    clip = opt.clip_factor(grads, adam_cfg)
-    quant = adam_cfg.quantized_moments
     trees = {"p": state["params"], "m": o.m, "v": o.v, "ms": o.m_scale,
              "vs": o.v_scale}
     for path, p in opt.tree_paths(state["params"]):
         dst = {n: opt._get(t, path) for n, t in trees.items()
                if t is not None}
         g = opt._get(grads, path)
-        if quant:
-            src = {n: sharding.full(t) for n, t in dst.items()}
-        else:
+        if not adam_cfg.quantized_moments:
             src = {n: t.to_local() for n, t in dst.items()}
-            g = sharding.local_block(g, _spec_of(p), mesh)
-        out = opt.update_leaf(adam_cfg, src["p"], g.to(torch.float32) * clip,
-                              src["m"], src["v"], src.get("ms"),
-                              src.get("vs"), lr, bc1, bc2)
-        for n, t in out.items():
-            if quant:
-                _keep_block(dst[n], t, mesh)
-            else:
-                dst[n].to_local().copy_(t)
-        del src, g, out
+            out = opt.update_leaf(adam_cfg, src["p"],
+                                  g.to(torch.float32) * clip, src["m"],
+                                  src["v"], None, None, lr, bc1, bc2)
+            for n, t in out.items():
+                src[n].copy_(t)
+            continue
+        spec = _spec_of(p)
+        per = math.prod(p.shape[1:])
+        if opt.is_stacked(path) and per % adam_cfg.block == 0:
+            rows = per // adam_cfg.block
+            for i in range(p.shape[0]):
+                _update_8bit(adam_cfg, dst, g[i], clip, spec[1:], i,
+                             i * rows, rows, mesh, lr, bc1, bc2)
+        else:
+            _update_8bit(adam_cfg, dst, g, clip, spec, None, 0,
+                         dst["m"].shape[0], mesh, lr, bc1, bc2)
     count.copy_(step)
+
+
+def _update_8bit(cfg, dst, g, clip, spec, layer, row0, rows, mesh, lr, bc1,
+                 bc2):
+    """One leaf's (or one layer's slice's) 8-bit AdamW step: the param
+    slice and its gradient ``g`` (this rank's blocks under ``spec``) and
+    the payloads' and scales' rows [row0, row0 + rows) gathered whole,
+    updated, and this rank's blocks of them kept."""
+    p_loc = dst["p"].to_local()
+    if layer is not None:
+        p_loc = p_loc[layer]
+    moments = ("m", "v", "ms", "vs")
+    out = opt.update_leaf(
+        cfg, whole_of(p_loc, spec, mesh),
+        whole_of(g, spec, mesh).to(torch.float32) * clip,
+        *(_gather_rows(dst[n], row0, row0 + rows) for n in moments),
+        lr, bc1, bc2)
+    p_loc.copy_(sharding.local_block(out["p"], spec, mesh))
+    for n in moments:
+        _keep_rows(dst[n], out[n], row0)
+
+
+def _row_split(t):
+    """(the mesh axis that splits a DTensor's dim 0, or None; the rows a
+    rank holds; this rank's index along that axis)."""
+    mesh = t.device_mesh
+    axes = [a for a in sharding._axes(_spec_of(t)[0])
+            if meshlib.axis_size(mesh, a) > 1]
+    if not axes:
+        return None, t.shape[0], 0
+    if len(axes) > 1:
+        raise NotImplementedError(f"dim 0 split over {axes}")
+    n = meshlib.axis_size(mesh, axes[0])
+    j = mesh.get_coordinate()[mesh.mesh_dim_names.index(axes[0])]
+    return axes[0], t.shape[0] // n, j
+
+
+def _gather_rows(t, a: int, b: int):
+    """Rows [a, b) of the DTensor ``t``, whole: this rank's rows of the
+    range gathered over the axes that split the other dims, then each
+    holder's piece broadcast over the axis that splits the rows (exact)."""
+    import torch.distributed as dist
+
+    mesh = t.device_mesh
+    rest = (None,) + _spec_of(t)[1:]
+    ax, per, j = _row_split(t)
+    loc = t.to_local()
+    lo, hi = max(a, j * per), min(b, (j + 1) * per)
+    mine = (whole_of(loc[lo - j * per:hi - j * per], rest, mesh)
+            if hi > lo else None)
+    if ax is None:
+        return mine
+    group = mesh.get_group(ax)
+    pieces = []
+    for k in range(a // per, (b - 1) // per + 1):
+        if k == j:
+            buf = mine.contiguous()
+        else:
+            n = min(b, (k + 1) * per) - max(a, k * per)
+            buf = torch.empty((n,) + tuple(t.shape[1:]), dtype=loc.dtype,
+                              device=loc.device)
+        dist.broadcast(buf, src=dist.get_global_rank(group, k), group=group)
+        pieces.append(buf)
+    return torch.cat(pieces)
+
+
+def _keep_rows(t, rows, a: int):
+    """Write this rank's block of the whole rows ``rows`` (rows a, a + 1,
+    ... of the DTensor ``t``) into ``t``."""
+    mesh = t.device_mesh
+    rest = (None,) + _spec_of(t)[1:]
+    _, per, j = _row_split(t)
+    lo, hi = max(a, j * per), min(a + rows.shape[0], (j + 1) * per)
+    if hi > lo:
+        t.to_local()[lo - j * per:hi - j * per].copy_(
+            sharding.local_block(rows[lo - a:hi - a], rest, mesh))
 
 
 def _spec_of(t) -> tuple:

@@ -19,6 +19,10 @@ import torch
 from repro_torch.optim.optimizer import tree_map
 
 
+#: values a quantisation block of the flattened leaf (one f32 scale each)
+BLOCK = 256
+
+
 class EFState(NamedTuple):
     residual: Any   # same tree as the gradients
 
@@ -28,7 +32,7 @@ def init_ef(grads_like) -> EFState:
         lambda g: torch.zeros_like(g, dtype=torch.float32), grads_like))
 
 
-def _quant_int8(x: torch.Tensor, block: int = 256):
+def _quant_int8(x: torch.Tensor, block: int = BLOCK):
     flat = x.reshape(-1)
     pad = (-flat.numel()) % block
     if pad:
@@ -39,12 +43,12 @@ def _quant_int8(x: torch.Tensor, block: int = 256):
     return q, scale
 
 
-def _dequant_int8(q, scale, shape, block: int = 256):
+def _dequant_int8(q, scale, shape, block: int = BLOCK):
     flat = (q.to(torch.float32) * scale).reshape(-1)
     return flat[:math.prod(shape)].reshape(shape)
 
 
-def compress_leaf(g, r, block: int = 256):
+def compress_leaf(g, r, block: int = BLOCK):
     """One leaf's error-feedback int8 round trip: (decompressed gradient,
     new residual) of gradient ``g`` and residual ``r``."""
     x = g.to(torch.float32) + r
@@ -54,7 +58,7 @@ def compress_leaf(g, r, block: int = 256):
 
 
 def compress_tree(grads, ef: EFState,
-                  block: int = 256) -> Tuple[Any, EFState]:
+                  block: int = BLOCK) -> Tuple[Any, EFState]:
     """Error-feedback int8 round trip: returns (decompressed grads, new
     EF state)."""
     pairs = tree_map(lambda g, r: compress_leaf(g, r, block), grads,
@@ -64,7 +68,7 @@ def compress_tree(grads, ef: EFState,
 
 
 def compressed_psum_grads(local_grads, mesh, dp_axes=("data",),
-                          block: int = 256):
+                          block: int = BLOCK):
     """The data-parallel all-reduce with int8 payloads, on ``mesh`` (a
     DeviceMesh): each rank quantises its own gradient leaf, the int8
     payloads are summed as int32 over ``dp_axes`` (the wire format), the

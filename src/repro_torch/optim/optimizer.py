@@ -144,11 +144,48 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
-def global_norm(tree) -> torch.Tensor:
+#: the trees whose leaves are stacked over layers, [L, ...]
+STACKS = ("layers", "enc_layers", "cross")
+
+
+def is_stacked(path) -> bool:
+    """Whether the leaf at key ``path`` is stacked over layers."""
+    return any(k in STACKS for k in path)
+
+
+def square_sum(t: torch.Tensor) -> torch.Tensor:
+    """Σ t² in f32: one partial of :func:`global_norm`."""
+    return torch.sum(torch.square(t.to(torch.float32)))
+
+
+def partial_keys(tree):
+    """(path, layer) of each partial of :func:`global_norm`, in the order
+    they are added: the reference's leaf order, a stacked leaf one partial
+    a layer (0, 1, ...), any other leaf one (None). A mesh step forms each
+    partial from one layer's gradient while its backward holds it and adds
+    them in this order, so both paths take the same norm."""
+    for path, leaf in tree_paths(tree):
+        if is_stacked(path):
+            yield from ((path, i) for i in range(leaf.shape[0]))
+        else:
+            yield path, None
+
+
+def norm_of_partials(partials) -> torch.Tensor:
+    """√ of the partials added in the order given."""
     total = 0
-    for _, leaf in tree_paths(tree):
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    for part in partials:
+        total = total + part
     return sqrt_rn(total)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The gradient tree's global norm, summed by :func:`partial_keys`."""
+    def part(path, i):
+        leaf = _get(tree, path)
+        return square_sum(leaf if i is None else leaf[i])
+
+    return norm_of_partials(part(*k) for k in partial_keys(tree))
 
 
 def _adam_leaf(cfg, p, g, m, v, lr, bc1, bc2):
@@ -177,7 +214,11 @@ def step_scalars(step_count: torch.Tensor, cfg: AdamWConfig):
 def clip_factor(grads, cfg: AdamWConfig) -> torch.Tensor:
     """The factor (≤ 1) that clips the gradient tree to ``grad_clip`` in
     global norm."""
-    gnorm = global_norm(grads)
+    return clip_of_norm(global_norm(grads), cfg)
+
+
+def clip_of_norm(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    """The clip factor of a gradient tree of global norm ``gnorm``."""
     return torch.clamp(
         torch.tensor(cfg.grad_clip, dtype=torch.float32,
                      device=gnorm.device) / (gnorm + 1e-9), max=1.0)

@@ -8,6 +8,7 @@ r writes ``out_dir/rank{r}.pt``, a dict {case: result}; a check that
 raises stores its traceback under its case instead.
 """
 import dataclasses
+import hashlib
 import traceback
 
 import numpy as np
@@ -35,6 +36,9 @@ ENGINE = dict(n_lanes=4, max_seq=64, page_size=16, queue_depth=8)
 # layers' weights (tensors under 1 MiB replicate)
 TRAIN_CFG = dict(d_model=256, d_ff=1024, vocab=1024)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 16, 4, 2
+# the 2 x 2 checks' depth: 3 layers, so that a layer's rows of the 8-bit
+# payloads (split over "model" in halves) lie on both model ranks
+TRAIN_LAYERS_2X2 = 3
 TRAIN_ADAM = opt.AdamWConfig(warmup_steps=0)
 # param_sharding and the state's other options of each training check
 TRAIN_MODES = {"fsdp": ("fsdp", {}), "tp": ("tp", {}),
@@ -72,15 +76,19 @@ def run_engine(path, mesh=None):
     return {r["id"]: (r["tokens"], r["logits"].numpy()) for r in out}
 
 
-def train_cfg():
-    return dataclasses.replace(configs.get("qwen2_7b").SMOKE, **TRAIN_CFG)
+def train_cfg(n_layers=None):
+    cfg = dataclasses.replace(configs.get("qwen2_7b").SMOKE, **TRAIN_CFG)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
 
 
-def run_train(mode, mesh=None):
+def run_train(mode, mesh=None, n_layers=None, check_update=False):
     """Losses of TRAIN_STEPS steps, the gradients each step clipped (whole,
     averaged over the ranks), and the params (whole) before and after.
-    No warm-up: every step moves the params by about lr."""
-    cfg = train_cfg()
+    No warm-up: every step moves the params by about lr. ``check_update``
+    (a mesh run): each step's update replayed (:func:`replayed_update`),
+    its mismatches under "replay"."""
+    cfg = train_cfg(n_layers)
     sharded, kw = TRAIN_MODES[mode]
     tc = train.TrainConfig(seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                            steps=TRAIN_STEPS, param_sharding=sharded, **kw)
@@ -94,27 +102,104 @@ def run_train(mode, mesh=None):
     whole = lambda: {"/".join(k): sharding.full(v).detach().numpy().copy()
                      for k, v in opt.tree_paths(state["params"])}
     before, losses, grads = whole(), [], []
-    clip_factor = opt.clip_factor
+    clip_factor, update_blocks = opt.clip_factor, train.update_blocks
 
-    def spy(tree, cfg):             # both paths clip the whole gradients
-        grads.append({"/".join(k): g.detach().numpy().copy()
-                      for k, g in opt.tree_paths(tree)})
+    def spy(tree, cfg):             # the meshless step clips whole grads
+        if mesh is None:
+            grads.append({"/".join(k): g.detach().numpy().copy()
+                          for k, g in opt.tree_paths(tree)})
         return clip_factor(tree, cfg)
 
-    opt.clip_factor = spy
+    replay = []
+
+    def spy_blocks(state, tree, clip, cfg, mesh):
+        # the mesh step's clipped gradients are this rank's blocks: read
+        # them whole; replay its update on the whole state
+        params = dict(opt.tree_paths(state["params"]))
+        grads.append({"/".join(k): train.whole_of(
+            g, train._spec_of(params[k]), mesh).detach().numpy().copy()
+            for k, g in opt.tree_paths(tree)})
+        before = whole_state(state) if check_update else None
+        out = update_blocks(state, tree, clip, cfg, mesh)
+        if check_update:
+            replay.append(replayed_update(before, grads[-1],
+                                          whole_state(state), cfg))
+        return out
+
+    opt.clip_factor, train.update_blocks = spy, spy_blocks
     try:
         for step in range(TRAIN_STEPS):
             state, loss = step_fn(state, train.batch_for(cfg, dc, step,
                                                          "cpu"))
             losses.append(float(loss))
     finally:
-        opt.clip_factor = clip_factor
+        opt.clip_factor, train.update_blocks = clip_factor, update_blocks
     split = sum(any(p.is_shard() for p in v.placements)
                 for _, v in opt.tree_paths(state["params"])
                 if hasattr(v, "placements"))
     return {"losses": losses, "grads": grads, "before": before,
             "params": whole(), "split_leaves": split,
-            "lr": float(opt.schedule(TRAIN_ADAM, 1))}
+            "lr": float(opt.schedule(TRAIN_ADAM, 1)), "replay": replay}
+
+
+def whole_state(state):
+    """A placed train state's params and optimizer state, every leaf
+    whole: (params, OptState)."""
+    o = state["opt"]
+    whole = lambda tree: None if tree is None else opt.tree_map(  # noqa
+        lambda t: sharding.full(t).detach().clone(), tree)
+    return whole(state["params"]), opt.OptState(*(
+        whole(getattr(o, f)) for f in opt.OptState._fields))
+
+
+def replayed_update(before, grads, after, cfg):
+    """The mismatches of a mesh step's update against the meshless
+    ``opt.update`` of the whole state ``before`` and the whole clipped
+    ``grads`` ({path: array}): every param, moment, payload and scale of
+    ``after`` must be its bits."""
+    g = {}
+    for name, a in grads.items():
+        opt.tree_set(g, tuple(name.split("/")), torch.from_numpy(a))
+    params, new = opt.update(before[0], g, before[1], cfg)
+    bad = [] if torch.equal(new.step, after[1].step) else ["step"]
+    for field, tree in (("params", params), *((f, getattr(new, f)) for f in (
+            "m", "v", "m_scale", "v_scale"))):
+        if tree is None:
+            continue
+        want = after[0] if field == "params" else getattr(after[1], field)
+        bad += [f"{field} {'/'.join(k)}" for k, t in opt.tree_paths(tree)
+                if not torch.equal(t, opt._get(want, k))]
+    return bad
+
+
+def digest(tree) -> str:
+    """sha256 of a result's arrays and numbers, in key order."""
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                h.update(str(k).encode())
+                walk(t[k])
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, np.ndarray):
+            h.update(t.tobytes())
+        else:
+            h.update(repr(t).encode())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def rank0_arrays(result):
+    """``result`` whole on rank 0; on the other ranks its digest and the
+    mesh run's replay mismatches and split count only (the 2 × 2 results
+    are large, and every rank must hold the same)."""
+    out = {"digest": digest(result), "replay": result["mesh"]["replay"],
+           "split_leaves": result["mesh"]["split_leaves"]}
+    return dict(result, **out) if dist.get_rank() == 0 else out
 
 
 def psum_grads(rank, same: bool):
@@ -192,6 +277,13 @@ def checks(world):
                         "mesh": run_train(mode, meshlib.make_serving_mesh(
                             d, m, device="cpu")),
                         "alone": run_train(mode)})
+    if world == 4:
+        for mode in TRAIN_MODES:
+            out[f"train-2x2-{mode}"] = (
+                lambda mode=mode: rank0_arrays({
+                    "mesh": run_train(mode, meshlib.make_serving_mesh(
+                        2, 2, device="cpu"), TRAIN_LAYERS_2X2, True),
+                    "alone": run_train(mode, n_layers=TRAIN_LAYERS_2X2)}))
     mesh_dp = meshlib.make_serving_mesh(world, 1, device="cpu")
     for same in (True, False):
         out[f"psum-{world}-{'same' if same else 'own'}"] = (

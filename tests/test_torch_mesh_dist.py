@@ -37,6 +37,7 @@ results back; the tests here hold them, one case each).
 import _torch_test_setup  # noqa: F401  (before any reference compile)
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -61,6 +62,7 @@ ENGINE_CASES = [f"{m}-{p}" for m in ("2x1", "1x2", "2x2", "1x4")
 SERVE_CASES = [f"{m}-{r}" for m in ("2x1", "1x2") for r in ("on", "off")]
 TRAIN_CASES = [f"{m}-{s}" for m in ("2x1", "1x2") for s in ("fsdp", "tp")
                ] + ["1x2-fsdp_8bit", "1x2-fsdp_ef"]
+TRAIN_CASES_2X2 = [f"2x2-{m}" for m in W.TRAIN_MODES]
 PSUM_CASES = [f"{w}-{s}" for w in (2, 4) for s in ("same", "own")]
 EP_CASES = [f"{a}-{m}" for a in W.EP_ARCHS for m in (2, 4)]
 Y_REL = 1e-6
@@ -96,6 +98,7 @@ def spawned(world: int):
         _SPAWNED[world] = [torch.load(f"{out}/rank{r}.pt",
                                       weights_only=False)
                            for r in range(world)]
+        shutil.rmtree(out, ignore_errors=True)
     return _SPAWNED[world]
 
 
@@ -246,6 +249,43 @@ def hold_training(mesh, alone):
     return worst
 
 
+@pytest.mark.parametrize("case", TRAIN_CASES_2X2)
+def test_training_steps_on_four_ranks(case):
+    """2 × 2 (batch and layers split), 3 layers, so that the 8-bit
+    payloads' layer rows lie on both model ranks. Every step's update is
+    the meshless ``opt.update`` of the run's own state and clipped
+    gradients, bit for bit. "fsdp" and "tp" hold the training rule. The
+    codecs (8-bit moments, EF) round to int8 codes, so a gradient an ulp
+    apart (the rows are split) can take the neighbouring code: their
+    losses hold the training rule, the 8-bit case's gradients too (they
+    are coded after the clip), and the param change is reported."""
+    mode = case.split("-")[1]
+    got = results(4, f"train-{case}")
+    for rank, r in enumerate(got):      # ranks > 0 send their digest
+        assert r["digest"] == got[0]["digest"], rank
+        assert not any(r["replay"]), (rank, r["replay"])
+        assert r["split_leaves"] > 0, mode
+    r = got[0]
+    assert len(r["mesh"]["replay"]) == W.TRAIN_STEPS
+    if mode in ("fsdp", "tp"):
+        worst = hold_training(r["mesh"], r["alone"])
+        print(f"train {case}: param change within {worst:.3g} of its size")
+        return
+    for a, b in zip(r["mesh"]["losses"], r["alone"]["losses"]):
+        assert abs(a - b) <= LOSS_REL * abs(b), (a, b)
+    if mode == "fsdp_8bit":
+        for gm, ga in zip(r["mesh"]["grads"], r["alone"]["grads"]):
+            for name, g in ga.items():
+                d = float(np.abs(gm[name] - g).max())
+                assert d <= GRAD_REL * float(np.abs(g).max()), (name, d)
+    worst = max(float(np.abs(r["mesh"]["params"][n] - p
+                             - (r["alone"]["params"][n] - p)).max())
+                / float(np.abs(r["alone"]["params"][n] - p).max())
+                for n, p in r["alone"]["before"].items())
+    print(f"train {case}: param change within {worst:.3g} of its size "
+          "(codes apart; not held)")
+
+
 @pytest.mark.parametrize("case", TRAIN_CASES)
 def test_training_steps_on_two_ranks(case):
     mesh_name, mode = case.split("-")
@@ -261,6 +301,109 @@ def test_training_steps_on_two_ranks(case):
         want_split = mode.startswith("fsdp") or mesh_name == "1x2"
         assert (r["mesh"]["split_leaves"] > 0) == want_split, \
             r["mesh"]["split_leaves"]
+
+
+REF_STEP_SCRIPT = """
+import dataclasses, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh
+import repro
+from repro import configs as jconfigs
+from repro.data import pipeline as jpipe
+from repro.launch import train as jtrain
+from repro.optim import optimizer as jopt
+sys.path.insert(0, {tests!r})
+import _torch_mesh_worker as W
+before = dict(np.load({inp!r}))
+cfg = dataclasses.replace(jconfigs.get("qwen2_7b").SMOKE, **W.TRAIN_CFG,
+                          n_layers=W.TRAIN_LAYERS_2X2)
+tc = jtrain.TrainConfig(seq=W.TRAIN_SEQ, global_batch=W.TRAIN_BATCH,
+                        steps=W.TRAIN_STEPS, param_sharding="fsdp")
+adam = jopt.AdamWConfig(warmup_steps=W.TRAIN_ADAM.warmup_steps)
+dc = jpipe.DataConfig(vocab=cfg.vocab, seq=W.TRAIN_SEQ,
+                      global_batch=W.TRAIN_BATCH)
+def fresh():
+    params = {{}}
+    for name, a in before.items():
+        *keys, last = name.split("/")
+        d = params
+        for k in keys:
+            d = d.setdefault(k, {{}})
+        d[last] = jnp.asarray(a.copy())
+    return params
+flat = lambda tree: {{"/".join(str(k.key) for k in path): np.asarray(a)
+                     for path, a in jax.tree_util.tree_flatten_with_path(
+                         tree)[0]}}
+out = {{}}
+for tag, shape in (("mesh", (2, 2)), ("one", (1, 1))):
+    mesh = Mesh(np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape),
+                ("data", "model"))
+    step_fn, _, sh = jtrain.build_train_step(cfg, tc, mesh, adam)
+    vg = jax.jit(jax.value_and_grad(jtrain.make_loss_fn(cfg, tc, mesh=mesh)),
+                 in_shardings=(sh["state"]["params"], sh["batch"]))
+    batch = jax.device_put(jpipe.batch_at(dc, 0), sh["batch"])
+    _, g = vg(jax.device_put(fresh(), sh["state"]["params"]), batch)
+    out.update({{f"{{tag}}/grad/{{k}}": v for k, v in flat(g).items()}})
+    params = fresh()
+    state = jax.device_put({{"params": params,
+                            "opt": jopt.init(params, adam), "ef": None}},
+                           sh["state"])
+    losses = []
+    for step in range(W.TRAIN_STEPS):
+        state, loss = step_fn(state, jax.device_put(
+            jpipe.batch_at(dc, step), sh["batch"]))
+        losses.append(float(loss))
+    out[f"{{tag}}/losses"] = np.array(losses)
+    out.update({{f"{{tag}}/after/{{k}}": v for k, v in flat(
+        state["params"]).items()}})
+np.savez({out!r}, **out)
+"""
+
+
+def test_mesh_step_matches_reference_mesh_step():
+    """The reference's ``build_train_step`` on a 2 × 2 JAX host mesh (Auto
+    axes, 4 forced host devices, in a subprocess) from the port's 2 × 2
+    "fsdp" run's own params, through numpy: the port's losses within 1e-5
+    relative of the reference's, and the first step's gradients (whole,
+    averaged) within GRAD_REL of each leaf's max against the reference's
+    gradients on its mesh. Each param's change is reported beside the
+    spread of the reference's own 2 × 2 step against its 1 × 1 step, and
+    not held: AdamW's m / (√v + ε) turns a gradient's last bits into a
+    large part of the update of an element whose gradient is near ε, and
+    the reference's two steps differ by more than DELTA_REL of the change
+    on some leaves themselves. The update itself is held bit for bit to
+    the meshless ``opt.update`` (:func:`test_training_steps_on_four_ranks`)
+    and ``opt.update`` to the reference's (``test_torch_optim``)."""
+    r = results(4, "train-2x2-fsdp")[0]["mesh"]           # rank 0's arrays
+    tests = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ref_step_")
+    inp, out = os.path.join(tmp, "before.npz"), os.path.join(tmp, "ref.npz")
+    np.savez(inp, **r["before"])
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    subprocess.run([sys.executable, "-c", REF_STEP_SCRIPT.format(
+        tests=tests, inp=inp, out=out)], env=env, check=True, timeout=600)
+    ref = dict(np.load(out))
+    assert len(r["losses"]) == len(ref["mesh/losses"]) == W.TRAIN_STEPS
+    for a, b in zip(r["losses"], ref["mesh/losses"]):
+        assert abs(a - b) <= LOSS_REL * abs(b), (a, b)
+    for name, g in r["grads"][0].items():
+        want = ref[f"mesh/grad/{name}"]
+        d = float(np.abs(g - want).max())
+        assert d <= GRAD_REL * float(np.abs(want).max()), (name, d)
+    worst = {}
+    for name, p0 in r["before"].items():
+        change = ref[f"mesh/after/{name}"] - p0
+        size = float(np.abs(change).max())
+        assert size >= 0.5 * r["lr"], (name, size)
+        d = float(np.abs(r["params"][name] - p0 - change).max()) / size
+        spread = float(np.abs(ref[f"one/after/{name}"] - p0 - change).max()
+                       ) / size
+        worst[name] = (round(d, 5), round(spread, 5))
+    print(f"2x2 fsdp vs the reference's mesh step: losses {r['losses']} / "
+          f"{ref['mesh/losses'].tolist()}; param change (port, the "
+          f"reference's 1x1) against it: {worst}")
 
 
 # -- compressed_psum_grads ----------------------------------------------------
